@@ -1,0 +1,140 @@
+"""Host-side id-stream preprocessing for the sparse embedding train path.
+
+The port's own copy of ``torecsys_tpu/data/presort.py`` (NumPy route only).
+All of a batch's id preprocessing depends only on its integer ids, which the
+host holds before the step: the sort order, the in-row slot of each sorted
+id, its stored-row segment, the compact unique stored-row ids and their
+count.  :class:`Presorter` computes them and attaches them to the batch
+under ``__presort__<key>/<name>``; the consuming embedding module derives the
+same key from its own schema (:meth:`PresortSpec.key`, a content hash that
+equals the JAX package's for the same schema).
+
+Unlike the reference, the Presorter refuses a batch it cannot describe
+before the trusted device route sees it: an empty id stream, or an id
+outside the table's logical rows, raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+AUX_PREFIX = "__presort__"
+AUX_NAMES = ("order", "lo", "seg", "uids", "n_unique")
+
+
+@dataclasses.dataclass(frozen=True)
+class PresortSpec:
+    """One embedding module's fused id stream: ``slot_fields[i]`` feeds slot
+    ``i`` of the ``(B, K)`` id matrix, shifted by ``slot_offsets[i]``; ids
+    resolve against a packed table of ``num_stored_rows`` rows of ``pack``
+    logical rows each, of which the first ``num_rows`` are the table's.
+
+    ``num_rows`` bounds the ids the Presorter accepts; it is not part of
+    :attr:`key`, which hashes the JAX package's four fields."""
+
+    slot_fields: Tuple[str, ...]
+    slot_offsets: Tuple[int, ...]
+    pack: int
+    num_stored_rows: int
+    num_rows: int
+
+    @property
+    def key(self) -> str:
+        ident = repr((self.slot_fields, self.slot_offsets, self.pack,
+                      self.num_stored_rows)).encode()
+        return hashlib.sha1(ident).hexdigest()[:12]
+
+    def aux_key(self, name: str) -> str:
+        return f"{AUX_PREFIX}{self.key}/{name}"
+
+
+def spec_for_module(module) -> Optional[PresortSpec]:
+    """The spec of one of the port's input modules, or None when it has no
+    host-presortable id stream."""
+    from torecsys_tpu_torch.inputs.embeddings import MultiIndicesEmbedding
+    from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
+
+    if isinstance(module, MultiIndicesEmbedding):
+        v = int(sum(module.field_sizes))
+        vp, w = packed_shape(v, module.embed_size)
+        return PresortSpec(
+            slot_fields=tuple(module.fields),
+            slot_offsets=tuple(int(o) for o in field_offsets(module.field_sizes)),
+            pack=w // module.embed_size,
+            num_stored_rows=vp,
+            num_rows=v,
+        )
+    return None
+
+
+def build_presort_specs(inputs_module) -> List[PresortSpec]:
+    """All distinct specs under an ``Inputs`` tree (deduped by key)."""
+    seen = {}
+    for module in inputs_module.modules():
+        spec = spec_for_module(module)
+        if spec is not None:
+            seen.setdefault(spec.key, spec)
+    return list(seen.values())
+
+
+def _presort_numpy(flat: np.ndarray, pack: int, num_stored: int):
+    """Stable ascending-id order and the segment aux of a flat id stream."""
+    m = flat.shape[0]
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    s = flat[order]
+    hi = s // pack
+    lo = (s - hi * pack).astype(np.int32)
+    first = np.empty(m, dtype=bool)
+    first[0] = True
+    np.not_equal(hi[1:], hi[:-1], out=first[1:])
+    seg = np.cumsum(first, dtype=np.int32) - 1
+    n_unique = int(seg[-1]) + 1
+    uids = np.full(m, num_stored, np.int32)
+    uids[:n_unique] = hi[first]
+    return order, lo, seg, uids, n_unique
+
+
+class Presorter:
+    """Batch-dict transform attaching the trusted-presort aux arrays.
+
+    Stateless per batch.  ``n_unique`` is attached as a ``(1,)`` int32 array
+    as in the JAX package; the trainer reads it on the host to size the
+    update kernel's grid.
+    """
+
+    def __init__(self, specs: Iterable[PresortSpec]):
+        self.specs = list(specs)
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        out = dict(batch)
+        for spec in self.specs:
+            if any(f not in batch for f in spec.slot_fields):
+                continue  # e.g. an eval batch lacking this stream's fields
+            cols = [np.asarray(batch[f]).reshape(-1) for f in spec.slot_fields]
+            stacked = np.stack(cols, axis=1).astype(np.int64)  # (B, K)
+            if stacked.size == 0:
+                raise ValueError(f"empty id stream for presort spec {spec.key}")
+            flat = (stacked + np.asarray(spec.slot_offsets, np.int64)[None, :]).reshape(-1)
+            lo_id, hi_id = int(flat.min()), int(flat.max())
+            if lo_id < 0 or hi_id >= spec.num_rows:
+                raise ValueError(
+                    f"ids outside [0, {spec.num_rows}) for presort spec {spec.key}: "
+                    f"min {lo_id}, max {hi_id}"
+                )
+            order, lo, seg, uids, n_unique = _presort_numpy(
+                flat.astype(np.int32), spec.pack, spec.num_stored_rows
+            )
+            out[spec.aux_key("order")] = order
+            out[spec.aux_key("lo")] = lo
+            out[spec.aux_key("seg")] = seg
+            out[spec.aux_key("uids")] = uids
+            out[spec.aux_key("n_unique")] = np.full((1,), n_unique, np.int32)
+        return out
+
+
+__all__ = ["AUX_NAMES", "AUX_PREFIX", "PresortSpec", "Presorter",
+           "build_presort_specs", "spec_for_module"]

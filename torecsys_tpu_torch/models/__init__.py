@@ -1,0 +1,14 @@
+"""Models of the port (counterpart of ``torecsys_tpu/models``)."""
+
+from torecsys_tpu_torch.models.base import (
+    MODELS,
+    BaseModel,
+    CtrBaseModel,
+    get_model,
+    register_model,
+)
+from torecsys_tpu_torch.models.ctr import DeepFactorizationMachineModel, DeepFM
+from torecsys_tpu_torch.models.sequential import Sequential
+
+__all__ = ["MODELS", "BaseModel", "CtrBaseModel", "DeepFM",
+           "DeepFactorizationMachineModel", "Sequential", "get_model", "register_model"]

@@ -1,0 +1,198 @@
+"""Sparse embedding update kernels: widened segment-sum and row-wise update.
+
+Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Two kernels,
+written in CUDA C++ for Hopper in ``csrc/sparse_update.cu`` (its header says
+what bounds each on the card and how the design answers it):
+
+* :func:`widen_segment_sum` replaces ``sorted_widen_segment_sum``;
+* :func:`fused_rowwise_update` replaces ``fused_rowwise_update``.
+
+Each wrapper takes the plain PyTorch version (``*_plain``) for tensors on the
+CPU, launches its kernel for tensors on the card, and raises on anything
+else: a mix of devices, a wrong dtype, shape or layout.  ``launches`` on each
+wrapper counts its kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from torecsys_tpu_torch.ops import kernels as _k
+
+SOURCE = "sparse_update.cu"
+RULES = {"adam": 0, "adagrad": 1, "sgd": 2}
+
+
+def _lib():
+    lib = _k.load_library(SOURCE)
+    if not getattr(lib, "_trs_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.trs_widen_segment_sum.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.trs_widen_segment_sum.restype = i
+        lib.trs_fused_rowwise_update.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.trs_fused_rowwise_update.restype = i
+        lib._trs_typed = True
+    return lib
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+# ---- widened segment-sum ----------------------------------------------------
+
+def widen_segment_sum_plain(g_sorted: torch.Tensor, lo: torch.Tensor,
+                            seg: torch.Tensor, pack: int) -> torch.Tensor:
+    """Plain version: widen each narrow row into its in-row slot, then sum
+    the wide rows per segment in position order (``index_add_``)."""
+    m, e = g_sorted.shape
+    wide = torch.zeros(m, pack, e, dtype=g_sorted.dtype, device=g_sorted.device)
+    wide[torch.arange(m, device=g_sorted.device), lo.long()] = g_sorted
+    out = torch.zeros(m, pack * e, dtype=g_sorted.dtype, device=g_sorted.device)
+    return out.index_add_(0, seg.long(), wide.reshape(m, pack * e))
+
+
+def widen_segment_sum(g_sorted: torch.Tensor, lo: torch.Tensor,
+                      seg: torch.Tensor, pack: int) -> torch.Tensor:
+    """Compact per-segment WIDE sums of a sorted narrow grad stream.
+
+    Args:
+        g_sorted: ``(M, E)`` float32 per-slot grads in id order.
+        lo: ``(M,)`` int32 in-stored-row slot (``id % pack``), in ``[0, pack)``.
+        seg: ``(M,)`` int32 nondecreasing stored-row segment ids, dense from 0
+            (``cumsum(first) - 1``, the presort's ``seg``).
+        pack: logical rows per stored row ``P``.
+
+    Returns:
+        ``(M, P*E)`` float32: row ``s`` is the widened sum of the positions
+        with ``seg == s``; rows past the last segment are zero.
+    """
+    _require(g_sorted.dim() == 2, f"g_sorted must be (M, E), got {tuple(g_sorted.shape)}")
+    m, e = g_sorted.shape
+    _require(g_sorted.dtype == torch.float32, f"g_sorted must be float32, got {g_sorted.dtype}")
+    _require(lo.shape == (m,) and seg.shape == (m,), "lo and seg must be (M,)")
+    _require(lo.dtype == torch.int32 and seg.dtype == torch.int32, "lo and seg must be int32")
+    _require(pack >= 1, f"pack must be >= 1, got {pack}")
+    if _k.device_kind(g_sorted, lo, seg) == "cpu":
+        return widen_segment_sum_plain(g_sorted, lo, seg, pack)
+    _require(all(t.is_contiguous() for t in (g_sorted, lo, seg)), "inputs must be contiguous")
+    _require(m * pack * e < 2**31 and m < 2**31 - 1, "stream too large for int32 indexing")
+    out = torch.empty(m, pack * e, dtype=torch.float32, device=g_sorted.device)
+    if m == 0:
+        return out
+    start = torch.empty(m + 1, dtype=torch.int32, device=g_sorted.device)
+    status = _lib().trs_widen_segment_sum(
+        _k.ptr(g_sorted), _k.ptr(lo), _k.ptr(seg), _k.ptr(start), _k.ptr(out),
+        m, e, pack, _k.current_stream(g_sorted.device),
+    )
+    _k.check_status(status, "widen_segment_sum")
+    widen_segment_sum.launches += 1
+    return out
+
+
+widen_segment_sum.launches = 0
+
+
+# ---- fused row-wise update --------------------------------------------------
+
+def fused_rowwise_update_plain(uids: torch.Tensor, gsum: torch.Tensor,
+                               table: torch.Tensor, slots: Sequence[torch.Tensor],
+                               hyper: torch.Tensor, rule: str, n_valid: int):
+    """Plain version: gather the valid rows, apply the rule with the same
+    operation order as the kernel, and scatter them back in place."""
+    idx = uids[:n_valid].long()
+    g = gsum[:n_valid]
+    row = table.index_select(0, idx)
+    lr, b1, b2, eps, wd, bc1, bc2 = hyper.unbind(0)
+    if rule == "adam":
+        mv = slots[0]
+        mv_u = mv.index_select(0, idx)
+        m_new = b1 * mv_u[:, 0] + (1.0 - b1) * g
+        v_new = b2 * mv_u[:, 1] + (1.0 - b2) * g * g
+        upd = lr * ((m_new * bc1) / (torch.sqrt(v_new * bc2) + eps))
+        upd = upd + lr * wd * row
+        mv.index_copy_(0, idx, torch.stack([m_new, v_new], dim=1))
+    elif rule == "adagrad":
+        v = slots[0]
+        v_new = v.index_select(0, idx) + g * g
+        upd = lr * g * torch.rsqrt(v_new + eps)
+        v.index_copy_(0, idx, v_new)
+    else:
+        upd = lr * g
+    table.index_copy_(0, idx, row - upd)
+    return table, list(slots)
+
+
+def _slot_shapes(rule: str, rows: int, w: int) -> Tuple[Tuple[int, ...], ...]:
+    if rule == "adam":
+        return ((rows, 2, w),)
+    if rule == "adagrad":
+        return ((rows, w),)
+    return ()
+
+
+def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
+                         table: torch.Tensor, slots: Sequence[torch.Tensor],
+                         hyper: torch.Tensor, rule: str, n_valid: int):
+    """Apply a row-wise optimizer rule to the unique touched rows, IN PLACE.
+
+    ``table`` and ``slots`` are updated where they lie (the port's tables and
+    optimizer slots are mutable); they are also returned, as the JAX
+    function returns its aliased outputs.
+
+    Args:
+        uids: ``(M,)`` int32 unique stored-row ids, ascending; the first
+            ``n_valid`` are rows of ``table`` (the rest is a sentinel tail).
+        gsum: ``(M, W)`` float32 summed gradient per unique row.
+        table: ``(R, W)`` float32 stored table.
+        slots: ``(mv,)`` of ``(R, 2, W)`` for adam, ``(v,)`` of ``(R, W)`` for
+            adagrad, ``()`` for sgd.
+        hyper: ``(7,)`` float32 on the table's device: lr, b1, b2, eps,
+            weight_decay, 1/(1-b1^t), 1/(1-b2^t).
+        rule: 'adam' | 'adagrad' | 'sgd'.
+        n_valid: host int, the number of valid leading ``uids``.
+
+    Returns:
+        ``(table, [slots...])``.
+    """
+    _require(rule in RULES, f"rule must be one of {sorted(RULES)}, got {rule!r}")
+    _require(table.dim() == 2 and table.dtype == torch.float32, "table must be (R, W) float32")
+    rows, w = table.shape
+    m = uids.shape[0]
+    _require(uids.dim() == 1 and uids.dtype == torch.int32, "uids must be (M,) int32")
+    _require(gsum.shape == (m, w) and gsum.dtype == torch.float32, "gsum must be (M, W) float32")
+    _require(hyper.shape == (7,) and hyper.dtype == torch.float32, "hyper must be (7,) float32")
+    shapes = _slot_shapes(rule, rows, w)
+    _require(len(slots) == len(shapes), f"rule {rule!r} takes {len(shapes)} slot array(s)")
+    for s, shape in zip(slots, shapes):
+        _require(tuple(s.shape) == shape and s.dtype == torch.float32,
+                 f"slot must be {shape} float32, got {tuple(s.shape)} {s.dtype}")
+    n_valid = int(n_valid)
+    _require(0 <= n_valid <= m, f"n_valid={n_valid} outside [0, {m}]")
+    if _k.device_kind(uids, gsum, table, hyper, *slots) == "cpu":
+        return fused_rowwise_update_plain(uids, gsum, table, slots, hyper, rule, n_valid)
+    _require(all(t.is_contiguous() for t in (uids, gsum, table, hyper, *slots)),
+             "inputs must be contiguous")
+    _require(w % 4 == 0, f"row width {w} must be a multiple of 4 (16-byte rows)")
+    _require(all(t.data_ptr() % 16 == 0 for t in (gsum, table, *slots)),
+             "table, gsum and slots must be 16-byte aligned")
+    if n_valid == 0:
+        return table, list(slots)
+    slot_ptr = _k.ptr(slots[0]) if slots else ctypes.c_void_p(0)
+    status = _lib().trs_fused_rowwise_update(
+        _k.ptr(uids), _k.ptr(gsum), _k.ptr(table), slot_ptr, _k.ptr(hyper),
+        RULES[rule], n_valid, rows, w, _k.current_stream(table.device),
+    )
+    _k.check_status(status, "fused_rowwise_update")
+    fused_rowwise_update.launches += 1
+    return table, list(slots)
+
+
+fused_rowwise_update.launches = 0
+
+__all__ = ["fused_rowwise_update", "fused_rowwise_update_plain",
+           "widen_segment_sum", "widen_segment_sum_plain"]
