@@ -7,7 +7,8 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
 Phases (any failure raises and the exit code is not 0):
 
-1. Build the port's CUDA kernels from ``torecsys_tpu_torch/csrc`` with nvcc.
+1. Build the port's CUDA kernels from ``torecsys_tpu_torch/csrc`` with nvcc,
+   one compiler per source, all started together.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main path: one Criteo-scale batch (the workload of
    ``bench.py``: 28 Zipf(1.2) id fields over 32.9M fused rows, batch 4096,
@@ -16,18 +17,29 @@ Phases (any failure raises and the exit code is not 0):
    same function where there is one, and its bound.
 3. Train the full-width DeepFM (tower 400-400-400, Adam 1e-3, sparse
    presorted embedding route) through the port's ``Trainer`` for ``--steps``
-   steps; every kernel launch counter must equal the step count.  Then take
+   steps; every kernel of the route must launch once per step.  Then take
    3 more steps twice from one copied state, with the kernels and with their
    plain versions, and compare.
+4. Evaluate the trained model on 8 held-out batches (``Trainer.evaluate``:
+   one ``row_gather`` per batch) and predict one batch with the kernel and
+   with its plain version: the scores must be bit-identical.
+5. Train the same model on the dense-table route (Adam over every
+   parameter, the table included) for ``--steps`` steps, then compare 3
+   steps with the kernel and with its plain version from one copied state.
+6. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
+   bench id streams, each field capped at 1,000,000 rows, for 5 steps.
 
-The second-to-last lines are a JSON object of the kernels exercised and the
-card's name and power limit; the last line is
+Every path is driven with all launch counts set to 0 just before it and
+read just after.  The second-to-last lines are a JSON object of the kernels
+exercised and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import copy
 import json
 import os
@@ -46,6 +58,13 @@ FIELD_SIZES = tuple(
 )
 NUM_DENSE = 13
 TOWER = (400, 400, 400)
+# Phase 6: E=128 packs one logical row per stored row.  28 fields of 32.9M
+# rows at E=128 would need 50 GB before the copied state, so each field is
+# capped at 1M rows (12,884,400 rows); the cap is the only cut.
+EMBED_WIDE = 128
+ROWS_CAP = 1_000_000
+PACK1_STEPS = 5
+EVAL_BATCHES = 8
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32 rate
 # outside the tensor cores.
@@ -56,17 +75,29 @@ SEGSUM_ATOL = 1e-5   # g is drawn on a 2^-10 grid: every partial sum is exact
 UPDATE_ATOL = 1e-6
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_ROWS_ATOL = 1e-6
+# Dense route, kernel vs plain gather over 3 steps: the forward gathers are
+# bit-identical, but the backward's index_add_ sums duplicate ids with
+# atomics in an order that changes from run to run, so the table gradient
+# differs in its last bits where an id occurs 3 or more times.  Adam turns a
+# gradient difference dg into a step difference of at most
+# lr * (1 - b1) / (1 - b1^t) * dg / eps, about 1e-8 for the rounding of
+# sums of 1e-5-sized cotangents; 1e-6 (1e-3 of lr) leaves a wide margin.
+DENSE_LOSS_RTOL = 1e-5
+DENSE_TABLE_ATOL = 1e-6
 COMPARE_STEPS = 3
 DEVICE = "cuda"
+SOURCES = ("sparse_update.cu", "embedding.cu")
 
 
-def make_batches(seed: int, n_batches: int):
-    """Host batches exactly as ``bench.py:59-71`` makes them."""
+def make_batches(seed: int, n_batches: int, field_sizes=None):
+    """Host batches exactly as ``bench.py:59-71`` makes them (ids capped at
+    each field's size; ``field_sizes`` defaults to the bench's)."""
+    field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
     rng = np.random.default_rng(seed)
     batches = []
     for _ in range(n_batches):
         b = {}
-        for i, v in enumerate(FIELD_SIZES):
+        for i, v in enumerate(field_sizes):
             raw = rng.zipf(1.2, size=BATCH)
             b[f"cat_{i}"] = np.minimum(raw - 1, v - 1).astype(np.int32)
         for j in range(NUM_DENSE):
@@ -112,17 +143,66 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# ---- the kernels and their counters ----------------------------------------
+
+KERNEL_NAMES = ("widen_segment_sum", "fused_rowwise_update", "row_gather", "segment_sum_wide")
+
+
+def _kernel_module(name: str):
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    return KE if name == "row_gather" else K
+
+
+def kernels():
+    """The kernel wrappers as the port's modules hold them now."""
+    return {name: getattr(_kernel_module(name), name) for name in KERNEL_NAMES}
+
+
+def reset_counts(fns) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def read_counts(fns):
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+@contextlib.contextmanager
+def plain_versions(fns):
+    """Put every kernel's plain version in its wrapper's place."""
+    for name in fns:
+        mod = _kernel_module(name)
+        setattr(mod, name, getattr(mod, f"{name}_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in fns.items():
+            setattr(_kernel_module(name), name, fn)
+
+
+def check_counts(path: str, counts, want) -> None:
+    log(f"[{path}] launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{path}: kernel launches {counts}, expected {want}")
+
+
 # ---- phase 1 ---------------------------------------------------------------
 
 def phase_build():
-    from torecsys_tpu_torch.ops import kernels
+    from torecsys_tpu_torch.ops import kernels as build
 
     t0 = time.perf_counter()
-    path, report = kernels.build("sparse_update.cu")
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {src: pool.submit(build.build, src) for src in SOURCES}
+        results = {src: f.result() for src, f in futures.items()}
+    log(f"[build] {len(SOURCES)} sources in parallel in {time.perf_counter() - t0:.2f} s")
+    for src, (path, report) in results.items():
+        log(f"[build] {src} -> {path.name}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
 
 # ---- phase 2 ---------------------------------------------------------------
@@ -141,23 +221,31 @@ def presorted_stream(batch, pack: int):
     return spec, {n: out[spec.aux_key(n)] for n in AUX_NAMES}
 
 
+def grid_randn(shape, gen, dev):
+    """Random values on a 2^-10 grid: every partial sum of a segment is exact
+    in float32, so a kernel and its plain version must agree to the bit
+    whatever order they sum in."""
+    import torch
+
+    return torch.randn(*shape, device=dev, generator=gen).mul_(1024).round_().div_(1024)
+
+
 def phase_kernels(batch, seed: int):
     import torch
 
-    from torecsys_tpu_torch.ops.embedding import packed_shape
+    from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
     from torecsys_tpu_torch.ops.kernels import sparse_update as K
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = BATCH * len(FIELD_SIZES)
-    # Random per-slot grads on a 2^-10 grid: every partial sum of a segment is
-    # exact in float32, so the kernel and the plain version must agree to the
-    # bit whatever order they sum in.
-    g = torch.randn(m, EMBED, device=dev, generator=gen).mul_(1024).round_().div_(1024)
+    g = grid_randn((m, EMBED), gen, dev)
     records = {}
 
     # -- widened segment-sum, pack 8 (main path) and pack 1 --
     seg_err = 0.0
+    n_unique_of = {}
     for pack in (8, 1):
         spec, aux = presorted_stream(batch, pack)
         order = torch.from_numpy(aux["order"]).to(dev)
@@ -168,14 +256,16 @@ def phase_kernels(batch, seed: int):
         ref = K.widen_segment_sum_plain(g_sorted, lo, seg, pack)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        n_unique = int(aux["n_unique"][0])
+        n_unique = n_unique_of[pack] = int(aux["n_unique"][0])
         longest = int(np.bincount(aux["seg"]).max())
         log(f"[segsum] pack={pack} M={m} n_unique={n_unique} longest segment={longest} "
             f"max_abs_err={err:.3g} (atol {SEGSUM_ATOL})")
         if not err <= SEGSUM_ATOL:
             raise AssertionError(f"widen_segment_sum pack={pack} disagrees: {err}")
         seg_err = max(seg_err, err)
-        if pack != 8:
+        if pack == 1:
+            records["segment_sum_wide"] = check_segment_sum_wide(seg, n_unique, longest,
+                                                                 gen, dev)
             continue
         w = pack * EMBED
         kernel_ms = time_ms(lambda: K.widen_segment_sum(g_sorted, lo, seg, pack), 50)
@@ -199,7 +289,9 @@ def phase_kernels(batch, seed: int):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         gsum, uids = got, torch.from_numpy(aux["uids"]).to(dev)
         n_valid = n_unique
+        del wide, seg64
     records["widen_segment_sum"]["max_abs_err"] = seg_err
+    log_unported_bounds(m, n_unique_of[8], n_unique_of[1])
 
     # -- fused row-wise update, each rule, on a full-size table --
     rows, w = packed_shape(sum(FIELD_SIZES), EMBED)
@@ -260,41 +352,147 @@ def phase_kernels(batch, seed: int):
                 bound_by=bound_by, library_ms=None)
         del tk, sk, tp, sp, slots0
     records["fused_rowwise_update"]["max_abs_err"] = upd_err
-    del table0, touched
+    del touched, gsum
+
+    # -- row gather: the bench batch's shifted ids into the logical view (the
+    # main path's lookup), and their stored rows into the stored table --
+    ids = np.stack([batch[f"cat_{i}"] for i in range(len(FIELD_SIZES))], axis=1)
+    shifted = torch.from_numpy((ids.astype(np.int64) + field_offsets(FIELD_SIZES)).reshape(-1))
+    shifted = shifted.to(dev)
+    cases = [("logical view", table0.view(-1, EMBED), shifted),
+             ("stored rows", table0, shifted // (w // EMBED))]
+    gather_err = 0.0
+    for label, src, idx in cases:
+        got = KE.row_gather(src, idx)
+        ref = KE.row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        err = (got - ref).abs().max().item()
+        gather_err = max(gather_err, err)
+        if not same:
+            raise AssertionError(f"row_gather on the {label} is not bit-identical: {err}")
+        num, width = idx.shape[0], src.shape[1]
+        kernel_ms = time_ms(lambda: KE.row_gather(src, idx), 200)
+        plain_ms = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
+        library_ms = time_ms(lambda: src.index_select(0, idx), 200)
+        # each id read once, each distinct row read once, each output row
+        # written once
+        distinct = torch.unique(idx).numel()
+        bound_ms, bound_by = bound(
+            num * idx.element_size() + distinct * width * 4 + num * width * 4, 0)
+        log(f"[gather] {label} {tuple(src.shape)} num={num} distinct={distinct} "
+            f"width={width}: bit-identical "
+            f"to the plain version; kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (index_select on the same view, the port's "
+            f"lookup before) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
+        if label == "logical view":
+            records["row_gather"] = dict(
+                name="row_gather", route="cuda", source="torecsys_tpu_torch/csrc/embedding.cu",
+                replaces="torecsys_tpu/ops/pallas/embedding.py:40",
+                ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+    records["row_gather"]["max_abs_err"] = gather_err
+    del table0, shifted
     torch.cuda.empty_cache()
     return records
 
 
-# ---- phase 3 ---------------------------------------------------------------
+def log_unported_bounds(m: int, n_stored: int, n_logical: int) -> None:
+    """Bounds of the two TPU kernels not yet ported, at this batch's shapes:
+    ``n_stored`` unique stored rows (P = 8), ``n_logical`` unique ids."""
+    w = 8 * EMBED
+    # unique_stored_gather: read the valid uids and each distinct stored row
+    # once, write one stored row per valid uid.
+    gather_ms, gather_by = bound(n_logical * 4 + n_stored * w * 4 + n_logical * w * 4, 0)
+    # fused_sorted_dedup_update (adam): read the sorted ids and narrow grads,
+    # read and write each touched stored row and its m||v; ~14 float
+    # operations per updated element.
+    dedup_ms, dedup_by = bound(m * 4 + m * EMBED * 4 + n_stored * 2 * (w * 4 + 2 * w * 4),
+                               n_stored * w * 14)
+    log(f"[bound] unique_stored_gather (not ported): {n_logical} unique ids, {n_stored} "
+        f"stored rows of {w}: bound_us={gather_ms * 1e3:.3f} ({gather_by})")
+    log(f"[bound] fused_sorted_dedup_update (not ported): M={m}, E={EMBED}, {n_stored} "
+        f"touched stored rows: bound_us={dedup_ms * 1e3:.3f} ({dedup_by})")
 
-def build_trainer(seed: int):
+
+def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
+    """segment_sum_wide on the bench batch's pack-1 presorted segments with a
+    W = 128 stream (the E = 128 route's width)."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    m, w = seg.shape[0], EMBED_WIDE
+    wide = grid_randn((m, w), gen, dev)
+    got = K.segment_sum_wide(wide, seg)
+    ref = K.segment_sum_wide_plain(wide, seg)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"segment_sum_wide is not bit-identical: {err}")
+    seg64 = seg.long()
+    kernel_ms = time_ms(lambda: K.segment_sum_wide(wide, seg), 50)
+    plain_ms = time_ms(lambda: K.segment_sum_wide_plain(wide, seg), 20)
+    library_ms = time_ms(lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
+    bound_ms, bound_by = bound(m * w * 4 + m * 4 + m * w * 4, m * w)
+    log(f"[segsum-wide] M={m} W={w} n_unique={n_unique} longest segment={longest}: "
+        f"bit-identical to the plain version; kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"(torch.zeros(M,W).index_add_) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
+    return dict(name="segment_sum_wide", route="cuda",
+                source="torecsys_tpu_torch/csrc/sparse_update.cu",
+                replaces="torecsys_tpu/ops/pallas/sparse_update.py:389",
+                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# ---- phases 3-6: the trainer's paths ----------------------------------------
+
+def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_sizes=None):
     from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, Trainer, ValueInput
 
+    field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
     inputs = Inputs({
         "feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
         "emb_inputs": MultiIndicesEmbedding(
-            EMBED, FIELD_SIZES, tuple(f"cat_{i}" for i in range(len(FIELD_SIZES))),
+            embed, field_sizes, tuple(f"cat_{i}" for i in range(len(field_sizes))),
             device=DEVICE),
     })
     pipeline = (
         Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
         .set_model("DeepFM", deep_layer_sizes=TOWER)
         .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=1e-3)
-        .set_sparse_embeddings(True).set_target_fields("label")
+        .set_sparse_embeddings(sparse).set_target_fields("label")
     )
     trainer = Trainer(pipeline, log_every=10**9, seed=seed)
     trainer.init_state()
     return trainer
 
 
+def release() -> None:
+    """Hand the memory of a trainer the caller has deleted back to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _optimizers(trainer):
+    """(dense torch optimizer, row-wise slots or {}) of either route."""
+    opt = trainer.state.opt_state
+    return (opt["dense"], opt["sparse"]) if isinstance(opt, dict) else (opt, {})
+
+
 def snapshot(trainer):
     seq = trainer.pipeline.sequential
-    st = trainer.state
+    dense_opt, slots = _optimizers(trainer)
     return {
         "params": {n: p.detach().clone() for n, p in seq.named_parameters()},
-        "adam": copy.deepcopy(st.opt_state["dense"].state_dict()),
-        "slots": {k: {n: v.clone() for n, v in s.items()} for k, s in st.opt_state["sparse"].items()},
-        "step": st.step.clone(),
+        "adam": copy.deepcopy(dense_opt.state_dict()),
+        "slots": {k: {n: v.clone() for n, v in s.items()} for k, s in slots.items()},
+        "step": trainer.state.step.clone(),
     }
 
 
@@ -302,100 +500,199 @@ def restore(trainer, snap):
     import torch
 
     seq = trainer.pipeline.sequential
-    st = trainer.state
+    dense_opt, slots = _optimizers(trainer)
     with torch.no_grad():
         for n, p in seq.named_parameters():
             p.copy_(snap["params"][n])
-        for k, s in st.opt_state["sparse"].items():
+        for k, s in slots.items():
             for n, v in s.items():
                 v.copy_(snap["slots"][k][n])
-        st.step.copy_(snap["step"])
-    st.opt_state["dense"].load_state_dict(copy.deepcopy(snap["adam"]))
+        trainer.state.step.copy_(snap["step"])
+    dense_opt.load_state_dict(copy.deepcopy(snap["adam"]))
+
+
+def timed_steps(trainer, batches, fns, path: str):
+    """Counts to 0, 3 warm-up steps, the rest timed, counts read: returns
+    (launch counts, per-step losses, examples/sec, host ms per step)."""
+    import torch
+
+    warm = min(3, len(batches) - 1)
+    reset_counts(fns)
+    losses = trainer.train_steps(batches[:warm])
+    torch.cuda.synchronize()
+    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+    t0 = time.perf_counter()
+    losses += trainer.train_steps(batches[warm:])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts(fns)
+    loss_vals = torch.stack(losses).tolist()
+    n_timed = len(batches) - warm
+    host = {k: v / n_timed for k, v in trainer.host_ms.items()}
+    eps = BATCH * n_timed / elapsed
+    log(f"[{path}] {len(batches)} steps, losses first {loss_vals[0]:.6f} "
+        f"last {loss_vals[-1]:.6f}")
+    log(f"[{path}] steady-state examples/sec={eps:.1f} step_ms={elapsed / n_timed * 1e3:.3f} "
+        f"host ms/step: presort={host['presort']:.3f} place={host['place']:.3f} "
+        f"enqueue={host['step']:.3f}; peak_memory_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"{path}: non-finite training loss: {loss_vals}")
+    return counts, loss_vals, eps, host
+
+
+def compare_with_plain(trainer, batches, fns, path: str, rows_of, loss_rtol, rows_atol):
+    """Take ``batches`` from one copied state with the kernels and with their
+    plain versions; compare the losses and the table rows ``rows_of``."""
+    import torch
+
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    snap = snapshot(trainer)
+    loss_k = torch.stack(trainer.train_steps(batches)).tolist()
+    rows_k = rows_of(table.detach())
+    restore(trainer, snap)
+    del snap
+    with plain_versions(fns):
+        loss_p = torch.stack(trainer.train_steps(batches)).tolist()
+    rows_p = rows_of(table.detach())
+    row_err = (rows_k - rows_p).abs().max().item()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p))
+    log(f"[{path}] kernels vs plain over {len(batches)} steps: losses {loss_k} vs {loss_p} "
+        f"(max rel diff {loss_rel:.3g}, rtol {loss_rtol}); {rows_k.shape[0]} table rows "
+        f"max_abs_err={row_err:.3g} (atol {rows_atol})")
+    if not loss_rel <= loss_rtol:
+        raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
+    if not row_err <= rows_atol:
+        raise AssertionError(f"{path}: table rows with kernels and plain versions disagree")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "row_max_abs_err": row_err}
 
 
 def phase_train(seed: int, steps: int, out_dir, profile: bool):
+    """Phase 3: the sparse main path.  Returns (trainer, record)."""
     import torch
 
-    from torecsys_tpu_torch.ops.kernels import sparse_update as K
-
+    fns = kernels()
     batches = make_batches(seed + 1, steps + COMPARE_STEPS)
     torch.cuda.reset_peak_memory_stats()
     trainer = build_trainer(seed)
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
     log(f"[train] table {tuple(table.shape)}, m||v {(table.shape[0], 2, table.shape[1])}, "
         f"{sum(FIELD_SIZES)} logical rows")
-
-    warm = min(3, steps - 1)
-    K.widen_segment_sum.launches = 0
-    K.fused_rowwise_update.launches = 0
-    losses = trainer.train_steps(batches[:warm])
-    torch.cuda.synchronize()
-    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
-    t0 = time.perf_counter()
-    losses += trainer.train_steps(batches[warm:steps])
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {"widen_segment_sum": K.widen_segment_sum.launches,
-                "fused_rowwise_update": K.fused_rowwise_update.launches}
-    loss_vals = torch.stack(losses).tolist()
-    n_timed = steps - warm
-    eps = BATCH * n_timed / elapsed
-    host = {k: v / n_timed for k, v in trainer.host_ms.items()}
-    log(f"[train] {steps} steps, losses first {loss_vals[0]:.6f} last {loss_vals[-1]:.6f}")
-    log(f"[train] launches {launches} (steps {steps})")
-    log(f"[train] steady-state examples/sec={eps:.1f} step_ms={elapsed / n_timed * 1e3:.3f} "
-        f"host ms/step: presort={host['presort']:.3f} place={host['place']:.3f} "
-        f"enqueue={host['step']:.3f}; "
-        f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    if not all(np.isfinite(loss_vals)):
-        raise AssertionError(f"non-finite training loss: {loss_vals}")
-    for name, n in launches.items():
-        if n != steps:
-            raise AssertionError(f"{name} launched {n} times in {steps} steps")
+    counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "train")
+    check_counts("train", counts, {"widen_segment_sum": steps, "fused_rowwise_update": steps,
+                                   "row_gather": steps, "segment_sum_wide": 0})
+    peak = torch.cuda.max_memory_allocated() / 1e9
 
     prof_info = None
     if profile:
-        prof_info = profile_steps(trainer, batches[:3], out_dir)
+        prof_info = profile_steps(trainer, batches[:3], out_dir, "train")
 
-    # -- kernels vs plain versions, 3 steps each from one copied state --
     cmp_batches = batches[steps:steps + COMPARE_STEPS]
-    snap = snapshot(trainer)
     touched = []
     for b in cmp_batches:
         _, aux = presorted_stream(b, 8)
         touched.append(torch.from_numpy(aux["uids"][:int(aux["n_unique"][0])]))
     touched = torch.unique(torch.cat(touched)).to(table.device).long()
-    loss_k = torch.stack(trainer.train_steps(cmp_batches)).tolist()
-    rows_k = table.detach().index_select(0, touched)
-    restore(trainer, snap)
-    kernel_fns = (K.widen_segment_sum, K.fused_rowwise_update)
-    K.widen_segment_sum, K.fused_rowwise_update = (K.widen_segment_sum_plain,
-                                                   K.fused_rowwise_update_plain)
-    try:
-        loss_p = torch.stack(trainer.train_steps(cmp_batches)).tolist()
-    finally:
-        K.widen_segment_sum, K.fused_rowwise_update = kernel_fns
-    rows_p = table.detach().index_select(0, touched)
-    row_err = (rows_k - rows_p).abs().max().item()
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p))
-    log(f"[train] kernels vs plain over {COMPARE_STEPS} steps: losses {loss_k} vs {loss_p} "
-        f"(max rel diff {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); "
-        f"{touched.numel()} touched rows max_abs_err={row_err:.3g} (atol {TRAIN_ROWS_ATOL})")
-    if not loss_rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError("train losses with kernels and plain versions disagree")
-    if not row_err <= TRAIN_ROWS_ATOL:
-        raise AssertionError("touched table rows with kernels and plain versions disagree")
-    return {"launches": launches, "examples_per_sec": eps,
-            "step_ms": elapsed / n_timed * 1e3, "host_ms_per_step": host,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "losses": loss_vals, "compare": {"loss_kernels": loss_k, "loss_plain": loss_p,
-                                             "row_max_abs_err": row_err},
+    compare = compare_with_plain(trainer, cmp_batches, fns, "train",
+                                 lambda t: t.index_select(0, touched),
+                                 TRAIN_LOSS_RTOL, TRAIN_ROWS_ATOL)
+    return trainer, {"launches": counts, "examples_per_sec": eps,
+                     "step_ms": BATCH / eps * 1e3, "host_ms_per_step": host,
+                     "peak_memory_gb": peak, "losses": loss_vals, "compare": compare,
+                     "profile": prof_info}
+
+
+def phase_eval(trainer, seed: int):
+    """Phase 4: evaluate and predict on the trained main-path model."""
+    import torch
+
+    fns = kernels()
+    val = make_batches(seed + 2, EVAL_BATCHES)
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(val)  # reads the metrics: waits for the device
+    first_s = time.perf_counter() - t0
+    counts = read_counts(fns)
+    check_counts("eval", counts, {"widen_segment_sum": 0, "fused_rowwise_update": 0,
+                                  "row_gather": EVAL_BATCHES, "segment_sum_wide": 0})
+    t0 = time.perf_counter()
+    again = trainer.evaluate(val)
+    second_s = time.perf_counter() - t0
+    eps = BATCH * EVAL_BATCHES / second_s
+    log(f"[eval] {EVAL_BATCHES} held-out batches: val_auc={metrics['val_auc']:.6f} "
+        f"val_logloss={metrics['val_logloss']:.6f} (random labels: val_auc near 0.5 is "
+        f"right); examples/sec={eps:.1f} (second pass; first pass "
+        f"{BATCH * EVAL_BATCHES / first_s:.1f})")
+    if not (np.isfinite(metrics["val_auc"]) and np.isfinite(metrics["val_logloss"])):
+        raise AssertionError(f"eval: non-finite metrics {metrics}")
+    if again != metrics:
+        raise AssertionError(f"eval: a second pass gave {again}, the first {metrics}")
+
+    scores_k = trainer.predict(val[0])
+    with plain_versions(fns):
+        scores_p = trainer.predict(val[0])
+    torch.cuda.synchronize()
+    if scores_k.shape != (BATCH, 1) or not torch.isfinite(scores_k).all():
+        raise AssertionError(f"predict: bad scores {tuple(scores_k.shape)}")
+    if not torch.equal(scores_k, scores_p):
+        raise AssertionError("predict: scores with the kernel and the plain gather differ")
+    log(f"[predict] {BATCH} scores in (0, 1), mean {scores_k.mean().item():.6f}; "
+        f"bit-identical with the plain gather")
+    return {"launches": counts, "metrics": metrics, "examples_per_sec": eps,
+            "first_pass_examples_per_sec": BATCH * EVAL_BATCHES / first_s}
+
+
+def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool):
+    """Phase 5: the dense-table route at full width."""
+    import torch
+
+    fns = kernels()
+    batches = make_batches(seed + 1, steps + COMPARE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(seed, sparse=False)
+    counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "dense")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("dense", counts, {"widen_segment_sum": 0, "fused_rowwise_update": 0,
+                                   "row_gather": steps, "segment_sum_wide": 0})
+    log(f"[dense] examples/sec dense route {eps:.1f} vs sparse route {sparse_eps:.1f} "
+        f"(phase 3), the same model and batches; peak_memory_gb={peak:.3f}")
+    prof_info = profile_steps(trainer, batches[:3], out_dir, "dense") if profile else None
+    compare = compare_with_plain(trainer, batches[steps:], fns, "dense", lambda t: t.clone(),
+                                 DENSE_LOSS_RTOL, DENSE_TABLE_ATOL)
+    del trainer
+    release()
+    return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
+            "peak_memory_gb": peak, "losses": loss_vals, "compare": compare,
             "profile": prof_info}
 
 
-def profile_steps(trainer, batches, out_dir):
-    """torch.profiler over a few steady steps: device time by kernel, and the
-    device's busy time as the union of its kernel and copy intervals."""
+def phase_pack1(seed: int):
+    """Phase 6: the pack == 1 sparse route (E = 128, fields capped)."""
+    import torch
+
+    fns = kernels()
+    field_sizes = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    batches = make_batches(seed + 3, PACK1_STEPS, field_sizes)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(seed, embed=EMBED_WIDE, field_sizes=field_sizes)
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    log(f"[pack1] table {tuple(table.shape)} ({table.numel() * 4 / 1e9:.2f} GB), "
+        f"{sum(field_sizes)} rows, pack {trainer.pipeline.inputs.schema['emb_inputs'].pack}")
+    counts, loss_vals, eps, host = timed_steps(trainer, batches, fns, "pack1")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("pack1", counts, {"widen_segment_sum": 0, "fused_rowwise_update": PACK1_STEPS,
+                                   "row_gather": PACK1_STEPS,
+                                   "segment_sum_wide": PACK1_STEPS})
+    del trainer, table
+    release()
+    return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
+            "peak_memory_gb": peak, "losses": loss_vals}
+
+
+def profile_steps(trainer, batches, out_dir, path: str):
+    """torch.profiler over a few steady steps of ``path``: device time by
+    kernel, and the device's busy time as the union of its kernel and copy
+    intervals."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -421,14 +718,15 @@ def profile_steps(trainer, batches, out_dir):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     lines = [f"{us / n:10.1f} us/step  {name[:110]}" for name, us in top]
-    log(f"[profile] {n} steps: wall {wall_us / n:.1f} us/step (profiler on), device busy "
-        f"{busy_us / n:.1f} us/step ({busy_us / wall_us:.3f} of the window)")
+    log(f"[profile] {path}, {n} steps: wall {wall_us / n:.1f} us/step (profiler on), "
+        f"device busy {busy_us / n:.1f} us/step ({busy_us / wall_us:.3f} of the window)")
     for line in lines:
-        log(f"[profile] {line}")
+        log(f"[profile] {path} {line}")
     if out_dir:
-        attr = ("self_device_time_total" if hasattr(prof.key_averages()[0], "self_device_time_total")
+        attr = ("self_device_time_total"
+                if hasattr(prof.key_averages()[0], "self_device_time_total")
                 else "self_cuda_time_total")
-        with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"chip_smoke_profile_{path}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by=attr, row_limit=60))
     return {"wall_us_per_step": wall_us / n, "device_busy_us_per_step": busy_us / n,
             "top": lines}
@@ -440,7 +738,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default=None, help="directory for the full JSON record")
     ap.add_argument("--profile", action="store_true",
-                    help="trace 3 training steps with torch.profiler")
+                    help="trace 3 sparse and 3 dense training steps with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -456,22 +754,45 @@ def main(argv=None):
     log("[setup] torch", torch.__version__, "cuda", torch.version.cuda,
         "| float32 matmul and cuDNN TF32 off (allow_tf32 = False)")
     card = card_line()
+    log(f"[setup] card {card}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     t_start = time.perf_counter()
+    phase_s = {}
 
-    phase_build()
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name} {phase_s[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
     batch = make_batches(args.seed, 1)[0]
-    records = phase_kernels(batch, args.seed)
-    train = phase_train(args.seed, args.steps, args.out, args.profile)
-    kernels = []
-    for name, rec in records.items():
-        kernels.append({**rec, "launches": train["launches"][name]})
+    records = timed("kernels", phase_kernels, batch, args.seed)
+    trainer, train = timed("train", phase_train, args.seed, args.steps, args.out, args.profile)
+    evaluation = timed("eval", phase_eval, trainer, args.seed)
+    del trainer
+    release()
+    dense = timed("dense", phase_dense, args.seed, args.steps, train["examples_per_sec"],
+                  args.out, args.profile)
+    pack1 = timed("pack1", phase_pack1, args.seed)
+    paths = {"train": train, "eval": evaluation, "dense": dense, "pack1": pack1}
+    # Each kernel's launches are those of the path that carries it: the
+    # sparse main path (phase 3), or the pack == 1 route for segment_sum_wide.
+    home = {"widen_segment_sum": "train", "fused_rowwise_update": "train",
+            "row_gather": "train", "segment_sum_wide": "pack1"}
+    kernel_lines = []
+    for name in KERNEL_NAMES:
+        by_path = {p: rec["launches"][name] for p, rec in paths.items()}
+        kernel_lines.append({**records[name], "launches": by_path[home[name]],
+                             "launches_by_path": by_path})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "kernels": kernels, "train": train}, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+            json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s, **paths}, f,
+                      indent=1)
+    print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

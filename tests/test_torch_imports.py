@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, and running its slice, loads neither
-JAX (nor flax, optax) nor anything of the JAX package."""
+"""The port stands alone: importing it, and running its paths (sparse and
+dense training, evaluation, prediction), loads neither JAX (nor flax,
+optax) nor anything of the JAX package."""
 
 import os
 import subprocess
@@ -23,6 +24,9 @@ batch = {"a": rng.integers(0, 50, 16), "b": rng.integers(0, 9, 16),
          "d": rng.normal(size=16).astype(np.float32),
          "label": (rng.uniform(size=16) < 0.5).astype(np.float32)}
 assert np.isfinite(float(Trainer(pipe).train_steps([batch, batch])[-1]))
+dense = Trainer(pipe.set_sparse_embeddings(False))
+assert np.isfinite(dense.fit([batch, batch], val_loader=[batch])["val_logloss"])
+assert dense.predict(batch).shape == (16, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu"))
 print("LOADED", bad)

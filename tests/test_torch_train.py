@@ -1,6 +1,10 @@
 """The slice end to end: sparse train steps of the port's Trainer against
 the JAX package's Trainer (sparse embeddings, host presort on), from the
-same carried-over initial weights, on ``make_synthetic_ctr`` batches."""
+same carried-over initial weights, on ``make_synthetic_ctr`` batches.
+
+``JaxRun``, ``_port`` and ``_assert_params_close`` also serve the dense
+route's and the evaluation's tests (``test_torch_dense``,
+``test_torch_eval``)."""
 
 import jax
 import numpy as np
@@ -27,30 +31,31 @@ def _batches():
     return [{k: v[i * B:(i + 1) * B] for k, v in data.items()} for i in range(STEPS)]
 
 
-def _schema(mod):
+def _schema(mod, embed=E):
     cat = tuple(f"cat_{i}" for i in range(len(FIELDS)))
     dense = tuple(f"dense_{j}" for j in range(NUM_DENSE))
     if mod is jax_inputs:
         return jax_inputs.Inputs(schema={
             "feat_inputs": jax_inputs.ValueInput(fields=dense),
-            "emb_inputs": jax_inputs.MultiIndicesEmbedding(embed_size=E, field_sizes=FIELDS,
+            "emb_inputs": jax_inputs.MultiIndicesEmbedding(embed_size=embed, field_sizes=FIELDS,
                                                            fields=cat)})
     return Inputs({"feat_inputs": ValueInput(dense),
-                   "emb_inputs": MultiIndicesEmbedding(E, FIELDS, cat, device="cpu")})
+                   "emb_inputs": MultiIndicesEmbedding(embed, FIELDS, cat, device="cpu")})
 
 
 class JaxRun:
-    """The JAX Trainer's sparse step, one presorted batch at a time."""
+    """The JAX Trainer's step, one batch at a time: the sparse step on
+    presorted batches, or the dense step (``sparse=False``)."""
 
-    def __init__(self, batches):
-        pipe = (JaxPipeline().set_objective("ctr").set_inputs(_schema(jax_inputs))
+    def __init__(self, batches, sparse=True, embed=E):
+        pipe = (JaxPipeline().set_objective("ctr").set_inputs(_schema(jax_inputs, embed))
                 .set_model("DeepFM", deep_layer_sizes=TOWER)
                 .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=LR)
-                .set_sparse_embeddings(True).set_target_fields("label"))
+                .set_sparse_embeddings(sparse).set_target_fields("label"))
         self.t = JaxTrainer(pipe, presort=True, prefetch=0, seed=0)
         self.t.init_state(batches[0])
         self.t._setup_presorter()
-        assert self.t._presorter is not None
+        assert (self.t._presorter is not None) == sparse
         self.t._build_steps()
 
     def params(self):
@@ -60,34 +65,38 @@ class JaxRun:
         return jax.device_get(self.t.state.opt_state)
 
     def step(self, batch):
-        placed = self.t._place_batch(self.t._presorter(batch))
+        if self.t._presorter is not None:
+            batch = self.t._presorter(batch)
+        placed = self.t._place_batch(batch)
         with self.t._trace_contexts():
             self.t.state, logs = self.t._train_step_fn(self.t.state, placed)
         return float(logs["loss"])
 
 
-def _port(params_np, opt_state_np=None):
-    pipe = (Pipeline(device="cpu").set_objective("ctr").set_inputs(_schema(None))
+def _port(params_np, opt_state_np=None, sparse=True, embed=E):
+    pipe = (Pipeline(device="cpu").set_objective("ctr").set_inputs(_schema(None, embed))
             .set_model("DeepFM", deep_layer_sizes=TOWER)
             .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=LR)
-            .set_sparse_embeddings(True).set_target_fields("label"))
+            .set_sparse_embeddings(sparse).set_target_fields("label"))
     trainer = Trainer(pipe)
     trainer.init_state()
     from_flax_params(pipe.sequential, params_np, opt_state_np, trainer.state)
     return trainer
 
 
-def _assert_params_close(trainer, params_np):
+def _assert_params_close(trainer, params_np, embed=E, skip=()):
     named = dict(trainer.pipeline.sequential.named_parameters())
     for path, ref in flatten(params_np).items():
+        if path in skip:
+            continue
         got = named[torch_name(path)].detach().numpy()
         if path == TABLE:
-            got = unpack_table(torch.tensor(got), E, sum(FIELDS)).numpy()
-            ref = unpack_table(torch.tensor(np.asarray(ref)), E, sum(FIELDS)).numpy()
+            got = unpack_table(torch.tensor(got), embed, sum(FIELDS)).numpy()
+            ref = unpack_table(torch.tensor(np.asarray(ref)), embed, sum(FIELDS)).numpy()
         elif path.endswith("kernel"):
             ref = np.asarray(ref).T
-        # Tables: row-wise Adam moves a touched element by about lr per step;
-        # the two sides' gradients differ in rounding only.  Dense params:
+        # Tables: Adam moves a touched element by about lr per step; the
+        # two sides' gradients differ in rounding only.  Dense params:
         # optax's float32 bias correction vs torch's float64 one (see
         # test_torch_model).  1e-6 is 1e-3 of lr.
         np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-6, err_msg=path)
@@ -128,6 +137,8 @@ def test_optimizer_state_carry_over_continues_the_jax_run():
 
 
 def test_trainer_fit_reports_and_refuses_the_unported_dense_route():
+    """fit reports; the automatic dense/sparse choice (None) is refused,
+    naming the two explicit routes."""
     batches = _batches()
     port = _port(JaxRun(batches[:1]).params())
     metrics = port.fit(batches, max_steps=3)
@@ -135,5 +146,5 @@ def test_trainer_fit_reports_and_refuses_the_unported_dense_route():
     assert int(port.state.step) == 3
     pipe = port.pipeline
     pipe.set_sparse_embeddings(None)
-    with pytest.raises(NotImplementedError, match="sparse"):
+    with pytest.raises(NotImplementedError, match=r"set_sparse_embeddings\(False\)"):
         Trainer(pipe)

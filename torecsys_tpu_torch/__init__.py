@@ -6,9 +6,11 @@ or anything of ``torecsys_tpu``.  Its entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``; with no
 device given and no CUDA present they raise.
 
-Ported so far: the DeepFM CTR training step on the sparse, host-presorted
-embedding route, with the two kernels of that route hand-written in CUDA
-for Hopper (``ops/kernels``, sources in ``csrc/``).
+Ported so far: the DeepFM CTR model trained on the sparse, host-presorted
+embedding route or on the dense-table route, its evaluation (streaming AUC
+and logloss) and prediction, with the kernels of those paths (row gather,
+two segment-sums, row-wise update) hand-written in CUDA for Hopper
+(``ops/kernels``, sources in ``csrc/``).
 """
 
 from torecsys_tpu_torch.inputs import Inputs, MultiIndicesEmbedding, ValueInput

@@ -11,9 +11,10 @@ The JAX package keeps its parameters as a nested dict (flax), the port in
 
 With ``opt_state_np`` it also carries the optimizer state into a port
 :class:`~torecsys_tpu_torch.train.TrainState`: optax Adam's ``count``,
-``mu`` and ``nu`` into the dense ``torch.optim.Adam``, and each table's
-``RowAdam`` ``mv`` slot as it is, so that both sides take their next step
-from the same state.
+``mu`` and ``nu`` into the ``torch.optim.Adam`` (over the dense parameters
+on the sparse route, over every parameter on the dense route), and on the
+sparse route each table's ``RowAdam`` ``mv`` slot as it is, so that both
+sides take their next step from the same state.
 
 Arrays come in as numpy (``jax.device_get`` of the JAX side); this module
 needs neither JAX nor the JAX package.
@@ -75,10 +76,12 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
     Args:
         seq: the port's ``Sequential`` (or any module with matching names).
         params_np: the flax ``params`` tree as numpy arrays.
-        opt_state_np: optionally the JAX hybrid optimizer state as numpy:
-            ``{"dense": <optax Adam state, or the chain tuple starting with
-            it: fields count, mu, nu keyed by flat "/" paths>,
-            "sparse": {"<flax table path>": {"mv": (R, 2, W)}}}``.
+        opt_state_np: optionally the JAX optimizer state as numpy: the
+            hybrid layout ``{"dense": <optax Adam state, or the chain tuple
+            starting with it: fields count, mu, nu keyed by flat "/" paths>,
+            "sparse": {"<flax table path>": {"mv": (R, 2, W)}}}`` of the
+            sparse route, or the dense route's plain optax Adam state over
+            every parameter, the tables included.
         state: the port's ``TrainState`` to receive ``opt_state_np``.
 
     Returns:
@@ -103,12 +106,13 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
 
 
 def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, state) -> None:
-    dense = opt_state_np["dense"]
+    hybrid = isinstance(opt_state_np, Mapping) and "sparse" in opt_state_np
+    dense = opt_state_np["dense"] if hybrid else opt_state_np
     if not (isinstance(dense, Mapping) or hasattr(dense, "mu")):
         dense = dense[0]  # optax.adam is a chain; its first state holds the moments
     count = int(np.asarray(_get(dense, "count")))
     mu, nu = flatten(_get(dense, "mu")), flatten(_get(dense, "nu"))
-    adam = state.opt_state["dense"]
+    adam = state.opt_state["dense"] if hybrid else state.opt_state
     with torch.no_grad():
         for path in mu:
             p = named[torch_name(path)]
@@ -117,7 +121,7 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
                 "exp_avg": _as_torch(path, mu[path], p),
                 "exp_avg_sq": _as_torch(path, nu[path], p),
             }
-        for path, slots in opt_state_np["sparse"].items():
+        for path, slots in (opt_state_np["sparse"].items() if hybrid else ()):
             port_slots = state.opt_state["sparse"][torch_name(path)]
             for k, v in slots.items():
                 port_slots[k].copy_(torch.tensor(np.asarray(v)))

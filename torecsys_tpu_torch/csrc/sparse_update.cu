@@ -36,6 +36,30 @@
 // version bit for bit.
 //
 // ---------------------------------------------------------------------------
+// trs_segment_sum_wide replaces torecsys_tpu/ops/pallas/sparse_update.py
+// _make_segsum_kernel / sorted_segment_sum_wide, the pack == 1 case (E >= 128
+// after packing) of the segment-sum.
+//
+//   out[s, c] = sum of wide[i, c] over positions i with seg[i] == s, for
+//   s < n_seg = seg[M-1] + 1; rows s >= n_seg are zero.
+//
+// Bound on this card: bytes.  The function reads the (M, W) stream and the
+// (M,) segment ids and writes the (M, W) output; M*W additions are nothing
+// against the card's rate.  The TPU kernel's carry row between grid steps,
+// its window DMA at a dynamic segment offset and its one-hot matrix products
+// all exist because TPU grid steps run in order on one core; none is needed
+// here:
+//   1. seg_starts, as above;
+//   2. segsum_wide: one warp per output row s.  Each lane owns W/32 columns
+//      (one 16-byte vector per lane at W = 128) and sums the segment's rows
+//      in position order, so a warp reads each row as whole 512-byte lines
+//      and writes its output row once.
+// No atomics: deterministic, and equal bit for bit to the in-order sum of the
+// plain version.  One warp walks a segment alone, so a Zipf-long segment
+// (thousands of positions at the bench batch) holds the kernel's tail, as it
+// does for trs_widen_segment_sum.
+//
+// ---------------------------------------------------------------------------
 // trs_fused_rowwise_update replaces torecsys_tpu/ops/pallas/sparse_update.py
 // _make_kernel / _fused_update / fused_rowwise_update.
 //
@@ -93,6 +117,41 @@ __global__ void widen_segsum_kernel(const float* __restrict__ g,
     }
   }
   out[t] = acc;
+}
+
+__device__ __forceinline__ void zero(float& v) { v = 0.0f; }
+__device__ __forceinline__ void zero(float4& v) { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void add_to(float& acc, const float& x) { acc = acc + x; }
+__device__ __forceinline__ void add_to(float4& acc, const float4& x) {
+  acc.x = acc.x + x.x;
+  acc.y = acc.y + x.y;
+  acc.z = acc.z + x.z;
+  acc.w = acc.w + x.w;
+}
+
+template <typename Vec>
+__global__ void segsum_wide_kernel(const Vec* __restrict__ wide,
+                                   const int* __restrict__ seg,
+                                   const int* __restrict__ start,
+                                   Vec* __restrict__ out, int m,
+                                   int vecs_per_row) {
+  int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  int lane = threadIdx.x & 31;
+  if (s >= m) return;
+  int begin = 0;
+  int end = 0;
+  if (s < seg[m - 1] + 1) {
+    begin = start[s];
+    end = start[s + 1];
+  }
+  for (int j = lane; j < vecs_per_row; j += 32) {
+    Vec acc;
+    zero(acc);
+    for (int i = begin; i < end; ++i) {
+      add_to(acc, wide[(int64_t)i * vecs_per_row + j]);
+    }
+    out[(int64_t)s * vecs_per_row + j] = acc;
+  }
 }
 
 struct Hyper {
@@ -184,6 +243,27 @@ int trs_widen_segment_sum(const float* g, const int* lo, const int* seg,
   int64_t blocks = (total + kThreads - 1) / kThreads;
   widen_segsum_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       g, lo, seg, start, out, m, e, w);
+  return (int)cudaGetLastError();
+}
+
+// wide (M, W), seg (M,) nondecreasing dense segment ids, start (M+1,)
+// scratch, out (M, W).
+int trs_segment_sum_wide(const float* wide, const int* seg, int* start,
+                         float* out, int m, int w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  seg_starts_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      seg, start, m);
+  int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  bool vec4 = w % 4 == 0 && reinterpret_cast<uintptr_t>(wide) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec4) {
+    segsum_wide_kernel<float4><<<blocks, kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(wide), seg, start,
+        reinterpret_cast<float4*>(out), m, w / 4);
+  } else {
+    segsum_wide_kernel<float><<<blocks, kThreads, 0, st>>>(
+        wide, seg, start, out, m, w);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -90,6 +90,12 @@ def check_status(status: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")
 
 
+def require(cond: bool, msg: str) -> None:
+    """A wrapper's check of its tensors: raises ``ValueError(msg)``."""
+    if not cond:
+        raise ValueError(msg)
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -105,4 +111,5 @@ def device_kind(*tensors: torch.Tensor) -> str:
 
 
 __all__ = ["BUILD_DIR", "CSRC", "build", "build_logs", "check_status",
-           "current_stream", "device_kind", "library_path", "load_library", "ptr"]
+           "current_stream", "device_kind", "library_path", "load_library", "ptr",
+           "require"]

@@ -1,11 +1,15 @@
-"""Sparse embedding update kernels: widened segment-sum and row-wise update.
+"""Sparse embedding update kernels: segment-sums and row-wise update.
 
-Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Two kernels,
+Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Three kernels,
 written in CUDA C++ for Hopper in ``csrc/sparse_update.cu`` (its header says
 what bounds each on the card and how the design answers it):
 
 * :func:`widen_segment_sum` replaces ``sorted_widen_segment_sum``;
+* :func:`segment_sum_wide` replaces ``sorted_segment_sum_wide``;
 * :func:`fused_rowwise_update` replaces ``fused_rowwise_update``.
+
+``fused_sorted_dedup_update``, which belongs to the on-device (not
+presorted) route, is not ported yet.
 
 Each wrapper takes the plain PyTorch version (``*_plain``) for tensors on the
 CPU, launches its kernel for tensors on the card, and raises on anything
@@ -34,13 +38,10 @@ def _lib():
         lib.trs_widen_segment_sum.restype = i
         lib.trs_fused_rowwise_update.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.trs_fused_rowwise_update.restype = i
+        lib.trs_segment_sum_wide.argtypes = [p, p, p, p, i, i, p]
+        lib.trs_segment_sum_wide.restype = i
         lib._trs_typed = True
     return lib
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 # ---- widened segment-sum ----------------------------------------------------
@@ -71,16 +72,16 @@ def widen_segment_sum(g_sorted: torch.Tensor, lo: torch.Tensor,
         ``(M, P*E)`` float32: row ``s`` is the widened sum of the positions
         with ``seg == s``; rows past the last segment are zero.
     """
-    _require(g_sorted.dim() == 2, f"g_sorted must be (M, E), got {tuple(g_sorted.shape)}")
+    _k.require(g_sorted.dim() == 2, f"g_sorted must be (M, E), got {tuple(g_sorted.shape)}")
     m, e = g_sorted.shape
-    _require(g_sorted.dtype == torch.float32, f"g_sorted must be float32, got {g_sorted.dtype}")
-    _require(lo.shape == (m,) and seg.shape == (m,), "lo and seg must be (M,)")
-    _require(lo.dtype == torch.int32 and seg.dtype == torch.int32, "lo and seg must be int32")
-    _require(pack >= 1, f"pack must be >= 1, got {pack}")
+    _k.require(g_sorted.dtype == torch.float32, f"g_sorted must be float32, got {g_sorted.dtype}")
+    _k.require(lo.shape == (m,) and seg.shape == (m,), "lo and seg must be (M,)")
+    _k.require(lo.dtype == torch.int32 and seg.dtype == torch.int32, "lo and seg must be int32")
+    _k.require(pack >= 1, f"pack must be >= 1, got {pack}")
     if _k.device_kind(g_sorted, lo, seg) == "cpu":
         return widen_segment_sum_plain(g_sorted, lo, seg, pack)
-    _require(all(t.is_contiguous() for t in (g_sorted, lo, seg)), "inputs must be contiguous")
-    _require(m * pack * e < 2**31 and m < 2**31 - 1, "stream too large for int32 indexing")
+    _k.require(all(t.is_contiguous() for t in (g_sorted, lo, seg)), "inputs must be contiguous")
+    _k.require(m * pack * e < 2**31 and m < 2**31 - 1, "stream too large for int32 indexing")
     out = torch.empty(m, pack * e, dtype=torch.float32, device=g_sorted.device)
     if m == 0:
         return out
@@ -95,6 +96,51 @@ def widen_segment_sum(g_sorted: torch.Tensor, lo: torch.Tensor,
 
 
 widen_segment_sum.launches = 0
+
+
+# ---- segment-sum of an already-wide stream (pack == 1) ----------------------
+
+def segment_sum_wide_plain(wide: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Plain version: sum the rows per segment in position order
+    (``index_add_``)."""
+    out = torch.zeros_like(wide)
+    return out.index_add_(0, seg.long(), wide)
+
+
+def segment_sum_wide(wide: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Compact per-segment sums of a sorted, already-wide stream.
+
+    Args:
+        wide: ``(M, W)`` float32 rows in id order.
+        seg: ``(M,)`` int32 nondecreasing segment ids, dense from 0 (the
+            presort's ``seg``).
+
+    Returns:
+        ``(M, W)`` float32: row ``s`` is the sum of the rows with
+        ``seg == s``; rows past the last segment are zero.
+    """
+    _k.require(wide.dim() == 2, f"wide must be (M, W), got {tuple(wide.shape)}")
+    m, w = wide.shape
+    _k.require(wide.dtype == torch.float32, f"wide must be float32, got {wide.dtype}")
+    _k.require(seg.shape == (m,) and seg.dtype == torch.int32, "seg must be (M,) int32")
+    if _k.device_kind(wide, seg) == "cpu":
+        return segment_sum_wide_plain(wide, seg)
+    _k.require(wide.is_contiguous() and seg.is_contiguous(), "inputs must be contiguous")
+    _k.require(m < 2**31 - 1, "stream too large for int32 indexing")
+    out = torch.empty_like(wide)
+    if m == 0:
+        return out
+    start = torch.empty(m + 1, dtype=torch.int32, device=wide.device)
+    status = _lib().trs_segment_sum_wide(
+        _k.ptr(wide), _k.ptr(seg), _k.ptr(start), _k.ptr(out), m, w,
+        _k.current_stream(wide.device),
+    )
+    _k.check_status(status, "segment_sum_wide")
+    segment_sum_wide.launches += 1
+    return out
+
+
+segment_sum_wide.launches = 0
 
 
 # ---- fused row-wise update --------------------------------------------------
@@ -159,27 +205,27 @@ def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
     Returns:
         ``(table, [slots...])``.
     """
-    _require(rule in RULES, f"rule must be one of {sorted(RULES)}, got {rule!r}")
-    _require(table.dim() == 2 and table.dtype == torch.float32, "table must be (R, W) float32")
+    _k.require(rule in RULES, f"rule must be one of {sorted(RULES)}, got {rule!r}")
+    _k.require(table.dim() == 2 and table.dtype == torch.float32, "table must be (R, W) float32")
     rows, w = table.shape
     m = uids.shape[0]
-    _require(uids.dim() == 1 and uids.dtype == torch.int32, "uids must be (M,) int32")
-    _require(gsum.shape == (m, w) and gsum.dtype == torch.float32, "gsum must be (M, W) float32")
-    _require(hyper.shape == (7,) and hyper.dtype == torch.float32, "hyper must be (7,) float32")
+    _k.require(uids.dim() == 1 and uids.dtype == torch.int32, "uids must be (M,) int32")
+    _k.require(gsum.shape == (m, w) and gsum.dtype == torch.float32, "gsum must be (M, W) float32")
+    _k.require(hyper.shape == (7,) and hyper.dtype == torch.float32, "hyper must be (7,) float32")
     shapes = _slot_shapes(rule, rows, w)
-    _require(len(slots) == len(shapes), f"rule {rule!r} takes {len(shapes)} slot array(s)")
+    _k.require(len(slots) == len(shapes), f"rule {rule!r} takes {len(shapes)} slot array(s)")
     for s, shape in zip(slots, shapes):
-        _require(tuple(s.shape) == shape and s.dtype == torch.float32,
-                 f"slot must be {shape} float32, got {tuple(s.shape)} {s.dtype}")
+        _k.require(tuple(s.shape) == shape and s.dtype == torch.float32,
+                   f"slot must be {shape} float32, got {tuple(s.shape)} {s.dtype}")
     n_valid = int(n_valid)
-    _require(0 <= n_valid <= m, f"n_valid={n_valid} outside [0, {m}]")
+    _k.require(0 <= n_valid <= m, f"n_valid={n_valid} outside [0, {m}]")
     if _k.device_kind(uids, gsum, table, hyper, *slots) == "cpu":
         return fused_rowwise_update_plain(uids, gsum, table, slots, hyper, rule, n_valid)
-    _require(all(t.is_contiguous() for t in (uids, gsum, table, hyper, *slots)),
-             "inputs must be contiguous")
-    _require(w % 4 == 0, f"row width {w} must be a multiple of 4 (16-byte rows)")
-    _require(all(t.data_ptr() % 16 == 0 for t in (gsum, table, *slots)),
-             "table, gsum and slots must be 16-byte aligned")
+    _k.require(all(t.is_contiguous() for t in (uids, gsum, table, hyper, *slots)),
+               "inputs must be contiguous")
+    _k.require(w % 4 == 0, f"row width {w} must be a multiple of 4 (16-byte rows)")
+    _k.require(all(t.data_ptr() % 16 == 0 for t in (gsum, table, *slots)),
+               "table, gsum and slots must be 16-byte aligned")
     if n_valid == 0:
         return table, list(slots)
     slot_ptr = _k.ptr(slots[0]) if slots else ctypes.c_void_p(0)
@@ -195,4 +241,5 @@ def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
 fused_rowwise_update.launches = 0
 
 __all__ = ["fused_rowwise_update", "fused_rowwise_update_plain",
+           "segment_sum_wide", "segment_sum_wide_plain",
            "widen_segment_sum", "widen_segment_sum_plain"]

@@ -9,8 +9,8 @@ Adam to just the stored rows the batch touched.  The host presort
 compact unique stored-row ids, so the device does three passes:
 
 1. permute the narrow ``(M, E)`` grads into id order (``index_select``);
-2. sum them per stored row, widened to ``(M, P*E)`` (:func:`_sorted_gsum`,
-   the ``widen_segment_sum`` kernel);
+2. sum them per stored row, widened to ``(M, P*E)`` (:func:`_sorted_gsum`:
+   the ``widen_segment_sum`` kernel, or ``segment_sum_wide`` at ``P == 1``);
 3. update the unique rows in place (the ``fused_rowwise_update`` kernel).
 
 Semantics are those of the JAX package: lazy Adam (rows absent from a batch
@@ -33,9 +33,11 @@ def _sorted_gsum(g_sorted: torch.Tensor, lo: torch.Tensor, seg: torch.Tensor,
                  pack: int) -> torch.Tensor:
     """Segment-sum a sorted NARROW grad stream into wide stored-row sums.
 
-    One kernel for every pack: with ``pack == 1`` the widen is the identity
-    and the kernel is a plain sorted segment-sum of an already-wide stream.
+    ``pack == 1`` (E >= 128 after packing) has no widen to do and takes the
+    ``segment_sum_wide`` kernel; every other pack ``widen_segment_sum``.
     """
+    if pack == 1:
+        return K.segment_sum_wide(g_sorted, seg)
     return K.widen_segment_sum(g_sorted, lo, seg, pack)
 
 

@@ -1,8 +1,11 @@
 """Training pipeline builder (counterpart of ``torecsys_tpu/train/pipeline.py``).
 
-The port carries the ``ctr`` objective with the sparse embedding route:
+The port carries the ``ctr`` objective on both embedding routes:
 ``set_objective("ctr")``, ``set_inputs``, ``set_model``, ``set_criterion``,
 ``set_optimizer``, ``set_sparse_embeddings`` and ``set_target_fields``.
+``set_sparse_embeddings(True)`` selects the sparse (touched-rows-only)
+route, ``False`` the dense one; the JAX package's automatic choice
+(``None``) is not ported, because its thresholds were measured on a TPU.
 
 A torch module is built on its device with its widths known, so the
 pipeline holds the ``device`` its model is built on (default: the card) and
@@ -39,8 +42,8 @@ class Pipeline:
         self.optimizer: Any = None
         self.optimizer_spec: Optional[Dict[str, Any]] = None
         self.target_fields = "label"
-        # Only the sparse (touched-rows-only) route is ported; None and
-        # False are refused by finalize().
+        # True: sparse route; False: dense route; None (the JAX package's
+        # automatic choice) is refused by finalize().
         self.sparse_embeddings: Optional[bool] = None
 
     def set_objective(self, objective: str) -> "Pipeline":
@@ -84,9 +87,12 @@ class Pipeline:
         return self
 
     def row_optimizer(self):
-        """The row-wise (lazy) optimizer of the embedding tables."""
+        """The row-wise (lazy) optimizer of the embedding tables, or None on
+        the dense route."""
         from torecsys_tpu_torch.ops.sparse import get_row_optimizer
 
+        if self.sparse_embeddings is False:
+            return None
         spec = dict(self.optimizer_spec)
         row = get_row_optimizer(spec.pop("method", "Adam"), **spec)
         if row is None:
@@ -108,10 +114,15 @@ class Pipeline:
             self.criterion = BCEWithLogitsLoss()
         if self.optimizer is None:
             self.set_optimizer("Adam", lr=1e-3)
-        if self.sparse_embeddings is not True:
+        if self.sparse_embeddings is None:
             raise NotImplementedError(
-                "only the sparse embedding route is ported: call set_sparse_embeddings(True)"
+                "the automatic dense/sparse choice is not ported (its thresholds were "
+                "measured on a TPU): call set_sparse_embeddings(True) for the sparse "
+                "route or set_sparse_embeddings(False) for the dense route"
             )
+        if self.sparse_embeddings not in (True, False):
+            raise ValueError(
+                f"sparse_embeddings must be True or False, got {self.sparse_embeddings!r}")
         return self
 
 

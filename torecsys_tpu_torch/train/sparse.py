@@ -8,6 +8,9 @@ state is::
 
     {"dense": <torch Adam over the non-table parameters>,
      "sparse": {"<table parameter name>": {"mv": (R, 2, W)}, ...}}
+
+The dense route's state is the torch optimizer over every parameter, the
+tables included (:meth:`TrainState.create`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ def split_params(seq: nn.Module, table_paths) -> Tuple[Dict[str, nn.Parameter],
     return dense, tables
 
 
+def is_hybrid_opt_state(opt_state) -> bool:
+    """True for the hybrid layout; the dense route's state is one torch
+    optimizer over every parameter."""
+    return isinstance(opt_state, dict) and "sparse" in opt_state
+
+
 def init_hybrid_opt_state(optimizer_factory, row_tx, seq: nn.Module, table_paths) -> Dict:
     """Build the hybrid optimizer state over ``seq``'s partitioned parameters."""
     dense, tables = split_params(seq, table_paths)
@@ -49,4 +58,4 @@ def init_hybrid_opt_state(optimizer_factory, row_tx, seq: nn.Module, table_paths
     }
 
 
-__all__ = ["init_hybrid_opt_state", "sparse_modules", "split_params"]
+__all__ = ["init_hybrid_opt_state", "is_hybrid_opt_state", "sparse_modules", "split_params"]

@@ -23,10 +23,22 @@ class TrainState:
 
     @classmethod
     def create(cls, seq, optimizer_factory, row_tx, table_paths, device) -> "TrainState":
+        """Build the initial state on ``device``.
+
+        With ``row_tx`` and ``table_paths`` set, the optimizer state is the
+        hybrid layout (``train.sparse``): the dense optimizer over the
+        non-table parameters plus row-wise slots per table.  Otherwise it is
+        one ``optimizer_factory`` optimizer over every parameter, the tables
+        included (the dense route).
+        """
         from torecsys_tpu_torch.train.sparse import init_hybrid_opt_state
 
+        if row_tx is not None and table_paths:
+            opt_state = init_hybrid_opt_state(optimizer_factory, row_tx, seq, table_paths)
+        else:
+            opt_state = optimizer_factory(list(seq.parameters()))
         return cls(
-            opt_state=init_hybrid_opt_state(optimizer_factory, row_tx, seq, table_paths),
+            opt_state=opt_state,
             step=torch.zeros((), dtype=torch.int32, device=device),
             loss_sum=torch.zeros((), dtype=torch.float32, device=device),
         )
