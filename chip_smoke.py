@@ -9,12 +9,13 @@ Phases (any failure raises and the exit code is not 0):
 
 1. Build the port's CUDA kernels from ``torecsys_tpu_torch/csrc`` with nvcc,
    one compiler per source, all started together.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path: one Criteo-scale batch (the workload of
-   ``bench.py``: 28 Zipf(1.2) id fields over 32.9M fused rows, batch 4096,
-   E=16) presorted by the port's ``Presorter``.  Prints each kernel's time,
-   its plain version's time, the time of one PyTorch call computing the
-   same function where there is one, and its bound.
+2. Hold each of the six kernels against its plain PyTorch version on the
+   card, at the shapes of the main path: one Criteo-scale batch (the
+   workload of ``bench.py``: 28 Zipf(1.2) id fields over 32.9M fused rows,
+   batch 4096, E=16), presorted by the port's ``Presorter`` or sorted on
+   the card.  Prints each kernel's time, its plain version's time, the time
+   of one PyTorch call computing the same function where there is one, and
+   its bound.
 3. Train the full-width DeepFM (tower 400-400-400, Adam 1e-3, sparse
    presorted embedding route) through the port's ``Trainer`` for ``--steps``
    steps; every kernel of the route must launch once per step.  Then take
@@ -23,10 +24,15 @@ Phases (any failure raises and the exit code is not 0):
 4. Evaluate the trained model on 8 held-out batches (``Trainer.evaluate``:
    one ``row_gather`` per batch) and predict one batch with the kernel and
    with its plain version: the scores must be bit-identical.
-5. Train the same model on the dense-table route (Adam over every
+5. Train the same model on the on-device sparse route
+   (``Trainer(presort=False)``) on phase 3's batches, ``--steps`` steps on
+   the default combine and ``--steps`` with ``TORECSYS_TPU_FUSED_DEDUP=1``;
+   then, from one copied state, 3 steps of each with the kernels and with
+   their plain versions and 3 on the presorted route, all compared.
+6. Train the same model on the dense-table route (Adam over every
    parameter, the table included) for ``--steps`` steps, then compare 3
    steps with the kernel and with its plain version from one copied state.
-6. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
+7. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
    bench id streams, each field capped at 1,000,000 rows, for 5 steps.
 
 Every path is driven with all launch counts set to 0 just before it and
@@ -145,14 +151,20 @@ def card_line() -> str:
 
 # ---- the kernels and their counters ----------------------------------------
 
-KERNEL_NAMES = ("widen_segment_sum", "fused_rowwise_update", "row_gather", "segment_sum_wide")
+KERNEL_NAMES = ("widen_segment_sum", "fused_rowwise_update", "row_gather", "segment_sum_wide",
+                "unique_stored_gather", "fused_sorted_dedup_update")
 
 
 def _kernel_module(name: str):
     from torecsys_tpu_torch.ops.kernels import embedding as KE
     from torecsys_tpu_torch.ops.kernels import sparse_update as K
 
-    return KE if name == "row_gather" else K
+    return KE if name in ("row_gather", "unique_stored_gather") else K
+
+
+def expect(**counts):
+    """Expected launches of every kernel: those named, 0 for the others."""
+    return {name: counts.get(name, 0) for name in KERNEL_NAMES}
 
 
 def kernels():
@@ -180,6 +192,22 @@ def plain_versions(fns):
     finally:
         for name, fn in fns.items():
             setattr(_kernel_module(name), name, fn)
+
+
+@contextlib.contextmanager
+def fused_dedup(flag: str):
+    """Set ``TORECSYS_TPU_FUSED_DEDUP`` in this process for the block."""
+    from torecsys_tpu_torch.ops.sparse import FUSED_DEDUP_ENV
+
+    before = os.environ.get(FUSED_DEDUP_ENV)
+    os.environ[FUSED_DEDUP_ENV] = flag
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(FUSED_DEDUP_ENV)
+        else:
+            os.environ[FUSED_DEDUP_ENV] = before
 
 
 def check_counts(path: str, counts, want) -> None:
@@ -245,7 +273,6 @@ def phase_kernels(batch, seed: int):
 
     # -- widened segment-sum, pack 8 (main path) and pack 1 --
     seg_err = 0.0
-    n_unique_of = {}
     for pack in (8, 1):
         spec, aux = presorted_stream(batch, pack)
         order = torch.from_numpy(aux["order"]).to(dev)
@@ -256,7 +283,7 @@ def phase_kernels(batch, seed: int):
         ref = K.widen_segment_sum_plain(g_sorted, lo, seg, pack)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        n_unique = n_unique_of[pack] = int(aux["n_unique"][0])
+        n_unique = int(aux["n_unique"][0])
         longest = int(np.bincount(aux["seg"]).max())
         log(f"[segsum] pack={pack} M={m} n_unique={n_unique} longest segment={longest} "
             f"max_abs_err={err:.3g} (atol {SEGSUM_ATOL})")
@@ -291,31 +318,16 @@ def phase_kernels(batch, seed: int):
         n_valid = n_unique
         del wide, seg64
     records["widen_segment_sum"]["max_abs_err"] = seg_err
-    log_unported_bounds(m, n_unique_of[8], n_unique_of[1])
 
     # -- fused row-wise update, each rule, on a full-size table --
     rows, w = packed_shape(sum(FIELD_SIZES), EMBED)
     table0 = torch.empty(rows, w, device=dev).normal_(0.0, 0.01, generator=gen)
     touched = torch.zeros(rows, dtype=torch.bool, device=dev)
     touched[uids[:n_valid].long()] = True
-    t = 11  # bias correction of step 11
     cases = [("adam", 0.0), ("adam", 1e-2), ("adagrad", 0.0), ("sgd", 0.0)]
     upd_err = 0.0
     for rule, wd in cases:
-        if rule == "adam":
-            slot0 = torch.empty(rows, 2, w, device=dev)
-            slot0[:, 0].normal_(0.0, 1e-3, generator=gen)
-            slot0[:, 1].uniform_(0.0, 1e-5, generator=gen)
-            slots0 = [slot0]
-            hyper = torch.tensor([1e-3, 0.9, 0.999, 1e-8, wd,
-                                  1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)],
-                                 dtype=torch.float32, device=dev)
-        elif rule == "adagrad":
-            slots0 = [torch.empty(rows, w, device=dev).uniform_(0.1, 1.0, generator=gen)]
-            hyper = torch.tensor([1e-3, 0, 0, 1e-7, 0, 1, 1], dtype=torch.float32, device=dev)
-        else:
-            slots0 = []
-            hyper = torch.tensor([1e-3, 0, 0, 0, 0, 1, 1], dtype=torch.float32, device=dev)
+        slots0, hyper = rule_state(rule, wd, rows, w, gen, dev)
         tk, sk = table0.clone(), [s.clone() for s in slots0]
         tp, sp = table0.clone(), [s.clone() for s in slots0]
         K.fused_rowwise_update(uids, gsum, tk, sk, hyper, rule, n_valid)
@@ -354,11 +366,14 @@ def phase_kernels(batch, seed: int):
     records["fused_rowwise_update"]["max_abs_err"] = upd_err
     del touched, gsum
 
-    # -- row gather: the bench batch's shifted ids into the logical view (the
-    # main path's lookup), and their stored rows into the stored table --
     ids = np.stack([batch[f"cat_{i}"] for i in range(len(FIELD_SIZES))], axis=1)
     shifted = torch.from_numpy((ids.astype(np.int64) + field_offsets(FIELD_SIZES)).reshape(-1))
     shifted = shifted.to(dev)
+    records["fused_sorted_dedup_update"] = check_fused_dedup(shifted, table0, gen, dev)
+    records["unique_stored_gather"] = check_unique_gather(shifted, table0)
+
+    # -- row gather: the bench batch's shifted ids into the logical view (the
+    # main path's lookup), and their stored rows into the stored table --
     cases = [("logical view", table0.view(-1, EMBED), shifted),
              ("stored rows", table0, shifted // (w // EMBED))]
     gather_err = 0.0
@@ -397,22 +412,122 @@ def phase_kernels(batch, seed: int):
     return records
 
 
-def log_unported_bounds(m: int, n_stored: int, n_logical: int) -> None:
-    """Bounds of the two TPU kernels not yet ported, at this batch's shapes:
-    ``n_stored`` unique stored rows (P = 8), ``n_logical`` unique ids."""
-    w = 8 * EMBED
-    # unique_stored_gather: read the valid uids and each distinct stored row
-    # once, write one stored row per valid uid.
-    gather_ms, gather_by = bound(n_logical * 4 + n_stored * w * 4 + n_logical * w * 4, 0)
-    # fused_sorted_dedup_update (adam): read the sorted ids and narrow grads,
-    # read and write each touched stored row and its m||v; ~14 float
-    # operations per updated element.
-    dedup_ms, dedup_by = bound(m * 4 + m * EMBED * 4 + n_stored * 2 * (w * 4 + 2 * w * 4),
-                               n_stored * w * 14)
-    log(f"[bound] unique_stored_gather (not ported): {n_logical} unique ids, {n_stored} "
-        f"stored rows of {w}: bound_us={gather_ms * 1e3:.3f} ({gather_by})")
-    log(f"[bound] fused_sorted_dedup_update (not ported): M={m}, E={EMBED}, {n_stored} "
-        f"touched stored rows: bound_us={dedup_ms * 1e3:.3f} ({dedup_by})")
+def rule_state(rule: str, wd: float, rows: int, w: int, gen, dev):
+    """Random slots of ``rule`` for a (rows, w) table, and its hyper vector
+    (bias correction of step 11)."""
+    import torch
+
+    t = 11
+    if rule == "adam":
+        slot0 = torch.empty(rows, 2, w, device=dev)
+        slot0[:, 0].normal_(0.0, 1e-3, generator=gen)
+        slot0[:, 1].uniform_(0.0, 1e-5, generator=gen)
+        hyper = [1e-3, 0.9, 0.999, 1e-8, wd, 1.0 / (1.0 - 0.9 ** t), 1.0 / (1.0 - 0.999 ** t)]
+        return [slot0], torch.tensor(hyper, dtype=torch.float32, device=dev)
+    if rule == "adagrad":
+        slots0 = [torch.empty(rows, w, device=dev).uniform_(0.1, 1.0, generator=gen)]
+        return slots0, torch.tensor([1e-3, 0, 0, 1e-7, 0, 1, 1], dtype=torch.float32, device=dev)
+    return [], torch.tensor([1e-3, 0, 0, 0, 0, 1, 1], dtype=torch.float32, device=dev)
+
+
+def check_fused_dedup(shifted, table0, gen, dev):
+    """fused_sorted_dedup_update on the bench batch's ids, sorted on the card
+    as the on-device route sorts them, with grid grads: each rule from one
+    copied table and slot state, against its plain version."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    rows, w = table0.shape
+    pack = w // EMBED
+    sorted_ids, _ = torch.sort(shifted.to(torch.int32), stable=True)
+    m = sorted_ids.shape[0]
+    g_sorted = grid_randn((m, EMBED), gen, dev)
+    stored = torch.unique(sorted_ids // pack).long()
+    n_stored = stored.numel()
+    touched = torch.zeros(rows, dtype=torch.bool, device=dev)
+    touched[stored] = True
+    err_all, record = 0.0, None
+    for rule in ("adam", "adagrad", "sgd"):
+        slots0, hyper = rule_state(rule, 0.0, rows, w, gen, dev)
+        tk, sk = table0.clone(), [s.clone() for s in slots0]
+        tp, sp = table0.clone(), [s.clone() for s in slots0]
+        K.fused_sorted_dedup_update(sorted_ids, g_sorted, tk, sk, hyper, pack, rule)
+        K.fused_sorted_dedup_update_plain(sorted_ids, g_sorted, tp, sp, hyper, pack, rule)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, ref, orig in [(tk, tp, table0)] + list(zip(sk, sp, slots0)):
+            err = max(err, (got - ref).abs().max().item())
+            changed = (got != orig).reshape(rows, -1).any(dim=1)
+            if bool((changed & ~touched).any()):
+                raise AssertionError(f"fused_sorted_dedup_update {rule}: an untouched row changed")
+        log(f"[dedup] rule={rule} M={m} stored rows={n_stored} max_abs_err={err:.3g} "
+            f"(atol {UPDATE_ATOL}); untouched rows bit-identical")
+        if not err <= UPDATE_ATOL:
+            raise AssertionError(f"fused_sorted_dedup_update {rule} disagrees: {err}")
+        err_all = max(err_all, err)
+        if rule == "adam":
+            kernel_ms = time_ms(lambda: K.fused_sorted_dedup_update(
+                sorted_ids, g_sorted, tk, sk, hyper, pack, rule), 50)
+            plain_ms = time_ms(lambda: K.fused_sorted_dedup_update_plain(
+                sorted_ids, g_sorted, tp, sp, hyper, pack, rule), 20)
+            # read the sorted ids and narrow grads once; read and write each
+            # touched stored row and its m||v once; ~14 float operations per
+            # updated element
+            bound_ms, bound_by = bound(
+                m * 4 + m * EMBED * 4 + n_stored * 2 * (w * 4 + 2 * w * 4), n_stored * w * 14)
+            longest = int(torch.unique_consecutive(sorted_ids // pack,
+                                                   return_counts=True)[1].max())
+            log(f"[dedup] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+                f"(no single PyTorch call dedups and updates) bound_us={bound_ms * 1e3:.3f} "
+                f"({bound_by}) longest stored-row group={longest}")
+            record = dict(name="fused_sorted_dedup_update", route="cuda",
+                          source="torecsys_tpu_torch/csrc/sparse_update.cu",
+                          replaces="torecsys_tpu/ops/pallas/sparse_update.py:561",
+                          ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+        del tk, sk, tp, sp, slots0
+    record["max_abs_err"] = err_all
+    return record
+
+
+def check_unique_gather(shifted, table0):
+    """unique_stored_gather on the bench batch's unique ids (``torch.unique``,
+    sorted, padded with the sentinel): the valid prefix must be
+    bit-identical to the plain version's."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    rows, w = table0.shape
+    pack = w // EMBED
+    m = shifted.shape[0]
+    uniq = torch.unique(shifted.to(torch.int32), sorted=True)
+    n = uniq.numel()
+    uids = torch.full((m,), rows * pack, dtype=torch.int32, device=shifted.device)
+    uids[:n] = uniq
+    got = KE.unique_stored_gather(table0, uids, EMBED)
+    ref = KE.unique_stored_gather_plain(table0, uids, EMBED)
+    torch.cuda.synchronize()
+    err = (got[:n] - ref[:n]).abs().max().item()
+    if not torch.equal(got[:n], ref[:n]):
+        raise AssertionError(f"unique_stored_gather is not bit-identical: {err}")
+    kernel_ms = time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), 200)
+    plain_ms = time_ms(lambda: KE.unique_stored_gather_plain(table0, uids, EMBED), 100)
+    library_ms = time_ms(lambda: table0.index_select(0, uids[:n] // pack), 200)
+    n_stored = torch.unique(uniq // pack).numel()
+    # read the valid ids and each distinct stored row once, write one stored
+    # row per valid id
+    bound_ms, bound_by = bound(n * 4 + n_stored * w * 4 + n * w * 4, 0)
+    log(f"[unique-gather] M={m} valid ids={n} stored rows={n_stored} width={w}: valid prefix "
+        f"bit-identical to the plain version; kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (table.index_select(0, "
+        f"uids[:n] // P)) bound_us={bound_ms * 1e3:.3f} ({bound_by})")
+    return dict(name="unique_stored_gather", route="cuda",
+                source="torecsys_tpu_torch/csrc/embedding.cu",
+                replaces="torecsys_tpu/ops/pallas/embedding.py:136",
+                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
@@ -446,9 +561,10 @@ def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-# ---- phases 3-6: the trainer's paths ----------------------------------------
+# ---- phases 3-7: the trainer's paths ----------------------------------------
 
-def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_sizes=None):
+def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_sizes=None,
+                  presort=None):
     from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, Trainer, ValueInput
 
     field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
@@ -464,7 +580,7 @@ def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_size
         .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=1e-3)
         .set_sparse_embeddings(sparse).set_target_fields("label")
     )
-    trainer = Trainer(pipeline, log_every=10**9, seed=seed)
+    trainer = Trainer(pipeline, log_every=10**9, seed=seed, presort=presort)
     trainer.init_state()
     return trainer
 
@@ -579,8 +695,8 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
     log(f"[train] table {tuple(table.shape)}, m||v {(table.shape[0], 2, table.shape[1])}, "
         f"{sum(FIELD_SIZES)} logical rows")
     counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "train")
-    check_counts("train", counts, {"widen_segment_sum": steps, "fused_rowwise_update": steps,
-                                   "row_gather": steps, "segment_sum_wide": 0})
+    check_counts("train", counts, expect(widen_segment_sum=steps, fused_rowwise_update=steps,
+                                         row_gather=steps))
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     prof_info = None
@@ -588,11 +704,7 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
         prof_info = profile_steps(trainer, batches[:3], out_dir, "train")
 
     cmp_batches = batches[steps:steps + COMPARE_STEPS]
-    touched = []
-    for b in cmp_batches:
-        _, aux = presorted_stream(b, 8)
-        touched.append(torch.from_numpy(aux["uids"][:int(aux["n_unique"][0])]))
-    touched = torch.unique(torch.cat(touched)).to(table.device).long()
+    touched = touched_rows(cmp_batches, table.device)
     compare = compare_with_plain(trainer, cmp_batches, fns, "train",
                                  lambda t: t.index_select(0, touched),
                                  TRAIN_LOSS_RTOL, TRAIN_ROWS_ATOL)
@@ -600,6 +712,17 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
                      "step_ms": BATCH / eps * 1e3, "host_ms_per_step": host,
                      "peak_memory_gb": peak, "losses": loss_vals, "compare": compare,
                      "profile": prof_info}
+
+
+def touched_rows(batches, dev):
+    """The stored rows (P = 8) that ``batches`` touch, as int64 on ``dev``."""
+    import torch
+
+    touched = []
+    for b in batches:
+        _, aux = presorted_stream(b, 8)
+        touched.append(torch.from_numpy(aux["uids"][:int(aux["n_unique"][0])]))
+    return torch.unique(torch.cat(touched)).to(dev).long()
 
 
 def phase_eval(trainer, seed: int):
@@ -613,8 +736,7 @@ def phase_eval(trainer, seed: int):
     metrics = trainer.evaluate(val)  # reads the metrics: waits for the device
     first_s = time.perf_counter() - t0
     counts = read_counts(fns)
-    check_counts("eval", counts, {"widen_segment_sum": 0, "fused_rowwise_update": 0,
-                                  "row_gather": EVAL_BATCHES, "segment_sum_wide": 0})
+    check_counts("eval", counts, expect(row_gather=EVAL_BATCHES))
     t0 = time.perf_counter()
     again = trainer.evaluate(val)
     second_s = time.perf_counter() - t0
@@ -642,8 +764,74 @@ def phase_eval(trainer, seed: int):
             "first_pass_examples_per_sec": BATCH * EVAL_BATCHES / first_s}
 
 
+def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile: bool):
+    """Phase 5: the on-device sparse route (no host presort), on the default
+    combine and on the one-pass fused dedup, on phase 3's batches; then both
+    variants with kernels and with plain versions, and the presorted route,
+    from one copied state."""
+    import torch
+
+    from torecsys_tpu_torch.data.presort import Presorter, build_presort_specs
+
+    fns = kernels()
+    batches = make_batches(seed + 1, steps + COMPARE_STEPS)
+    trainer = build_trainer(seed, presort=False)
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    variants = {
+        "ondevice": ("0", expect(widen_segment_sum=steps, fused_rowwise_update=steps,
+                                 row_gather=steps)),
+        "ondevice_fused": ("1", expect(fused_sorted_dedup_update=steps, row_gather=steps)),
+    }
+    records = {}
+    for path, (flag, want) in variants.items():
+        torch.cuda.reset_peak_memory_stats()
+        with fused_dedup(flag):
+            counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, path)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check_counts(path, counts, want)
+            prof_info = profile_steps(trainer, batches[:3], out_dir, path) if profile else None
+        log(f"[{path}] examples/sec {eps:.1f} (TORECSYS_TPU_FUSED_DEDUP={flag}) vs the presorted "
+            f"route {presorted_eps:.1f} (phase 3), the same model and batches; "
+            f"peak_memory_gb={peak:.3f}")
+        records[path] = {"launches": counts, "examples_per_sec": eps, "step_ms": BATCH / eps * 1e3,
+                         "host_ms_per_step": host, "peak_memory_gb": peak, "losses": loss_vals,
+                         "profile": prof_info}
+
+    cmp_batches = batches[steps:]
+    presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
+    touched = touched_rows(cmp_batches, table.device)
+    snap = snapshot(trainer)
+    runs = {}
+    for label, flag, plain, presorted in (
+            ("on-device, kernels", "0", False, False), ("on-device, plain", "0", True, False),
+            ("fused, kernels", "1", False, False), ("fused, plain", "1", True, False),
+            ("presorted, kernels", "0", False, True)):
+        restore(trainer, snap)
+        feed = [presorter(b) for b in cmp_batches] if presorted else cmp_batches
+        with fused_dedup(flag), (plain_versions(fns) if plain else contextlib.nullcontext()):
+            losses = torch.stack(trainer.train_steps(feed)).tolist()
+        runs[label] = (losses, table.detach().index_select(0, touched))
+    del snap
+    loss_ref, rows_ref = runs["on-device, kernels"]
+    compare = {}
+    for label, (losses, rows) in runs.items():
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, loss_ref))
+        row_err = (rows - rows_ref).abs().max().item()
+        log(f"[ondevice] {label} vs on-device, kernels over {COMPARE_STEPS} steps: losses "
+            f"{losses} (max rel diff {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); "
+            f"{rows.shape[0]} table rows max_abs_err={row_err:.3g} (atol {TRAIN_ROWS_ATOL})")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and row_err <= TRAIN_ROWS_ATOL):
+            raise AssertionError(f"ondevice: {label} disagrees with the on-device kernels")
+        compare[label] = {"losses": losses, "loss_max_rel_diff": loss_rel,
+                          "row_max_abs_err": row_err}
+    del trainer, table, runs
+    release()
+    records["ondevice"]["compare"] = compare
+    return records
+
+
 def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool):
-    """Phase 5: the dense-table route at full width."""
+    """Phase 6: the dense-table route at full width."""
     import torch
 
     fns = kernels()
@@ -652,8 +840,7 @@ def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool
     trainer = build_trainer(seed, sparse=False)
     counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "dense")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("dense", counts, {"widen_segment_sum": 0, "fused_rowwise_update": 0,
-                                   "row_gather": steps, "segment_sum_wide": 0})
+    check_counts("dense", counts, expect(row_gather=steps))
     log(f"[dense] examples/sec dense route {eps:.1f} vs sparse route {sparse_eps:.1f} "
         f"(phase 3), the same model and batches; peak_memory_gb={peak:.3f}")
     prof_info = profile_steps(trainer, batches[:3], out_dir, "dense") if profile else None
@@ -667,7 +854,7 @@ def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool
 
 
 def phase_pack1(seed: int):
-    """Phase 6: the pack == 1 sparse route (E = 128, fields capped)."""
+    """Phase 7: the pack == 1 sparse route (E = 128, fields capped)."""
     import torch
 
     fns = kernels()
@@ -680,9 +867,8 @@ def phase_pack1(seed: int):
         f"{sum(field_sizes)} rows, pack {trainer.pipeline.inputs.schema['emb_inputs'].pack}")
     counts, loss_vals, eps, host = timed_steps(trainer, batches, fns, "pack1")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("pack1", counts, {"widen_segment_sum": 0, "fused_rowwise_update": PACK1_STEPS,
-                                   "row_gather": PACK1_STEPS,
-                                   "segment_sum_wide": PACK1_STEPS})
+    check_counts("pack1", counts, expect(fused_rowwise_update=PACK1_STEPS,
+                                         row_gather=PACK1_STEPS, segment_sum_wide=PACK1_STEPS))
     del trainer, table
     release()
     return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
@@ -738,7 +924,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default=None, help="directory for the full JSON record")
     ap.add_argument("--profile", action="store_true",
-                    help="trace 3 sparse and 3 dense training steps with torch.profiler")
+                    help="trace 3 steps of each training route with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -774,14 +960,19 @@ def main(argv=None):
     evaluation = timed("eval", phase_eval, trainer, args.seed)
     del trainer
     release()
+    ondevice = timed("ondevice", phase_ondevice, args.seed, args.steps,
+                     train["examples_per_sec"], args.out, args.profile)
     dense = timed("dense", phase_dense, args.seed, args.steps, train["examples_per_sec"],
                   args.out, args.profile)
     pack1 = timed("pack1", phase_pack1, args.seed)
-    paths = {"train": train, "eval": evaluation, "dense": dense, "pack1": pack1}
+    paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1}
     # Each kernel's launches are those of the path that carries it: the
-    # sparse main path (phase 3), or the pack == 1 route for segment_sum_wide.
+    # sparse main path (phase 3), the pack == 1 route for segment_sum_wide,
+    # the fused on-device route for fused_sorted_dedup_update.
+    # unique_stored_gather is on no path of either package (0 everywhere).
     home = {"widen_segment_sum": "train", "fused_rowwise_update": "train",
-            "row_gather": "train", "segment_sum_wide": "pack1"}
+            "row_gather": "train", "segment_sum_wide": "pack1",
+            "unique_stored_gather": "train", "fused_sorted_dedup_update": "ondevice_fused"}
     kernel_lines = []
     for name in KERNEL_NAMES:
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}

@@ -1,6 +1,8 @@
-"""The port stands alone: importing it, and running its paths (sparse and
-dense training, evaluation, prediction), loads neither JAX (nor flax,
-optax) nor anything of the JAX package."""
+"""The port stands alone: importing it and ``chip_smoke.py``, and running
+its paths (sparse training on the presorted and the on-device route, on
+both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training, evaluation,
+prediction), loads neither JAX (nor flax, optax) nor anything of the JAX
+package."""
 
 import os
 import subprocess
@@ -9,9 +11,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import numpy as np
 import torecsys_tpu_torch as pkg
+import chip_smoke
 for info in pkgutil.walk_packages(pkg.__path__, prefix=pkg.__name__ + "."):
     importlib.import_module(info.name)
 from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, Trainer, ValueInput
@@ -24,6 +27,9 @@ batch = {"a": rng.integers(0, 50, 16), "b": rng.integers(0, 9, 16),
          "d": rng.normal(size=16).astype(np.float32),
          "label": (rng.uniform(size=16) < 0.5).astype(np.float32)}
 assert np.isfinite(float(Trainer(pipe).train_steps([batch, batch])[-1]))
+for fused in ("0", "1"):
+    os.environ["TORECSYS_TPU_FUSED_DEDUP"] = fused
+    assert np.isfinite(float(Trainer(pipe, presort=False).train_steps([batch, batch])[-1]))
 dense = Trainer(pipe.set_sparse_embeddings(False))
 assert np.isfinite(dense.fit([batch, batch], val_loader=[batch])["val_logloss"])
 assert dense.predict(batch).shape == (16, 1)

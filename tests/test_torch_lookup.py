@@ -1,7 +1,8 @@
 """The port's lookup kernels (plain versions, on the CPU) against the JAX
 package: ``row_gather`` against the Pallas gather in interpret mode and
 against ``packed_lookup``, its autograd backward against ``jax.grad``, and
-``segment_sum_wide`` against ``sorted_segment_sum_wide`` in interpret mode.
+``segment_sum_wide`` against ``sorted_segment_sum_wide`` in interpret mode;
+negative ids wrap as ``jnp.take`` wraps them, forward and backward.
 
 A gather is a copy, so the lookups must agree to the bit.  Segment sums
 are drawn on a 2^-10 grid, where every partial sum is exact in float32, so
@@ -70,6 +71,34 @@ def test_ids_past_the_table_give_nan_as_the_jax_lookup(pack):
     got = embedding.packed_lookup(torch.from_numpy(np.array(packed)), torch.from_numpy(ids), e)
     assert np.isnan(ref[3:]).all() and not np.isnan(ref[:3]).any()
     np.testing.assert_array_equal(got.numpy(), ref)  # NaN == NaN here
+
+
+@pytest.mark.parametrize("pack", [1, 8])
+def test_negative_ids_wrap_as_the_jax_lookup(pack):
+    """``jnp.take``'s rule, forward and table gradient: an id in
+    ``[-rows, 0)`` reads and scatters into row ``rows + id`` of the logical
+    view, an id outside ``[-rows, rows)`` gives NaN and adds nothing."""
+    rng = np.random.default_rng(12)
+    v, e = 20, 128 // pack
+    packed = jax_embedding.pack_table(jnp.asarray(rng.normal(size=(v, e)).astype(np.float32)),
+                                      pack)
+    rows = packed.shape[0] * pack  # the logical view: 24 rows at pack 8
+    ids = np.arange(-rows - 2, rows + 2)
+    cot = rng.normal(size=(ids.shape[0], e)).astype(np.float32)
+
+    ref = np.asarray(jax_embedding.packed_lookup(packed, jnp.asarray(ids), e))
+    ref_grad = np.asarray(jax.grad(
+        lambda t: jnp.sum(cot * jax_embedding.packed_lookup(t, jnp.asarray(ids), e)))(packed))
+    assert np.isnan(ref[[0, 1, -2, -1]]).all() and not np.isnan(ref[2:-2]).any()
+
+    t = torch.from_numpy(np.array(packed)).requires_grad_(True)
+    got = embedding.packed_lookup(t, torch.from_numpy(ids), e)
+    np.testing.assert_array_equal(got.detach().numpy(), ref)  # NaN == NaN here
+    got32 = KE.row_gather(t.detach().reshape(-1, e), torch.from_numpy(ids.astype(np.int32)))
+    np.testing.assert_array_equal(got32.numpy(), ref)
+    (got * torch.from_numpy(cot)).sum().backward()
+    assert np.isfinite(ref_grad).all()
+    np.testing.assert_allclose(t.grad.numpy(), ref_grad, rtol=0, atol=1e-6)
 
 
 def test_row_gather_backward_matches_jax_grad(monkeypatch):

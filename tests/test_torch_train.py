@@ -3,8 +3,8 @@ the JAX package's Trainer (sparse embeddings, host presort on), from the
 same carried-over initial weights, on ``make_synthetic_ctr`` batches.
 
 ``JaxRun``, ``_port`` and ``_assert_params_close`` also serve the dense
-route's and the evaluation's tests (``test_torch_dense``,
-``test_torch_eval``)."""
+route's, the on-device route's and the evaluation's tests
+(``test_torch_dense``, ``test_torch_ondevice``, ``test_torch_eval``)."""
 
 import jax
 import numpy as np
@@ -45,17 +45,18 @@ def _schema(mod, embed=E):
 
 class JaxRun:
     """The JAX Trainer's step, one batch at a time: the sparse step on
-    presorted batches, or the dense step (``sparse=False``)."""
+    presorted batches (on unsorted ones with ``presort=False``: the
+    on-device route), or the dense step (``sparse=False``)."""
 
-    def __init__(self, batches, sparse=True, embed=E):
+    def __init__(self, batches, sparse=True, embed=E, presort=True):
         pipe = (JaxPipeline().set_objective("ctr").set_inputs(_schema(jax_inputs, embed))
                 .set_model("DeepFM", deep_layer_sizes=TOWER)
                 .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=LR)
                 .set_sparse_embeddings(sparse).set_target_fields("label"))
-        self.t = JaxTrainer(pipe, presort=True, prefetch=0, seed=0)
+        self.t = JaxTrainer(pipe, presort=presort, prefetch=0, seed=0)
         self.t.init_state(batches[0])
         self.t._setup_presorter()
-        assert (self.t._presorter is not None) == sparse
+        assert (self.t._presorter is not None) == (sparse and presort)
         self.t._build_steps()
 
     def params(self):
@@ -73,12 +74,12 @@ class JaxRun:
         return float(logs["loss"])
 
 
-def _port(params_np, opt_state_np=None, sparse=True, embed=E):
+def _port(params_np, opt_state_np=None, sparse=True, embed=E, presort=None):
     pipe = (Pipeline(device="cpu").set_objective("ctr").set_inputs(_schema(None, embed))
             .set_model("DeepFM", deep_layer_sizes=TOWER)
             .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=LR)
             .set_sparse_embeddings(sparse).set_target_fields("label"))
-    trainer = Trainer(pipe)
+    trainer = Trainer(pipe, presort=presort)
     trainer.init_state()
     from_flax_params(pipe.sequential, params_np, opt_state_np, trainer.state)
     return trainer

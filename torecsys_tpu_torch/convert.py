@@ -13,8 +13,9 @@ With ``opt_state_np`` it also carries the optimizer state into a port
 :class:`~torecsys_tpu_torch.train.TrainState`: optax Adam's ``count``,
 ``mu`` and ``nu`` into the ``torch.optim.Adam`` (over the dense parameters
 on the sparse route, over every parameter on the dense route), and on the
-sparse route each table's ``RowAdam`` ``mv`` slot as it is, so that both
-sides take their next step from the same state.
+sparse route each table's row-wise slots as they are (``RowAdam``'s ``mv``,
+``RowAdagrad``'s ``v``; :func:`copy_row_slots`), so that both sides take
+their next step from the same state.
 
 Arrays come in as numpy (``jax.device_get`` of the JAX side); this module
 needs neither JAX nor the JAX package.
@@ -79,7 +80,8 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
         opt_state_np: optionally the JAX optimizer state as numpy: the
             hybrid layout ``{"dense": <optax Adam state, or the chain tuple
             starting with it: fields count, mu, nu keyed by flat "/" paths>,
-            "sparse": {"<flax table path>": {"mv": (R, 2, W)}}}`` of the
+            "sparse": {"<flax table path>": {"mv": (R, 2, W)}}}`` (or
+            ``{"v": (R, W)}``) of the
             sparse route, or the dense route's plain optax Adam state over
             every parameter, the tables included.
         state: the port's ``TrainState`` to receive ``opt_state_np``.
@@ -122,10 +124,24 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
                 "exp_avg_sq": _as_torch(path, nu[path], p),
             }
         for path, slots in (opt_state_np["sparse"].items() if hybrid else ()):
-            port_slots = state.opt_state["sparse"][torch_name(path)]
-            for k, v in slots.items():
-                port_slots[k].copy_(torch.tensor(np.asarray(v)))
+            copy_row_slots(slots, state.opt_state["sparse"][torch_name(path)])
         state.step.fill_(count)
 
 
-__all__ = ["flatten", "from_flax_params", "torch_name"]
+def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> None:
+    """Copy one table's row-wise optimizer slots from the JAX package (numpy;
+    ``{"mv": (R, 2, W)}`` of ``RowAdam``, ``{"v": (R, W)}`` of ``RowAdagrad``,
+    ``{}`` of ``RowSGD``) into the port's, in place; the names and shapes
+    must match."""
+    if set(slots_np) != set(port_slots):
+        raise KeyError(f"row slots {sorted(slots_np)} do not match {sorted(port_slots)}")
+    with torch.no_grad():
+        for k, v in slots_np.items():
+            arr = np.asarray(v)
+            if arr.shape != tuple(port_slots[k].shape):
+                raise ValueError(f"row slot {k!r}: shape {arr.shape} does not fit "
+                                 f"{tuple(port_slots[k].shape)}")
+            port_slots[k].copy_(torch.tensor(arr))
+
+
+__all__ = ["copy_row_slots", "flatten", "from_flax_params", "torch_name"]

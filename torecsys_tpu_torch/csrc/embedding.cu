@@ -1,23 +1,26 @@
-// Hopper kernel of the embedding lookup: the row gather.
+// Hopper kernels of the embedding lookup: the row gather and the compact
+// gather of unique stored rows.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes by torecsys_tpu_torch/ops/kernels/embedding.py, which also
-// holds the plain PyTorch version.  The entry point launches on the stream it
-// is given, allocates nothing (the Python wrapper allocates the output) and
-// returns cudaGetLastError().
+// holds the plain PyTorch versions.  Each entry point launches on the stream
+// it is given, allocates nothing (the Python wrapper allocates the output)
+// and returns cudaGetLastError().
 //
 // ---------------------------------------------------------------------------
 // trs_row_gather replaces torecsys_tpu/ops/pallas/embedding.py
 // _gather_kernel / row_gather / _row_gather_impl.
 //
-//   out[i, :] = src[idx[i], :]   where 0 <= idx[i] < rows,
-//   out[i, :] = NaN              otherwise, and nothing is read,
+//   out[i, :] = src[idx[i], :]          where 0 <= idx[i] < rows,
+//   out[i, :] = src[rows + idx[i], :]   where -rows <= idx[i] < 0,
+//   out[i, :] = NaN                     otherwise, and nothing is read,
 //
 // for any contiguous (rows, width) float32 src.  Given the (R, W) stored
 // table it is the TPU kernel's contract; given the (Vp*P, E) logical view of
 // the packed table it is packed_lookup itself: the stored-row fetch and the
-// in-row slot select in one pass.  An id outside the table gives NaN, as the
-// JAX lookup's jnp.take fill mode does, with no device-to-host check.
+// in-row slot select in one pass.  Ids wrap as the JAX lookup's jnp.take
+// does: a negative id counts from the end, once, and an id outside
+// [-rows, rows) gives NaN (its fill mode), with no device-to-host check.
 //
 // Bound on this card: bytes.  Per id it reads the id and width*4 bytes of
 // the table and writes width*4 bytes; it does no arithmetic.  The TPU kernel
@@ -36,6 +39,24 @@
 // embedding module makes) or int32, with no conversion pass.  A width that
 // is not a multiple of 4, or a pointer not 16-byte aligned, takes the same
 // kernel with 4-byte vectors.
+// ---------------------------------------------------------------------------
+// trs_unique_stored_gather replaces torecsys_tpu/ops/pallas/embedding.py
+// _unique_gather_kernel / unique_stored_gather.
+//
+//   out[i, :] = table[uids[i] / P, :]   where 0 <= uids[i] < Vp*P,
+//
+// for ascending unique logical ids uids padded with a sentinel >= Vp*P; the
+// row of a sentinel (or of any id outside the table) is not written, as the
+// JAX kernel leaves the rows past its valid prefix unspecified.
+//
+// Bound on this card: bytes.  It reads the valid ids and each distinct
+// stored row once and writes one W-wide stored row per valid id; no
+// arithmetic.  The TPU kernel bounds a dynamic grid by the valid count and
+// keeps many row DMAs in flight with grouped semaphore waits; here the grid
+// covers all M ids (a thread of the sentinel tail reads its id and leaves,
+// so no count is read back) and the rows in flight are the threads in
+// flight.  One thread per 16-byte vector, so one warp per id at W = 128:
+// each stored row is read as whole 128-byte lines and written coalesced.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -61,6 +82,7 @@ __global__ void row_gather_kernel(const Vec* __restrict__ src,
   int64_t i = t / vecs_per_row;
   int64_t j = t - i * vecs_per_row;
   int64_t r = (int64_t)idx[i];
+  if (r < 0) r += rows;
   Vec v;
   if (r >= 0 && r < rows) {
     v = src[r * vecs_per_row + j];
@@ -78,6 +100,32 @@ void launch(const float* src, const void* idx, float* out, int64_t num,
   row_gather_kernel<Vec, Index><<<(unsigned)blocks, kThreads, 0, st>>>(
       reinterpret_cast<const Vec*>(src), static_cast<const Index*>(idx),
       reinterpret_cast<Vec*>(out), num, rows, vecs_per_row);
+}
+
+template <typename Vec>
+__global__ void unique_stored_gather_kernel(const Vec* __restrict__ table,
+                                            const int* __restrict__ uids,
+                                            Vec* __restrict__ out, int64_t num,
+                                            int64_t num_logical, int pack,
+                                            int vecs_per_row) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= num * vecs_per_row) return;
+  int64_t i = t / vecs_per_row;
+  int64_t j = t - i * vecs_per_row;
+  int64_t id = (int64_t)uids[i];
+  if (id < 0 || id >= num_logical) return;  // sentinel tail: nothing written
+  out[t] = table[(id / pack) * vecs_per_row + j];
+}
+
+template <typename Vec>
+void launch_unique(const float* table, const int* uids, float* out,
+                   int64_t num, int64_t num_logical, int pack,
+                   int vecs_per_row, cudaStream_t st) {
+  int64_t total = num * vecs_per_row;
+  int64_t blocks = (total + kThreads - 1) / kThreads;
+  unique_stored_gather_kernel<Vec><<<(unsigned)blocks, kThreads, 0, st>>>(
+      reinterpret_cast<const Vec*>(table), uids, reinterpret_cast<Vec*>(out),
+      num, num_logical, pack, vecs_per_row);
 }
 
 }  // namespace
@@ -101,6 +149,19 @@ int trs_row_gather(const float* src, const void* idx, int idx_bytes,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// table (Vp, width) float32 with width = P*E, uids (num,) int32 logical ids,
+// out (num, width) float32; num_logical = Vp*P.
+int trs_unique_stored_gather(const float* table, const int* uids, float* out,
+                             int64_t num, int64_t num_logical, int pack,
+                             int width, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec4) launch_unique<float4>(table, uids, out, num, num_logical, pack, width / 4, st);
+  else launch_unique<float>(table, uids, out, num, num_logical, pack, width, st);
   return (int)cudaGetLastError();
 }
 

@@ -73,9 +73,45 @@
 // 7*W floats for adam; about ten operations per element.  Rows are random
 // but each is W*4 = 512 contiguous bytes (the packed layout), so one warp per
 // row with 16-byte loads reads whole 128-byte lines.  uids are unique, so
-// no two warps touch one row and no atomics are needed.  The grid is sized
-// on the host from n_valid (the presort's unique count), so no thread is
-// spent on the sentinel tail and nothing is read back from the device.
+// no two warps touch one row and no atomics are needed.  The valid count
+// comes one of two ways, and neither is read back from the device:
+//   - a host int (the presorted route: the presort's unique count), which
+//     sizes the grid, so no thread is spent on the sentinel tail;
+//   - a device int (the on-device route: seg[M-1] + 1 of the combine); the
+//     grid then covers all n_rows = M uids and a warp at or past *n_valid
+//     exits before it reads anything else.
+// ---------------------------------------------------------------------------
+// trs_fused_sorted_dedup_update replaces
+// torecsys_tpu/ops/pallas/sparse_update.py _make_dedup_kernel /
+// _fused_sorted_update / fused_sorted_dedup_update.
+//
+// In one pass over an ascending stream of logical ids (M,) and their narrow
+// grads (M, E): group the ids by stored row u = floor(id / P), sum each
+// group's grads widened into their in-row slots (id - u*P), and apply the
+// row-wise rule to stored row u of the table and its slots, in place.  A
+// group whose stored row lies outside [0, R) (a sentinel tail >= R*P, or
+// any id outside the table) is skipped.
+//
+// Bound on this card: bytes.  It reads the ids and narrow grads once and
+// reads and writes each touched stored row and its slots once; the float
+// work is far below the card's rate.  Three pieces of the TPU kernel exist
+// only because TPU grid steps run in order on one core: the carry row of a
+// group that crosses a tile, the one-hot matrix-unit combine of a tile, and
+// the DMA-semaphore read-modify-write of the finished rows.  None has a place
+// here.  Each warp owns 32 consecutive positions; a lane whose position
+// starts a group is a head (ballot).  For each head in turn the whole warp
+//   1. finds the group's end, 32 ids per step (ballot of the first id whose
+//      stored row differs);
+//   2. sums the group in position order: each lane holds W/32 columns (one
+//      16-byte vector at W = 128) and adds g[p, c % E] where the slot of
+//      position p is c / E;
+//   3. applies the rule to that stored row and its slots and writes them
+//      back once.
+// Stored rows are unique per group, so there are no atomics; the walk is in
+// position order, so the result is deterministic and equals the in-order
+// sum of the plain version bit for bit where the sums are exact.  One warp
+// walks a Zipf-long group alone (thousands of positions at the bench batch),
+// which holds the kernel's tail, as it does for trs_widen_segment_sum.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -193,10 +229,13 @@ __global__ void rowwise_update_kernel(const int* __restrict__ uids,
                                       float* __restrict__ table,
                                       float* __restrict__ slot,
                                       const float* __restrict__ hyper,
-                                      int n_valid, int rows, int w) {
+                                      int n_rows,
+                                      const int* __restrict__ n_valid,
+                                      int rows, int w) {
   int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   int lane = threadIdx.x & 31;
-  if (row >= n_valid) return;
+  if (row >= n_rows) return;
+  if (n_valid != nullptr && row >= *n_valid) return;
   int u = uids[row];
   if (u < 0 || u >= rows) return;  // sentinel: never a stored row
   Hyper h{hyper[0], hyper[1], hyper[2], hyper[3],
@@ -223,6 +262,124 @@ __global__ void rowwise_update_kernel(const int* __restrict__ uids,
     t4[j] = r;
     if (RULE == kAdam) m4[j] = m;
     if (RULE != kSgd) v4[j] = v;
+  }
+}
+
+template <int RULE>
+__device__ __forceinline__ void update_vec(float& r, float& m, float& v,
+                                           const float& g, const Hyper& h) {
+  update_one<RULE>(r, &m, &v, g, h);
+}
+
+template <int RULE>
+__device__ __forceinline__ void update_vec(float4& r, float4& m, float4& v,
+                                           const float4& g, const Hyper& h) {
+  update4<RULE>(r, m, v, g, h);
+}
+
+// floor(a / b) for b > 0 (C++ division truncates toward zero).
+__device__ __forceinline__ int floor_div(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// ids (M,) ascending logical ids; g (M, E) as Vec, e_vecs = E / lanes of
+// Vec; table (R, W) and slot as Vec, vecs_per_row = W / lanes of Vec.
+template <int RULE, typename Vec>
+__global__ void sorted_dedup_update_kernel(const int* __restrict__ ids,
+                                           const Vec* __restrict__ g,
+                                           Vec* __restrict__ table,
+                                           Vec* __restrict__ slot,
+                                           const float* __restrict__ hyper,
+                                           int m, int e_vecs, int pack,
+                                           int rows, int vecs_per_row) {
+  const unsigned kFull = 0xffffffffu;
+  int base = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32;
+  int lane = threadIdx.x & 31;
+  if (base >= m) return;  // the whole warp leaves together
+  int p = base + lane;
+  int hi = 0;
+  bool head = false;
+  if (p < m) {
+    hi = floor_div(ids[p], pack);
+    head = p == 0 || floor_div(ids[p - 1], pack) != hi;
+  }
+  unsigned heads = __ballot_sync(kFull, head);
+  if (heads == 0) return;
+  Hyper h{hyper[0], hyper[1], hyper[2], hyper[3],
+          hyper[4], hyper[5], hyper[6]};
+  while (heads != 0) {
+    int k = __ffs(heads) - 1;
+    heads &= heads - 1;
+    int u = __shfl_sync(kFull, hi, k);
+    if (u < 0 || u >= rows) continue;  // sentinel or outside the table
+    int begin = base + k;
+    int end = -1;
+    for (int q0 = begin + 1; end < 0; q0 += 32) {
+      int q = q0 + lane;
+      bool stop = q >= m || floor_div(ids[q], pack) != u;
+      unsigned b = __ballot_sync(kFull, stop);
+      if (b != 0) end = q0 + __ffs(b) - 1;
+    }
+    int first_id = u * pack;
+    Vec* t = table + (int64_t)u * vecs_per_row;
+    Vec* mp = nullptr;
+    Vec* vp = nullptr;
+    if (RULE == kAdam) {
+      mp = slot + (int64_t)u * 2 * vecs_per_row;
+      vp = mp + vecs_per_row;
+    } else if (RULE == kAdagrad) {
+      vp = slot + (int64_t)u * vecs_per_row;
+    }
+    for (int j = lane; j < vecs_per_row; j += 32) {
+      int in_row = j / e_vecs;  // the in-row slot this vector belongs to
+      int col = j - in_row * e_vecs;
+      Vec acc;
+      zero(acc);
+      for (int i = begin; i < end; ++i) {
+        if (ids[i] - first_id == in_row) add_to(acc, g[(int64_t)i * e_vecs + col]);
+      }
+      Vec r = t[j];
+      Vec mv;
+      Vec vv;
+      zero(mv);
+      zero(vv);
+      if (RULE == kAdam) mv = mp[j];
+      if (RULE != kSgd) vv = vp[j];
+      update_vec<RULE>(r, mv, vv, acc, h);
+      t[j] = r;
+      if (RULE == kAdam) mp[j] = mv;
+      if (RULE != kSgd) vp[j] = vv;
+    }
+  }
+}
+
+template <int RULE, typename Vec>
+void launch_dedup(const int* ids, const float* g, float* table, float* slot,
+                  const float* hyper, int m, int e, int pack, int rows,
+                  cudaStream_t st) {
+  constexpr int kLanes = sizeof(Vec) / sizeof(float);
+  int warps = (m + 31) / 32;
+  int blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  sorted_dedup_update_kernel<RULE, Vec><<<blocks, kThreads, 0, st>>>(
+      ids, reinterpret_cast<const Vec*>(g), reinterpret_cast<Vec*>(table),
+      reinterpret_cast<Vec*>(slot), hyper, m, e / kLanes, pack, rows,
+      e * pack / kLanes);
+}
+
+template <int RULE>
+void launch_dedup_rule(const int* ids, const float* g, float* table,
+                       float* slot, const float* hyper, int m, int e, int pack,
+                       int rows, cudaStream_t st) {
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  bool vec4 = e % 4 == 0 && aligned(g) && aligned(table) &&
+              (slot == nullptr || aligned(slot));
+  if (vec4) {
+    launch_dedup<RULE, float4>(ids, g, table, slot, hyper, m, e, pack, rows, st);
+  } else {
+    launch_dedup<RULE, float>(ids, g, table, slot, hyper, m, e, pack, rows, st);
   }
 }
 
@@ -267,22 +424,43 @@ int trs_segment_sum_wide(const float* wide, const int* seg, int* start,
   return (int)cudaGetLastError();
 }
 
-// uids (>= n_valid,), gsum (>= n_valid, W), table (R, W), slot per rule (or
-// null for sgd), hyper (7,) on the device; W % 4 == 0.
+// uids (>= n_rows,), gsum (>= n_rows, W), table (R, W), slot per rule (or
+// null for sgd), hyper (7,) on the device; W % 4 == 0.  n_rows sizes the
+// grid; n_valid, a device int or null, bounds the valid uids further.
 int trs_fused_rowwise_update(const int* uids, const float* gsum, float* table,
                              float* slot, const float* hyper, int rule,
-                             int n_valid, int rows, int w, void* stream) {
+                             int n_rows, const int* n_valid, int rows, int w,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int blocks = (n_valid + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (rule == kAdam) {
     rowwise_update_kernel<kAdam><<<blocks, kThreads, 0, st>>>(
-        uids, gsum, table, slot, hyper, n_valid, rows, w);
+        uids, gsum, table, slot, hyper, n_rows, n_valid, rows, w);
   } else if (rule == kAdagrad) {
     rowwise_update_kernel<kAdagrad><<<blocks, kThreads, 0, st>>>(
-        uids, gsum, table, slot, hyper, n_valid, rows, w);
+        uids, gsum, table, slot, hyper, n_rows, n_valid, rows, w);
   } else if (rule == kSgd) {
     rowwise_update_kernel<kSgd><<<blocks, kThreads, 0, st>>>(
-        uids, gsum, table, slot, hyper, n_valid, rows, w);
+        uids, gsum, table, slot, hyper, n_rows, n_valid, rows, w);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ids (M,) ascending logical ids, g (M, E), table (R, E*pack), slot per rule
+// (or null for sgd), hyper (7,) on the device; R*pack < 2^31.
+int trs_fused_sorted_dedup_update(const int* ids, const float* g, float* table,
+                                  float* slot, const float* hyper, int rule,
+                                  int m, int e, int pack, int rows,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rule == kAdam) {
+    launch_dedup_rule<kAdam>(ids, g, table, slot, hyper, m, e, pack, rows, st);
+  } else if (rule == kAdagrad) {
+    launch_dedup_rule<kAdagrad>(ids, g, table, slot, hyper, m, e, pack, rows, st);
+  } else if (rule == kSgd) {
+    launch_dedup_rule<kSgd>(ids, g, table, slot, hyper, m, e, pack, rows, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

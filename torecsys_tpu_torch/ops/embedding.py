@@ -62,8 +62,11 @@ class _RowGather(torch.autograd.Function):
     ``(Vp*P, E)`` view, as the JAX backward is XLA's ``.at[rows].add`` and
     no kernel.  On the card ``index_add_`` sums duplicate ids with atomics,
     in an order that changes from run to run, so the table gradient is not
-    bit-reproducible there.  An id outside the table adds nothing, as
-    ``.at[].add`` drops it (its forward row is NaN).
+    bit-reproducible there.  Ids wrap as in the forward
+    (:func:`~torecsys_tpu_torch.ops.kernels.embedding.wrap_ids`): a negative
+    id in ``[-rows, 0)`` adds into row ``rows + id``, and an id outside
+    ``[-rows, rows)`` adds nothing, as ``.at[].add`` drops it (its forward
+    row is NaN).
     """
 
     @staticmethod
@@ -77,10 +80,9 @@ class _RowGather(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         rows = ctx.table_shape.numel() // grad.shape[1]
         # index_add_ asserts on the card for an index outside the table.
-        valid = (ids >= 0) & (ids < rows)
+        row, valid = _kernels.wrap_ids(ids, rows)
         grad = grad.masked_fill(~valid[:, None], 0.0)
-        d_table = grad.new_zeros(rows, grad.shape[1]).index_add_(
-            0, torch.where(valid, ids, torch.zeros_like(ids)), grad)
+        d_table = grad.new_zeros(rows, grad.shape[1]).index_add_(0, row, grad)
         return d_table.reshape(ctx.table_shape), None, None
 
 

@@ -1,15 +1,14 @@
 """Sparse embedding update kernels: segment-sums and row-wise update.
 
-Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Three kernels,
+Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Four kernels,
 written in CUDA C++ for Hopper in ``csrc/sparse_update.cu`` (its header says
 what bounds each on the card and how the design answers it):
 
 * :func:`widen_segment_sum` replaces ``sorted_widen_segment_sum``;
 * :func:`segment_sum_wide` replaces ``sorted_segment_sum_wide``;
-* :func:`fused_rowwise_update` replaces ``fused_rowwise_update``.
-
-``fused_sorted_dedup_update``, which belongs to the on-device (not
-presorted) route, is not ported yet.
+* :func:`fused_rowwise_update` replaces ``fused_rowwise_update``;
+* :func:`fused_sorted_dedup_update` replaces ``fused_sorted_dedup_update``,
+  the on-device route's dedup, segment sum and update in one pass.
 
 Each wrapper takes the plain PyTorch version (``*_plain``) for tensors on the
 CPU, launches its kernel for tensors on the card, and raises on anything
@@ -20,7 +19,7 @@ wrapper counts its kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,8 +35,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trs_widen_segment_sum.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.trs_widen_segment_sum.restype = i
-        lib.trs_fused_rowwise_update.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.trs_fused_rowwise_update.argtypes = [p, p, p, p, p, i, i, p, i, i, p]
         lib.trs_fused_rowwise_update.restype = i
+        lib.trs_fused_sorted_dedup_update.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.trs_fused_sorted_dedup_update.restype = i
         lib.trs_segment_sum_wide.argtypes = [p, p, p, p, i, i, p]
         lib.trs_segment_sum_wide.restype = i
         lib._trs_typed = True
@@ -147,11 +148,15 @@ segment_sum_wide.launches = 0
 
 def fused_rowwise_update_plain(uids: torch.Tensor, gsum: torch.Tensor,
                                table: torch.Tensor, slots: Sequence[torch.Tensor],
-                               hyper: torch.Tensor, rule: str, n_valid: int):
+                               hyper: torch.Tensor, rule: str, n_valid=None):
     """Plain version: gather the valid rows, apply the rule with the same
-    operation order as the kernel, and scatter them back in place."""
-    idx = uids[:n_valid].long()
-    g = gsum[:n_valid]
+    operation order as the kernel, and scatter them back in place.  Like
+    the kernel it skips a uid outside ``[0, R)``; a device ``n_valid`` is
+    read on the host."""
+    n = uids.shape[0] if n_valid is None else int(n_valid)
+    keep = (uids[:n] >= 0) & (uids[:n] < table.shape[0])
+    idx = uids[:n][keep].long()
+    g = gsum[:n][keep]
     row = table.index_select(0, idx)
     lr, b1, b2, eps, wd, bc1, bc2 = hyper.unbind(0)
     if rule == "adam":
@@ -183,7 +188,8 @@ def _slot_shapes(rule: str, rows: int, w: int) -> Tuple[Tuple[int, ...], ...]:
 
 def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
                          table: torch.Tensor, slots: Sequence[torch.Tensor],
-                         hyper: torch.Tensor, rule: str, n_valid: int):
+                         hyper: torch.Tensor, rule: str,
+                         n_valid: Optional[Union[int, torch.Tensor]] = None):
     """Apply a row-wise optimizer rule to the unique touched rows, IN PLACE.
 
     ``table`` and ``slots`` are updated where they lie (the port's tables and
@@ -200,7 +206,11 @@ def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
         hyper: ``(7,)`` float32 on the table's device: lr, b1, b2, eps,
             weight_decay, 1/(1-b1^t), 1/(1-b2^t).
         rule: 'adam' | 'adagrad' | 'sgd'.
-        n_valid: host int, the number of valid leading ``uids``.
+        n_valid: the number of valid leading ``uids``: a host int (it sizes
+            the grid), a 0-d int32 tensor on the table's device (the grid
+            covers all ``M`` uids and the kernel stops at ``*n_valid``;
+            nothing is read back), or None for all ``M``.  A uid outside
+            ``[0, R)`` is skipped in any case.
 
     Returns:
         ``(table, [slots...])``.
@@ -217,21 +227,30 @@ def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
     for s, shape in zip(slots, shapes):
         _k.require(tuple(s.shape) == shape and s.dtype == torch.float32,
                    f"slot must be {shape} float32, got {tuple(s.shape)} {s.dtype}")
-    n_valid = int(n_valid)
-    _k.require(0 <= n_valid <= m, f"n_valid={n_valid} outside [0, {m}]")
-    if _k.device_kind(uids, gsum, table, hyper, *slots) == "cpu":
+    on_device = isinstance(n_valid, torch.Tensor)
+    if on_device:
+        _k.require(n_valid.dim() == 0 and n_valid.dtype == torch.int32,
+                   f"a device n_valid must be a 0-d int32 tensor, got "
+                   f"{tuple(n_valid.shape)} {n_valid.dtype}")
+        n_rows = m
+    else:
+        n_rows = m if n_valid is None else int(n_valid)
+        _k.require(0 <= n_rows <= m, f"n_valid={n_rows} outside [0, {m}]")
+    counted = (n_valid,) if on_device else ()
+    if _k.device_kind(uids, gsum, table, hyper, *slots, *counted) == "cpu":
         return fused_rowwise_update_plain(uids, gsum, table, slots, hyper, rule, n_valid)
     _k.require(all(t.is_contiguous() for t in (uids, gsum, table, hyper, *slots)),
                "inputs must be contiguous")
     _k.require(w % 4 == 0, f"row width {w} must be a multiple of 4 (16-byte rows)")
     _k.require(all(t.data_ptr() % 16 == 0 for t in (gsum, table, *slots)),
                "table, gsum and slots must be 16-byte aligned")
-    if n_valid == 0:
+    if n_rows == 0:
         return table, list(slots)
     slot_ptr = _k.ptr(slots[0]) if slots else ctypes.c_void_p(0)
+    count_ptr = _k.ptr(n_valid) if on_device else ctypes.c_void_p(0)
     status = _lib().trs_fused_rowwise_update(
         _k.ptr(uids), _k.ptr(gsum), _k.ptr(table), slot_ptr, _k.ptr(hyper),
-        RULES[rule], n_valid, rows, w, _k.current_stream(table.device),
+        RULES[rule], n_rows, count_ptr, rows, w, _k.current_stream(table.device),
     )
     _k.check_status(status, "fused_rowwise_update")
     fused_rowwise_update.launches += 1
@@ -240,6 +259,84 @@ def fused_rowwise_update(uids: torch.Tensor, gsum: torch.Tensor,
 
 fused_rowwise_update.launches = 0
 
+
+# ---- fused dedup + segment sum + row-wise update ----------------------------
+
+def fused_sorted_dedup_update_plain(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
+                                    table: torch.Tensor, slots: Sequence[torch.Tensor],
+                                    hyper: torch.Tensor, pack: int, rule: str):
+    """Plain version: stored-row segments by prefix sum, their unique rows
+    by scatter, the widened sums (:func:`widen_segment_sum_plain`), then
+    :func:`fused_rowwise_update_plain` over the segments."""
+    m = sorted_ids.shape[0]
+    if m == 0:
+        return table, list(slots)
+    hi = sorted_ids // pack
+    first = torch.ones(m, dtype=torch.bool, device=hi.device)
+    first[1:] = hi[1:] != hi[:-1]
+    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    uids = torch.full_like(hi, table.shape[0]).scatter_(0, seg.long(), hi)
+    gsum = widen_segment_sum_plain(g_sorted, sorted_ids % pack, seg, pack)
+    return fused_rowwise_update_plain(uids, gsum, table, slots, hyper, rule, seg[-1] + 1)
+
+
+def fused_sorted_dedup_update(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
+                              table: torch.Tensor, slots: Sequence[torch.Tensor],
+                              hyper: torch.Tensor, pack: int, rule: str):
+    """Dedup, widen, segment-sum and apply a row-wise rule in one pass, IN
+    PLACE.
+
+    Args:
+        sorted_ids: ``(M,)`` int32 LOGICAL row ids, ascending (duplicates
+            allowed: this is the dedup).  A stored row ``id // pack`` outside
+            ``[0, R)``, such as a sentinel tail ``>= R * pack``, is skipped.
+        g_sorted: ``(M, E)`` float32 narrow per-slot grads in the same order.
+        table: ``(R, pack * E)`` float32 packed stored table.
+        slots: as for :func:`fused_rowwise_update`.
+        hyper: ``(7,)`` float32 on the table's device.
+        pack: logical rows per stored row ``P``.
+        rule: 'adam' | 'adagrad' | 'sgd'.
+
+    Returns:
+        ``(table, [slots...])``, updated where they lie.
+    """
+    _k.require(rule in RULES, f"rule must be one of {sorted(RULES)}, got {rule!r}")
+    _k.require(g_sorted.dim() == 2 and g_sorted.dtype == torch.float32,
+               "g_sorted must be (M, E) float32")
+    m, e = g_sorted.shape
+    _k.require(sorted_ids.shape == (m,) and sorted_ids.dtype == torch.int32,
+               "sorted_ids must be (M,) int32")
+    _k.require(pack >= 1, f"pack must be >= 1, got {pack}")
+    _k.require(table.dim() == 2 and table.dtype == torch.float32 and table.shape[1] == pack * e,
+               f"table must be (R, {pack * e}) float32, got {tuple(table.shape)} {table.dtype}")
+    rows, w = table.shape
+    _k.require(hyper.shape == (7,) and hyper.dtype == torch.float32, "hyper must be (7,) float32")
+    shapes = _slot_shapes(rule, rows, w)
+    _k.require(len(slots) == len(shapes), f"rule {rule!r} takes {len(shapes)} slot array(s)")
+    for s, shape in zip(slots, shapes):
+        _k.require(tuple(s.shape) == shape and s.dtype == torch.float32,
+                   f"slot must be {shape} float32, got {tuple(s.shape)} {s.dtype}")
+    if _k.device_kind(sorted_ids, g_sorted, table, hyper, *slots) == "cpu":
+        return fused_sorted_dedup_update_plain(sorted_ids, g_sorted, table, slots, hyper,
+                                               pack, rule)
+    _k.require(all(t.is_contiguous() for t in (sorted_ids, g_sorted, table, hyper, *slots)),
+               "inputs must be contiguous")
+    _k.require(rows * pack < 2**31 and m < 2**31 - 64, "table or stream too large for int32 ids")
+    if m == 0:
+        return table, list(slots)
+    slot_ptr = _k.ptr(slots[0]) if slots else ctypes.c_void_p(0)
+    status = _lib().trs_fused_sorted_dedup_update(
+        _k.ptr(sorted_ids), _k.ptr(g_sorted), _k.ptr(table), slot_ptr, _k.ptr(hyper),
+        RULES[rule], m, e, pack, rows, _k.current_stream(table.device),
+    )
+    _k.check_status(status, "fused_sorted_dedup_update")
+    fused_sorted_dedup_update.launches += 1
+    return table, list(slots)
+
+
+fused_sorted_dedup_update.launches = 0
+
 __all__ = ["fused_rowwise_update", "fused_rowwise_update_plain",
+           "fused_sorted_dedup_update", "fused_sorted_dedup_update_plain",
            "segment_sum_wide", "segment_sum_wide_plain",
            "widen_segment_sum", "widen_segment_sum_plain"]

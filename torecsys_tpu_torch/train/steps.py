@@ -7,8 +7,10 @@ The train step dispatches on the state's optimizer layout, chosen at
 * the sparse (hybrid) step: forward with the sparse-route embeddings,
   ``loss.backward()`` (which leaves the dense gradients on the parameters
   and the per-slot table gradients on each embedding's lookup leaf), the
-  dense Adam step, then ``RowAdam.update_from_host_aux`` per table, which
-  updates the touched rows in place through the kernels;
+  dense Adam step, then the row-wise update of each table's touched rows,
+  in place through the kernels: ``update_from_host_aux`` when the batch
+  carries presort aux (the trusted presorted route), else
+  ``sort_slot_grads`` and ``update_sorted`` (the on-device route);
 * the dense step: forward, ``loss.backward()`` (the table gradient is the
   scatter-add of the lookup's backward), and one Adam step over every
   parameter, the tables included.
@@ -22,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from torecsys_tpu_torch.ops.sparse import sort_slot_grads
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
@@ -77,19 +80,22 @@ def make_train_step(pipeline: Pipeline) -> Callable[[TrainState, Batch], Tuple[T
                 lookup = module.take_lookup()
                 if lookup is None:
                     raise RuntimeError(f"embedding {path!r} was not applied in the step")
-                if lookup.aux is None:
-                    raise NotImplementedError(
-                        "the on-device sparse route is not ported: presort the batch "
-                        "(data.presort.Presorter)"
-                    )
                 e = lookup.rows.shape[-1]
                 g = lookup.rows.grad
                 if g is None:
                     g = torch.zeros_like(lookup.rows)
-                row_tx.update_from_host_aux(
-                    module.embedding.detach(), state.opt_state["sparse"][path],
-                    g.reshape(-1, e), lookup.aux, state.step,
-                )
+                table, slots = module.embedding.detach(), state.opt_state["sparse"][path]
+                if lookup.aux is not None:
+                    row_tx.update_from_host_aux(table, slots, g.reshape(-1, e), lookup.aux,
+                                                state.step)
+                    continue
+                # A negative id in [-rows, 0) was read from row rows + id of
+                # the logical view (jnp.take's rule): its update goes there too.
+                ids, rows = lookup.ids, table.numel() // e
+                b = ids.shape[0]
+                ids = torch.where(ids < 0, ids + rows, ids)
+                sorted_ids, g_sorted = sort_slot_grads(ids.reshape(b, -1), g.reshape(b, -1, e))
+                row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step)
         return _account(state, loss)
 
     def train_step(state: TrainState, batch: Batch):

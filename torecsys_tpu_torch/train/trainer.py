@@ -1,19 +1,19 @@
 """Trainer: the fit / evaluate loop around the steps (counterpart of
 ``torecsys_tpu/train/trainer.py``).
 
-Per host batch: on the sparse route, presort the id streams on the host
-(``data.presort``); move the batch to the device (:meth:`Trainer._place_batch`);
-take the step.  The loop never waits on the device except where it reads
-the loss or a metric: the copies to the card are asynchronous from pinned
-memory, the step enqueues its kernels, and the presort of the next batch
-runs on the host meanwhile.
+Per host batch: on the sparse route with the presort on (the default),
+presort the id streams on the host (``data.presort``); move the batch to the
+device (:meth:`Trainer._place_batch`); take the step.  The loop never waits
+on the device except where it reads the loss or a metric: the copies to the
+card are asynchronous from pinned memory, the step enqueues its kernels, and
+the host prepares the next batch meanwhile.
 
 Evaluation (``ctr``) accumulates streaming AUC and logloss on the device and
 reads them once at the end.
 
 Not ported yet: the automatic dense/sparse choice (its thresholds were
-measured on a TPU), the on-device sort route, prefetch workers, ranking
-evaluation (``ltr``/``emb``), checkpoints and meshes.
+measured on a TPU), prefetch workers, ranking evaluation (``ltr``/``emb``),
+checkpoints and meshes.
 """
 
 from __future__ import annotations
@@ -49,17 +49,23 @@ class Trainer:
             loss on the host).
         seed: seed of the ``torch.Generator`` that :meth:`init_state` draws
             the parameters from.
-
-    On the sparse route every training batch is presorted on the host: the
-    port's sparse step takes only the presorted route.  The dense route
-    builds no presorter.
+        presort: host-side id-stream preprocessing (``data.presort``) on the
+            sparse route.  None (the default) and True presort every
+            training batch on the host, so the sparse step takes the trusted
+            presorted route (the port is single-device, where the JAX
+            package's automatic choice presorts too).  False builds no
+            presorter: the batch carries no aux and the sparse step sorts
+            and dedups on the card (the on-device route).  The dense route
+            builds no presorter either way.
     """
 
-    def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0):
+    def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0,
+                 presort: Optional[bool] = None):
         self.pipeline = pipeline.finalize()
         self.device = pipeline.device
         self.log_every = log_every
         self.seed = seed
+        self.presort = presort
         self.state: Optional[TrainState] = None
         self.history: List[Dict[str, float]] = []
         self._presorter: Optional[Presorter] = None
@@ -95,7 +101,7 @@ class Trainer:
         self.state = TrainState.create(seq, self.pipeline.optimizer, row_tx,
                                        set(modules) if sparse else None, self.device)
         self._presorter = (Presorter(build_presort_specs(self.pipeline.inputs))
-                           if sparse else None)
+                           if sparse and self.presort is not False else None)
         self._build_steps()
         return self.state
 
@@ -127,14 +133,15 @@ class Trainer:
             t0 = clock()
             if self._presorter is not None:
                 batch = self._presorter(batch)
+                self.host_ms["presort"] += (clock() - t0) * 1e3
             t1 = clock()
             placed = self._place_batch(batch)
             t2 = clock()
             self.state, logs = self._train_step_fn(self.state, placed)
             t3 = clock()
             losses.append(logs["loss"])
-            for name, dt in (("presort", t1 - t0), ("place", t2 - t1), ("step", t3 - t2)):
-                self.host_ms[name] += dt * 1e3
+            self.host_ms["place"] += (t2 - t1) * 1e3
+            self.host_ms["step"] += (t3 - t2) * 1e3
         return losses
 
     def _check_finite_loss(self, loss_sum: float, step: int) -> None:
