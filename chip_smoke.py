@@ -15,23 +15,29 @@ Phases (any failure raises and the exit code is not 0):
    batch 4096, E=16), presorted by the port's ``Presorter`` or sorted on
    the card.  Prints each kernel's time, its plain version's time, the time
    of one PyTorch call computing the same function where there is one, and
-   its bound.
+   its bound; each time is the device's own (the kernels' durations in a
+   torch.profiler window), with CUDA events around the same calls beside it.
+   Then sweeps both segment sums over skewed and tile-edge streams (the
+   bench stream, one segment, M distinct segments, segments on tile edges,
+   M = 1): grid grads bit-identical to the plain version, real-valued grads
+   within the float64 rounding bound, two launches bit-identical.
 3. Train the full-width DeepFM (tower 400-400-400, Adam 1e-3, sparse
    presorted embedding route) through the port's ``Trainer`` for ``--steps``
    steps; every kernel of the route must launch once per step.  Then take
-   3 more steps twice from one copied state, with the kernels and with their
-   plain versions, and compare.
+   3 more steps, each from the kernels' state both with the kernels and with
+   their plain versions, and compare.
 4. Evaluate the trained model on 8 held-out batches (``Trainer.evaluate``:
    one ``row_gather`` per batch) and predict one batch with the kernel and
    with its plain version: the scores must be bit-identical.
 5. Train the same model on the on-device sparse route
    (``Trainer(presort=False)``) on phase 3's batches, ``--steps`` steps on
    the default combine and ``--steps`` with ``TORECSYS_TPU_FUSED_DEDUP=1``;
-   then, from one copied state, 3 steps of each with the kernels and with
-   their plain versions and 3 on the presorted route, all compared.
+   then 3 steps, each from the default combine's state, of each variant
+   with the kernels and with their plain versions and of the presorted
+   route, all compared.
 6. Train the same model on the dense-table route (Adam over every
    parameter, the table included) for ``--steps`` steps, then compare 3
-   steps with the kernel and with its plain version from one copied state.
+   steps with the kernel and with its plain version, as in phase 3.
 7. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
    bench id streams, each field capped at 1,000,000 rows, for 5 steps.
 
@@ -64,7 +70,7 @@ FIELD_SIZES = tuple(
 )
 NUM_DENSE = 13
 TOWER = (400, 400, 400)
-# Phase 6: E=128 packs one logical row per stored row.  28 fields of 32.9M
+# Phase 7: E=128 packs one logical row per stored row.  28 fields of 32.9M
 # rows at E=128 would need 50 GB before the copied state, so each field is
 # capped at 1M rows (12,884,400 rows); the cap is the only cut.
 EMBED_WIDE = 128
@@ -117,9 +123,24 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+def device_events(prof):
+    """The kernels and copies the card ran in a torch.profiler window."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+
+
+def time_ms(fn, iters: int):
+    """(device ms, event ms) per call of ``fn``, each over ``iters`` calls
+    after 3 warm-up calls.  Device ms is the sum of the durations of the
+    kernels and copies the calls ran, from a torch.profiler window: the
+    card's own time.  Event ms is CUDA events around back-to-back calls: for
+    a kernel shorter than the host's work per call it measures the host's
+    call rate instead."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
@@ -131,7 +152,26 @@ def time_ms(fn, iters: int) -> float:
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    event_ms = start.elapsed_time(end) / iters
+    for _ in range(3):  # a window now and then comes back without its kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if len(events) >= iters:  # every call launches at least one kernel
+            busy_us = sum(e.time_range.end - e.time_range.start for e in events)
+            return busy_us / 1e3 / iters, event_ms
+    raise AssertionError(f"torch.profiler recorded {len(events)} kernels for {iters} calls")
+
+
+def times_text(label: str, t) -> str:
+    return f"{label}={t[0]:.4f} (events {t[1]:.4f})"
+
+
+def time_keys(prefix: str, t):
+    """A record's keys for a (device ms, event ms) pair."""
+    return {prefix: t[0], f"{prefix}_events": t[1]}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -273,6 +313,7 @@ def phase_kernels(batch, seed: int):
 
     # -- widened segment-sum, pack 8 (main path) and pack 1 --
     seg_err = 0.0
+    bench_streams = {}
     for pack in (8, 1):
         spec, aux = presorted_stream(batch, pack)
         order = torch.from_numpy(aux["order"]).to(dev)
@@ -290,34 +331,38 @@ def phase_kernels(batch, seed: int):
         if not err <= SEGSUM_ATOL:
             raise AssertionError(f"widen_segment_sum pack={pack} disagrees: {err}")
         seg_err = max(seg_err, err)
+        bench_streams[pack] = (lo, seg)
         if pack == 1:
             records["segment_sum_wide"] = check_segment_sum_wide(seg, n_unique, longest,
                                                                  gen, dev)
             continue
         w = pack * EMBED
-        kernel_ms = time_ms(lambda: K.widen_segment_sum(g_sorted, lo, seg, pack), 50)
-        plain_ms = time_ms(lambda: K.widen_segment_sum_plain(g_sorted, lo, seg, pack), 20)
+        kernel_t = time_ms(lambda: K.widen_segment_sum(g_sorted, lo, seg, pack), 50)
+        plain_t = time_ms(lambda: K.widen_segment_sum_plain(g_sorted, lo, seg, pack), 20)
         wide = torch.zeros(m, pack, EMBED, device=dev)
         wide[torch.arange(m, device=dev), lo.long()] = g_sorted
         wide = wide.reshape(m, w)
         seg64 = seg.long()
-        library_ms = time_ms(
+        library_t = time_ms(
             lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
         bound_ms, bound_by = bound(m * EMBED * 4 + 2 * m * 4 + m * w * 4, m * EMBED)
-        log(f"[segsum] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (torch.zeros(M,W).index_add_ on a pre-widened "
-            f"stream, a near-yardstick) bound_us={bound_ms * 1e3:.2f} ({bound_by}) "
-            f"n_unique={n_unique}")
+        log(f"[segsum] {times_text('kernel_ms', kernel_t)} {times_text('plain_ms', plain_t)} "
+            f"{times_text('library_ms', library_t)} (torch.zeros(M,W).index_add_ on a "
+            f"pre-widened stream, a near-yardstick) bound_us={bound_ms * 1e3:.2f} "
+            f"({bound_by}) n_unique={n_unique}")
         records["widen_segment_sum"] = dict(
             name="widen_segment_sum", route="cuda",
             source="torecsys_tpu_torch/csrc/sparse_update.cu",
             replaces="torecsys_tpu/ops/pallas/sparse_update.py:248",
-            max_abs_err=seg_err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            max_abs_err=seg_err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+            bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
         gsum, uids = got, torch.from_numpy(aux["uids"]).to(dev)
         n_valid = n_unique
         del wide, seg64
     records["widen_segment_sum"]["max_abs_err"] = seg_err
+    sweep = sweep_segment_sums(bench_streams, gen, dev)
+    for name, by_stream in sweep.items():
+        records[name]["sweep"] = by_stream
 
     # -- fused row-wise update, each rule, on a full-size table --
     rows, w = packed_shape(sum(FIELD_SIZES), EMBED)
@@ -345,23 +390,24 @@ def phase_kernels(batch, seed: int):
             raise AssertionError(f"fused_rowwise_update {rule} disagrees: {err}")
         upd_err = max(upd_err, err)
         if rule == "adam" and wd == 0.0:
-            kernel_ms = time_ms(
+            kernel_t = time_ms(
                 lambda: K.fused_rowwise_update(uids, gsum, tk, sk, hyper, rule, n_valid), 50)
-            plain_ms = time_ms(
+            plain_t = time_ms(
                 lambda: K.fused_rowwise_update_plain(uids, gsum, tp, sp, hyper, rule, n_valid),
                 20)
             # per touched row: read uid, gsum, table and m||v; write table and m||v
             n_bytes = n_valid * (4 + w * 4 + 2 * (w * 4 + 2 * w * 4))
             bound_ms, bound_by = bound(n_bytes, n_valid * w * 14)
-            log(f"[update] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            log(f"[update] {times_text('kernel_ms', kernel_t)} "
+                f"{times_text('plain_ms', plain_t)} "
                 f"library_ms=null (no single PyTorch call computes a row-wise Adam "
                 f"update) bound_us={bound_ms * 1e3:.2f} ({bound_by}) n_unique={n_valid}")
             records["fused_rowwise_update"] = dict(
                 name="fused_rowwise_update", route="cuda",
                 source="torecsys_tpu_torch/csrc/sparse_update.cu",
                 replaces="torecsys_tpu/ops/pallas/sparse_update.py:50",
-                ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del tk, sk, tp, sp, slots0
     records["fused_rowwise_update"]["max_abs_err"] = upd_err
     del touched, gsum
@@ -387,9 +433,9 @@ def phase_kernels(batch, seed: int):
         if not same:
             raise AssertionError(f"row_gather on the {label} is not bit-identical: {err}")
         num, width = idx.shape[0], src.shape[1]
-        kernel_ms = time_ms(lambda: KE.row_gather(src, idx), 200)
-        plain_ms = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
-        library_ms = time_ms(lambda: src.index_select(0, idx), 200)
+        kernel_t = time_ms(lambda: KE.row_gather(src, idx), 200)
+        plain_t = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
+        library_t = time_ms(lambda: src.index_select(0, idx), 200)
         # each id read once, each distinct row read once, each output row
         # written once
         distinct = torch.unique(idx).numel()
@@ -397,15 +443,16 @@ def phase_kernels(batch, seed: int):
             num * idx.element_size() + distinct * width * 4 + num * width * 4, 0)
         log(f"[gather] {label} {tuple(src.shape)} num={num} distinct={distinct} "
             f"width={width}: bit-identical "
-            f"to the plain version; kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (index_select on the same view, the port's "
+            f"to the plain version; {times_text('kernel_ms', kernel_t)} "
+            f"{times_text('plain_ms', plain_t)} "
+            f"{times_text('library_ms', library_t)} (index_select on the same view, the port's "
             f"lookup before) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
         if label == "logical view":
             records["row_gather"] = dict(
                 name="row_gather", route="cuda", source="torecsys_tpu_torch/csrc/embedding.cu",
                 replaces="torecsys_tpu/ops/pallas/embedding.py:40",
-                ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
     records["row_gather"]["max_abs_err"] = gather_err
     del table0, shifted
     torch.cuda.empty_cache()
@@ -467,9 +514,9 @@ def check_fused_dedup(shifted, table0, gen, dev):
             raise AssertionError(f"fused_sorted_dedup_update {rule} disagrees: {err}")
         err_all = max(err_all, err)
         if rule == "adam":
-            kernel_ms = time_ms(lambda: K.fused_sorted_dedup_update(
+            kernel_t = time_ms(lambda: K.fused_sorted_dedup_update(
                 sorted_ids, g_sorted, tk, sk, hyper, pack, rule), 50)
-            plain_ms = time_ms(lambda: K.fused_sorted_dedup_update_plain(
+            plain_t = time_ms(lambda: K.fused_sorted_dedup_update_plain(
                 sorted_ids, g_sorted, tp, sp, hyper, pack, rule), 20)
             # read the sorted ids and narrow grads once; read and write each
             # touched stored row and its m||v once; ~14 float operations per
@@ -478,14 +525,15 @@ def check_fused_dedup(shifted, table0, gen, dev):
                 m * 4 + m * EMBED * 4 + n_stored * 2 * (w * 4 + 2 * w * 4), n_stored * w * 14)
             longest = int(torch.unique_consecutive(sorted_ids // pack,
                                                    return_counts=True)[1].max())
-            log(f"[dedup] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+            log(f"[dedup] {times_text('kernel_ms', kernel_t)} "
+                f"{times_text('plain_ms', plain_t)} library_ms=null "
                 f"(no single PyTorch call dedups and updates) bound_us={bound_ms * 1e3:.3f} "
                 f"({bound_by}) longest stored-row group={longest}")
             record = dict(name="fused_sorted_dedup_update", route="cuda",
                           source="torecsys_tpu_torch/csrc/sparse_update.cu",
                           replaces="torecsys_tpu/ops/pallas/sparse_update.py:561",
-                          ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None)
+                          **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del tk, sk, tp, sp, slots0
     record["max_abs_err"] = err_all
     return record
@@ -512,22 +560,23 @@ def check_unique_gather(shifted, table0):
     err = (got[:n] - ref[:n]).abs().max().item()
     if not torch.equal(got[:n], ref[:n]):
         raise AssertionError(f"unique_stored_gather is not bit-identical: {err}")
-    kernel_ms = time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), 200)
-    plain_ms = time_ms(lambda: KE.unique_stored_gather_plain(table0, uids, EMBED), 100)
-    library_ms = time_ms(lambda: table0.index_select(0, uids[:n] // pack), 200)
+    kernel_t = time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), 200)
+    plain_t = time_ms(lambda: KE.unique_stored_gather_plain(table0, uids, EMBED), 100)
+    library_t = time_ms(lambda: table0.index_select(0, uids[:n] // pack), 200)
     n_stored = torch.unique(uniq // pack).numel()
     # read the valid ids and each distinct stored row once, write one stored
     # row per valid id
     bound_ms, bound_by = bound(n * 4 + n_stored * w * 4 + n * w * 4, 0)
     log(f"[unique-gather] M={m} valid ids={n} stored rows={n_stored} width={w}: valid prefix "
-        f"bit-identical to the plain version; kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (table.index_select(0, "
+        f"bit-identical to the plain version; {times_text('kernel_ms', kernel_t)} "
+        f"{times_text('plain_ms', plain_t)} {times_text('library_ms', library_t)} "
+        f"(table.index_select(0, "
         f"uids[:n] // P)) bound_us={bound_ms * 1e3:.3f} ({bound_by})")
     return dict(name="unique_stored_gather", route="cuda",
                 source="torecsys_tpu_torch/csrc/embedding.cu",
                 replaces="torecsys_tpu/ops/pallas/embedding.py:136",
-                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                max_abs_err=err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
 
 
 def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
@@ -546,19 +595,107 @@ def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
     if not torch.equal(got, ref):
         raise AssertionError(f"segment_sum_wide is not bit-identical: {err}")
     seg64 = seg.long()
-    kernel_ms = time_ms(lambda: K.segment_sum_wide(wide, seg), 50)
-    plain_ms = time_ms(lambda: K.segment_sum_wide_plain(wide, seg), 20)
-    library_ms = time_ms(lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
+    kernel_t = time_ms(lambda: K.segment_sum_wide(wide, seg), 50)
+    plain_t = time_ms(lambda: K.segment_sum_wide_plain(wide, seg), 20)
+    library_t = time_ms(lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
     bound_ms, bound_by = bound(m * w * 4 + m * 4 + m * w * 4, m * w)
     log(f"[segsum-wide] M={m} W={w} n_unique={n_unique} longest segment={longest}: "
-        f"bit-identical to the plain version; kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bit-identical to the plain version; {times_text('kernel_ms', kernel_t)} "
+        f"{times_text('plain_ms', plain_t)} {times_text('library_ms', library_t)} "
         f"(torch.zeros(M,W).index_add_) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
     return dict(name="segment_sum_wide", route="cuda",
                 source="torecsys_tpu_torch/csrc/sparse_update.cu",
                 replaces="torecsys_tpu/ops/pallas/sparse_update.py:389",
-                max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                max_abs_err=err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
+
+
+SWEEP_ITERS = 20
+
+
+def sweep_streams(bench_seg):
+    """The sweep's segment-id streams, int32 on the card, of the bench
+    stream's length M (``M = 1`` apart): the bench stream; one segment over
+    all M; M distinct segments; tile edges, where segments of T-1, T, T+1 and
+    2T+1 positions each start on a warp-tile edge (T = SEGSUM_TILE) and of
+    the same lengths in block tiles on a block-tile edge, fillers between;
+    and M = 1."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    m, dev = bench_seg.shape[0], bench_seg.device
+    t = K.SEGSUM_TILE
+    bt = t * K.SEGSUM_WARPS
+    edges = [t - 1, 1, t, t + 1, t - 1, 2 * t + 1, t - 1, t,
+             bt - 1, 1, bt, bt + 1, bt - 1, 2 * bt + 1, bt - 1, bt]
+    lens = np.tile(edges, -(-m // sum(edges)))
+    tiled = np.repeat(np.arange(lens.size), lens)[:m].astype(np.int32)
+    return {"bench": bench_seg,
+            "one segment": torch.zeros(m, dtype=torch.int32, device=dev),
+            "distinct": torch.arange(m, dtype=torch.int32, device=dev),
+            "tile edges": torch.from_numpy(tiled).to(dev),
+            "M=1": torch.zeros(1, dtype=torch.int32, device=dev)}
+
+
+def sweep_segment_sums(bench_streams, gen, dev):
+    """Both segment sums on every sweep stream (``widen_segment_sum`` at
+    P = 8, E = 16 on the bench's pack-8 stream, ``segment_sum_wide`` at
+    W = 128 on its pack-1 stream): grid grads bit-identical to the plain
+    version; real-valued grads within (L_s - 1) * 2^-24 * sum|g| of a float64
+    sum over each segment of L_s positions; two launches bit-identical.
+    Returns each kernel's time and longest segment per stream."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    pack = 8
+    results = {"widen_segment_sum": {}, "segment_sum_wide": {}}
+    for name, bench_pack in (("widen_segment_sum", 8), ("segment_sum_wide", 1)):
+        bench_lo, bench_seg = bench_streams[bench_pack]
+        for label, seg in sweep_streams(bench_seg).items():
+            m = seg.shape[0]
+            if name == "widen_segment_sum":
+                if label == "bench":
+                    lo = bench_lo
+                else:  # slots ascending inside each stored row, as ids sort
+                    ids = seg.long() * pack + torch.randint(0, pack, (m,), device=dev,
+                                                            generator=gen)
+                    lo = (torch.sort(ids).values % pack).to(torch.int32)
+                width = EMBED
+                kernel = lambda x: K.widen_segment_sum(x, lo, seg, pack)  # noqa: E731
+                plain = lambda x: K.widen_segment_sum_plain(x, lo, seg, pack)  # noqa: E731
+            else:
+                width = EMBED_WIDE
+                kernel = lambda x: K.segment_sum_wide(x, seg)  # noqa: E731
+                plain = lambda x: K.segment_sum_wide_plain(x, seg)  # noqa: E731
+            grid = grid_randn((m, width), gen, dev)
+            if not torch.equal(kernel(grid), plain(grid)):
+                raise AssertionError(f"{name} on the {label} stream: grid grads differ "
+                                     f"from the plain version")
+            real = torch.randn(m, width, device=dev, generator=gen)
+            got = kernel(real)
+            if not torch.equal(got, kernel(real)):
+                raise AssertionError(f"{name} on the {label} stream: two launches differ")
+            err = (got.double() - plain(real.double())).abs()
+            lengths = torch.bincount(seg.long(), minlength=got.shape[0]).double()
+            limit = (lengths - 1).clamp(min=0)[:, None] * 2.0**-24 * plain(real.abs().double())
+            if not bool((err <= limit).all()):
+                raise AssertionError(f"{name} on the {label} stream: real-valued grads "
+                                     f"outside the float64 bound")
+            share = float((err / limit.clamp(min=1e-300)).max())
+            longest = int(lengths.max())
+            t = time_ms(lambda: kernel(real), SWEEP_ITERS)
+            log(f"[sweep] {name} {label}: M={m} longest segment={longest}; grid grads "
+                f"bit-identical, two launches bit-identical, real-valued max err "
+                f"{float(err.max()):.3g} = {share:.3g} of the float64 bound; "
+                f"{times_text('kernel_ms', t)}")
+            results[name][label] = {"M": m, "longest": longest, "err_share_of_bound": share,
+                                    **time_keys("ms", t)}
+        one, bench = results[name]["one segment"]["ms"], results[name]["bench"]["ms"]
+        log(f"[sweep] {name}: one segment over all M takes {one / bench:.3f}x the bench "
+            f"stream's device time")
+    return results
 
 
 # ---- phases 3-7: the trainer's paths ----------------------------------------
@@ -658,29 +795,48 @@ def timed_steps(trainer, batches, fns, path: str):
 
 
 def compare_with_plain(trainer, batches, fns, path: str, rows_of, loss_rtol, rows_atol):
-    """Take ``batches`` from one copied state with the kernels and with their
-    plain versions; compare the losses and the table rows ``rows_of``."""
+    """Take ``batches`` one step at a time along the kernels' trajectory: from
+    the kernels' state before each step, one step with the kernels and one
+    with their plain versions; compare the step's loss and the table rows
+    ``rows_of`` after it.
+
+    Two runs left to go on alone for several steps are not held: any change
+    in the order of a float sum (atomics, tiles) moves the tables by ~1e-9 in
+    the first step, and a ReLU whose input lies that close to 0 then flips
+    in the next forward, which changes a cotangent by percents and the row it
+    updates by up to ~1e-5.  Their divergence is printed as a measurement."""
     import torch
 
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
-    snap = snapshot(trainer)
-    loss_k = torch.stack(trainer.train_steps(batches)).tolist()
+    start = snapshot(trainer)
+    loss_k, loss_p, row_err = [], [], 0.0
+    for batch in batches:
+        before = snapshot(trainer)
+        with plain_versions(fns):
+            loss_p += trainer.train_steps([batch])
+        rows_p = rows_of(table.detach())
+        restore(trainer, before)
+        del before
+        loss_k += trainer.train_steps([batch])
+        row_err = max(row_err, (rows_of(table.detach()) - rows_p).abs().max().item())
+    loss_k, loss_p = torch.stack(loss_k).tolist(), torch.stack(loss_p).tolist()
     rows_k = rows_of(table.detach())
-    restore(trainer, snap)
-    del snap
+    restore(trainer, start)
+    del start
     with plain_versions(fns):
-        loss_p = torch.stack(trainer.train_steps(batches)).tolist()
-    rows_p = rows_of(table.detach())
-    row_err = (rows_k - rows_p).abs().max().item()
+        trainer.train_steps(batches)
+    free_err = (rows_of(table.detach()) - rows_k).abs().max().item()
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p))
-    log(f"[{path}] kernels vs plain over {len(batches)} steps: losses {loss_k} vs {loss_p} "
-        f"(max rel diff {loss_rel:.3g}, rtol {loss_rtol}); {rows_k.shape[0]} table rows "
-        f"max_abs_err={row_err:.3g} (atol {rows_atol})")
+    log(f"[{path}] kernels vs plain, {len(batches)} steps each from the kernels' state: losses "
+        f"{loss_k} vs {loss_p} (max rel diff {loss_rel:.3g}, rtol {loss_rtol}); "
+        f"{rows_k.shape[0]} table rows max_abs_err={row_err:.3g} (atol {rows_atol}); "
+        f"left to run alone for {len(batches)} steps the two differ by {free_err:.3g} (not held)")
     if not loss_rel <= loss_rtol:
         raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
     if not row_err <= rows_atol:
         raise AssertionError(f"{path}: table rows with kernels and plain versions disagree")
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "row_max_abs_err": row_err}
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "row_max_abs_err": row_err,
+            "free_running_row_max_abs_err": free_err}
 
 
 def phase_train(seed: int, steps: int, out_dir, profile: bool):
@@ -768,7 +924,7 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
     """Phase 5: the on-device sparse route (no host presort), on the default
     combine and on the one-pass fused dedup, on phase 3's batches; then both
     variants with kernels and with plain versions, and the presorted route,
-    from one copied state."""
+    each step from the on-device kernels' state."""
     import torch
 
     from torecsys_tpu_torch.data.presort import Presorter, build_presort_specs
@@ -800,30 +956,54 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
     cmp_batches = batches[steps:]
     presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
     touched = touched_rows(cmp_batches, table.device)
-    snap = snapshot(trainer)
-    runs = {}
-    for label, flag, plain, presorted in (
-            ("on-device, kernels", "0", False, False), ("on-device, plain", "0", True, False),
-            ("fused, kernels", "1", False, False), ("fused, plain", "1", True, False),
-            ("presorted, kernels", "0", False, True)):
-        restore(trainer, snap)
-        feed = [presorter(b) for b in cmp_batches] if presorted else cmp_batches
+    # One step at a time along the reference's trajectory (compare_with_plain
+    # says why runs left to go on alone are not held); the reference runs
+    # last, so the trainer goes on from its state.
+    reference = "on-device, kernels"
+    variants = (("on-device, plain", "0", True, False), ("fused, kernels", "1", False, False),
+                ("fused, plain", "1", True, False), ("presorted, kernels", "0", False, True),
+                (reference, "0", False, False))
+
+    def step(flag, plain, presorted, feed):
+        feed = [presorter(b) for b in feed] if presorted else feed
         with fused_dedup(flag), (plain_versions(fns) if plain else contextlib.nullcontext()):
             losses = torch.stack(trainer.train_steps(feed)).tolist()
-        runs[label] = (losses, table.detach().index_select(0, touched))
-    del snap
-    loss_ref, rows_ref = runs["on-device, kernels"]
+        return losses, table.detach().index_select(0, touched)
+
+    start = snapshot(trainer)
+    runs = {label: ([], 0.0) for label, *_ in variants}
+    for batch in cmp_batches:
+        before = snapshot(trainer)
+        rows = {}
+        for label, *how in variants:
+            restore(trainer, before)
+            loss, rows[label] = step(*how, [batch])
+            runs[label][0].extend(loss)
+        del before
+        for label in runs:
+            err = (rows[label] - rows[reference]).abs().max().item()
+            runs[label] = (runs[label][0], max(runs[label][1], err))
+        del rows
+    free = {}
+    for label, *how in variants[::-1]:  # the reference first
+        restore(trainer, start)
+        free[label] = step(*how, cmp_batches)[1]
+    del start
+    loss_ref = runs[reference][0]
     compare = {}
-    for label, (losses, rows) in runs.items():
+    for label, (losses, row_err) in runs.items():
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, loss_ref))
-        row_err = (rows - rows_ref).abs().max().item()
-        log(f"[ondevice] {label} vs on-device, kernels over {COMPARE_STEPS} steps: losses "
-            f"{losses} (max rel diff {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); "
-            f"{rows.shape[0]} table rows max_abs_err={row_err:.3g} (atol {TRAIN_ROWS_ATOL})")
+        free_err = (free[label] - free[reference]).abs().max().item()
+        log(f"[ondevice] {label} vs {reference}, {COMPARE_STEPS} steps each from the "
+            f"reference's state: losses {losses} (max rel diff {loss_rel:.3g}, rtol "
+            f"{TRAIN_LOSS_RTOL}); {touched.numel()} table rows max_abs_err={row_err:.3g} "
+            f"(atol {TRAIN_ROWS_ATOL}); left to run alone the two differ by {free_err:.3g} "
+            f"(not held)")
         if not (loss_rel <= TRAIN_LOSS_RTOL and row_err <= TRAIN_ROWS_ATOL):
             raise AssertionError(f"ondevice: {label} disagrees with the on-device kernels")
         compare[label] = {"losses": losses, "loss_max_rel_diff": loss_rel,
-                          "row_max_abs_err": row_err}
+                          "row_max_abs_err": row_err, "free_running_row_max_abs_err": free_err}
+    del free
     del trainer, table, runs
     release()
     records["ondevice"]["compare"] = compare
@@ -853,7 +1033,7 @@ def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool
             "profile": prof_info}
 
 
-def phase_pack1(seed: int):
+def phase_pack1(seed: int, out_dir, profile: bool):
     """Phase 7: the pack == 1 sparse route (E = 128, fields capped)."""
     import torch
 
@@ -869,10 +1049,11 @@ def phase_pack1(seed: int):
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_counts("pack1", counts, expect(fused_rowwise_update=PACK1_STEPS,
                                          row_gather=PACK1_STEPS, segment_sum_wide=PACK1_STEPS))
+    prof_info = profile_steps(trainer, batches[:3], out_dir, "pack1") if profile else None
     del trainer, table
     release()
     return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
-            "peak_memory_gb": peak, "losses": loss_vals}
+            "peak_memory_gb": peak, "losses": loss_vals, "profile": prof_info}
 
 
 def profile_steps(trainer, batches, out_dir, path: str):
@@ -880,7 +1061,6 @@ def profile_steps(trainer, batches, out_dir, path: str):
     kernel, and the device's busy time as the union of its kernel and copy
     intervals."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -890,9 +1070,7 @@ def profile_steps(trainer, batches, out_dir, path: str):
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     n = len(batches)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    device = device_events(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -964,7 +1142,7 @@ def main(argv=None):
                      train["examples_per_sec"], args.out, args.profile)
     dense = timed("dense", phase_dense, args.seed, args.steps, train["examples_per_sec"],
                   args.out, args.profile)
-    pack1 = timed("pack1", phase_pack1, args.seed)
+    pack1 = timed("pack1", phase_pack1, args.seed, args.out, args.profile)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1}
     # Each kernel's launches are those of the path that carries it: the
     # sparse main path (phase 3), the pack == 1 route for segment_sum_wide,

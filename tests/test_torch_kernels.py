@@ -4,6 +4,12 @@ JAX package's Pallas kernels run in interpret mode, on the same inputs.
 Gradients are drawn on a 2^-10 grid, so every partial segment sum is exact
 in float32 and the comparison checks the widening and segmentation, not
 the order of summation.  Tolerance: atol 1e-6.
+
+The sweep streams (a Zipf-skewed stream, one segment, all distinct, segments
+laid on the CUDA kernels' tile edges, M = 1) fix the contract that
+``chip_smoke.py`` holds the card's segment sums to: grid grads bit-identical,
+real-valued grads within ``(L - 1) * 2^-24 * sum|g|`` of a float64 sum over a
+segment of L positions.
 """
 
 import jax.numpy as jnp
@@ -15,8 +21,11 @@ from torecsys_tpu.ops.pallas.sparse_update import TILE_P
 from torecsys_tpu.ops.pallas.sparse_update import fused_rowwise_update as jax_update
 from torecsys_tpu.ops.pallas.sparse_update import sorted_widen_segment_sum as jax_segsum
 from torecsys_tpu_torch.ops.kernels import sparse_update as K
+from torecsys_tpu_torch.ops.kernels.sparse_update import SEGSUM_TILE, SEGSUM_WARPS
 
 ATOL = 1e-6
+SWEEP_STREAMS = ["zipf", "one segment", "distinct", "tile edges", "M=1"]
+SWEEP_M = 9 * SEGSUM_TILE * SEGSUM_WARPS  # one period of the tile-edge stream
 
 
 def _grid_normal(rng, shape):
@@ -69,6 +78,66 @@ def test_widen_segment_sum_single_segment():
     m, e, pack = TILE_P, 16, 8
     ids = np.sort(rng.integers(0, pack, m)).astype(np.int32)
     _check_segsum(ids, _grid_normal(rng, (m, e)), pack)
+
+
+def sweep_segments(stream, rng, m=SWEEP_M):
+    """Segment ids (int32, nondecreasing, dense from 0) of a sweep stream.
+    "tile edges": segments of T-1, T, T+1 and 2T+1 positions each start on a
+    warp-tile edge (T = SEGSUM_TILE), and the same lengths in block tiles on
+    a block-tile edge, with fillers between, as ``chip_smoke.py`` lays them."""
+    if stream == "zipf":  # the bench's skew: Zipf(1.2) ids, capped at 100 rows
+        ids = np.sort(np.minimum(rng.zipf(1.2, m) - 1, 99))
+        return (np.cumsum(np.r_[True, ids[1:] != ids[:-1]]) - 1).astype(np.int32)
+    if stream == "one segment":
+        return np.zeros(m, np.int32)
+    if stream == "distinct":
+        return np.arange(m, dtype=np.int32)
+    if stream == "tile edges":
+        t, bt = SEGSUM_TILE, SEGSUM_TILE * SEGSUM_WARPS
+        edges = [t - 1, 1, t, t + 1, t - 1, 2 * t + 1, t - 1, t,
+                 bt - 1, 1, bt, bt + 1, bt - 1, 2 * bt + 1, bt - 1, bt]
+        lens = np.tile(edges, -(-m // sum(edges)))
+        return np.repeat(np.arange(lens.size), lens)[:m].astype(np.int32)
+    assert stream == "M=1"
+    return np.zeros(1, np.int32)
+
+
+def assert_within_float64_bound(got, ref64, abs64, seg):
+    """Each element within (L - 1) * 2^-24 * sum|g| of the float64 sum over
+    its segment of L positions (rows past the last segment: exactly 0)."""
+    lengths = np.bincount(seg, minlength=got.shape[0])
+    limit = np.maximum(lengths - 1, 0)[:, None] * 2.0**-24 * abs64
+    assert (np.abs(got.astype(np.float64) - ref64) <= limit).all()
+
+
+def _widen64(g, lo, seg, pack):
+    m, e = g.shape
+    wide = np.zeros((m, pack, e))
+    wide[np.arange(m), lo] = g
+    out = np.zeros((m, pack * e))
+    np.add.at(out, seg, wide.reshape(m, pack * e))
+    return out
+
+
+@pytest.mark.parametrize("pack", [1, 8])
+@pytest.mark.parametrize("stream", SWEEP_STREAMS)
+def test_widen_segment_sum_sweep_streams(stream, pack):
+    rng = np.random.default_rng(20 + pack)
+    seg = sweep_segments(stream, rng)
+    m, e = seg.shape[0], 16
+    # slots ascending inside each stored row, as sorted ids give them
+    lo = (np.sort(seg.astype(np.int64) * pack + rng.integers(0, pack, m)) % pack).astype(np.int32)
+    ids = seg.astype(np.int64) * pack + lo
+    _check_segsum(ids, _grid_normal(rng, (m, e)), pack)
+    g = rng.normal(size=(m, e)).astype(np.float32)
+    args = (torch.from_numpy(lo), torch.from_numpy(seg), pack)
+    got = K.widen_segment_sum(torch.from_numpy(g), *args).numpy()
+    assert np.array_equal(got, K.widen_segment_sum(torch.from_numpy(g), *args).numpy())
+    ref = np.asarray(jax_segsum(jnp.asarray(g), jnp.asarray(lo), jnp.asarray(seg), pack,
+                                interpret=True))
+    ref64, abs64 = _widen64(g, lo, seg, pack), _widen64(np.abs(g), lo, seg, pack)
+    assert_within_float64_bound(got, ref64, abs64, seg)
+    assert_within_float64_bound(ref, ref64, abs64, seg)
 
 
 def _update_case(rule, wd, seed):

@@ -7,7 +7,9 @@ negative ids wrap as ``jnp.take`` wraps them, forward and backward.
 A gather is a copy, so the lookups must agree to the bit.  Segment sums
 are drawn on a 2^-10 grid, where every partial sum is exact in float32, so
 they too must agree to the bit whatever the order of summation.  The
-gradient is a scatter-add of random cotangents: atol 1e-6.
+gradient is a scatter-add of random cotangents: atol 1e-6.  The segment
+sums' sweep streams (``test_torch_kernels.py``) also check real-valued rows
+against the float64 rounding bound.
 """
 
 import functools
@@ -25,6 +27,8 @@ from torecsys_tpu.ops.pallas.sparse_update import sorted_segment_sum_wide as jax
 from torecsys_tpu_torch.ops import embedding
 from torecsys_tpu_torch.ops.kernels import embedding as KE
 from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+from test_torch_kernels import SWEEP_STREAMS, assert_within_float64_bound, sweep_segments
 
 
 def _grid_normal(rng, shape):
@@ -169,6 +173,24 @@ def test_segment_sum_wide_random_segments_cross_tiles():
 
 def test_segment_sum_wide_single_segment():
     _check_segsum_wide(np.zeros(TILE_P + 300, np.int32), seed=4)
+
+
+@pytest.mark.parametrize("stream", SWEEP_STREAMS)
+def test_segment_sum_wide_sweep_streams(stream):
+    rng = np.random.default_rng(30)
+    seg = sweep_segments(stream, rng)
+    _check_segsum_wide(seg, seed=31)
+    wide = rng.normal(size=(seg.shape[0], 128)).astype(np.float32)
+    got = K.segment_sum_wide(torch.from_numpy(wide), torch.from_numpy(seg)).numpy()
+    assert np.array_equal(got, K.segment_sum_wide(torch.from_numpy(wide),
+                                                  torch.from_numpy(seg)).numpy())
+    n_seg = int(seg[-1]) + 1
+    ref = np.asarray(jax_segsum_wide(jnp.asarray(wide), jnp.asarray(seg), interpret=True))
+    ref64, abs64 = np.zeros(wide.shape), np.zeros(wide.shape)
+    np.add.at(ref64, seg, wide.astype(np.float64))
+    np.add.at(abs64, seg, np.abs(wide.astype(np.float64)))
+    assert_within_float64_bound(got, ref64, abs64, seg)
+    assert_within_float64_bound(ref[:n_seg], ref64[:n_seg], abs64[:n_seg], seg)
 
 
 def test_lookup_kernels_reject_bad_inputs():

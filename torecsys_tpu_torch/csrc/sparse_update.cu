@@ -11,53 +11,60 @@
 // its plain version does.
 //
 // ---------------------------------------------------------------------------
+// The two segment sums.
+//
 // trs_widen_segment_sum replaces torecsys_tpu/ops/pallas/sparse_update.py
-// _make_widen_segsum_kernel / sorted_widen_segment_sum.
+// _make_widen_segsum_kernel / sorted_widen_segment_sum:
 //
 //   out[s, lo*E + c] = sum of g[i, c] over positions i with seg[i] == s and
 //   lo[i] == lo, for s < n_seg = seg[M-1] + 1; rows s >= n_seg are zero.
 //
-// Bound on this card: bytes.  The function reads the (M, E) narrow stream
-// and two (M,) int streams and writes the (M, P*E) wide output, which is P
-// times larger than its input; it does M*E additions, nothing against the
-// card's rate.  The TPU kernel's sequential-grid carry and its one-hot matrix
-// products exist because TPU grid steps run in order on one core; blocks on
-// Hopper run in no order, so the design here needs neither:
-//   1. seg_starts: one thread per position writes start[seg[i]] = i where a
-//      segment begins, and start[n_seg] = M (a (M+1,) scratch the wrapper
-//      allocates).  Segment ids are dense (0..n_seg-1), as the presort makes
-//      them, so every start[s] for s <= n_seg is written.
-//   2. widen_segsum: one thread per output element (s, c).  Neighbouring
-//      threads hold neighbouring lanes of one output row, so the stores
-//      coalesce; each thread walks its segment in position order and adds
-//      g[i, c % E] where lo[i] == c / E.
-// No atomics: each output element is summed by one thread in position order,
-// so the result is deterministic and equals the in-order sum of the plain
-// version bit for bit.
+// trs_segment_sum_wide replaces _make_segsum_kernel / sorted_segment_sum_wide,
+// the pack == 1 case (E >= 128 after packing): the same sum with P = 1,
+// E = W and no slot test.
 //
-// ---------------------------------------------------------------------------
-// trs_segment_sum_wide replaces torecsys_tpu/ops/pallas/sparse_update.py
-// _make_segsum_kernel / sorted_segment_sum_wide, the pack == 1 case (E >= 128
-// after packing) of the segment-sum.
+// Bound on this card: bytes.  Each reads its (M, E) or (M, W) stream and the
+// (M,) int streams once and writes the (M, P*E) output once; rows n_seg..M-1
+// of the output are zeros, 77-88% of its bytes at the bench batch, so that
+// write is most of the bound.  The additions are nothing against the card's
+// rate.
 //
-//   out[s, c] = sum of wide[i, c] over positions i with seg[i] == s, for
-//   s < n_seg = seg[M-1] + 1; rows s >= n_seg are zero.
-//
-// Bound on this card: bytes.  The function reads the (M, W) stream and the
-// (M,) segment ids and writes the (M, W) output; M*W additions are nothing
-// against the card's rate.  The TPU kernel's carry row between grid steps,
-// its window DMA at a dynamic segment offset and its one-hot matrix products
-// all exist because TPU grid steps run in order on one core; none is needed
-// here:
-//   1. seg_starts, as above;
-//   2. segsum_wide: one warp per output row s.  Each lane owns W/32 columns
-//      (one 16-byte vector per lane at W = 128) and sums the segment's rows
-//      in position order, so a warp reads each row as whole 512-byte lines
-//      and writes its output row once.
-// No atomics: deterministic, and equal bit for bit to the in-order sum of the
-// plain version.  One warp walks a segment alone, so a Zipf-long segment
-// (thousands of positions at the bench batch) holds the kernel's tail, as it
-// does for trs_widen_segment_sum.
+// The TPU kernels carry a partial row from one grid step to the next because
+// TPU grid steps run in order on one core.  Blocks on Hopper run in no order,
+// and the segments are Zipf-skewed (thousands of positions in one stored row
+// at the bench batch), so a design that hands a segment to one worker waits
+// on the longest segment.  Here the work is cut by position, never by
+// segment, in two launches:
+//   1. segsum_tile_kernel.  A warp owns kSegTile consecutive positions (a
+//      warp tile), a block kSegWarps warp tiles (a block tile).  Lane j holds
+//      the output's vectors j, j+32, ... (one 16-byte vector at W = 128).
+//      The warp loads kBatch rows ahead, adds them in position order (the
+//      widening sum only where lo[i] is the lane's slot: four lanes read one
+//      64-byte narrow row at E = 16) and writes a row out where seg changes.
+//      A segment cut by a warp-tile edge leaves its partials in shared
+//      memory, and the block adds them in tile order: a segment that begins
+//      and ends in the block tile goes to out; the partial of the block
+//      tile's first segment, where that began in an earlier block tile, to
+//      cont[b]; that of its last segment, where that began in this block tile
+//      and runs past its end, to head[b].  A segment that neither begins nor
+//      ends in block tile b leaves cont[b] only.  The block also writes the
+//      zero rows r >= n_seg among its own positions' rows, with coalesced
+//      16-byte stores; no segment row lies there, so nothing races.
+//   2. segsum_fixup_kernel.  One block per block tile b.  Where b holds a head
+//      partial, the block finds the last block tile its segment s reaches
+//      (blockDim tile starts a step) and writes out[s] = head[b] + cont[b+1]
+//      + ..., each warp summing every kFixWarps-th partial and the sums
+//      added in warp order.
+// No atomics, no cooperative launch, nothing read back to the host: every
+// output row has one writer.  Each element is summed in an order that the
+// tiling alone fixes (position order in a warp tile, tile order above), so
+// every run gives the same bits, and no worker walks more than one warp tile
+// of positions or a 1/kFixWarps share of a segment's partials, so the time no
+// longer follows the longest segment.  The rounding differs from an in-order
+// sum only where a segment crosses a warp-tile edge; any order keeps a
+// segment of L positions within (L - 1) * 2^-24 * sum|g| of the exact sum, and
+// where every partial sum is exact (values on a coarse grid) the result is
+// the plain version's bit for bit.
 //
 // ---------------------------------------------------------------------------
 // trs_fused_rowwise_update replaces torecsys_tpu/ops/pallas/sparse_update.py
@@ -111,7 +118,8 @@
 // position order, so the result is deterministic and equals the in-order
 // sum of the plain version bit for bit where the sums are exact.  One warp
 // walks a Zipf-long group alone (thousands of positions at the bench batch),
-// which holds the kernel's tail, as it does for trs_widen_segment_sum.
+// which holds the kernel's tail; the segment sums' position tiles and fix-up
+// pass (above) are the scheme that removes it.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -124,37 +132,6 @@ constexpr int kWarpsPerBlock = kThreads / 32;
 
 enum Rule { kAdam = 0, kAdagrad = 1, kSgd = 2 };
 
-__global__ void seg_starts_kernel(const int* __restrict__ seg,
-                                  int* __restrict__ start, int m) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  int s = seg[i];
-  if (i == 0 || s != seg[i - 1]) start[s] = i;
-  if (i == m - 1) start[s + 1] = m;
-}
-
-__global__ void widen_segsum_kernel(const float* __restrict__ g,
-                                    const int* __restrict__ lo,
-                                    const int* __restrict__ seg,
-                                    const int* __restrict__ start,
-                                    float* __restrict__ out, int m, int e,
-                                    int w) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)m * w) return;
-  int s = (int)(t / w);
-  int c = (int)(t - (int64_t)s * w);
-  float acc = 0.0f;
-  if (s < seg[m - 1] + 1) {
-    int slot = c / e;
-    int col = c - slot * e;
-    int end = start[s + 1];
-    for (int i = start[s]; i < end; ++i) {
-      if (lo[i] == slot) acc += g[(int64_t)i * e + col];
-    }
-  }
-  out[t] = acc;
-}
-
 __device__ __forceinline__ void zero(float& v) { v = 0.0f; }
 __device__ __forceinline__ void zero(float4& v) { v = make_float4(0.f, 0.f, 0.f, 0.f); }
 __device__ __forceinline__ void add_to(float& acc, const float& x) { acc = acc + x; }
@@ -165,28 +142,206 @@ __device__ __forceinline__ void add_to(float4& acc, const float4& x) {
   acc.w = acc.w + x.w;
 }
 
-template <typename Vec>
-__global__ void segsum_wide_kernel(const Vec* __restrict__ wide,
-                                   const int* __restrict__ seg,
-                                   const int* __restrict__ start,
-                                   Vec* __restrict__ out, int m,
-                                   int vecs_per_row) {
-  int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+// The segment sums' tiling (SEGSUM_TILE and SEGSUM_WARPS in the Python
+// wrapper, which sizes the scratch from them and checks them on load).
+constexpr int kSegTile = 32;   // positions per warp tile: one per lane
+constexpr int kSegWarps = 8;   // warp tiles per block tile
+constexpr int kSegBlockTile = kSegTile * kSegWarps;
+constexpr int kBatch = 8;      // rows a warp loads before it adds them
+constexpr int kFixWarps = 16;  // warps of a fix-up block
+static_assert(kSegTile == 32, "a lane holds one position's seg and lo");
+static_assert(kSegTile % kBatch == 0, "whole batches per warp tile");
+
+// src (M, src_vecs) as Vec; lo (M,) or null when !WIDEN; seg (M,) dense and
+// nondecreasing; out (M, vecs_per_row); cont and head (n_block_tiles,
+// vecs_per_row).  Where WIDEN, the output vector j is column j % src_vecs of
+// in-row slot j / src_vecs.
+template <bool WIDEN, typename Vec>
+__global__ void __launch_bounds__(kSegWarps * 32)
+segsum_tile_kernel(const Vec* __restrict__ src, const int* __restrict__ lo,
+                   const int* __restrict__ seg, Vec* __restrict__ out,
+                   Vec* __restrict__ cont, Vec* __restrict__ head, int m,
+                   int src_vecs, int vecs_per_row) {
+  __shared__ Vec cont_w[kSegWarps][32];
+  __shared__ Vec head_w[kSegWarps][32];
+  __shared__ int last_w[kSegWarps];
+  __shared__ bool past_w[kSegWarps];
+  const unsigned kFull = 0xffffffffu;
+  int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
-  if (s >= m) return;
-  int begin = 0;
-  int end = 0;
-  if (s < seg[m - 1] + 1) {
-    begin = start[s];
-    end = start[s + 1];
+  int b = blockIdx.x;
+  int p0 = (b * kSegWarps + warp) * kSegTile;
+  int n = max(0, min(kSegTile, m - p0));  // this warp tile's positions
+  int n_seg = seg[m - 1] + 1;
+  int my_seg = lane < n ? seg[p0 + lane] : 0;
+  int my_lo = 0;
+  if constexpr (WIDEN) my_lo = lane < n ? lo[p0 + lane] : 0;
+  int first = __shfl_sync(kFull, my_seg, 0);
+  int last = __shfl_sync(kFull, my_seg, max(n, 1) - 1);
+  // before: the first segment began in an earlier tile; past: the last one
+  // runs past this tile's end.
+  bool before = n > 0 && p0 > 0 && seg[p0 - 1] == first;
+  bool past = n > 0 && p0 + n < m && seg[p0 + n] == last;
+  bool has_head = past && !(before && first == last);
+  if (lane == 0) {
+    last_w[warp] = last;
+    past_w[warp] = past;
   }
-  for (int j = lane; j < vecs_per_row; j += 32) {
+
+  Vec zero_vec;
+  zero(zero_vec);
+  for (int r = max(p0, n_seg); r < p0 + n; ++r) {
+    for (int j = lane; j < vecs_per_row; j += 32) out[(int64_t)r * vecs_per_row + j] = zero_vec;
+  }
+
+  for (int j0 = 0; j0 < vecs_per_row; j0 += 32) {
+    int j = j0 + lane;
+    bool col = j < vecs_per_row;
+    int slot = WIDEN ? j / src_vecs : 0;
+    int src_j = WIDEN ? j - slot * src_vecs : j;
+    auto flush = [&](int s, const Vec& a) {
+      if (!col) return;
+      if (s == first && before) {
+        cont_w[warp][lane] = a;
+      } else if (s == last && past) {
+        head_w[warp][lane] = a;
+      } else {
+        out[(int64_t)s * vecs_per_row + j] = a;
+      }
+    };
     Vec acc;
     zero(acc);
-    for (int i = begin; i < end; ++i) {
-      add_to(acc, wide[(int64_t)i * vecs_per_row + j]);
+    int cur = first;
+    for (int k0 = 0; k0 < n; k0 += kBatch) {
+      Vec v[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        int k = k0 + q;
+        int l = __shfl_sync(kFull, my_lo, k);
+        zero(v[q]);
+        if (col && k < n && (!WIDEN || l == slot)) {
+          v[q] = src[(int64_t)(p0 + k) * src_vecs + src_j];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        int k = k0 + q;
+        int s = __shfl_sync(kFull, my_seg, k);
+        if (k < n) {
+          if (s != cur) {
+            flush(cur, acc);
+            zero(acc);
+            cur = s;
+          }
+          add_to(acc, v[q]);
+        }
+      }
     }
-    out[(int64_t)s * vecs_per_row + j] = acc;
+    if (n > 0) flush(cur, acc);
+    __syncthreads();
+
+    if (col) {
+      if (has_head) {  // a segment that begins in this warp tile and runs on
+        Vec a = head_w[warp][lane];
+        int t = warp + 1;
+        for (; t < kSegWarps; ++t) {
+          add_to(a, cont_w[t][lane]);
+          if (!(past_w[t] && last_w[t] == last)) break;
+        }
+        if (t < kSegWarps) {
+          out[(int64_t)last * vecs_per_row + j] = a;
+        } else {
+          head[(int64_t)b * vecs_per_row + j] = a;
+        }
+      }
+      if (warp == 0 && before) {  // the block tile's first segment
+        Vec a = cont_w[0][lane];
+        for (int t = 0; t + 1 < kSegWarps && past_w[t] && last_w[t] == first;) {
+          ++t;
+          add_to(a, cont_w[t][lane]);
+        }
+        cont[(int64_t)b * vecs_per_row + j] = a;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One block per block tile b: finishes the segment whose head partial b
+// holds, from the cont partials of the block tiles it reaches.
+template <typename Vec>
+__global__ void __launch_bounds__(kFixWarps * 32)
+segsum_fixup_kernel(const int* __restrict__ seg, const Vec* __restrict__ cont,
+                    const Vec* __restrict__ head, Vec* __restrict__ out, int m,
+                    int vecs_per_row) {
+  __shared__ Vec part[kFixWarps][32];
+  int b = blockIdx.x;
+  int q0 = b * kSegBlockTile;
+  int q1 = min(q0 + kSegBlockTile, m) - 1;
+  int s = seg[q1];
+  bool pending = q1 + 1 < m && seg[q1 + 1] == s && (q0 == 0 || seg[q0 - 1] != s);
+  if (!pending) return;  // the same for the whole block
+  // Block tile k holds a partial of s iff its first position is in s; those
+  // k are b+1..u, a run, because seg is sorted.
+  int n_tiles = (m + kSegBlockTile - 1) / kSegBlockTile;
+  int u = b;
+  for (int base = b + 1;; base += blockDim.x) {
+    int k = base + threadIdx.x;
+    int hit = k < n_tiles && seg[(int64_t)k * kSegBlockTile] == s;
+    int count = __syncthreads_count(hit);
+    u = base + count - 1;
+    if (count < (int)blockDim.x) break;
+  }
+  int warp = threadIdx.x >> 5;
+  int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < vecs_per_row; j0 += 32) {
+    int j = j0 + lane;
+    bool col = j < vecs_per_row;
+    Vec a;
+    zero(a);
+    if (col) {
+#pragma unroll 4
+      for (int k = b + 1 + warp; k <= u; k += kFixWarps) {
+        add_to(a, cont[(int64_t)k * vecs_per_row + j]);
+      }
+    }
+    part[warp][lane] = a;
+    __syncthreads();
+    if (warp == 0 && col) {
+      Vec r = head[(int64_t)b * vecs_per_row + j];
+      for (int t = 0; t < kFixWarps; ++t) add_to(r, part[t][lane]);
+      out[(int64_t)s * vecs_per_row + j] = r;
+    }
+    __syncthreads();
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// src (M, src_width) floats; out (M, w); scratch (2 * n_block_tiles, w):
+// cont, then head.  Two launches on st.
+template <bool WIDEN, typename Vec>
+void launch_segsum(const float* src, const int* lo, const int* seg, float* scratch,
+                   float* out, int m, int src_width, int w, cudaStream_t st) {
+  constexpr int kLanes = sizeof(Vec) / sizeof(float);
+  int blocks = (m + kSegBlockTile - 1) / kSegBlockTile;
+  Vec* cont = reinterpret_cast<Vec*>(scratch);
+  Vec* head = reinterpret_cast<Vec*>(scratch + (int64_t)blocks * w);
+  segsum_tile_kernel<WIDEN, Vec><<<blocks, kSegWarps * 32, 0, st>>>(
+      reinterpret_cast<const Vec*>(src), lo, seg, reinterpret_cast<Vec*>(out), cont, head, m,
+      src_width / kLanes, w / kLanes);
+  segsum_fixup_kernel<Vec><<<blocks, kFixWarps * 32, 0, st>>>(
+      seg, cont, head, reinterpret_cast<Vec*>(out), m, w / kLanes);
+}
+
+template <bool WIDEN>
+void launch_segsum_vec(const float* src, const int* lo, const int* seg, float* scratch,
+                       float* out, int m, int src_width, int w, cudaStream_t st) {
+  if (src_width % 4 == 0 && w % 4 == 0 && aligned16(src) && aligned16(out) &&
+      aligned16(scratch)) {
+    launch_segsum<WIDEN, float4>(src, lo, seg, scratch, out, m, src_width, w, st);
+  } else {
+    launch_segsum<WIDEN, float>(src, lo, seg, scratch, out, m, src_width, w, st);
   }
 }
 
@@ -371,11 +526,8 @@ template <int RULE>
 void launch_dedup_rule(const int* ids, const float* g, float* table,
                        float* slot, const float* hyper, int m, int e, int pack,
                        int rows, cudaStream_t st) {
-  auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  };
-  bool vec4 = e % 4 == 0 && aligned(g) && aligned(table) &&
-              (slot == nullptr || aligned(slot));
+  bool vec4 = e % 4 == 0 && aligned16(g) && aligned16(table) &&
+              (slot == nullptr || aligned16(slot));
   if (vec4) {
     launch_dedup<RULE, float4>(ids, g, table, slot, hyper, m, e, pack, rows, st);
   } else {
@@ -387,40 +539,26 @@ void launch_dedup_rule(const int* ids, const float* g, float* table,
 
 extern "C" {
 
-// g (M, E), lo (M,), seg (M,) nondecreasing dense segment ids, start (M+1,)
-// scratch, out (M, P*E).
+// The segment sums' tiling, which the wrapper checks against its own.
+int trs_segsum_tile(void) { return kSegTile; }
+int trs_segsum_warps(void) { return kSegWarps; }
+
+// g (M, E), lo (M,), seg (M,) nondecreasing dense segment ids, scratch
+// (2 * ceil(M / (kSegTile * kSegWarps)), P*E), out (M, P*E); M >= 1.
 int trs_widen_segment_sum(const float* g, const int* lo, const int* seg,
-                          int* start, float* out, int m, int e, int pack,
+                          float* scratch, float* out, int m, int e, int pack,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int w = e * pack;
-  seg_starts_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      seg, start, m);
-  int64_t total = (int64_t)m * w;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  widen_segsum_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-      g, lo, seg, start, out, m, e, w);
+  launch_segsum_vec<true>(g, lo, seg, scratch, out, m, e, e * pack, st);
   return (int)cudaGetLastError();
 }
 
-// wide (M, W), seg (M,) nondecreasing dense segment ids, start (M+1,)
-// scratch, out (M, W).
-int trs_segment_sum_wide(const float* wide, const int* seg, int* start,
+// wide (M, W), seg (M,) nondecreasing dense segment ids, scratch
+// (2 * ceil(M / (kSegTile * kSegWarps)), W), out (M, W); M >= 1.
+int trs_segment_sum_wide(const float* wide, const int* seg, float* scratch,
                          float* out, int m, int w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  seg_starts_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      seg, start, m);
-  int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  bool vec4 = w % 4 == 0 && reinterpret_cast<uintptr_t>(wide) % 16 == 0 &&
-              reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec4) {
-    segsum_wide_kernel<float4><<<blocks, kThreads, 0, st>>>(
-        reinterpret_cast<const float4*>(wide), seg, start,
-        reinterpret_cast<float4*>(out), m, w / 4);
-  } else {
-    segsum_wide_kernel<float><<<blocks, kThreads, 0, st>>>(
-        wide, seg, start, out, m, w);
-  }
+  launch_segsum_vec<false>(wide, nullptr, seg, scratch, out, m, w, w, st);
   return (int)cudaGetLastError();
 }
 

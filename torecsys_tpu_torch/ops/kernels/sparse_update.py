@@ -13,7 +13,17 @@ what bounds each on the card and how the design answers it):
 Each wrapper takes the plain PyTorch version (``*_plain``) for tensors on the
 CPU, launches its kernel for tensors on the card, and raises on anything
 else: a mix of devices, a wrong dtype, shape or layout.  ``launches`` on each
-wrapper counts its kernel launches and nothing else.
+wrapper counts its calls that launch the kernel (the segment sums launch two
+kernels a call, a tile pass and a fix-up pass) and nothing else.
+
+The two segment sums cut the stream by position: a warp sums
+``SEGSUM_TILE`` consecutive positions, a block ``SEGSUM_WARPS`` such tiles.
+Each output element is summed in an order that this tiling alone fixes, so
+two launches give the same bits.  Where every partial sum is exact (values
+on a coarse grid) the result is the plain version's bit for bit; otherwise
+it may differ from the in-order sum by rounding where a segment crosses a
+tile edge, within ``(L - 1) * 2**-24 * sum|g|`` of the exact sum for a
+segment of ``L`` positions.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from torecsys_tpu_torch.ops import kernels as _k
 
 SOURCE = "sparse_update.cu"
 RULES = {"adam": 0, "adagrad": 1, "sgd": 2}
+SEGSUM_TILE = 32   # positions a warp sums in order (csrc kSegTile)
+SEGSUM_WARPS = 8   # warp tiles per block tile (csrc kSegWarps)
 
 
 def _lib():
@@ -41,11 +53,24 @@ def _lib():
         lib.trs_fused_sorted_dedup_update.restype = i
         lib.trs_segment_sum_wide.argtypes = [p, p, p, p, i, i, p]
         lib.trs_segment_sum_wide.restype = i
+        lib.trs_segsum_tile.restype = i
+        lib.trs_segsum_warps.restype = i
+        tiling = (lib.trs_segsum_tile(), lib.trs_segsum_warps())
+        if tiling != (SEGSUM_TILE, SEGSUM_WARPS):
+            raise RuntimeError(f"{SOURCE} tiles the segment sums as {tiling}, the wrapper "
+                               f"as {(SEGSUM_TILE, SEGSUM_WARPS)}")
         lib._trs_typed = True
     return lib
 
 
 # ---- widened segment-sum ----------------------------------------------------
+
+def _segsum_scratch(m: int, w: int, device) -> torch.Tensor:
+    """The segment sums' scratch: a ``cont`` and a ``head`` partial row per
+    block tile."""
+    n_tiles = -(-m // (SEGSUM_TILE * SEGSUM_WARPS))
+    return torch.empty(2 * n_tiles, w, dtype=torch.float32, device=device)
+
 
 def widen_segment_sum_plain(g_sorted: torch.Tensor, lo: torch.Tensor,
                             seg: torch.Tensor, pack: int) -> torch.Tensor:
@@ -82,13 +107,13 @@ def widen_segment_sum(g_sorted: torch.Tensor, lo: torch.Tensor,
     if _k.device_kind(g_sorted, lo, seg) == "cpu":
         return widen_segment_sum_plain(g_sorted, lo, seg, pack)
     _k.require(all(t.is_contiguous() for t in (g_sorted, lo, seg)), "inputs must be contiguous")
-    _k.require(m * pack * e < 2**31 and m < 2**31 - 1, "stream too large for int32 indexing")
+    _k.require(m * pack * e < 2**31 and m < 2**30, "stream too large for int32 indexing")
     out = torch.empty(m, pack * e, dtype=torch.float32, device=g_sorted.device)
     if m == 0:
         return out
-    start = torch.empty(m + 1, dtype=torch.int32, device=g_sorted.device)
+    scratch = _segsum_scratch(m, pack * e, g_sorted.device)
     status = _lib().trs_widen_segment_sum(
-        _k.ptr(g_sorted), _k.ptr(lo), _k.ptr(seg), _k.ptr(start), _k.ptr(out),
+        _k.ptr(g_sorted), _k.ptr(lo), _k.ptr(seg), _k.ptr(scratch), _k.ptr(out),
         m, e, pack, _k.current_stream(g_sorted.device),
     )
     _k.check_status(status, "widen_segment_sum")
@@ -127,13 +152,13 @@ def segment_sum_wide(wide: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     if _k.device_kind(wide, seg) == "cpu":
         return segment_sum_wide_plain(wide, seg)
     _k.require(wide.is_contiguous() and seg.is_contiguous(), "inputs must be contiguous")
-    _k.require(m < 2**31 - 1, "stream too large for int32 indexing")
+    _k.require(m < 2**30, "stream too large for int32 indexing")
     out = torch.empty_like(wide)
     if m == 0:
         return out
-    start = torch.empty(m + 1, dtype=torch.int32, device=wide.device)
+    scratch = _segsum_scratch(m, w, wide.device)
     status = _lib().trs_segment_sum_wide(
-        _k.ptr(wide), _k.ptr(seg), _k.ptr(start), _k.ptr(out), m, w,
+        _k.ptr(wide), _k.ptr(seg), _k.ptr(scratch), _k.ptr(out), m, w,
         _k.current_stream(wide.device),
     )
     _k.check_status(status, "segment_sum_wide")
@@ -336,7 +361,7 @@ def fused_sorted_dedup_update(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
 
 fused_sorted_dedup_update.launches = 0
 
-__all__ = ["fused_rowwise_update", "fused_rowwise_update_plain",
+__all__ = ["SEGSUM_TILE", "SEGSUM_WARPS", "fused_rowwise_update", "fused_rowwise_update_plain",
            "fused_sorted_dedup_update", "fused_sorted_dedup_update_plain",
            "segment_sum_wide", "segment_sum_wide_plain",
            "widen_segment_sum", "widen_segment_sum_plain"]
