@@ -16,11 +16,18 @@ Phases (any failure raises and the exit code is not 0):
    the card.  Prints each kernel's time, its plain version's time, the time
    of one PyTorch call computing the same function where there is one, and
    its bound; each time is the device's own (the kernels' durations in a
-   torch.profiler window), with CUDA events around the same calls beside it.
+   torch.profiler window), with CUDA events around the same calls beside it,
+   and again with the L2 cache flushed before each call (``cold_ms``).
    Then sweeps both segment sums over skewed and tile-edge streams (the
    bench stream, one segment, M distinct segments, segments on tile edges,
    M = 1): grid grads bit-identical to the plain version, real-valued grads
-   within the float64 rounding bound, two launches bit-identical.
+   within the float64 rounding bound, two launches bit-identical; sweeps
+   ``fused_sorted_dedup_update`` over the same streams as stored rows and a
+   sentinel tail, at P = 8 and P = 1, each rule on real-valued grads: table
+   and slots bit-identical to the default combine's, two launches
+   bit-identical, untouched rows unchanged; and sweeps
+   ``unique_stored_gather`` over valid prefixes of several lengths, each
+   bit-identical to ``index_select``.
 3. Train the full-width DeepFM (tower 400-400-400, Adam 1e-3, sparse
    presorted embedding route) through the port's ``Trainer`` for ``--steps``
    steps; every kernel of the route must launch once per step.  Then take
@@ -34,7 +41,8 @@ Phases (any failure raises and the exit code is not 0):
    the default combine and ``--steps`` with ``TORECSYS_TPU_FUSED_DEDUP=1``;
    then 3 steps, each from the default combine's state, of each variant
    with the kernels and with their plain versions and of the presorted
-   route, all compared.
+   route, all compared (the fused kernel's losses, table and slots to the
+   bit).
 6. Train the same model on the dense-table route (Adam over every
    parameter, the table included) for ``--steps`` steps, then compare 3
    steps with the kernel and with its plain version, as in phase 3.
@@ -132,15 +140,42 @@ def device_events(prof):
             and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
 
 
-def time_ms(fn, iters: int):
-    """(device ms, event ms) per call of ``fn``, each over ``iters`` calls
-    after 3 warm-up calls.  Device ms is the sum of the durations of the
-    kernels and copies the calls ran, from a torch.profiler window: the
-    card's own time.  Event ms is CUDA events around back-to-back calls: for
-    a kernel shorter than the host's work per call it measures the host's
-    call rate instead."""
+def device_ms(fn, iters: int, before=None) -> float:
+    """Device ms per call of ``fn`` over ``iters`` calls: the sum of the
+    durations of the kernels and copies the calls ran, from a torch.profiler
+    window, the card's own time.  ``before``, where given, runs before each
+    call, and its kernels are left out by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    skip = set()
+    if before is not None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            before()
+            torch.cuda.synchronize()
+        skip = {e.name for e in device_events(prof)}
+        if not skip:
+            raise AssertionError("torch.profiler recorded no kernel of the call before")
+    for _ in range(3):  # a window now and then comes back without its kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof) if e.name not in skip]
+        if len(events) >= iters:  # every call launches at least one kernel
+            busy_us = sum(e.time_range.end - e.time_range.start for e in events)
+            return busy_us / 1e3 / iters
+    raise AssertionError(f"torch.profiler recorded {len(events)} kernels for {iters} calls")
+
+
+def time_ms(fn, iters: int):
+    """(device ms, event ms) per call of ``fn``, each over ``iters`` calls
+    after 3 warm-up calls (:func:`device_ms`).  Event ms is CUDA events
+    around back-to-back calls: for a kernel shorter than the host's work per
+    call it measures the host's call rate instead."""
+    import torch
 
     for _ in range(3):
         fn()
@@ -152,17 +187,22 @@ def time_ms(fn, iters: int):
         fn()
     end.record()
     end.synchronize()
-    event_ms = start.elapsed_time(end) / iters
-    for _ in range(3):  # a window now and then comes back without its kernels
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = device_events(prof)
-        if len(events) >= iters:  # every call launches at least one kernel
-            busy_us = sum(e.time_range.end - e.time_range.start for e in events)
-            return busy_us / 1e3 / iters, event_ms
-    raise AssertionError(f"torch.profiler recorded {len(events)} kernels for {iters} calls")
+    return device_ms(fn, iters), start.elapsed_time(end) / iters
+
+
+L2_FLUSH_BYTES = 256 << 20  # over five times the H100's 50 MB L2
+
+
+def cold_time_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` with the L2 cache flushed before each
+    call (a 256 MB buffer written between calls), after 3 warm-up calls."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+    for _ in range(3):
+        flush.fill_(1.0)
+        fn()
+    return device_ms(fn, iters, before=lambda: flush.fill_(1.0))
 
 
 def times_text(label: str, t) -> str:
@@ -268,9 +308,22 @@ def phase_build():
     log(f"[build] {len(SOURCES)} sources in parallel in {time.perf_counter() - t0:.2f} s")
     for src, (path, report) in results.items():
         log(f"[build] {src} -> {path.name}")
+        kernel = ""
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+            if "Function properties for" in line:
+                kernel = demangle(line.split("Function properties for")[-1].strip())
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {kernel}: {line.strip()}")
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name without its parameters (``c++filt``), its mangled
+    name where that tool is missing."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=10)
+    except OSError:
+        return name
+    return out.stdout.replace("(anonymous namespace)::", "").split("(")[0].strip() or name
 
 
 # ---- phase 2 ---------------------------------------------------------------
@@ -338,6 +391,7 @@ def phase_kernels(batch, seed: int):
             continue
         w = pack * EMBED
         kernel_t = time_ms(lambda: K.widen_segment_sum(g_sorted, lo, seg, pack), 50)
+        cold = cold_time_ms(lambda: K.widen_segment_sum(g_sorted, lo, seg, pack), COLD_ITERS)
         plain_t = time_ms(lambda: K.widen_segment_sum_plain(g_sorted, lo, seg, pack), 20)
         wide = torch.zeros(m, pack, EMBED, device=dev)
         wide[torch.arange(m, device=dev), lo.long()] = g_sorted
@@ -346,7 +400,8 @@ def phase_kernels(batch, seed: int):
         library_t = time_ms(
             lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
         bound_ms, bound_by = bound(m * EMBED * 4 + 2 * m * 4 + m * w * 4, m * EMBED)
-        log(f"[segsum] {times_text('kernel_ms', kernel_t)} {times_text('plain_ms', plain_t)} "
+        log(f"[segsum] {times_text('kernel_ms', kernel_t)} cold_ms={cold:.4f} "
+            f"{times_text('plain_ms', plain_t)} "
             f"{times_text('library_ms', library_t)} (torch.zeros(M,W).index_add_ on a "
             f"pre-widened stream, a near-yardstick) bound_us={bound_ms * 1e3:.2f} "
             f"({bound_by}) n_unique={n_unique}")
@@ -354,8 +409,9 @@ def phase_kernels(batch, seed: int):
             name="widen_segment_sum", route="cuda",
             source="torecsys_tpu_torch/csrc/sparse_update.cu",
             replaces="torecsys_tpu/ops/pallas/sparse_update.py:248",
-            max_abs_err=seg_err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
-            bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
+            max_abs_err=seg_err, **time_keys("ms", kernel_t), cold_ms=cold,
+            **time_keys("plain_ms", plain_t), bound_ms=bound_ms, bound_by=bound_by,
+            **time_keys("library_ms", library_t))
         gsum, uids = got, torch.from_numpy(aux["uids"]).to(dev)
         n_valid = n_unique
         del wide, seg64
@@ -392,13 +448,16 @@ def phase_kernels(batch, seed: int):
         if rule == "adam" and wd == 0.0:
             kernel_t = time_ms(
                 lambda: K.fused_rowwise_update(uids, gsum, tk, sk, hyper, rule, n_valid), 50)
+            cold = cold_time_ms(
+                lambda: K.fused_rowwise_update(uids, gsum, tk, sk, hyper, rule, n_valid),
+                COLD_ITERS)
             plain_t = time_ms(
                 lambda: K.fused_rowwise_update_plain(uids, gsum, tp, sp, hyper, rule, n_valid),
                 20)
             # per touched row: read uid, gsum, table and m||v; write table and m||v
             n_bytes = n_valid * (4 + w * 4 + 2 * (w * 4 + 2 * w * 4))
             bound_ms, bound_by = bound(n_bytes, n_valid * w * 14)
-            log(f"[update] {times_text('kernel_ms', kernel_t)} "
+            log(f"[update] {times_text('kernel_ms', kernel_t)} cold_ms={cold:.4f} "
                 f"{times_text('plain_ms', plain_t)} "
                 f"library_ms=null (no single PyTorch call computes a row-wise Adam "
                 f"update) bound_us={bound_ms * 1e3:.2f} ({bound_by}) n_unique={n_valid}")
@@ -406,7 +465,7 @@ def phase_kernels(batch, seed: int):
                 name="fused_rowwise_update", route="cuda",
                 source="torecsys_tpu_torch/csrc/sparse_update.cu",
                 replaces="torecsys_tpu/ops/pallas/sparse_update.py:50",
-                **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                **time_keys("ms", kernel_t), cold_ms=cold, **time_keys("plain_ms", plain_t),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del tk, sk, tp, sp, slots0
     records["fused_rowwise_update"]["max_abs_err"] = upd_err
@@ -416,7 +475,13 @@ def phase_kernels(batch, seed: int):
     shifted = torch.from_numpy((ids.astype(np.int64) + field_offsets(FIELD_SIZES)).reshape(-1))
     shifted = shifted.to(dev)
     records["fused_sorted_dedup_update"] = check_fused_dedup(shifted, table0, gen, dev)
+    combine_ms = records["widen_segment_sum"]["ms"] + records["fused_rowwise_update"]["ms"]
+    log(f"[dedup] adam kernel_ms={records['fused_sorted_dedup_update']['ms']:.4f} against "
+        f"widen_segment_sum + fused_rowwise_update = {combine_ms:.4f} (the default "
+        f"combine's two kernels, this run)")
+    records["fused_sorted_dedup_update"]["sweep"] = sweep_fused_dedup(bench_streams, gen, dev)
     records["unique_stored_gather"] = check_unique_gather(shifted, table0)
+    records["unique_stored_gather"]["sweep"] = sweep_unique_gather(shifted, table0)
 
     # -- row gather: the bench batch's shifted ids into the logical view (the
     # main path's lookup), and their stored rows into the stored table --
@@ -434,6 +499,7 @@ def phase_kernels(batch, seed: int):
             raise AssertionError(f"row_gather on the {label} is not bit-identical: {err}")
         num, width = idx.shape[0], src.shape[1]
         kernel_t = time_ms(lambda: KE.row_gather(src, idx), 200)
+        cold = cold_time_ms(lambda: KE.row_gather(src, idx), COLD_ITERS)
         plain_t = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
         library_t = time_ms(lambda: src.index_select(0, idx), 200)
         # each id read once, each distinct row read once, each output row
@@ -443,7 +509,7 @@ def phase_kernels(batch, seed: int):
             num * idx.element_size() + distinct * width * 4 + num * width * 4, 0)
         log(f"[gather] {label} {tuple(src.shape)} num={num} distinct={distinct} "
             f"width={width}: bit-identical "
-            f"to the plain version; {times_text('kernel_ms', kernel_t)} "
+            f"to the plain version; {times_text('kernel_ms', kernel_t)} cold_ms={cold:.4f} "
             f"{times_text('plain_ms', plain_t)} "
             f"{times_text('library_ms', library_t)} (index_select on the same view, the port's "
             f"lookup before) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
@@ -451,7 +517,7 @@ def phase_kernels(batch, seed: int):
             records["row_gather"] = dict(
                 name="row_gather", route="cuda", source="torecsys_tpu_torch/csrc/embedding.cu",
                 replaces="torecsys_tpu/ops/pallas/embedding.py:40",
-                **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                **time_keys("ms", kernel_t), cold_ms=cold, **time_keys("plain_ms", plain_t),
                 bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
     records["row_gather"]["max_abs_err"] = gather_err
     del table0, shifted
@@ -516,6 +582,8 @@ def check_fused_dedup(shifted, table0, gen, dev):
         if rule == "adam":
             kernel_t = time_ms(lambda: K.fused_sorted_dedup_update(
                 sorted_ids, g_sorted, tk, sk, hyper, pack, rule), 50)
+            cold = cold_time_ms(lambda: K.fused_sorted_dedup_update(
+                sorted_ids, g_sorted, tk, sk, hyper, pack, rule), COLD_ITERS)
             plain_t = time_ms(lambda: K.fused_sorted_dedup_update_plain(
                 sorted_ids, g_sorted, tp, sp, hyper, pack, rule), 20)
             # read the sorted ids and narrow grads once; read and write each
@@ -525,14 +593,15 @@ def check_fused_dedup(shifted, table0, gen, dev):
                 m * 4 + m * EMBED * 4 + n_stored * 2 * (w * 4 + 2 * w * 4), n_stored * w * 14)
             longest = int(torch.unique_consecutive(sorted_ids // pack,
                                                    return_counts=True)[1].max())
-            log(f"[dedup] {times_text('kernel_ms', kernel_t)} "
+            log(f"[dedup] {times_text('kernel_ms', kernel_t)} cold_ms={cold:.4f} "
                 f"{times_text('plain_ms', plain_t)} library_ms=null "
                 f"(no single PyTorch call dedups and updates) bound_us={bound_ms * 1e3:.3f} "
                 f"({bound_by}) longest stored-row group={longest}")
             record = dict(name="fused_sorted_dedup_update", route="cuda",
                           source="torecsys_tpu_torch/csrc/sparse_update.cu",
                           replaces="torecsys_tpu/ops/pallas/sparse_update.py:561",
-                          **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                          **time_keys("ms", kernel_t), cold_ms=cold,
+                          **time_keys("plain_ms", plain_t),
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del tk, sk, tp, sp, slots0
     record["max_abs_err"] = err_all
@@ -561,6 +630,7 @@ def check_unique_gather(shifted, table0):
     if not torch.equal(got[:n], ref[:n]):
         raise AssertionError(f"unique_stored_gather is not bit-identical: {err}")
     kernel_t = time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), 200)
+    cold = cold_time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), COLD_ITERS)
     plain_t = time_ms(lambda: KE.unique_stored_gather_plain(table0, uids, EMBED), 100)
     library_t = time_ms(lambda: table0.index_select(0, uids[:n] // pack), 200)
     n_stored = torch.unique(uniq // pack).numel()
@@ -569,13 +639,14 @@ def check_unique_gather(shifted, table0):
     bound_ms, bound_by = bound(n * 4 + n_stored * w * 4 + n * w * 4, 0)
     log(f"[unique-gather] M={m} valid ids={n} stored rows={n_stored} width={w}: valid prefix "
         f"bit-identical to the plain version; {times_text('kernel_ms', kernel_t)} "
-        f"{times_text('plain_ms', plain_t)} {times_text('library_ms', library_t)} "
-        f"(table.index_select(0, "
+        f"cold_ms={cold:.4f} {times_text('plain_ms', plain_t)} "
+        f"{times_text('library_ms', library_t)} (table.index_select(0, "
         f"uids[:n] // P)) bound_us={bound_ms * 1e3:.3f} ({bound_by})")
     return dict(name="unique_stored_gather", route="cuda",
                 source="torecsys_tpu_torch/csrc/embedding.cu",
                 replaces="torecsys_tpu/ops/pallas/embedding.py:136",
-                max_abs_err=err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                max_abs_err=err, **time_keys("ms", kernel_t), cold_ms=cold,
+                **time_keys("plain_ms", plain_t),
                 bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
 
 
@@ -596,21 +667,25 @@ def check_segment_sum_wide(seg, n_unique: int, longest: int, gen, dev):
         raise AssertionError(f"segment_sum_wide is not bit-identical: {err}")
     seg64 = seg.long()
     kernel_t = time_ms(lambda: K.segment_sum_wide(wide, seg), 50)
+    cold = cold_time_ms(lambda: K.segment_sum_wide(wide, seg), COLD_ITERS)
     plain_t = time_ms(lambda: K.segment_sum_wide_plain(wide, seg), 20)
     library_t = time_ms(lambda: torch.zeros(m, w, device=dev).index_add_(0, seg64, wide), 50)
     bound_ms, bound_by = bound(m * w * 4 + m * 4 + m * w * 4, m * w)
     log(f"[segsum-wide] M={m} W={w} n_unique={n_unique} longest segment={longest}: "
         f"bit-identical to the plain version; {times_text('kernel_ms', kernel_t)} "
-        f"{times_text('plain_ms', plain_t)} {times_text('library_ms', library_t)} "
-        f"(torch.zeros(M,W).index_add_) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
+        f"cold_ms={cold:.4f} {times_text('plain_ms', plain_t)} "
+        f"{times_text('library_ms', library_t)} (torch.zeros(M,W).index_add_) "
+        f"bound_us={bound_ms * 1e3:.2f} ({bound_by})")
     return dict(name="segment_sum_wide", route="cuda",
                 source="torecsys_tpu_torch/csrc/sparse_update.cu",
                 replaces="torecsys_tpu/ops/pallas/sparse_update.py:389",
-                max_abs_err=err, **time_keys("ms", kernel_t), **time_keys("plain_ms", plain_t),
+                max_abs_err=err, **time_keys("ms", kernel_t), cold_ms=cold,
+                **time_keys("plain_ms", plain_t),
                 bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
 
 
 SWEEP_ITERS = 20
+COLD_ITERS = 20
 
 
 def sweep_streams(bench_seg):
@@ -695,6 +770,151 @@ def sweep_segment_sums(bench_streams, gen, dev):
         one, bench = results[name]["one segment"]["ms"], results[name]["bench"]["ms"]
         log(f"[sweep] {name}: one segment over all M takes {one / bench:.3f}x the bench "
             f"stream's device time")
+    return results
+
+
+def dedup_sweep_ids(seg, lo, pack: int, label: str, dev):
+    """A sweep stream of logical ids for ``fused_sorted_dedup_update``, and the
+    table rows R it addresses: group s of ``seg`` becomes stored row 2s + 1
+    (the even rows stay untouched) and ``lo`` its in-row slots.  "sentinel
+    tail" takes the bench stream and turns its last M/4 positions into
+    sentinel ids >= R*P, three to a logical id: groups of 3*P positions past
+    the table, crossing tile edges."""
+    import torch
+
+    m = seg.shape[0]
+    rows = 2 * m + 2
+    ids = (2 * seg.long() + 1) * pack + lo.long()
+    if label == "sentinel tail":
+        tail = m // 4
+        ids[m - tail:] = rows * pack + torch.arange(tail, device=dev) // 3
+    return ids.to(torch.int32), rows
+
+
+def sweep_fused_dedup(bench_streams, gen, dev):
+    """``fused_sorted_dedup_update`` on every sweep stream of the segment sums
+    and a sentinel tail, at P = 8, E = 16 and at P = 1, W = 128, each rule from
+    one copied state, on real-valued grads: table and slots bit-identical to
+    the default combine (``_combine_sorted_stored``: the segment sum, then
+    ``fused_rowwise_update`` with the device count); two launches
+    bit-identical; untouched rows, and guard rows past R where the sentinel
+    groups' rows would lie, unchanged.  Times adam on each stream beside the
+    stream's own bound.  Returns {"P=<pack>": {stream: record}}."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+    from torecsys_tpu_torch.ops.sparse import _combine_sorted_stored
+
+    results = {}
+    for pack, e in ((8, EMBED), (1, EMBED_WIDE)):
+        bench_lo, bench_seg = bench_streams[pack]
+        streams = sweep_streams(bench_seg)
+        streams["sentinel tail"] = bench_seg
+        by_stream = {}
+        for label, seg in streams.items():
+            m = seg.shape[0]
+            if seg is bench_seg:
+                lo = bench_lo
+            else:  # slots ascending inside each stored row, as ids sort
+                slots_of = torch.randint(0, pack, (m,), device=dev, generator=gen)
+                lo = (torch.sort(seg.long() * pack + slots_of).values % pack).to(torch.int32)
+            ids, rows = dedup_sweep_ids(seg, lo, pack, label, dev)
+            w = pack * e
+            guard = m // 4 + 8
+            g = torch.randn(m, e, device=dev, generator=gen)
+            hi = ids.long().div(pack, rounding_mode="floor")
+            stored = torch.unique(hi[(hi >= 0) & (hi < rows)])
+            touched = torch.zeros(rows + guard, dtype=torch.bool, device=dev)
+            touched[stored] = True
+            table0 = torch.empty(rows + guard, w, device=dev).normal_(0.0, 0.01, generator=gen)
+            for rule in ("adam", "adagrad", "sgd"):
+                slots0, hyper = rule_state(rule, 0.0, rows + guard, w, gen, dev)
+
+                def run(fn):
+                    t, sl = table0.clone(), [s.clone() for s in slots0]
+                    fn(t[:rows], [s[:rows] for s in sl])
+                    return [t] + sl
+
+                def fused(t, sl):
+                    K.fused_sorted_dedup_update(ids, g, t, sl, hyper, pack, rule)
+
+                def combine(t, sl):
+                    uids, gsum, n = _combine_sorted_stored(ids, g, pack, rows)
+                    K.fused_rowwise_update(uids, gsum, t, sl, hyper, rule, n)
+
+                got, again, ref = run(fused), run(fused), run(combine)
+                where = f"fused_sorted_dedup_update P={pack} {label} {rule}"
+                for a, b, c, orig in zip(got, again, ref, [table0] + slots0):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{where}: two launches differ")
+                    if not torch.equal(a, c):
+                        err = (a - c).abs().max().item()
+                        raise AssertionError(f"{where}: differs from the default combine "
+                                             f"by {err:.3g}")
+                    changed = (a != orig).reshape(rows + guard, -1).any(dim=1)
+                    if bool((changed & ~touched).any()):
+                        raise AssertionError(f"{where}: an untouched or guard row changed")
+                del got, again, ref, slots0
+            slots0, hyper = rule_state("adam", 0.0, rows, w, gen, dev)
+            t = table0[:rows].clone()
+            t_ms = time_ms(lambda: K.fused_sorted_dedup_update(ids, g, t, slots0, hyper, pack,
+                                                               "adam"), SWEEP_ITERS)
+            n_stored = stored.numel()
+            bound_ms, bound_by = bound(m * 4 + m * e * 4 + n_stored * 2 * (w * 4 + 2 * w * 4),
+                                       n_stored * w * 14)
+            longest = int(torch.unique_consecutive(hi, return_counts=True)[1].max())
+            log(f"[sweep] fused_sorted_dedup_update P={pack} E={e} {label}: M={m} stored rows "
+                f"in the table={n_stored} longest group={longest}; adam, adagrad, sgd: table "
+                f"and slots bit-identical to the default combine, two launches "
+                f"bit-identical, untouched and guard rows unchanged; adam "
+                f"{times_text('kernel_ms', t_ms)} bound_us={bound_ms * 1e3:.3f} ({bound_by}), "
+                f"{t_ms[0] / bound_ms:.2f}x the bound")
+            by_stream[label] = {"M": m, "stored_rows": n_stored, "longest": longest,
+                                "bound_ms": bound_ms, **time_keys("ms", t_ms)}
+            del table0, slots0, t, g, touched
+        one, bench = by_stream["one segment"]["ms"], by_stream["bench"]["ms"]
+        log(f"[sweep] fused_sorted_dedup_update P={pack}: one stored row over all M takes "
+            f"{one / bench:.3f}x the bench stream's device time")
+        results[f"P={pack}"] = by_stream
+    torch.cuda.empty_cache()
+    return results
+
+
+def sweep_unique_gather(shifted, table0):
+    """``unique_stored_gather`` on the bench batch's unique ids, on M ids all
+    valid, on a single valid id and on a valid prefix that ends inside a
+    block's share of ids: the valid prefix bit-identical to
+    ``table.index_select(0, uids[:n] // P)``, each stream timed beside its
+    bound."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    rows, w = table0.shape
+    pack = w // EMBED
+    m, dev = shifted.shape[0], shifted.device
+    uniq = torch.unique(shifted.to(torch.int32), sorted=True)
+    spread = torch.arange(m, device=dev, dtype=torch.int64) * (rows * pack // m)
+    streams = {"bench": uniq, "all valid": spread.to(torch.int32), "single valid": uniq[:1],
+               "prefix ends mid-block": uniq[:1013]}
+    results = {}
+    for label, valid in streams.items():
+        n = valid.numel()
+        uids = torch.full((m,), rows * pack, dtype=torch.int32, device=dev)
+        uids[:n] = valid
+        got = KE.unique_stored_gather(table0, uids, EMBED)
+        ref = table0.index_select(0, uids[:n].long() // pack)
+        if not torch.equal(got[:n], ref):
+            raise AssertionError(f"unique_stored_gather {label}: the valid prefix differs "
+                                 f"from index_select")
+        t = time_ms(lambda: KE.unique_stored_gather(table0, uids, EMBED), 50)
+        n_stored = torch.unique(valid.long() // pack).numel()
+        bound_ms, _ = bound(n * 4 + n_stored * w * 4 + n * w * 4, 0)
+        log(f"[sweep] unique_stored_gather {label}: M={m} valid ids={n} stored rows={n_stored}; "
+            f"valid prefix bit-identical to index_select; {times_text('kernel_ms', t)} "
+            f"bound_us={bound_ms * 1e3:.3f}, {t[0] / bound_ms:.2f}x the bound")
+        results[label] = {"valid": n, "stored_rows": n_stored, "bound_ms": bound_ms,
+                          **time_keys("ms", t)}
     return results
 
 
@@ -958,31 +1178,45 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
     touched = touched_rows(cmp_batches, table.device)
     # One step at a time along the reference's trajectory (compare_with_plain
     # says why runs left to go on alone are not held); the reference runs
-    # last, so the trainer goes on from its state.
+    # last, so the trainer goes on from its state.  The fused kernel sums
+    # each stored row in the default combine's order and updates it with the
+    # same arithmetic, so its losses, table and slots are held to the bit.
     reference = "on-device, kernels"
-    variants = (("on-device, plain", "0", True, False), ("fused, kernels", "1", False, False),
+    bit_equal = "fused, kernels"
+    variants = (("on-device, plain", "0", True, False), (bit_equal, "1", False, False),
                 ("fused, plain", "1", True, False), ("presorted, kernels", "0", False, True),
                 (reference, "0", False, False))
+
+    def state_rows():
+        """The touched rows of the table and of its row-wise slots, side by
+        side."""
+        parts = [table.detach().index_select(0, touched)]
+        for slots in _optimizers(trainer)[1].values():
+            parts += [v.detach().index_select(0, touched).reshape(touched.numel(), -1)
+                      for v in slots.values()]
+        return torch.cat(parts, dim=1)
 
     def step(flag, plain, presorted, feed):
         feed = [presorter(b) for b in feed] if presorted else feed
         with fused_dedup(flag), (plain_versions(fns) if plain else contextlib.nullcontext()):
             losses = torch.stack(trainer.train_steps(feed)).tolist()
-        return losses, table.detach().index_select(0, touched)
+        return losses, state_rows()
 
     start = snapshot(trainer)
-    runs = {label: ([], 0.0) for label, *_ in variants}
+    runs = {label: ([], 0.0, True) for label, *_ in variants}
     for batch in cmp_batches:
         before = snapshot(trainer)
-        rows = {}
+        rows, losses = {}, {}
         for label, *how in variants:
             restore(trainer, before)
-            loss, rows[label] = step(*how, [batch])
-            runs[label][0].extend(loss)
+            losses[label], rows[label] = step(*how, [batch])
         del before
         for label in runs:
             err = (rows[label] - rows[reference]).abs().max().item()
-            runs[label] = (runs[label][0], max(runs[label][1], err))
+            same = losses[label] == losses[reference] and torch.equal(rows[label],
+                                                                      rows[reference])
+            runs[label] = (runs[label][0] + losses[label], max(runs[label][1], err),
+                           runs[label][2] and same)
         del rows
     free = {}
     for label, *how in variants[::-1]:  # the reference first
@@ -991,18 +1225,23 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
     del start
     loss_ref = runs[reference][0]
     compare = {}
-    for label, (losses, row_err) in runs.items():
+    for label, (losses, row_err, same) in runs.items():
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, loss_ref))
         free_err = (free[label] - free[reference]).abs().max().item()
+        held = ("held to the bit: " + ("bit-identical" if same else "NOT bit-identical")
+                if label == bit_equal else
+                f"max rel diff {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}; atol {TRAIN_ROWS_ATOL}")
         log(f"[ondevice] {label} vs {reference}, {COMPARE_STEPS} steps each from the "
-            f"reference's state: losses {losses} (max rel diff {loss_rel:.3g}, rtol "
-            f"{TRAIN_LOSS_RTOL}); {touched.numel()} table rows max_abs_err={row_err:.3g} "
-            f"(atol {TRAIN_ROWS_ATOL}); left to run alone the two differ by {free_err:.3g} "
-            f"(not held)")
+            f"reference's state: losses {losses}; {touched.numel()} rows of the table and "
+            f"its slots max_abs_err={row_err:.3g} ({held}); left to run alone the two "
+            f"differ by {free_err:.3g} (not held)")
+        if label == bit_equal and not same:
+            raise AssertionError(f"ondevice: {label} is not bit-identical to {reference}")
         if not (loss_rel <= TRAIN_LOSS_RTOL and row_err <= TRAIN_ROWS_ATOL):
             raise AssertionError(f"ondevice: {label} disagrees with the on-device kernels")
         compare[label] = {"losses": losses, "loss_max_rel_diff": loss_rel,
-                          "row_max_abs_err": row_err, "free_running_row_max_abs_err": free_err}
+                          "row_max_abs_err": row_err, "bit_identical": same,
+                          "free_running_row_max_abs_err": free_err}
     del free
     del trainer, table, runs
     release()

@@ -12,8 +12,13 @@ versions of its last two kernels against the JAX package, on the CPU.
   on the id streams of the JAX package's own test (``tests/test_sparse.py``):
   rtol 2e-4, atol 1e-5, that test's tolerance for its matrix-unit combine
   order.
+* ``fused_sorted_dedup_update`` on the sweep streams of the segment sums
+  (``test_torch_kernels.sweep_segments``) laid out as stored rows, and on a
+  sentinel tail, at P = 8 and P = 1, against the same Pallas kernel with the
+  same tolerance: the streams ``chip_smoke.py`` holds the card's kernel to.
 * ``unique_stored_gather`` against the Pallas kernel in interpret mode: the
-  valid prefix exact (a gather is a copy).
+  valid prefix exact (a gather is a copy), on Zipf ids and on valid
+  prefixes of several lengths.
 """
 
 import jax.numpy as jnp
@@ -31,6 +36,8 @@ from torecsys_tpu_torch.convert import copy_row_slots
 from torecsys_tpu_torch.ops import sparse as sp
 from torecsys_tpu_torch.ops.kernels import embedding as KE
 from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+from test_torch_kernels import SWEEP_STREAMS, sweep_segments
 
 RULES = {"adam": "adamw", "adagrad": "adagrad", "sgd": "sgd"}
 
@@ -210,6 +217,50 @@ def test_fused_sorted_dedup_update_matches_pallas(rule, ids, total_rows):
     np.testing.assert_array_equal(got_t.numpy()[untouched], table[untouched])
 
 
+def _dedup_sweep_ids(stream, pack, rng):
+    """Logical ids of a sweep stream and the table rows R they address, as
+    ``chip_smoke.py`` lays them: group s is stored row 2s + 1 (the even rows
+    stay untouched) with ascending in-row slots; "sentinel tail" is the Zipf
+    stream with its last M/4 ids turned into sentinels >= R*P, three to a
+    logical id."""
+    seg = sweep_segments("zipf" if stream == "sentinel tail" else stream, rng)
+    m = seg.shape[0]
+    rows = 2 * m + 2
+    ids = np.sort((2 * seg.astype(np.int64) + 1) * pack + rng.integers(0, pack, m))
+    if stream == "sentinel tail":
+        tail = m // 4
+        ids[m - tail:] = rows * pack + np.arange(tail) // 3
+    return ids.astype(np.int32), rows
+
+
+@pytest.mark.parametrize("pack", [1, 8])
+@pytest.mark.parametrize("stream", SWEEP_STREAMS + ["sentinel tail"])
+def test_fused_sorted_dedup_update_sweep_streams(stream, pack):
+    rng = np.random.default_rng(30 + pack)
+    e = 128 // pack
+    w = pack * e
+    ids, rows = _dedup_sweep_ids(stream, pack, rng)
+    table, slots = _state(rng, "adam", rows, w)
+    g = rng.normal(size=(ids.shape[0], e)).astype(np.float32)
+    jtx = jsp.RowAdam(learning_rate=1e-2, weight_decay=1e-4)
+    hyper, rl = jtx.hyper_and_rule(jnp.int32(2))
+    ref_t, ref_s = jax_fused_dedup(jnp.asarray(ids), jnp.asarray(g), jnp.asarray(table),
+                                   jtx._slot_tuple({"mv": jnp.asarray(slots["mv"])}, w), hyper,
+                                   pack, rl, interpret=True)
+
+    tx = sp.get_row_optimizer("adamw", lr=1e-2)
+    t_table, t_slots = _port_state(table, slots, tx)
+    got_t, got_s = K.fused_sorted_dedup_update(_t(ids), _t(g), t_table,
+                                               tx._slot_tuple(t_slots, w), _t(hyper), pack, rl)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(ref_t), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(got_s[0].numpy(), np.asarray(ref_s[0]), rtol=2e-4, atol=1e-5)
+    hi = ids // pack
+    untouched = np.setdiff1d(np.arange(rows), hi[hi < rows])
+    assert untouched.size >= rows // 2
+    np.testing.assert_array_equal(got_t.numpy()[untouched], table[untouched])
+    np.testing.assert_array_equal(got_s[0].numpy()[untouched], slots["mv"][untouched])
+
+
 def test_fused_sorted_dedup_update_skips_rows_outside_the_table():
     """A sentinel tail (>= R*P) and a negative id touch no row; the rest is
     updated as without them."""
@@ -241,6 +292,23 @@ def test_unique_stored_gather_matches_pallas(e):
     got = KE.unique_stored_gather(_t(packed), _t(uids), e)
     assert got.shape == ref.shape
     np.testing.assert_array_equal(got.numpy()[:n], ref[:n])
+
+
+@pytest.mark.parametrize("n_valid", [3000, 1, 1013],
+                         ids=["all valid", "single valid", "prefix ends mid-block"])
+def test_unique_stored_gather_valid_prefixes(n_valid):
+    """Valid prefixes of every length class the card's grid meets: all M ids,
+    one id, and a prefix that ends inside a block's and a warp's share."""
+    rng = np.random.default_rng(40)
+    e, v, m = 16, 50_000, 3000
+    packed = jax_pack_table(jnp.asarray(rng.normal(size=(v, e)).astype(np.float32)))
+    num_logical = packed.shape[0] * (packed.shape[1] // e)
+    uids = np.full(m, num_logical, np.int32)
+    uids[:n_valid] = np.sort(rng.choice(v, n_valid, replace=False))
+    ref = np.asarray(pe.unique_stored_gather(packed, jnp.asarray(uids), e, interpret=True))
+    got = KE.unique_stored_gather(_t(packed), _t(uids), e)
+    assert got.shape == ref.shape == (m, packed.shape[1])
+    np.testing.assert_array_equal(got.numpy()[:n_valid], ref[:n_valid])
 
 
 def test_fused_rowwise_update_takes_a_device_count():

@@ -52,11 +52,20 @@
 // Bound on this card: bytes.  It reads the valid ids and each distinct
 // stored row once and writes one W-wide stored row per valid id; no
 // arithmetic.  The TPU kernel bounds a dynamic grid by the valid count and
-// keeps many row DMAs in flight with grouped semaphore waits; here the grid
-// covers all M ids (a thread of the sentinel tail reads its id and leaves,
-// so no count is read back) and the rows in flight are the threads in
-// flight.  One thread per 16-byte vector, so one warp per id at W = 128:
-// each stored row is read as whole 128-byte lines and written coalesced.
+// keeps many row DMAs in flight with grouped semaphore waits.  The valid
+// count lives on the device and is not read back, so here the grid is sized
+// for the card, not for M: as many blocks as can be resident at once (the
+// occupancy API), fewer for a short stream.  Each warp takes kIdsPerWarp
+// consecutive ids at a time, striding over the stream by the whole grid's
+// share: it issues the reads of those ids' stored rows (one 16-byte vector
+// a lane, one warp per row at W = 128, whole 128-byte lines) before it
+// writes any, so several rows are in flight per warp.  Validity is a
+// prefix, so a warp that meets a sentinel stops: every later id of its
+// stride is a sentinel too, and the tail costs each warp one read of ids.
+// Consecutive unique ids share stored rows (23,484 ids in 13,899 rows at the
+// bench batch); neighbouring warps of a block read them, and L2 serves the
+// repeats.  A width that is not a multiple of 4, or a pointer not 16-byte
+// aligned, takes the same kernel with 4-byte vectors.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -102,27 +111,67 @@ void launch(const float* src, const void* idx, float* out, int64_t num,
       reinterpret_cast<Vec*>(out), num, rows, vecs_per_row);
 }
 
+constexpr int kIdsPerWarp = 4;   // ids whose rows a warp reads before it writes them
+
 template <typename Vec>
-__global__ void unique_stored_gather_kernel(const Vec* __restrict__ table,
-                                            const int* __restrict__ uids,
-                                            Vec* __restrict__ out, int64_t num,
-                                            int64_t num_logical, int pack,
-                                            int vecs_per_row) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num * vecs_per_row) return;
-  int64_t i = t / vecs_per_row;
-  int64_t j = t - i * vecs_per_row;
-  int64_t id = (int64_t)uids[i];
-  if (id < 0 || id >= num_logical) return;  // sentinel tail: nothing written
-  out[t] = table[(id / pack) * vecs_per_row + j];
+__global__ void __launch_bounds__(kThreads)
+unique_stored_gather_kernel(const Vec* __restrict__ table, const int* __restrict__ uids,
+                            Vec* __restrict__ out, int64_t num, int64_t num_logical, int pack,
+                            int vecs_per_row) {
+  const unsigned kFull = 0xffffffffu;
+  constexpr int kWarps = kThreads / 32;
+  int lane = threadIdx.x & 31;
+  int64_t stride = (int64_t)gridDim.x * kWarps * kIdsPerWarp;
+  for (int64_t i0 = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kIdsPerWarp;
+       i0 < num; i0 += stride) {
+    int my_id = lane < kIdsPerWarp && i0 + lane < num ? uids[i0 + lane] : 0;
+    int64_t row[kIdsPerWarp];
+    bool ok[kIdsPerWarp];
+    bool stop = false;  // the same for the whole warp
+#pragma unroll
+    for (int q = 0; q < kIdsPerWarp; ++q) {
+      int64_t id = __shfl_sync(kFull, my_id, q);
+      bool there = i0 + q < num;
+      ok[q] = there && id >= 0 && id < num_logical;
+      stop = stop || !there || id >= num_logical;
+      row[q] = ok[q] ? id / pack : 0;
+    }
+    for (int j = lane; j < vecs_per_row; j += 32) {
+      Vec v[kIdsPerWarp];
+#pragma unroll
+      for (int q = 0; q < kIdsPerWarp; ++q) {
+        if (ok[q]) v[q] = table[row[q] * vecs_per_row + j];
+      }
+#pragma unroll
+      for (int q = 0; q < kIdsPerWarp; ++q) {
+        if (ok[q]) out[(i0 + q) * vecs_per_row + j] = v[q];
+      }
+    }
+    if (stop) return;  // validity is a prefix: the rest of the stride is sentinel
+  }
+}
+
+// Blocks of kThreads threads that the current card holds at once.
+template <typename Vec>
+int64_t resident_blocks() {
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unique_stored_gather_kernel<Vec>,
+                                                kThreads, 0);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
 template <typename Vec>
 void launch_unique(const float* table, const int* uids, float* out,
                    int64_t num, int64_t num_logical, int pack,
                    int vecs_per_row, cudaStream_t st) {
-  int64_t total = num * vecs_per_row;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
+  constexpr int64_t kIdsPerBlock = (kThreads / 32) * kIdsPerWarp;
+  int64_t blocks = (num + kIdsPerBlock - 1) / kIdsPerBlock;
+  int64_t resident = resident_blocks<Vec>();
+  if (blocks > resident) blocks = resident;
   unique_stored_gather_kernel<Vec><<<(unsigned)blocks, kThreads, 0, st>>>(
       reinterpret_cast<const Vec*>(table), uids, reinterpret_cast<Vec*>(out),
       num, num_logical, pack, vecs_per_row);

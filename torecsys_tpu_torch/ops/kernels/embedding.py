@@ -108,6 +108,12 @@ def unique_stored_gather(table: torch.Tensor, uids: torch.Tensor,
     """Compact stored-row gather from a packed table: ``out[i] =
     table[uids[i] // P]``.
 
+    On the card the grid is as many blocks as the card holds at once, not
+    one thread per element of ``M``: each warp reads the stored rows of a
+    few consecutive ids before it writes them, strides on over the stream,
+    and stops at its first sentinel (the valid ids are a prefix).  Nothing
+    is read back to the host.
+
     Args:
         table: ``(Vp, P*E)`` float32 packed table.
         uids: ``(M,)`` int32 ascending unique logical ids, padded with a

@@ -1,4 +1,4 @@
-"""Sparse embedding update kernels: segment-sums and row-wise update.
+"""Sparse embedding update kernels: segment-sums and row-wise updates.
 
 Counterpart of ``torecsys_tpu/ops/pallas/sparse_update.py``.  Four kernels,
 written in CUDA C++ for Hopper in ``csrc/sparse_update.cu`` (its header says
@@ -13,17 +13,23 @@ what bounds each on the card and how the design answers it):
 Each wrapper takes the plain PyTorch version (``*_plain``) for tensors on the
 CPU, launches its kernel for tensors on the card, and raises on anything
 else: a mix of devices, a wrong dtype, shape or layout.  ``launches`` on each
-wrapper counts its calls that launch the kernel (the segment sums launch two
-kernels a call, a tile pass and a fix-up pass) and nothing else.
+wrapper counts its calls that launch the kernel (the tiled kernels launch
+two a call, a tile pass and a fix-up pass) and nothing else.
 
-The two segment sums cut the stream by position: a warp sums
-``SEGSUM_TILE`` consecutive positions, a block ``SEGSUM_WARPS`` such tiles.
-Each output element is summed in an order that this tiling alone fixes, so
-two launches give the same bits.  Where every partial sum is exact (values
-on a coarse grid) the result is the plain version's bit for bit; otherwise
-it may differ from the in-order sum by rounding where a segment crosses a
-tile edge, within ``(L - 1) * 2**-24 * sum|g|`` of the exact sum for a
-segment of ``L`` positions.
+One tile scheme serves three kernels: the two segment sums and the fused
+dedup.  The stream is cut by position: a warp sums ``SEGSUM_TILE``
+consecutive positions, a block ``SEGSUM_WARPS`` such tiles, and a fix-up
+pass finishes the groups that cross block tiles.  The segment sums write
+each group's sum; the fused dedup applies the row-wise rule to its stored
+row in the pass that finishes the sum.  Each element is summed in an order
+that this tiling alone fixes, the same in all three, so two launches give
+the same bits and the fused dedup's table and slots equal those of the
+default combine (a segment sum, then :func:`fused_rowwise_update`) bit for
+bit.  Where every partial sum is exact (values on a coarse grid) the sums
+are the plain version's bit for bit; otherwise they may differ from the
+in-order sum by rounding where a group crosses a tile edge, within
+``(L - 1) * 2**-24 * sum|g|`` of the exact sum for a group of ``L``
+positions.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ def _lib():
         lib.trs_widen_segment_sum.restype = i
         lib.trs_fused_rowwise_update.argtypes = [p, p, p, p, p, i, i, p, i, i, p]
         lib.trs_fused_rowwise_update.restype = i
-        lib.trs_fused_sorted_dedup_update.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.trs_fused_sorted_dedup_update.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.trs_fused_sorted_dedup_update.restype = i
         lib.trs_segment_sum_wide.argtypes = [p, p, p, p, i, i, p]
         lib.trs_segment_sum_wide.restype = i
@@ -66,7 +72,7 @@ def _lib():
 # ---- widened segment-sum ----------------------------------------------------
 
 def _segsum_scratch(m: int, w: int, device) -> torch.Tensor:
-    """The segment sums' scratch: a ``cont`` and a ``head`` partial row per
+    """The tiled kernels' scratch: a ``cont`` and a ``head`` partial row per
     block tile."""
     n_tiles = -(-m // (SEGSUM_TILE * SEGSUM_WARPS))
     return torch.empty(2 * n_tiles, w, dtype=torch.float32, device=device)
@@ -311,10 +317,19 @@ def fused_sorted_dedup_update(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
     """Dedup, widen, segment-sum and apply a row-wise rule in one pass, IN
     PLACE.
 
+    On the card: the segment sums' position tiles (two launches), keyed by
+    the stored row ``id // pack``.  A group that lies inside a block tile is
+    summed and its row updated by the tile pass; one that crosses block
+    tiles by the fix-up pass.  No atomics, and every stored row has one
+    writer.  The result equals the default combine's
+    (:func:`widen_segment_sum`, or :func:`segment_sum_wide` at ``pack ==
+    1``, then :func:`fused_rowwise_update`) on the same stream bit for bit.
+
     Args:
         sorted_ids: ``(M,)`` int32 LOGICAL row ids, ascending (duplicates
             allowed: this is the dedup).  A stored row ``id // pack`` outside
-            ``[0, R)``, such as a sentinel tail ``>= R * pack``, is skipped.
+            ``[0, R)``, such as a sentinel tail ``>= R * pack``, is summed
+            but never written.
         g_sorted: ``(M, E)`` float32 narrow per-slot grads in the same order.
         table: ``(R, pack * E)`` float32 packed stored table.
         slots: as for :func:`fused_rowwise_update`.
@@ -346,13 +361,14 @@ def fused_sorted_dedup_update(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
                                                pack, rule)
     _k.require(all(t.is_contiguous() for t in (sorted_ids, g_sorted, table, hyper, *slots)),
                "inputs must be contiguous")
-    _k.require(rows * pack < 2**31 and m < 2**31 - 64, "table or stream too large for int32 ids")
+    _k.require(rows * pack < 2**31 and m < 2**30, "table or stream too large for int32 ids")
     if m == 0:
         return table, list(slots)
     slot_ptr = _k.ptr(slots[0]) if slots else ctypes.c_void_p(0)
+    scratch = _segsum_scratch(m, w, table.device)
     status = _lib().trs_fused_sorted_dedup_update(
         _k.ptr(sorted_ids), _k.ptr(g_sorted), _k.ptr(table), slot_ptr, _k.ptr(hyper),
-        RULES[rule], m, e, pack, rows, _k.current_stream(table.device),
+        _k.ptr(scratch), RULES[rule], m, e, pack, rows, _k.current_stream(table.device),
     )
     _k.check_status(status, "fused_sorted_dedup_update")
     fused_sorted_dedup_update.launches += 1
