@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 Phases (any failure raises and the exit code is not 0):
 
 1. Build the port's CUDA kernels from ``torecsys_tpu_torch/csrc`` with nvcc,
-   one compiler per source, all started together.
+   one compiler per source, all started together, and beside them the row
+   gather's sweep build (``embedding.cu`` with ``TRS_ROW_GATHER_SWEEP``).
 2. Hold each of the six kernels against its plain PyTorch version on the
    card, at the shapes of the main path: one Criteo-scale batch (the
    workload of ``bench.py``: 28 Zipf(1.2) id fields over 32.9M fused rows,
@@ -25,14 +26,21 @@ Phases (any failure raises and the exit code is not 0):
    ``fused_sorted_dedup_update`` over the same streams as stored rows and a
    sentinel tail, at P = 8 and P = 1, each rule on real-valued grads: table
    and slots bit-identical to the default combine's, two launches
-   bit-identical, untouched rows unchanged; and sweeps
-   ``unique_stored_gather`` over valid prefixes of several lengths, each
-   bit-identical to ``index_select``.
+   bit-identical, untouched rows unchanged; sweeps ``unique_stored_gather``
+   over valid prefixes of several lengths, each bit-identical to
+   ``index_select``; holds ``row_gather`` to its plain version bit for bit
+   on the lookup, the stored rows and the grad permute (int32 and int64
+   order), times the sweep build's chunks (8, 16, 32 ids a warp) and reads
+   in flight (2, 4, 8 a lane) on the lookup, and sweeps it over edge streams
+   (M distinct ids, one id, chunk edges, NaN rows, width 13, an offset
+   pointer); and holds the lookup's backward (``table_grad``) to the
+   ``index_add_`` form it replaced, timing both.
 3. Train the full-width DeepFM (tower 400-400-400, Adam 1e-3, sparse
    presorted embedding route) through the port's ``Trainer`` for ``--steps``
-   steps; every kernel of the route must launch once per step.  Then take
-   3 more steps, each from the kernels' state both with the kernels and with
-   their plain versions, and compare.
+   steps; every kernel of the route must launch once per step, the row
+   gather twice (the lookup and the grad permute).  Then take 3 more steps,
+   each from the kernels' state both with the kernels and with their plain
+   versions, and compare.
 4. Evaluate the trained model on 8 held-out batches (``Trainer.evaluate``:
    one ``row_gather`` per batch) and predict one batch with the kernel and
    with its plain version: the scores must be bit-identical.
@@ -44,14 +52,18 @@ Phases (any failure raises and the exit code is not 0):
    route, all compared (the fused kernel's losses, table and slots to the
    bit).
 6. Train the same model on the dense-table route (Adam over every
-   parameter, the table included) for ``--steps`` steps, then compare 3
-   steps with the kernel and with its plain version, as in phase 3.
+   parameter, the table included) for ``--steps`` steps; take 3 steps twice
+   with the kernels from one state (losses, table and Adam moments must be
+   the same bits), then compare 3 steps with the kernels and with their
+   plain versions, as in phase 3.
 7. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
    bench id streams, each field capped at 1,000,000 rows, for 5 steps.
 
 Every path is driven with all launch counts set to 0 just before it and
-read just after.  The second-to-last lines are a JSON object of the kernels
-exercised and the card's name and power limit; the last line is
+read just after.  ``--profile`` traces 3 steps of each training route and
+prints each kernel's device time in the step.  The second-to-last lines are
+a JSON object of the kernels exercised and the card's name and power limit;
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -95,18 +107,23 @@ SEGSUM_ATOL = 1e-5   # g is drawn on a 2^-10 grid: every partial sum is exact
 UPDATE_ATOL = 1e-6
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_ROWS_ATOL = 1e-6
-# Dense route, kernel vs plain gather over 3 steps: the forward gathers are
-# bit-identical, but the backward's index_add_ sums duplicate ids with
-# atomics in an order that changes from run to run, so the table gradient
-# differs in its last bits where an id occurs 3 or more times.  Adam turns a
-# gradient difference dg into a step difference of at most
+# Dense route, kernels vs plain versions over 3 steps: the forward gathers
+# are bit-identical, and the kernels' backward gives the same bits from run
+# to run (phase 6 holds two runs to the bit), but the plain twin of its
+# per-row sum is index_add_, which on the card sums duplicate ids with
+# atomics in an order that changes from run to run, so the two table
+# gradients differ in their last bits where an id occurs 3 or more times.
+# Adam turns a gradient difference dg into a step difference of at most
 # lr * (1 - b1) / (1 - b1^t) * dg / eps, about 1e-8 for the rounding of
 # sums of 1e-5-sized cotangents; 1e-6 (1e-3 of lr) leaves a wide margin.
 DENSE_LOSS_RTOL = 1e-5
 DENSE_TABLE_ATOL = 1e-6
 COMPARE_STEPS = 3
 DEVICE = "cuda"
-SOURCES = ("sparse_update.cu", "embedding.cu")
+# (source, macros): the port's two libraries, and the row gather's sweep
+# build (other chunks and reads in flight, for phase 2's [gather-config])
+SWEEP_BUILD = ("embedding.cu", ("TRS_ROW_GATHER_SWEEP",))
+BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD)
 
 
 def make_batches(seed: int, n_batches: int, field_sizes=None):
@@ -149,13 +166,15 @@ def device_ms(fn, iters: int, before=None) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     skip = set()
-    if before is not None:
+    for _ in range(3 if before is not None else 0):  # as below: retried
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             before()
             torch.cuda.synchronize()
         skip = {e.name for e in device_events(prof)}
-        if not skip:
-            raise AssertionError("torch.profiler recorded no kernel of the call before")
+        if skip:
+            break
+    if before is not None and not skip:
+        raise AssertionError("torch.profiler recorded no kernel of the call before")
     for _ in range(3):  # a window now and then comes back without its kernels
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -302,12 +321,12 @@ def phase_build():
     from torecsys_tpu_torch.ops import kernels as build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        futures = {src: pool.submit(build.build, src) for src in SOURCES}
-        results = {src: f.result() for src, f in futures.items()}
-    log(f"[build] {len(SOURCES)} sources in parallel in {time.perf_counter() - t0:.2f} s")
-    for src, (path, report) in results.items():
-        log(f"[build] {src} -> {path.name}")
+    with concurrent.futures.ThreadPoolExecutor(len(BUILDS)) as pool:
+        futures = {b: pool.submit(build.build, *b) for b in BUILDS}
+        results = {b: f.result() for b, f in futures.items()}
+    log(f"[build] {len(BUILDS)} builds in parallel in {time.perf_counter() - t0:.2f} s")
+    for (src, defines), (path, report) in results.items():
+        log(f"[build] {src} {' '.join('-D' + d for d in defines)} -> {path.name}")
         kernel = ""
         for line in report.splitlines():
             if "Function properties for" in line:
@@ -483,46 +502,240 @@ def phase_kernels(batch, seed: int):
     records["unique_stored_gather"] = check_unique_gather(shifted, table0)
     records["unique_stored_gather"]["sweep"] = sweep_unique_gather(shifted, table0)
 
-    # -- row gather: the bench batch's shifted ids into the logical view (the
-    # main path's lookup), and their stored rows into the stored table --
-    cases = [("logical view", table0.view(-1, EMBED), shifted),
-             ("stored rows", table0, shifted // (w // EMBED))]
-    gather_err = 0.0
-    for label, src, idx in cases:
-        got = KE.row_gather(src, idx)
-        ref = KE.row_gather_plain(src, idx)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref)
-        err = (got - ref).abs().max().item()
-        gather_err = max(gather_err, err)
-        if not same:
-            raise AssertionError(f"row_gather on the {label} is not bit-identical: {err}")
-        num, width = idx.shape[0], src.shape[1]
-        kernel_t = time_ms(lambda: KE.row_gather(src, idx), 200)
-        cold = cold_time_ms(lambda: KE.row_gather(src, idx), COLD_ITERS)
-        plain_t = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
-        library_t = time_ms(lambda: src.index_select(0, idx), 200)
-        # each id read once, each distinct row read once, each output row
-        # written once
-        distinct = torch.unique(idx).numel()
-        bound_ms, bound_by = bound(
-            num * idx.element_size() + distinct * width * 4 + num * width * 4, 0)
-        log(f"[gather] {label} {tuple(src.shape)} num={num} distinct={distinct} "
-            f"width={width}: bit-identical "
-            f"to the plain version; {times_text('kernel_ms', kernel_t)} cold_ms={cold:.4f} "
-            f"{times_text('plain_ms', plain_t)} "
-            f"{times_text('library_ms', library_t)} (index_select on the same view, the port's "
-            f"lookup before) bound_us={bound_ms * 1e3:.2f} ({bound_by})")
-        if label == "logical view":
-            records["row_gather"] = dict(
-                name="row_gather", route="cuda", source="torecsys_tpu_torch/csrc/embedding.cu",
-                replaces="torecsys_tpu/ops/pallas/embedding.py:40",
-                **time_keys("ms", kernel_t), cold_ms=cold, **time_keys("plain_ms", plain_t),
-                bound_ms=bound_ms, bound_by=bound_by, **time_keys("library_ms", library_t))
-    records["row_gather"]["max_abs_err"] = gather_err
+    records["row_gather"] = check_row_gather(table0, shifted, gen)
+    records["row_gather"]["table_grad"] = check_table_grad(table0, shifted, gen)
     del table0, shifted
     torch.cuda.empty_cache()
     return records
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical float32 tensors (NaN rows included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def gather_bound(src, idx):
+    """(bound_ms, bound_by) of one row gather: each id read once, each
+    distinct row (of the ids inside ``[-rows, rows)``, wrapped) read once,
+    each output row written once."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    rows, width = src.shape
+    row, valid = KE.wrap_ids(idx, rows)
+    distinct = torch.unique(row[valid]).numel()
+    num = idx.shape[0]
+    return bound(num * idx.element_size() + distinct * width * 4 + num * width * 4, 0)
+
+
+def gather_times(src, idx, gather=None, library=False):
+    """Warm and cold device times of ``gather`` (``row_gather`` where None),
+    and where asked the plain version's and ``index_select``'s."""
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    gather = KE.row_gather if gather is None else gather
+    out = {"ms": time_ms(lambda: gather(src, idx), 200),
+           "cold_ms": cold_time_ms(lambda: gather(src, idx), COLD_ITERS)}
+    if library:
+        out["plain_ms"] = time_ms(lambda: KE.row_gather_plain(src, idx), 100)
+        out["library_ms"] = time_ms(lambda: src.index_select(0, idx), 200)
+    return out
+
+
+def check_row_gather(table0, shifted, gen):
+    """``row_gather`` at the main path's shapes, each result bit-identical to
+    its plain version: the bench batch's shifted ids into the logical view
+    (the lookup), their stored rows into the stored table, and the permute of
+    an (M, E) grad stream into id order (int32 and int64 order); then the
+    sweep of chunks and reads in flight on the bench lookup and the sweep of
+    edge streams.  Returns the lookup's record with ``permute``, ``configs``
+    and ``sweep``."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    dev = table0.device
+    w = table0.shape[1]
+    m = shifted.shape[0]
+    logical = table0.view(-1, EMBED)
+    grads = torch.randn(m, EMBED, device=dev, generator=gen)
+    order = torch.sort(shifted.to(torch.int32), stable=True).indices
+    cases = [("logical view", logical, shifted), ("stored rows", table0, shifted // (w // EMBED)),
+             ("permute int64", grads, order), ("permute int32", grads, order.to(torch.int32))]
+    record = None
+    permute = {}
+    for label, src, idx in cases:
+        got, ref = KE.row_gather(src, idx), KE.row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        if not same_bits(got, ref):
+            raise AssertionError(f"row_gather on the {label} is not bit-identical")
+        t = gather_times(src, idx, library=True)
+        bound_ms, bound_by = gather_bound(src, idx)
+        log(f"[gather] {label} {tuple(src.shape)} num={idx.shape[0]} {idx.dtype}: bit-identical "
+            f"to the plain version; kernel_ms={t['ms'][0]:.4f} (events {t['ms'][1]:.4f}) "
+            f"cold_ms={t['cold_ms']:.4f} {times_text('plain_ms', t['plain_ms'])} "
+            f"{times_text('library_ms', t['library_ms'])} (index_select on the same src) "
+            f"bound_us={bound_ms * 1e3:.2f} ({bound_by}); cold {bound_ms / t['cold_ms']:.2f} "
+            f"of the bound")
+        keys = dict(**time_keys("ms", t["ms"]), cold_ms=t["cold_ms"],
+                    **time_keys("plain_ms", t["plain_ms"]), bound_ms=bound_ms,
+                    bound_by=bound_by, **time_keys("library_ms", t["library_ms"]))
+        if label == "logical view":
+            record = dict(name="row_gather", route="cuda",
+                          source="torecsys_tpu_torch/csrc/embedding.cu",
+                          replaces="torecsys_tpu/ops/pallas/embedding.py:40", max_abs_err=0.0,
+                          **keys)
+        elif label.startswith("permute"):
+            permute[label.split()[1]] = keys
+    record["permute"] = permute
+    record["configs"] = sweep_gather_configs(logical, shifted)
+    record["sweep"] = sweep_row_gather(logical, shifted, gen)
+    del grads, order
+    return record
+
+
+# The row gather's (chunk, reads in flight) swept on the bench lookup, and
+# the pair embedding.cu launches (kChunk, kInFlight)
+GATHER_SWEEP = tuple((c, k) for c in (8, 16, 32) for k in (2, 4, 8))
+GATHER_DEFAULT = (32, 4)
+
+
+def sweep_gather(src, idx, chunk: int, in_flight: int):
+    """The row gather at another chunk and reads in flight: the sweep build's
+    ``trs_row_gather_sweep`` (float4 rows, int64 ids); no launch counted."""
+    import ctypes
+
+    import torch
+
+    from torecsys_tpu_torch.ops import kernels as K
+
+    lib = K.load_library(*SWEEP_BUILD)
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.trs_row_gather_sweep.argtypes = [p, p, p, i64, i64, i, i, i, p]
+    lib.trs_row_gather_sweep.restype = i
+    out = torch.empty(idx.shape[0], src.shape[1], dtype=torch.float32, device=src.device)
+    status = lib.trs_row_gather_sweep(K.ptr(src), K.ptr(idx), K.ptr(out), idx.shape[0],
+                                      src.shape[0], src.shape[1], chunk, in_flight,
+                                      K.current_stream(src.device))
+    K.check_status(status, "row_gather sweep")
+    return out
+
+
+def sweep_gather_configs(logical, shifted):
+    """The row gather at chunks of 8, 16 and 32 ids a warp and 2, 4 and 8
+    reads in flight a lane on the bench lookup: each bit-identical to the
+    plain version, warm and cold device times; prints the fastest cold."""
+    import functools
+
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    assert shifted.dtype == torch.int64
+    ref = KE.row_gather_plain(logical, shifted)
+    bound_ms, _ = gather_bound(logical, shifted)
+    results = {}
+    for chunk, in_flight in GATHER_SWEEP:
+        gather = functools.partial(sweep_gather, chunk=chunk, in_flight=in_flight)
+        if not same_bits(gather(logical, shifted), ref):
+            raise AssertionError(f"row_gather chunk {chunk} x {in_flight}: not bit-identical")
+        t = gather_times(logical, shifted, gather)
+        label = f"{chunk}x{in_flight}"
+        default = " (the one row_gather launches)" if (chunk, in_flight) == GATHER_DEFAULT else ""
+        log(f"[gather-config] {label}: chunk {chunk} ids, {in_flight} reads in flight a "
+            f"lane{default}: bit-identical; {times_text('kernel_ms', t['ms'])} "
+            f"cold_ms={t['cold_ms']:.4f} ({bound_ms / t['cold_ms']:.2f} of the "
+            f"{bound_ms * 1e3:.2f} us bound)")
+        results[label] = {**time_keys("ms", t["ms"]), "cold_ms": t["cold_ms"]}
+    best = min(results, key=lambda k: results[k]["cold_ms"])
+    log(f"[gather-config] fastest cold: {best} ({results[best]['cold_ms']:.4f} ms); row_gather "
+        f"launches {GATHER_DEFAULT[0]}x{GATHER_DEFAULT[1]}")
+    return results
+
+
+def sweep_row_gather(logical, shifted, gen):
+    """``row_gather`` on edge streams, each bit-identical to its plain version
+    (int64 and int32 ids) and timed warm and cold beside its bound: M distinct
+    ids, one id M times, M in {1, 31, 32, 33, 255, 256, 257} (chunk edges),
+    negative ids and ids past the table (NaN rows), width 13 (the 4-byte
+    path) and a src offset by one float (misaligned for 16-byte vectors)."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    dev = logical.device
+    rows = logical.shape[0]
+    m = shifted.shape[0]
+
+    def ids(n):
+        return torch.randint(0, rows, (n,), device=dev, generator=gen)
+
+    spread = torch.arange(m, device=dev) * (rows // m)
+    past = torch.randint(-2 * rows, 2 * rows, (m,), device=dev, generator=gen)
+    narrow = torch.randn(1 << 20, 13, device=dev, generator=gen)
+    flat = torch.randn((1 << 20) * EMBED + 1, device=dev, generator=gen)
+    streams = {"distinct": (logical, spread), "one id": (logical, torch.full_like(shifted, 7)),
+               **{f"M={n}": (logical, ids(n)) for n in (1, 31, 32, 33, 255, 256, 257)},
+               "NaN rows": (logical, past),
+               "width 13": (narrow, torch.randint(0, narrow.shape[0], (m,), device=dev,
+                                                  generator=gen)),
+               "offset pointer": (flat[1:].view(-1, EMBED),
+                                  torch.randint(0, 1 << 20, (m,), device=dev, generator=gen))}
+    results = {}
+    for label, (src, idx) in streams.items():
+        for index in (idx, idx.to(torch.int32)):
+            if not same_bits(KE.row_gather(src, index), KE.row_gather_plain(src, index)):
+                raise AssertionError(f"row_gather sweep {label} {index.dtype}: not bit-identical")
+        t = gather_times(src, idx)
+        bound_ms, _ = gather_bound(src, idx)
+        log(f"[sweep] row_gather {label}: src {tuple(src.shape)} num={idx.shape[0]}; int64 and "
+            f"int32 ids bit-identical to the plain version; {times_text('kernel_ms', t['ms'])} "
+            f"cold_ms={t['cold_ms']:.4f} bound_us={bound_ms * 1e3:.3f}")
+        results[label] = {"num": idx.shape[0], "bound_ms": bound_ms,
+                          **time_keys("ms", t["ms"]), "cold_ms": t["cold_ms"]}
+    return results
+
+
+def index_add_table_grad(ids, grad, table_shape):
+    """The lookup's backward before: one ``index_add_`` of the wrapped ids
+    into a zero logical view (atomics on the card)."""
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    vp, w = table_shape
+    rows = vp * (w // grad.shape[1])
+    row, valid = KE.wrap_ids(ids, rows)
+    grad = grad.masked_fill(~valid[:, None], 0.0)
+    return grad.new_zeros(rows, grad.shape[1]).index_add_(0, row, grad).reshape(vp, w)
+
+
+def check_table_grad(table0, shifted, gen):
+    """The lookup's backward (``table_grad``: zero fill, sort, permute, fused
+    dedup) at the dense route's shapes: bit-identical to the ``index_add_``
+    form on grid cotangents (every partial sum exact), two calls
+    bit-identical on real-valued ones; device time of each form (the zero
+    fill of the 2.1 GB table included in both)."""
+    import torch
+
+    from torecsys_tpu_torch.ops.embedding import table_grad
+
+    shape = table0.shape
+    grid = grid_randn((shifted.shape[0], EMBED), gen, table0.device)
+    if not torch.equal(table_grad(shifted, grid, shape), index_add_table_grad(shifted, grid, shape)):
+        raise AssertionError("table_grad differs from index_add_ on grid cotangents")
+    real = torch.randn(shifted.shape[0], EMBED, device=table0.device, generator=gen)
+    if not torch.equal(table_grad(shifted, real, shape), table_grad(shifted, real, shape)):
+        raise AssertionError("table_grad: two calls differ")
+    t = time_ms(lambda: table_grad(shifted, real, shape), 10)
+    parent = time_ms(lambda: index_add_table_grad(shifted, real, shape), 10)
+    log(f"[table-grad] lookup backward at {tuple(shape)}, M={shifted.shape[0]}: bit-identical to "
+        f"index_add_ on grid cotangents, two calls bit-identical; sort + permute + dedup + zero "
+        f"fill {times_text('device_ms', t)} vs the index_add_ form "
+        f"{times_text('device_ms', parent)}")
+    torch.cuda.empty_cache()
+    return {**time_keys("ms", t), **time_keys("index_add_ms", parent)}
 
 
 def rule_state(rule: str, wd: float, rows: int, w: int, gen, dev):
@@ -1071,8 +1284,9 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
     log(f"[train] table {tuple(table.shape)}, m||v {(table.shape[0], 2, table.shape[1])}, "
         f"{sum(FIELD_SIZES)} logical rows")
     counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "train")
+    # row_gather twice a step: the lookup and the grad permute into id order
     check_counts("train", counts, expect(widen_segment_sum=steps, fused_rowwise_update=steps,
-                                         row_gather=steps))
+                                         row_gather=2 * steps))
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     prof_info = None
@@ -1155,8 +1369,8 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
     variants = {
         "ondevice": ("0", expect(widen_segment_sum=steps, fused_rowwise_update=steps,
-                                 row_gather=steps)),
-        "ondevice_fused": ("1", expect(fused_sorted_dedup_update=steps, row_gather=steps)),
+                                 row_gather=2 * steps)),
+        "ondevice_fused": ("1", expect(fused_sorted_dedup_update=steps, row_gather=2 * steps)),
     }
     records = {}
     for path, (flag, want) in variants.items():
@@ -1259,17 +1473,48 @@ def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool
     trainer = build_trainer(seed, sparse=False)
     counts, loss_vals, eps, host = timed_steps(trainer, batches[:steps], fns, "dense")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("dense", counts, expect(row_gather=steps))
+    # the lookup and its backward's permute; the backward's per-row sum
+    check_counts("dense", counts, expect(row_gather=2 * steps, fused_sorted_dedup_update=steps))
     log(f"[dense] examples/sec dense route {eps:.1f} vs sparse route {sparse_eps:.1f} "
         f"(phase 3), the same model and batches; peak_memory_gb={peak:.3f}")
     prof_info = profile_steps(trainer, batches[:3], out_dir, "dense") if profile else None
+    repeat = check_repeatable(trainer, batches[steps:], "dense")
     compare = compare_with_plain(trainer, batches[steps:], fns, "dense", lambda t: t.clone(),
                                  DENSE_LOSS_RTOL, DENSE_TABLE_ATOL)
     del trainer
     release()
     return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
-            "peak_memory_gb": peak, "losses": loss_vals, "compare": compare,
+            "peak_memory_gb": peak, "losses": loss_vals, "repeat": repeat, "compare": compare,
             "profile": prof_info}
+
+
+def check_repeatable(trainer, batches, path: str):
+    """Take ``batches`` twice with the kernels from one state: the losses, the
+    table and the table's Adam moments must be the same bits (the lookup's
+    backward sums each row with one writer, in a fixed order)."""
+    import torch
+
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    dense_opt, _ = _optimizers(trainer)
+
+    def state():
+        moments = dense_opt.state[table]
+        return [table.detach(), moments["exp_avg"], moments["exp_avg_sq"]]
+
+    start = snapshot(trainer)
+    first = torch.stack(trainer.train_steps(batches)).tolist()
+    first_state = [t.clone() for t in state()]
+    restore(trainer, start)
+    second = torch.stack(trainer.train_steps(batches)).tolist()
+    same = first == second and all(torch.equal(a, b) for a, b in zip(first_state, state()))
+    restore(trainer, start)
+    del start, first_state
+    log(f"[{path}] two runs of {len(batches)} steps with the kernels from one state: losses "
+        f"{first} and {second}; table and its Adam moments "
+        f"{'bit-identical' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError(f"{path}: two runs from one state differ")
+    return {"losses": first, "bit_identical": same}
 
 
 def phase_pack1(seed: int, out_dir, profile: bool):
@@ -1287,7 +1532,8 @@ def phase_pack1(seed: int, out_dir, profile: bool):
     counts, loss_vals, eps, host = timed_steps(trainer, batches, fns, "pack1")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_counts("pack1", counts, expect(fused_rowwise_update=PACK1_STEPS,
-                                         row_gather=PACK1_STEPS, segment_sum_wide=PACK1_STEPS))
+                                         row_gather=2 * PACK1_STEPS,
+                                         segment_sum_wide=PACK1_STEPS))
     prof_info = profile_steps(trainer, batches[:3], out_dir, "pack1") if profile else None
     del trainer, table
     release()
@@ -1321,8 +1567,16 @@ def profile_steps(trainer, batches, out_dir, path: str):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     lines = [f"{us / n:10.1f} us/step  {name[:110]}" for name, us in top]
+    by_kernel = {}
+    for name, us in by_name.items():
+        kernel = port_kernel(name) or aten_gather(name)
+        if kernel:
+            by_kernel[kernel] = by_kernel.get(kernel, 0.0) + us / n
     log(f"[profile] {path}, {n} steps: wall {wall_us / n:.1f} us/step (profiler on), "
         f"device busy {busy_us / n:.1f} us/step ({busy_us / wall_us:.3f} of the window)")
+    log(f"[profile] {path} in-step device us/step by kernel: "
+        + ", ".join(f"{k} {us:.1f}" for k, us in sorted(by_kernel.items()))
+        + ("" if "ATen index_select" in by_kernel else "; no ATen index_select gather"))
     for line in lines:
         log(f"[profile] {path} {line}")
     if out_dir:
@@ -1332,7 +1586,35 @@ def profile_steps(trainer, batches, out_dir, path: str):
         with open(os.path.join(out_dir, f"chip_smoke_profile_{path}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by=attr, row_limit=60))
     return {"wall_us_per_step": wall_us / n, "device_busy_us_per_step": busy_us / n,
-            "top": lines}
+            "kernel_us_per_step": by_kernel, "top": lines}
+
+
+def port_kernel(event: str):
+    """The port's kernel that a device event of that name belongs to (its
+    CUDA function and template arguments), or None."""
+    if "row_gather_kernel" in event:
+        return "row_gather"
+    if "unique_stored_gather_kernel" in event:
+        return "unique_stored_gather"
+    if "rowwise_update_kernel" in event:
+        return "fused_rowwise_update"
+    if "tile_kernel" in event or "fixup_kernel" in event:  # the three tiled kernels
+        if "UpdateSink" in event:
+            return "fused_sorted_dedup_update"
+        return "widen_segment_sum" if "SegKeys<true>" in event else "segment_sum_wide"
+    return None
+
+
+def aten_gather(event: str):
+    """The ATen gather kernels a step may run: ``index_select``'s (the grad
+    permute before the row gather took it) and the elementwise scatter /
+    gather kernel (``_combine_sorted_stored``'s uids ``scatter_``); else
+    None."""
+    if "vectorized_gather_kernel" in event or "indexSelect" in event:
+        return "ATen index_select"
+    if "_scatter_gather_elementwise_kernel" in event:
+        return "ATen scatter_/gather"
+    return None
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """The port's lookup kernels (plain versions, on the CPU) against the JAX
-package: ``row_gather`` against the Pallas gather in interpret mode and
-against ``packed_lookup``, its autograd backward against ``jax.grad``, and
+package: ``row_gather`` against the Pallas gather in interpret mode (on
+stored rows and on the card's sweep streams) and against ``packed_lookup``, its autograd backward against ``jax.grad``, and
 ``segment_sum_wide`` against ``sorted_segment_sum_wide`` in interpret mode;
 negative ids wrap as ``jnp.take`` wraps them, forward and backward.
 
@@ -45,6 +45,53 @@ def test_row_gather_matches_pallas_gather_on_stored_rows(dtype):
                               interpret=True)
     got = KE.row_gather(torch.from_numpy(table), torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _gather_case(case, rng):
+    """(src, idx) of one of the row gather's sweep streams in
+    ``chip_smoke.py``, at a small table: the grad permute, all distinct ids,
+    one id, chunk edges (M around the 32-id chunk and 256-thread block),
+    ids past either end (NaN rows), width 13 (the 4-byte path) and rows
+    starting one float in (a pointer the 16-byte path refuses)."""
+    rows, m = 500, 300
+    src = rng.normal(size=(rows, 16)).astype(np.float32)
+    if case == "permute":
+        return rng.normal(size=(m, 16)).astype(np.float32), rng.permutation(m)
+    if case == "distinct":
+        return src, rng.permutation(rows)[:m]
+    if case == "one id":
+        return src, np.full(m, 7)
+    if case.startswith("M="):
+        return src, rng.integers(0, rows, int(case[2:]))
+    if case == "NaN rows":
+        return src, np.concatenate([np.arange(-rows - 3, -rows + 3), rng.integers(0, rows, 40),
+                                    np.arange(rows - 3, rows + 3)])
+    if case == "width 13":
+        return rng.normal(size=(rows, 13)).astype(np.float32), rng.integers(0, rows, m)
+    assert case == "offset pointer"
+    flat = rng.normal(size=(rows * 16 + 1,)).astype(np.float32)
+    return flat[1:].reshape(rows, 16), rng.integers(0, rows, m)
+
+
+@pytest.mark.parametrize("case", ["permute", "distinct", "one id", "M=1", "M=31", "M=32", "M=33",
+                                  "M=255", "M=256", "M=257", "NaN rows", "width 13",
+                                  "offset pointer"])
+def test_row_gather_matches_pallas_gather_on_sweep_streams(case):
+    """``row_gather`` on the streams ``chip_smoke.py`` sweeps on the card,
+    int32 and int64 ids, against the Pallas gather in interpret mode; ids
+    outside ``[0, rows)`` against the JAX lookup, which wraps a negative id
+    once and gives NaN past either end."""
+    src, idx = _gather_case(case, np.random.default_rng(90))
+    rows, width = src.shape
+    if ((idx >= 0) & (idx < rows)).all():
+        ref = pe._row_gather_impl(jnp.asarray(src), jnp.asarray(idx.astype(np.int32)),
+                                  interpret=True)
+    else:
+        ref = jax_embedding.packed_lookup(jnp.asarray(src), jnp.asarray(idx), width)
+        assert np.isnan(np.asarray(ref)).any()
+    for dtype in (np.int32, np.int64):
+        got = KE.row_gather(torch.from_numpy(src), torch.from_numpy(idx.astype(dtype)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))  # NaN == NaN here
 
 
 @pytest.mark.parametrize("pack", [1, 2, 4, 8])

@@ -29,16 +29,29 @@
 // logical row (E = 16) costs two sectors and the kernel reads only the E
 // floats of each id, an eighth of the stored row.
 //
-// Design: one thread per 16-byte vector of the output, so width/4 threads per
-// id (4 at E = 16: one warp serves 8 ids; 32 at W = 128).  Neighbouring
-// threads hold neighbouring vectors of the output, so the stores coalesce and
-// each id's row is read in whole sectors.  The TPU kernel's DMA queue, which
-// keeps many row fetches in flight, has its counterpart in the number of
-// threads in flight (458,752 at the main path's 114,688 ids), not in a
-// software pipeline.  The ids are read as they come, int64 (what the
-// embedding module makes) or int32, with no conversion pass.  A width that
-// is not a multiple of 4, or a pointer not 16-byte aligned, takes the same
-// kernel with 4-byte vectors.
+// Cold, each id costs two dependent DRAM round trips (its id, then its row),
+// so a design with one thread per output vector and a grid sized by M spends
+// its time waiting, and its second, partial wave of blocks waits again.
+// Design: the grid is as many blocks as the card holds at once (occupancy
+// API), fewer for a short stream, so there is one wave.  A warp takes a chunk
+// of kChunk = 32 consecutive ids, each loaded by one lane (one coalesced read
+// of the chunk's ids, without L1 allocation, no re-reads), and strides on by
+// the whole grid's share.  Each lane keeps its id's wrapped row in a register
+// and the warp shares them by shuffles.  The chunk's output is one
+// contiguous run of 32 * width floats; lane l takes its vectors l, l + 32,
+// ..., so the stores coalesce and each id's row is read in whole sectors (4
+// lanes per 64-byte row at E = 16, 32 lanes per 512-byte row at W = 128).  A
+// lane issues kInFlight = 4 row reads before it stores any, and loads the
+// next chunk's ids before those stores, so the id round trip of the next
+// chunk hides under the row reads of this one.  Row reads take the read-only
+// path through L1, where the Zipf stream's repeated hot rows hit.  The chunk
+// and the reads in flight were chosen by a cold sweep on the bench lookup
+// (chip_smoke.py: a build with TRS_ROW_GATHER_SWEEP defined adds
+// trs_row_gather_sweep, the same kernel at chunks 8-32 and 2-8 reads in
+// flight).  The ids are read as they come, int64 (what the embedding module
+// makes) or int32, with no conversion pass.  A width that is not a multiple
+// of 4, or a pointer not 16-byte aligned, takes the same kernel with 4-byte
+// vectors.
 // ---------------------------------------------------------------------------
 // trs_unique_stored_gather replaces torecsys_tpu/ops/pallas/embedding.py
 // _unique_gather_kernel / unique_stored_gather.
@@ -81,34 +94,99 @@ __device__ __forceinline__ void set_nan(float4& v) {
   v = make_float4(n, n, n, n);
 }
 
-template <typename Vec, typename Index>
-__global__ void row_gather_kernel(const Vec* __restrict__ src,
-                                  const Index* __restrict__ idx,
-                                  Vec* __restrict__ out, int64_t num,
-                                  int64_t rows, int vecs_per_row) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num * vecs_per_row) return;
-  int64_t i = t / vecs_per_row;
-  int64_t j = t - i * vecs_per_row;
-  int64_t r = (int64_t)idx[i];
-  if (r < 0) r += rows;
-  Vec v;
-  if (r >= 0 && r < rows) {
-    v = src[r * vecs_per_row + j];
-  } else {
-    set_nan(v);
-  }
-  out[t] = v;
+// An id, on the read-only path without L1 allocation (it is read once).
+__device__ __forceinline__ int64_t load_id(const int64_t* p) {
+  int64_t v;
+  asm("ld.global.nc.L1::no_allocate.s64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int64_t load_id(const int32_t* p) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
 }
 
-template <typename Vec, typename Index>
-void launch(const float* src, const void* idx, float* out, int64_t num,
-            int64_t rows, int vecs_per_row, cudaStream_t st) {
-  int64_t total = num * vecs_per_row;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  row_gather_kernel<Vec, Index><<<(unsigned)blocks, kThreads, 0, st>>>(
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;     // ids a warp takes at a time, one a lane
+constexpr int kInFlight = 4;   // row reads a lane issues before it stores any
+
+template <typename Vec, typename Index, int Chunk, int InFlight>
+__global__ void __launch_bounds__(kThreads)
+row_gather_kernel(const Vec* __restrict__ src, const Index* __restrict__ idx,
+                  Vec* __restrict__ out, int64_t num, int64_t rows, int vecs_per_row,
+                  int shift) {
+  static_assert(Chunk <= 32, "a chunk's rows are shared by shuffles, one a lane");
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kWarps * Chunk;
+  int64_t base = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * Chunk;
+  int64_t id = lane < Chunk && base + lane < num ? load_id(idx + base + lane) : 0;
+  while (base < num) {
+    const int64_t wrapped = id < 0 ? id + rows : id;
+    const int64_t row = wrapped >= 0 && wrapped < rows ? wrapped : -1;  // -1: a NaN row
+    const int64_t next = base + stride;
+    const int64_t n = num - base < Chunk ? num - base : Chunk;
+    const unsigned total = (unsigned)(n * vecs_per_row);
+    Vec* dst = out + base * vecs_per_row;
+    for (unsigned f0 = 0; f0 < total; f0 += 32 * InFlight) {
+      Vec v[InFlight];
+#pragma unroll
+      for (int k = 0; k < InFlight; ++k) {
+        unsigned f = f0 + k * 32 + lane;
+        unsigned q = shift >= 0 ? f >> shift : f / (unsigned)vecs_per_row;
+        int64_t r = __shfl_sync(0xffffffffu, row, q & 31);
+        if (f < total) {
+          if (r >= 0) {
+            v[k] = __ldg(src + r * vecs_per_row + (f - q * vecs_per_row));
+          } else {
+            set_nan(v[k]);
+          }
+        }
+      }
+      if (f0 == 0) id = lane < Chunk && next + lane < num ? load_id(idx + next + lane) : 0;
+#pragma unroll
+      for (int k = 0; k < InFlight; ++k) {
+        unsigned f = f0 + k * 32 + lane;
+        if (f < total) dst[f] = v[k];
+      }
+    }
+    base = next;
+  }
+}
+
+// Blocks of kThreads threads of `kernel` that the current card holds at once.
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel) {
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return sms * per_sm > 0 ? (int64_t)sms * per_sm : 1;
+}
+
+template <typename Vec, typename Index, int Chunk = kChunk, int InFlight = kInFlight>
+void launch_gather(const float* src, const void* idx, float* out, int64_t num,
+                   int64_t rows, int vecs_per_row, cudaStream_t st) {
+  auto kernel = row_gather_kernel<Vec, Index, Chunk, InFlight>;
+  constexpr int64_t kIdsPerBlock = kWarps * Chunk;
+  // The occupancy query costs the host microseconds a call: asked once per
+  // card (a race between threads writes the same value).
+  constexpr int kMaxCards = 64;
+  static int64_t resident[kMaxCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int64_t fits = dev < kMaxCards ? resident[dev] : 0;
+  if (fits == 0) {
+    fits = resident_blocks(kernel);
+    if (dev < kMaxCards) resident[dev] = fits;
+  }
+  int64_t blocks = (num + kIdsPerBlock - 1) / kIdsPerBlock;
+  if (blocks > fits) blocks = fits;
+  int shift = (vecs_per_row & (vecs_per_row - 1)) == 0 ? __builtin_ctz(vecs_per_row) : -1;
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       reinterpret_cast<const Vec*>(src), static_cast<const Index*>(idx),
-      reinterpret_cast<Vec*>(out), num, rows, vecs_per_row);
+      reinterpret_cast<Vec*>(out), num, rows, vecs_per_row, shift);
 }
 
 constexpr int kIdsPerWarp = 4;   // ids whose rows a warp reads before it writes them
@@ -119,7 +197,6 @@ unique_stored_gather_kernel(const Vec* __restrict__ table, const int* __restrict
                             Vec* __restrict__ out, int64_t num, int64_t num_logical, int pack,
                             int vecs_per_row) {
   const unsigned kFull = 0xffffffffu;
-  constexpr int kWarps = kThreads / 32;
   int lane = threadIdx.x & 31;
   int64_t stride = (int64_t)gridDim.x * kWarps * kIdsPerWarp;
   for (int64_t i0 = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kIdsPerWarp;
@@ -151,26 +228,13 @@ unique_stored_gather_kernel(const Vec* __restrict__ table, const int* __restrict
   }
 }
 
-// Blocks of kThreads threads that the current card holds at once.
-template <typename Vec>
-int64_t resident_blocks() {
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unique_stored_gather_kernel<Vec>,
-                                                kThreads, 0);
-  return sms * per_sm > 0 ? sms * per_sm : 1;
-}
-
 template <typename Vec>
 void launch_unique(const float* table, const int* uids, float* out,
                    int64_t num, int64_t num_logical, int pack,
                    int vecs_per_row, cudaStream_t st) {
   constexpr int64_t kIdsPerBlock = (kThreads / 32) * kIdsPerWarp;
   int64_t blocks = (num + kIdsPerBlock - 1) / kIdsPerBlock;
-  int64_t resident = resident_blocks<Vec>();
+  int64_t resident = resident_blocks(unique_stored_gather_kernel<Vec>);
   if (blocks > resident) blocks = resident;
   unique_stored_gather_kernel<Vec><<<(unsigned)blocks, kThreads, 0, st>>>(
       reinterpret_cast<const Vec*>(table), uids, reinterpret_cast<Vec*>(out),
@@ -182,24 +246,47 @@ void launch_unique(const float* table, const int* uids, float* out,
 extern "C" {
 
 // src (rows, width) float32, idx (num,) of idx_bytes = 4 (int32) or 8 (int64),
-// out (num, width) float32.
+// out (num, width) float32; width < 2^23, so a chunk's output run fits
+// 32-bit offsets.
 int trs_row_gather(const float* src, const void* idx, int idx_bytes,
-                   float* out, int64_t num, int64_t rows, int width,
-                   void* stream) {
+                   float* out, int64_t num, int64_t rows, int width, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-              reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (idx_bytes == 8) {
-    if (vec4) launch<float4, int64_t>(src, idx, out, num, rows, width / 4, st);
-    else launch<float, int64_t>(src, idx, out, num, rows, width, st);
-  } else if (idx_bytes == 4) {
-    if (vec4) launch<float4, int32_t>(src, idx, out, num, rows, width / 4, st);
-    else launch<float, int32_t>(src, idx, out, num, rows, width, st);
-  } else {
+  if ((idx_bytes != 8 && idx_bytes != 4) || width >= (1 << 23)) {
     return (int)cudaErrorInvalidValue;
   }
+  bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto launch = vec4 ? (idx_bytes == 8 ? launch_gather<float4, int64_t>
+                                       : launch_gather<float4, int32_t>)
+                     : (idx_bytes == 8 ? launch_gather<float, int64_t>
+                                       : launch_gather<float, int32_t>);
+  launch(src, idx, out, num, rows, vec4 ? width / 4 : width, st);
   return (int)cudaGetLastError();
 }
+
+#ifdef TRS_ROW_GATHER_SWEEP
+// The row gather at another chunk (8, 16 or 32 ids a warp) and reads in
+// flight (2, 4 or 8 vectors a lane), for chip_smoke.py's sweep; float4 rows
+// (width a multiple of 4, 16-byte aligned pointers) and int64 ids only.
+int trs_row_gather_sweep(const float* src, const int64_t* idx, float* out, int64_t num,
+                         int64_t rows, int width, int chunk, int in_flight, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (width % 4 != 0 || reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || width >= (1 << 23)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define TRS_GATHER_CASE(C, K)                                                   \
+  if (chunk == C && in_flight == K) {                                           \
+    launch_gather<float4, int64_t, C, K>(src, idx, out, num, rows, width / 4, st); \
+    return (int)cudaGetLastError();                                             \
+  }
+  TRS_GATHER_CASE(8, 2) TRS_GATHER_CASE(8, 4) TRS_GATHER_CASE(8, 8)
+  TRS_GATHER_CASE(16, 2) TRS_GATHER_CASE(16, 4) TRS_GATHER_CASE(16, 8)
+  TRS_GATHER_CASE(32, 2) TRS_GATHER_CASE(32, 4) TRS_GATHER_CASE(32, 8)
+#undef TRS_GATHER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // TRS_ROW_GATHER_SWEEP
 
 // table (Vp, width) float32 with width = P*E, uids (num,) int32 logical ids,
 // out (num, width) float32; num_logical = Vp*P.

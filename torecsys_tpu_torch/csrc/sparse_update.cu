@@ -162,6 +162,10 @@ __device__ __forceinline__ void update_one(float& r, float* m, float* v,
     *v = v_new;
     r = r - h.lr * g * rsqrtf(v_new + h.eps);
   } else {
+    // sgd reads lr and nothing else: the lookup's backward (table_grad in
+    // ops/embedding.py) runs this rule at lr = -1 on a zero table to sum g
+    // per row, so a change here (weight decay, another hyper) changes every
+    // dense-route table gradient.
     r = r - h.lr * g;
   }
 }

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from torecsys_tpu_torch.ops.kernels import embedding as _kernels
+from torecsys_tpu_torch.ops.kernels import sparse_update as _sparse_kernels
 
 
 def field_offsets(field_sizes: Sequence[int]) -> np.ndarray:
@@ -53,20 +54,52 @@ def unpack_table(packed: torch.Tensor, embed_size: int, total_rows: int) -> torc
     return packed.reshape(-1, embed_size)[:total_rows]
 
 
+def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape) -> torch.Tensor:
+    """The packed table's gradient of a lookup: each row of the ``(M, E)``
+    cotangent ``grad`` added into logical row ``ids[i]`` of a zero
+    ``(Vp, P*E)`` table, with one writer per row and no atomics.
+
+    Ids wrap as in the forward
+    (:func:`~torecsys_tpu_torch.ops.kernels.embedding.wrap_ids`): an id in
+    ``[-rows, 0)`` adds into row ``rows + id`` and an id outside ``[-rows,
+    rows)`` adds nothing, as ``.at[].add`` drops it (its forward row is NaN).
+    The ids are mapped to int32 logical rows, an id outside the table to the
+    sentinel ``rows`` = Vp*P, and sorted stably (the on-device route's sort);
+    ``row_gather`` permutes the cotangent into that order; and
+    ``fused_sorted_dedup_update`` with rule ``sgd`` and ``lr = -1`` sums each
+    stored row's group into the zero table (``0 - (-1) * g`` is ``g``, as
+    long as the sgd rule reads no hyper but ``lr``), on the card in its
+    position tiles, the same bits from run to run.  The
+    sentinel's stored row Vp lies past the table and is summed but never
+    written.  On the CPU the plain versions sum each row in position order,
+    as ``index_add_`` does.
+    """
+    vp, w = table_shape
+    e = grad.shape[1]
+    pack = w // e
+    rows = vp * pack
+    if rows >= 2**31:
+        raise ValueError(f"a table of {rows} logical rows is too large for int32 ids")
+    row, valid = _kernels.wrap_ids(ids, rows)
+    keys = torch.where(valid, row, torch.full_like(row, rows)).to(torch.int32)
+    sorted_ids, order = torch.sort(keys, stable=True)
+    g_sorted = _kernels.row_gather(grad.contiguous(), order)
+    d_table = grad.new_zeros(vp, w)
+    hyper = grad.new_zeros(7)
+    hyper[:1].fill_(-1.0)  # lr, sgd reads nothing else; a fill, not a copy from the host
+    _sparse_kernels.fused_sorted_dedup_update(sorted_ids, g_sorted, d_table, (), hyper,
+                                              pack, "sgd")
+    return d_table
+
+
 class _RowGather(torch.autograd.Function):
     """``packed_table.reshape(-1, E)[ids]`` through the ``row_gather`` kernel.
 
     Counterpart of ``_row_gather_cvjp`` (``ops/pallas/embedding.py``): the
-    forward is the kernel; the backward scatter-adds the cotangent into a
-    zero table-shaped gradient, one ``index_add_`` on the logical
-    ``(Vp*P, E)`` view, as the JAX backward is XLA's ``.at[rows].add`` and
-    no kernel.  On the card ``index_add_`` sums duplicate ids with atomics,
-    in an order that changes from run to run, so the table gradient is not
-    bit-reproducible there.  Ids wrap as in the forward
-    (:func:`~torecsys_tpu_torch.ops.kernels.embedding.wrap_ids`): a negative
-    id in ``[-rows, 0)`` adds into row ``rows + id``, and an id outside
-    ``[-rows, rows)`` adds nothing, as ``.at[].add`` drops it (its forward
-    row is NaN).
+    forward is the kernel; the backward (:func:`table_grad`) sums the
+    cotangent per table row, as the JAX backward is XLA's ``.at[rows].add``,
+    but sorted and tiled instead of scattered with atomics, so the table
+    gradient is the same bits from run to run on the card.
     """
 
     @staticmethod
@@ -78,12 +111,7 @@ class _RowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (ids,) = ctx.saved_tensors
-        rows = ctx.table_shape.numel() // grad.shape[1]
-        # index_add_ asserts on the card for an index outside the table.
-        row, valid = _kernels.wrap_ids(ids, rows)
-        grad = grad.masked_fill(~valid[:, None], 0.0)
-        d_table = grad.new_zeros(rows, grad.shape[1]).index_add_(0, row, grad)
-        return d_table.reshape(ctx.table_shape), None, None
+        return table_grad(ids, grad, ctx.table_shape), None, None
 
 
 def packed_lookup(packed_table: torch.Tensor, ids: torch.Tensor,
@@ -101,4 +129,4 @@ def packed_lookup(packed_table: torch.Tensor, ids: torch.Tensor,
 
 
 __all__ = ["field_offsets", "pack_factor", "pack_table", "packed_lookup",
-           "packed_shape", "unpack_table"]
+           "packed_shape", "table_grad", "unpack_table"]

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
@@ -45,39 +45,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the card's host")
 
 
-def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` lands: named by a hash of the
-    source and flags, so an edited source is rebuilt."""
+def library_path(source: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library of ``csrc/<source>`` built with the macros
+    ``defines`` lands: named by a hash of the source, macros and flags, so an
+    edited source is rebuilt."""
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
+    key = src.read_bytes() + repr((NVCC_FLAGS, defines)).encode()
+    digest = hashlib.sha1(key).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def build(source: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<source>`` if its library is missing; returns the
-    library path and the compiler's output (ptxas register/spill report)."""
-    out = library_path(source)
+def build(source: str, defines: Tuple[str, ...] = ()) -> Tuple[Path, str]:
+    """Compile ``csrc/<source>`` with the macros ``defines`` (``-D``) if its
+    library is missing; returns the library path and the compiler's output
+    (ptxas register/spill report)."""
+    out = library_path(source, defines)
     if out.exists():
-        return out, build_logs.get(source, "")
+        return out, build_logs.get(out.name, "")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    build_logs[source] = proc.stdout + proc.stderr
-    return out, build_logs[source]
+    build_logs[out.name] = proc.stdout + proc.stderr
+    return out, build_logs[out.name]
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<source>``."""
+def load_library(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>`` with ``defines``."""
     with _lock:
-        lib = _libs.get(source)
+        lib = _libs.get((source, defines))
         if lib is None:
-            path, _ = build(source)
+            path, _ = build(source, defines)
             lib = ctypes.CDLL(str(path))
-            _libs[source] = lib
+            _libs[(source, defines)] = lib
         return lib
 
 

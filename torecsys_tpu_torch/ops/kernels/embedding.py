@@ -4,9 +4,10 @@ Counterpart of ``torecsys_tpu/ops/pallas/embedding.py``.  Two kernels,
 written in CUDA C++ for Hopper in ``csrc/embedding.cu`` (its header says
 what bounds each on the card and how the design answers it):
 
-* :func:`row_gather` replaces its ``row_gather`` (``_gather_kernel``); its
-  backward, a scatter-add, is no kernel in the JAX package either and lives
-  with the lookup in ``ops/embedding.py``;
+* :func:`row_gather` replaces its ``row_gather`` (``_gather_kernel``).  It
+  also permutes the sparse routes' grads into id order (``ops/sparse.py``)
+  and the lookup's cotangent in its backward (``ops/embedding.py``), which
+  sums it per row with ``fused_sorted_dedup_update``;
 * :func:`unique_stored_gather` replaces ``unique_stored_gather``
   (``_unique_gather_kernel``), an op that no path of either package calls.
 
@@ -60,9 +61,15 @@ def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``src[idx]`` for a 2-D float32 ``src``.
 
+    On the card the grid is as many blocks as the card holds at once; a warp
+    reads a chunk of 32 consecutive ids once, issues 4 row reads per lane
+    before it stores any, and loads its next chunk's ids under those reads.
+    Nothing is allocated but the output, and nothing is read back.
+
     Args:
-        src: ``(rows, width)`` float32: the ``(R, P*E)`` stored table, or its
-            ``(Vp*P, E)`` logical view (``packed_lookup``).
+        src: ``(rows, width)`` float32: the ``(R, P*E)`` stored table, its
+            ``(Vp*P, E)`` logical view (``packed_lookup``), or a grad stream
+            to permute.
         idx: ``(num,)`` int32 or int64 row ids.
 
     Returns:
@@ -78,6 +85,7 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return row_gather_plain(src, idx)
     _k.require(src.is_contiguous() and idx.is_contiguous(), "inputs must be contiguous")
     rows, width = src.shape
+    _k.require(width < 2**23, "width too large for the kernel's 32-bit offsets")
     num = idx.shape[0]
     out = torch.empty(num, width, dtype=torch.float32, device=src.device)
     if num == 0 or width == 0:

@@ -203,7 +203,7 @@ def fused_rowwise_update_plain(uids: torch.Tensor, gsum: torch.Tensor,
         v_new = v.index_select(0, idx) + g * g
         upd = lr * g * torch.rsqrt(v_new + eps)
         v.index_copy_(0, idx, v_new)
-    else:
+    else:  # lr only: table_grad (ops/embedding.py) sums with it at lr = -1
         upd = lr * g
     table.index_copy_(0, idx, row - upd)
     return table, list(slots)
@@ -324,6 +324,9 @@ def fused_sorted_dedup_update(sorted_ids: torch.Tensor, g_sorted: torch.Tensor,
     writer.  The result equals the default combine's
     (:func:`widen_segment_sum`, or :func:`segment_sum_wide` at ``pack ==
     1``, then :func:`fused_rowwise_update`) on the same stream bit for bit.
+    The lookup's backward (``ops/embedding.py`` ``table_grad``) sums a
+    cotangent per row with it: rule ``sgd`` at ``lr = -1`` into a zero table,
+    which relies on ``sgd`` being ``r - lr * g`` and reading no other hyper.
 
     Args:
         sorted_ids: ``(M,)`` int32 LOGICAL row ids, ascending (duplicates

@@ -9,13 +9,14 @@ applies its rule to just the stored rows the batch touched.  Two routes:
 * the trusted presorted route (:meth:`~_RowOptimizerBase.update_from_host_aux`):
   the host presort (``data.presort``) supplies the sort order, in-row slots,
   segment ids and compact unique stored-row ids, so the device permutes the
-  narrow ``(M, E)`` grads (``index_select``), sums them per stored row
-  widened to ``(M, P*E)`` (:func:`_sorted_gsum`: the ``widen_segment_sum``
-  kernel, or ``segment_sum_wide`` at ``P == 1``) and updates the unique
-  rows in place (the ``fused_rowwise_update`` kernel);
+  narrow ``(M, E)`` grads (the ``row_gather`` kernel), sums them per stored
+  row widened to ``(M, P*E)`` (:func:`_sorted_gsum`: the
+  ``widen_segment_sum`` kernel, or ``segment_sum_wide`` at ``P == 1``) and
+  updates the unique rows in place (the ``fused_rowwise_update`` kernel);
 * the on-device route (:meth:`~_RowOptimizerBase.update_sorted`), for a
   batch without presort aux: the step sorts the ids on the card
-  (:func:`sort_slot_grads`, a stable ``torch.sort``), then either combines
+  (:func:`sort_slot_grads`, a stable ``torch.sort``, then the grads'
+  permute by the ``row_gather`` kernel), then either combines
   them (:func:`_combine_sorted_stored`: segment ids by prefix sum, unique
   stored rows by scatter, the wide sums by :func:`_sorted_gsum`) and
   updates with ``fused_rowwise_update``, its unique count a device tensor;
@@ -40,6 +41,7 @@ from typing import Dict, Optional
 
 import torch
 
+from torecsys_tpu_torch.ops.kernels import embedding as KE
 from torecsys_tpu_torch.ops.kernels import sparse_update as K
 
 FUSED_DEDUP_ENV = "TORECSYS_TPU_FUSED_DEDUP"
@@ -116,7 +118,7 @@ def sort_slot_grads(ids: torch.Tensor, grads: torch.Tensor):
     e = grads.shape[-1]
     flat_ids = ids.reshape(-1).to(torch.int32)
     sorted_ids, order = torch.sort(flat_ids, stable=True)
-    return sorted_ids, grads.reshape(-1, e).index_select(0, order)
+    return sorted_ids, KE.row_gather(grads.reshape(-1, e).contiguous(), order)
 
 
 def _combine_sorted_stored(sorted_ids: torch.Tensor, g_sorted: torch.Tensor, pack: int,
@@ -230,7 +232,7 @@ class _RowOptimizerBase:
         """
         e = flat_g.shape[-1]
         pack = table.shape[-1] // e
-        g_sorted = flat_g.index_select(0, aux["order"])
+        g_sorted = KE.row_gather(flat_g.contiguous(), aux["order"])
         gsum = _sorted_gsum(g_sorted, aux["lo"], aux["seg"], pack)
         return self.update(table, slots, aux["uids"], gsum, step,
                            n_valid=int(aux["n_unique"]))
