@@ -3,7 +3,7 @@
 
 Run from the root of the repository on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--seed 0] [--steps 20] [--out DIR] [--profile]
+    python3 chip_smoke.py [--seed 0] [--steps 20] [--out DIR] [--profile] [--auto-sweep]
 
 Phases (any failure raises and the exit code is not 0):
 
@@ -58,6 +58,30 @@ Phases (any failure raises and the exit code is not 0):
    plain versions, as in phase 3.
 7. Train the ``pack == 1`` sparse route: the same DeepFM with E=128 on the
    bench id streams, each field capped at 1,000,000 rows, for 5 steps.
+8. (Run after phase 2.)  The C++ presort (``data/native``, built with
+   ``g++`` beside the nvcc builds of phase 1) against the numpy presort on
+   8 bench batches, bit for bit, with each one's host ms a batch; the
+   ``Presorter`` must be on the C++ route.  Phase 2 also holds
+   ``row_gather`` on the bench table stored in bf16 to its plain version,
+   bit for bit (``[gather-bf16]``).
+9. Each of the four training routes (presorted, on-device default combine,
+   on-device fused, dense) at 8 steps a dispatch, with the bf16 tower: the
+   first dispatch warms up and captures a CUDA graph of the 8 steps (the
+   launch counters tick there, and not in a replay); then, from one state,
+   one replay against 8 eager steps (losses, table, slots, Adam state and
+   parameters must be the same bits); one replay under
+   ``torch.cuda.set_sync_debug_mode("error")``; eager against graphed
+   examples/sec, host ms a step and peak memory on the same batches; and
+   one traced replay, whose device events give each kernel's launches per
+   replay and the device busy time a step.
+10. The headline configuration of ``bench.py`` through the entry points:
+    ``set_sparse_embeddings(None)``, ``set_compute_dtype("bfloat16")`` and
+    ``Trainer(steps_per_execution=8)`` (prefetch 4, presort None), two
+    epochs of ``fit`` over 96 batches; the automatic choice must take the
+    sparse route, on the card the on-device one (presort None does not
+    presort there).  Its launches are the
+    counters' (warm-up and capture) plus the replays times a traced
+    replay's.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -65,6 +89,13 @@ prints each kernel's device time in the step.  The second-to-last lines are
 a JSON object of the kernels exercised and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``--auto-sweep`` runs phase 1 and then only the sweep behind the automatic
+dense/sparse choice (``train/trainer.py``): the dense route against the
+presorted and the on-device sparse routes at 10 table sizes from 62.5k to
+16M logical rows (E = 16, the bench's field proportions, batch 4096, bf16
+tower), each at 8 steps a dispatch and at 1, printing examples/sec and the
+size from which each sparse route beats the dense one.
 """
 
 from __future__ import annotations
@@ -320,11 +351,17 @@ def check_counts(path: str, counts, want) -> None:
 def phase_build():
     from torecsys_tpu_torch.ops import kernels as build
 
+    from torecsys_tpu_torch.data import native
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(BUILDS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(BUILDS) + 1) as pool:
         futures = {b: pool.submit(build.build, *b) for b in BUILDS}
+        presort = pool.submit(native.presort_lib)
         results = {b: f.result() for b, f in futures.items()}
-    log(f"[build] {len(BUILDS)} builds in parallel in {time.perf_counter() - t0:.2f} s")
+        if presort.result() is None:
+            raise AssertionError("the C++ presort did not build (g++ on the card's host)")
+    log(f"[build] {len(BUILDS)} nvcc builds and the g++ presort in parallel in "
+        f"{time.perf_counter() - t0:.2f} s; presort -> {native.library_path().name}")
     for (src, defines), (path, report) in results.items():
         log(f"[build] {src} {' '.join('-D' + d for d in defines)} -> {path.name}")
         kernel = ""
@@ -347,16 +384,23 @@ def demangle(name: str) -> str:
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def presorted_stream(batch, pack: int):
-    """Presort one batch's fused id stream with the port's Presorter; returns
-    (spec, aux dict of numpy arrays)."""
-    from torecsys_tpu_torch.data.presort import AUX_NAMES, Presorter, PresortSpec
+def bench_spec(pack: int):
+    """The presort spec of the bench's fused id stream at ``pack``."""
+    from torecsys_tpu_torch.data.presort import PresortSpec
     from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
 
     fields = tuple(f"cat_{i}" for i in range(len(FIELD_SIZES)))
     vp, _ = packed_shape(sum(FIELD_SIZES), EMBED, pack)
-    spec = PresortSpec(fields, tuple(int(o) for o in field_offsets(FIELD_SIZES)), pack, vp,
+    return PresortSpec(fields, tuple(int(o) for o in field_offsets(FIELD_SIZES)), pack, vp,
                        sum(FIELD_SIZES))
+
+
+def presorted_stream(batch, pack: int):
+    """Presort one batch's fused id stream with the port's Presorter; returns
+    (spec, aux dict of numpy arrays)."""
+    from torecsys_tpu_torch.data.presort import AUX_NAMES, Presorter
+
+    spec = bench_spec(pack)
     out = Presorter([spec])(batch)
     return spec, {n: out[spec.aux_key(n)] for n in AUX_NAMES}
 
@@ -503,6 +547,7 @@ def phase_kernels(batch, seed: int):
     records["unique_stored_gather"]["sweep"] = sweep_unique_gather(shifted, table0)
 
     records["row_gather"] = check_row_gather(table0, shifted, gen)
+    records["row_gather"]["bf16"] = check_row_gather_bf16(table0, shifted)
     records["row_gather"]["table_grad"] = check_table_grad(table0, shifted, gen)
     del table0, shifted
     torch.cuda.empty_cache()
@@ -595,6 +640,39 @@ def check_row_gather(table0, shifted, gen):
     record["sweep"] = sweep_row_gather(logical, shifted, gen)
     del grads, order
     return record
+
+
+def check_row_gather_bf16(table0, shifted):
+    """``row_gather`` on the bench table stored in bf16 (the dense route's
+    ``set_table_dtype("bfloat16")``): the lookup of the bench batch's ids in
+    its logical view, bit-identical to the plain version, warm and cold
+    beside its bound and ``index_select``'s time on the same table."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    logical = table0.to(torch.bfloat16).view(-1, EMBED)
+    got, ref = KE.row_gather(logical, shifted), KE.row_gather_plain(logical, shifted)
+    torch.cuda.synchronize()
+    if not (got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                        ref.view(torch.int16))):
+        raise AssertionError("row_gather on the bf16 table is not bit-identical")
+    t = gather_times(logical, shifted, library=True)
+    row, valid = KE.wrap_ids(shifted, logical.shape[0])
+    distinct = torch.unique(row[valid]).numel()
+    num = shifted.shape[0]
+    bound_ms, bound_by = bound(num * 8 + distinct * EMBED * 2 + num * EMBED * 2, 0)
+    log(f"[gather-bf16] logical view {tuple(logical.shape)} bf16, num={num} int64: "
+        f"bit-identical to the plain version; {times_text('kernel_ms', t['ms'])} "
+        f"cold_ms={t['cold_ms']:.4f} {times_text('plain_ms', t['plain_ms'])} "
+        f"{times_text('library_ms', t['library_ms'])} (index_select on the bf16 table) "
+        f"bound_us={bound_ms * 1e3:.2f} ({bound_by}); cold {bound_ms / t['cold_ms']:.2f} of "
+        f"the bound")
+    del logical, got, ref
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, **time_keys("ms", t["ms"]), cold_ms=t["cold_ms"],
+                **time_keys("plain_ms", t["plain_ms"]), bound_ms=bound_ms, bound_by=bound_by,
+                **time_keys("library_ms", t["library_ms"]))
 
 
 # The row gather's (chunk, reads in flight) swept on the bench lookup, and
@@ -1133,9 +1211,11 @@ def sweep_unique_gather(shifted, table0):
 
 # ---- phases 3-7: the trainer's paths ----------------------------------------
 
-def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_sizes=None,
-                  presort=None):
-    from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, Trainer, ValueInput
+def bench_pipeline(field_sizes=None, sparse=None, compute=None, embed: int = EMBED):
+    """The bench DeepFM's pipeline (bench.py:81-95) as the port spells it;
+    ``bench_pipeline(sparse=None, compute="bfloat16")`` is bench.py's
+    headline configuration (bench.py:444-448)."""
+    from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, ValueInput
 
     field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
     inputs = Inputs({
@@ -1144,13 +1224,18 @@ def build_trainer(seed: int, sparse: bool = True, embed: int = EMBED, field_size
             embed, field_sizes, tuple(f"cat_{i}" for i in range(len(field_sizes))),
             device=DEVICE),
     })
-    pipeline = (
-        Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
-        .set_model("DeepFM", deep_layer_sizes=TOWER)
-        .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=1e-3)
-        .set_sparse_embeddings(sparse).set_target_fields("label")
-    )
-    trainer = Trainer(pipeline, log_every=10**9, seed=seed, presort=presort)
+    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
+            .set_model("DeepFM", deep_layer_sizes=TOWER).set_criterion("BCEWithLogitsLoss")
+            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(sparse)
+            .set_compute_dtype(compute).set_target_fields("label"))
+
+
+def build_trainer(seed: int, sparse=True, embed: int = EMBED, field_sizes=None,
+                  presort=True, spe: int = 1, compute=None):
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(bench_pipeline(field_sizes, sparse, compute, embed), log_every=10**9,
+                      seed=seed, presort=presort, steps_per_execution=spe)
     trainer.init_state()
     return trainer
 
@@ -1179,10 +1264,15 @@ def snapshot(trainer):
         "adam": copy.deepcopy(dense_opt.state_dict()),
         "slots": {k: {n: v.clone() for n, v in s.items()} for k, s in slots.items()},
         "step": trainer.state.step.clone(),
+        "loss_sum": trainer.state.loss_sum.clone(),
     }
 
 
 def restore(trainer, snap):
+    """Copy a snapshot back into the trainer's own tensors, in place: a
+    captured CUDA graph holds the parameters and the optimizer state by
+    address (``load_state_dict`` would replace Adam's tensors and make the
+    trainer capture again)."""
     import torch
 
     seq = trainer.pipeline.sequential
@@ -1194,7 +1284,18 @@ def restore(trainer, snap):
             for n, v in s.items():
                 v.copy_(snap["slots"][k][n])
         trainer.state.step.copy_(snap["step"])
-    dense_opt.load_state_dict(copy.deepcopy(snap["adam"]))
+        trainer.state.loss_sum.copy_(snap["loss_sum"])
+        live = dense_opt.state_dict()["state"]  # the optimizer's own tensors
+        saved = snap["adam"]["state"]
+        if {i: set(s) for i, s in live.items()} != {i: set(s) for i, s in saved.items()}:
+            dense_opt.load_state_dict(copy.deepcopy(snap["adam"]))
+            return
+        for i, state in saved.items():
+            for k, v in state.items():
+                if isinstance(v, torch.Tensor):
+                    live[i][k].copy_(v)
+                else:
+                    live[i][k] = v
 
 
 def timed_steps(trainer, batches, fns, path: str):
@@ -1219,8 +1320,8 @@ def timed_steps(trainer, batches, fns, path: str):
     log(f"[{path}] {len(batches)} steps, losses first {loss_vals[0]:.6f} "
         f"last {loss_vals[-1]:.6f}")
     log(f"[{path}] steady-state examples/sec={eps:.1f} step_ms={elapsed / n_timed * 1e3:.3f} "
-        f"host ms/step: presort={host['presort']:.3f} place={host['place']:.3f} "
-        f"enqueue={host['step']:.3f}; peak_memory_gb="
+        f"host ms/step: " + " ".join(f"{k}={v:.3f}" for k, v in host.items())
+        + "; peak_memory_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     if not all(np.isfinite(loss_vals)):
         raise AssertionError(f"{path}: non-finite training loss: {loss_vals}")
@@ -1380,6 +1481,11 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
             peak = torch.cuda.max_memory_allocated() / 1e9
             check_counts(path, counts, want)
             prof_info = profile_steps(trainer, batches[:3], out_dir, path) if profile else None
+            if path == "ondevice":  # the same steps, packed by 4 worker threads
+                with input_workers(trainer, 4):
+                    _, _, eps4, _ = timed_steps(trainer, batches[:steps], fns, f"{path}_4workers")
+                log(f"[{path}] examples/sec packed on the loop's thread {eps:.1f}, by 4 worker "
+                    f"threads {eps4:.1f}")
         log(f"[{path}] examples/sec {eps:.1f} (TORECSYS_TPU_FUSED_DEDUP={flag}) vs the presorted "
             f"route {presorted_eps:.1f} (phase 3), the same model and batches; "
             f"peak_memory_gb={peak:.3f}")
@@ -1617,6 +1723,423 @@ def aten_gather(event: str):
     return None
 
 
+# ---- phases 8-10: the C++ presort, the K-step graph, the headline ----------
+
+PRESORT_BATCHES = 8
+GRAPH_K = 8          # steps a dispatch, as bench.py's SCAN_STEPS
+TIMED_DISPATCHES = 4
+HEADLINE_DISPATCHES = 12
+# device kernels one wrapper launch runs: the tiled kernels' tile pass and
+# fix-up pass
+DEVICE_KERNELS_PER_LAUNCH = {"widen_segment_sum": 2, "segment_sum_wide": 2,
+                             "fused_sorted_dedup_update": 2}
+
+
+def phase_presort(seed: int):
+    """Phase 8: the C++ presort against numpy's on the bench batches, bit for
+    bit, with each one's host ms a batch (one thread), and the C++ presort's
+    batches a second on 4 threads (the prefetch workers' count)."""
+    from torecsys_tpu_torch.data.presort import Presorter
+
+    batches = make_batches(seed + 5, PRESORT_BATCHES)
+    spec = bench_spec(8)
+    native, numpy_ = Presorter([spec]), Presorter([spec], force_numpy=True)
+    if not native.native:
+        raise AssertionError("the card's host presorts with numpy: the C++ presort did not load")
+    for i, b in enumerate(batches):
+        got, want = native(b), numpy_(b)
+        for k in want:
+            if not np.array_equal(got[k], want[k]) or got[k].dtype != want[k].dtype:
+                raise AssertionError(f"C++ presort differs from numpy on batch {i} at {k}")
+
+    def per_batch_ms(fn):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for b in batches:
+                fn(b)
+            best = min(best, (time.perf_counter() - t0) / len(batches) * 1e3)
+        return best
+
+    native_ms, numpy_ms = per_batch_ms(native), per_batch_ms(numpy_)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(native, batches))
+        t0 = time.perf_counter()
+        list(pool.map(native, batches * 4))
+        threads_per_s = 4 * len(batches) / (time.perf_counter() - t0)
+    log(f"[presort] {len(batches)} bench batches (M={BATCH * len(FIELD_SIZES)} ids, pack 8): "
+        f"C++ bit-identical to numpy; host ms a batch, best of 3 passes: C++ {native_ms:.3f}, "
+        f"numpy {numpy_ms:.3f} ({numpy_ms / native_ms:.1f}x); C++ on 4 threads "
+        f"{threads_per_s:.1f} batches/s")
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms,
+            "native_4_threads_batches_per_s": threads_per_s}
+
+
+def bits(t):
+    """A tensor's bits as integers of its width (NaN and -0.0 included)."""
+    import torch
+
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return t.view(width)
+
+
+def held_state(trainer):
+    """Clones of everything a train step keeps: parameters, optimizer state,
+    row-wise slots, the step and loss accumulators."""
+    from torecsys_tpu_torch.train.steps import _held_tensors
+
+    return [t.detach().clone() for t in _held_tensors(trainer.pipeline.sequential,
+                                                      trainer.state)]
+
+
+def replay_profile(trainer, batches, out_dir, path: str):
+    """torch.profiler over one dispatch of ``batches`` (one graph replay):
+    the port's kernels the card ran in it, per wrapper launch, and the
+    device busy time (union of kernel and copy intervals) per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(batches)
+    torch.cuda.synchronize()
+    before = trainer.graph_stats["replays"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_steps(batches)
+        torch.cuda.synchronize()
+    if trainer.graph_stats["replays"] != before + 1:
+        raise AssertionError(f"{path}: the traced dispatch was not one replay")
+    device = device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    seen, us = {}, {}
+    for e in device:
+        kernel = port_kernel(e.name)
+        if kernel:
+            seen[kernel] = seen.get(kernel, 0) + 1
+            us[kernel] = us.get(kernel, 0.0) + (e.time_range.end - e.time_range.start) / n
+    per_replay = {k: v // DEVICE_KERNELS_PER_LAUNCH.get(k, 1) for k, v in seen.items()}
+    log(f"[{path}] traced replay of {n} steps: device busy {busy_us / n / 1e3:.4f} ms/step; "
+        f"port kernels launched in it {per_replay} ({', '.join(f'{k} {v:.1f} us/step' for k, v in sorted(us.items()))})")
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"chip_smoke_replay_{path}.json"))
+    return {"launches_per_replay": per_replay, "device_busy_ms_per_step": busy_us / n / 1e3,
+            "kernel_us_per_step": us}
+
+
+@contextlib.contextmanager
+def input_workers(trainer, n: int):
+    """The host input path with ``n`` worker threads (0: the loop's own
+    thread) on any route: the alternative to the Trainer's own choice (4
+    workers where it presorts, none elsewhere), timed beside it."""
+    from torecsys_tpu_torch.data.packed import group_batches
+    from torecsys_tpu_torch.data.prefetch import prefetch_map
+
+    trainer._prepared = lambda batches: prefetch_map(
+        group_batches(batches, trainer.steps_per_execution), trainer._prepare,
+        num_workers=n, depth=max(n, trainer.prefetch))
+    try:
+        yield
+    finally:
+        del trainer._prepared
+
+
+def timed_dispatches(trainer, batches, path: str, steps_per_execution: int):
+    """Train on ``batches`` at ``steps_per_execution`` steps a dispatch with
+    the host counters set to 0: (examples/sec, host ms a step per stage)."""
+    import torch
+
+    trainer.steps_per_execution = steps_per_execution
+    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.train_steps(batches)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    eps = BATCH * len(batches) / elapsed
+    host = {k: v / len(batches) for k, v in trainer.host_ms.items()}
+    loss_vals = torch.stack(losses).tolist()
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"{path}: non-finite loss")
+    log(f"[{path}] K={steps_per_execution}: {len(batches)} steps, examples/sec={eps:.1f} "
+        f"step_ms={elapsed / len(batches) * 1e3:.3f} host ms/step: "
+        + " ".join(f"{k}={v:.3f}" for k, v in host.items()))
+    return eps, host
+
+
+GRAPH_ROUTES = {
+    # route: (sparse, presort, TORECSYS_TPU_FUSED_DEDUP, launches a step)
+    "presorted": (True, True, "0", dict(widen_segment_sum=1, fused_rowwise_update=1,
+                                        row_gather=2)),
+    "ondevice": (True, False, "0", dict(widen_segment_sum=1, fused_rowwise_update=1,
+                                        row_gather=2)),
+    "ondevice_fused": (True, False, "1", dict(fused_sorted_dedup_update=1, row_gather=2)),
+    "dense": (False, None, "0", dict(row_gather=2, fused_sorted_dedup_update=1)),
+}
+
+
+def phase_graph(seed: int, out_dir):
+    """Phase 9: each training route at K = 8 steps a dispatch with the bf16
+    tower (the headline's settings).  The first dispatch warms up and
+    captures; the counters show the wrappers launched 2K steps' kernels
+    (warm-up and capture) and nothing in a replay.  Then, from one state,
+    one replay and K eager steps: losses and every kept tensor (table,
+    slots, Adam state, parameters) must be the same bits.  A replay under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Then eager against graphed
+    on the same batches from the same state, and one traced replay."""
+    import torch
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 4, (3 + TIMED_DISPATCHES) * k)
+    warm, first, cmp_group = batches[:k], batches[k:2 * k], batches[2 * k:3 * k]
+    timed = batches[3 * k:]
+    records = {}
+    for route, (sparse, presort, flag, per_step) in GRAPH_ROUTES.items():
+        path = f"graph_{route}"
+        with fused_dedup(flag):
+            # peak memory: of two eager steps, then also through the warm-up,
+            # the capture and a replay (the graph's private pool included)
+            torch.cuda.reset_peak_memory_stats()
+            trainer = build_trainer(seed, sparse=sparse, presort=presort, spe=1,
+                                    compute="bfloat16")
+            trainer.train_steps(warm[:2])
+            torch.cuda.synchronize()
+            eager_peak = torch.cuda.max_memory_allocated() / 1e9
+            trainer.steps_per_execution = k
+            reset_counts(fns)
+            trainer.train_steps(warm)
+            counts = read_counts(fns)
+            check_counts(f"{path} warm-up + capture", counts,
+                         expect(**{n: 2 * k * c for n, c in per_step.items()}))
+            trainer.train_steps(first)
+            if read_counts(fns) != counts or trainer.graph_stats != {"captures": 1, "replays": 1}:
+                raise AssertionError(f"{path}: a replay called a wrapper or captured again: "
+                                     f"{read_counts(fns)} {trainer.graph_stats}")
+            torch.cuda.synchronize()
+            graph_peak = torch.cuda.max_memory_allocated() / 1e9
+            reserved = torch.cuda.memory_reserved() / 1e9
+            start = snapshot(trainer)
+            graphed = torch.stack(trainer.train_steps(cmp_group)).tolist()
+            graphed_state = held_state(trainer)
+            restore(trainer, start)
+            trainer.steps_per_execution = 1
+            eager = torch.stack(trainer.train_steps(cmp_group)).tolist()
+            eager_state = held_state(trainer)
+            trainer.steps_per_execution = k
+            same = graphed == eager and all(torch.equal(bits(a), bits(b))
+                                            for a, b in zip(graphed_state, eager_state))
+            worst = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(graphed_state, eager_state))
+            log(f"[{path}] one replay vs {k} eager steps from one state: losses {graphed} vs "
+                f"{eager}; {len(graphed_state)} kept tensors (table, slots, Adam state, "
+                f"parameters) {'bit-identical' if same else f'NOT bit-identical ({worst:.3g})'}")
+            if not same:
+                raise AssertionError(f"{path}: graphed and eager steps differ")
+            del graphed_state, eager_state
+            restore(trainer, start)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                trainer.train_steps(cmp_group)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log(f"[{path}] a replay with the host input path under "
+                f"set_sync_debug_mode('error'): no synchronising call")
+            restore(trainer, start)
+            eager_eps, eager_host = timed_dispatches(trainer, timed, path, 1)
+            eager_prof = profile_steps(trainer, timed[:3], out_dir, f"{path}_eager")
+            restore(trainer, start)
+            graph_eps, graph_host = timed_dispatches(trainer, timed, path, k)
+            alt = 0 if presort else 4  # the other input path: see input_workers
+            with input_workers(trainer, alt):
+                alt_eps, alt_host = timed_dispatches(trainer, timed, f"{path}_{alt}workers", k)
+            if trainer.graph_stats["captures"] != 1:
+                raise AssertionError(f"{path}: captured again: {trainer.graph_stats}")
+            traced = replay_profile(trainer, cmp_group, out_dir, path)
+            want = {n: k * c for n, c in per_step.items()}
+            if traced["launches_per_replay"] and traced["launches_per_replay"] != want:
+                raise AssertionError(f"{path}: traced replay launched "
+                                     f"{traced['launches_per_replay']}, expected {want}")
+            log(f"[{path}] examples/sec eager {eager_eps:.1f} vs graphed {graph_eps:.1f} "
+                f"({graph_eps / eager_eps:.2f}x); device busy ms/step eager "
+                f"{eager_prof['device_busy_us_per_step'] / 1e3:.4f} vs graphed "
+                f"{traced['device_busy_ms_per_step']:.4f}; peak allocated GB: 2 eager steps "
+                f"{eager_peak:.3f}, through warm-up, capture and a replay {graph_peak:.3f} "
+                f"(reserved {reserved:.3f})")
+            records[path] = {
+                "launches": counts, "graph_stats": trainer.graph_stats, "bit_identical": same,
+                "losses_graphed": graphed, "losses_eager": eager,
+                "eager": {"examples_per_sec": eager_eps, "host_ms_per_step": eager_host,
+                          "peak_memory_gb": eager_peak, "profile": eager_prof},
+                f"graphed_{alt}workers": {"examples_per_sec": alt_eps,
+                                          "host_ms_per_step": alt_host},
+                "graphed": {"examples_per_sec": graph_eps, "host_ms_per_step": graph_host,
+                            "peak_memory_gb": graph_peak, "reserved_gb": reserved,
+                            "profile": traced},
+            }
+            del trainer, start
+            release()
+    return records
+
+
+def phase_headline(seed: int, out_dir):
+    """Phase 10: the headline configuration through the entry points a user
+    calls: ``Pipeline(...).set_sparse_embeddings(None)
+    .set_compute_dtype("bfloat16")`` and ``Trainer(pipeline,
+    steps_per_execution=8)`` (prefetch 4 and presort None, the defaults),
+    two epochs of ``fit`` over 96 batches, the second timed; then a traced
+    replay.  At the bench size the automatic choice takes the sparse route,
+    and on the card presort None takes the on-device route.  Launches: the
+    wrappers' counts over both epochs (warm-up and capture), and the
+    replays' from the trace, replays x per replay."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 6, HEADLINE_DISPATCHES * k)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(bench_pipeline(sparse=None, compute="bfloat16"), log_every=10**9,
+                      seed=seed, steps_per_execution=k)
+    reset_counts(fns)
+    first = trainer.fit(batches, max_epochs=1)
+    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+    second = trainer.fit(batches, max_epochs=1)
+    counts = read_counts(fns)
+    if not (trainer.sparse and trainer._presorter is None):
+        raise AssertionError("headline: the automatic choice did not take the on-device sparse "
+                             "route")
+    per_step = GRAPH_ROUTES["ondevice"][3]
+    check_counts("headline warm-up + capture", counts,
+                 expect(**{n: 2 * k * c for n, c in per_step.items()}))
+    stats = dict(trainer.graph_stats)
+    host = {n: v / len(batches) for n, v in trainer.host_ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
+    traced = replay_profile(trainer, batches[:k], out_dir, "headline")
+    per_replay = traced["launches_per_replay"]
+    if DEVICE == "cuda" and not per_replay:
+        raise AssertionError("headline: the trace of a replay shows none of the port's kernels")
+    # launches that ran: the wrappers counted the warm-up's eager steps and
+    # the capture's records; a capture runs nothing, each replay runs what
+    # the traced replay shows
+    ran = stats["replays"] - stats["captures"]
+    total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    log(f"[headline] auto choice: sparse, on-device (presort None on the card), table "
+        f"{tuple(table.shape)} {table.dtype}, tower bf16; {stats['captures']} capture, "
+        f"{stats['replays']} replays; first epoch {first['examples_per_sec']:.1f} examples/sec "
+        f"(warm-up and capture), second {second['examples_per_sec']:.1f}; train_loss "
+        f"{second['train_loss']:.6f}; host ms/step (second epoch): "
+        + " ".join(f"{n}={v:.3f}" for n, v in host.items())
+        + f"; device busy {traced['device_busy_ms_per_step']:.4f} ms/step; peak allocated "
+        f"{peak:.3f} GB, reserved {reserved:.3f} GB; launches: wrappers (warm-up and capture) "
+        f"{counts}; run, the warm-up's and the replays' (a traced replay's x replays) {total}")
+    if not np.isfinite(second["train_loss"]):
+        raise AssertionError(f"headline: non-finite loss {second}")
+    scores = trainer.predict(batches[0])
+    if scores.dtype != torch.float32 or not torch.isfinite(scores).all():
+        raise AssertionError("headline: predict gave non-finite or non-float32 scores")
+    del trainer, table
+    release()
+    return {"launches": total, "launches_counted": counts, "graph_stats": stats,
+            "examples_per_sec": second["examples_per_sec"],
+            "first_epoch_examples_per_sec": first["examples_per_sec"],
+            "train_loss": second["train_loss"], "host_ms_per_step": host,
+            "peak_memory_gb": peak, "reserved_gb": reserved, "profile": traced}
+
+
+# ---- --auto-sweep: the automatic choice's crossover --------------------------
+
+SWEEP_ROWS = (62_500, 125_000, 250_000, 500_000, 1_000_000, 2_000_000, 3_000_000, 4_000_000,
+              8_000_000, 16_000_000)
+SWEEP_WARM_DISPATCHES = 2
+SWEEP_TIMED_DISPATCHES = 8
+SWEEP_REPEATS = 3
+SWEEP_EAGER_STEPS = 16
+
+
+def sweep_field_sizes(rows: int):
+    """The bench's 28 field sizes scaled to ``rows`` logical rows in all."""
+    total = sum(FIELD_SIZES)
+    sizes = [max(1, int(v * rows / total)) for v in FIELD_SIZES]
+    sizes[0] += rows - sum(sizes)
+    return tuple(sizes)
+
+
+def phase_auto_sweep(seed: int):
+    """Dense route against the presorted and the on-device sparse routes at
+    table sizes from 62.5k to 16M logical rows (E = 16, the bench's field
+    proportions, batch 4096, bf16 tower).  Per size and route one trainer:
+    two warm-up dispatches of 8 steps (the capture among them), then
+    ``SWEEP_REPEATS`` timed runs of ``SWEEP_TIMED_DISPATCHES`` dispatches
+    (their median kept), then ``SWEEP_EAGER_STEPS`` eager steps (K = 1).
+    The crossover of each sparse route is the smallest size from which its
+    median beats the dense route's at every larger size, at K = 8."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    k = GRAPH_K
+    n = (SWEEP_WARM_DISPATCHES + SWEEP_TIMED_DISPATCHES) * k
+    raw = make_batches(seed + 7, n)
+    routes = {"dense": (False, None), "presorted": (True, True), "ondevice": (True, False)}
+    results = {}
+    for rows in SWEEP_ROWS:
+        sizes = sweep_field_sizes(rows)
+        batches = [{**b, **{f"cat_{i}": np.minimum(b[f"cat_{i}"], v - 1)
+                            for i, v in enumerate(sizes)}} for b in raw]
+        warm, timed = batches[:SWEEP_WARM_DISPATCHES * k], batches[SWEEP_WARM_DISPATCHES * k:]
+        row = {}
+        for route, (sparse, presort) in routes.items():
+            trainer = Trainer(bench_pipeline(sizes, sparse, "bfloat16"), log_every=10**9,
+                              seed=seed, presort=presort, steps_per_execution=k)
+            trainer.train_steps(warm)
+            runs = []
+            for _ in range(SWEEP_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_steps(timed)
+                torch.cuda.synchronize()
+                runs.append(BATCH * len(timed) / (time.perf_counter() - t0))
+            row[f"{route}_k{k}"] = float(np.median(runs))
+            row[f"{route}_k{k}_runs"] = runs
+            trainer.steps_per_execution = 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_steps(timed[:SWEEP_EAGER_STEPS])
+            torch.cuda.synchronize()
+            row[f"{route}_k1"] = BATCH * SWEEP_EAGER_STEPS / (time.perf_counter() - t0)
+            if trainer.sparse != sparse or (trainer._presorter is not None) != bool(presort):
+                raise AssertionError(f"auto-sweep: {route} took another route")
+            del trainer
+            release()
+        elements = packed_elements(rows)
+        log(f"[auto-sweep] rows={rows} elements={elements}: " + " ".join(
+            f"{key}={v:.1f}" for key, v in row.items() if not key.endswith("_runs")))
+        results[rows] = {"elements": elements, **row}
+    for route in ("presorted", "ondevice"):
+        wins = [r for r in SWEEP_ROWS
+                if all(results[q][f"{route}_k{k}"] > results[q][f"dense_k{k}"]
+                       for q in SWEEP_ROWS if q >= r)]
+        edge = wins[0] if wins else None
+        log(f"[auto-sweep] {route} beats dense at K={k} from {edge} rows "
+            f"({packed_elements(edge) if edge else None} elements) on")
+        results[f"{route}_crossover_rows"] = edge
+    return results
+
+
+def packed_elements(rows: int) -> int:
+    from torecsys_tpu_torch.ops.embedding import packed_shape
+
+    vp, w = packed_shape(rows, EMBED)
+    return vp * w
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1624,6 +2147,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="directory for the full JSON record")
     ap.add_argument("--profile", action="store_true",
                     help="trace 3 steps of each training route with torch.profiler")
+    ap.add_argument("--auto-sweep", action="store_true",
+                    help="only build and measure the automatic dense/sparse choice's "
+                         "crossover (dense against both sparse routes, 62.5k-16M rows)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1653,8 +2179,20 @@ def main(argv=None):
         return out
 
     timed("build", phase_build)
+    if args.auto_sweep:
+        sweep = timed("auto_sweep", phase_auto_sweep, args.seed)
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke_auto_sweep.json"), "w") as f:
+                json.dump({"card": card, "sweep": sweep}, f, indent=1)
+        print(json.dumps({"auto_sweep": sweep}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     batch = make_batches(args.seed, 1)[0]
     records = timed("kernels", phase_kernels, batch, args.seed)
+    presort = timed("presort", phase_presort, args.seed)
     trainer, train = timed("train", phase_train, args.seed, args.steps, args.out, args.profile)
     evaluation = timed("eval", phase_eval, trainer, args.seed)
     del trainer
@@ -1664,14 +2202,19 @@ def main(argv=None):
     dense = timed("dense", phase_dense, args.seed, args.steps, train["examples_per_sec"],
                   args.out, args.profile)
     pack1 = timed("pack1", phase_pack1, args.seed, args.out, args.profile)
-    paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1}
+    graph = timed("graph", phase_graph, args.seed, args.out)
+    headline = timed("headline", phase_headline, args.seed, args.out)
+    paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
+             **graph, "headline": headline}
     # Each kernel's launches are those of the path that carries it: the
-    # sparse main path (phase 3), the pack == 1 route for segment_sum_wide,
-    # the fused on-device route for fused_sorted_dedup_update.
-    # unique_stored_gather is on no path of either package (0 everywhere).
-    home = {"widen_segment_sum": "train", "fused_rowwise_update": "train",
-            "row_gather": "train", "segment_sum_wide": "pack1",
-            "unique_stored_gather": "train", "fused_sorted_dedup_update": "ondevice_fused"}
+    # headline configuration (phase 10: the wrappers' counts of its warm-up
+    # and capture, plus its replays x the launches of a traced replay), the
+    # pack == 1 route for segment_sum_wide, the fused on-device route for
+    # fused_sorted_dedup_update.  unique_stored_gather is on no path of
+    # either package (0 everywhere).
+    home = {"widen_segment_sum": "headline", "fused_rowwise_update": "headline",
+            "row_gather": "headline", "segment_sum_wide": "pack1",
+            "unique_stored_gather": "headline", "fused_sorted_dedup_update": "ondevice_fused"}
     kernel_lines = []
     for name in KERNEL_NAMES:
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
@@ -1680,8 +2223,8 @@ def main(argv=None):
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s, **paths}, f,
-                      indent=1)
+            json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
+                       "presort": presort, **paths}, f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -138,8 +138,9 @@ def test_optimizer_state_carry_over_continues_the_jax_run():
 
 
 def test_trainer_fit_reports_and_refuses_the_unported_dense_route():
-    """fit reports; the automatic dense/sparse choice (None) is refused,
-    naming the two explicit routes."""
+    """fit reports; the automatic dense/sparse choice (None), once refused,
+    now takes the dense route for this small table (test_torch_auto holds
+    its thresholds); a route that is not True, False or None is refused."""
     batches = _batches()
     port = _port(JaxRun(batches[:1]).params())
     metrics = port.fit(batches, max_steps=3)
@@ -147,5 +148,9 @@ def test_trainer_fit_reports_and_refuses_the_unported_dense_route():
     assert int(port.state.step) == 3
     pipe = port.pipeline
     pipe.set_sparse_embeddings(None)
-    with pytest.raises(NotImplementedError, match=r"set_sparse_embeddings\(False\)"):
+    auto = Trainer(pipe)
+    auto.init_state()
+    assert auto.sparse is False
+    pipe.set_sparse_embeddings("dense")
+    with pytest.raises(ValueError, match="True, False or None"):
         Trainer(pipe)

@@ -5,7 +5,7 @@ The JAX package keeps its parameters as a nested dict (flax), the port in
 
 * ``inputs/schema_<name>/embedding`` → ``inputs.schema.<name>.embedding``,
   the packed ``(ceil(V/P), P*E)`` table, as it is (both sides store the
-  same layout);
+  same layout, float32 or bfloat16);
 * ``model/.../kernel`` ``(in, out)`` → ``model.....weight`` ``(out, in)``,
   transposed; ``bias`` as it is.
 
@@ -55,11 +55,20 @@ def torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (ml_dtypes, what
+    ``jax.device_get`` gives of a bf16 array) keeps its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def _as_torch(flax_path: str, value, like: torch.Tensor) -> torch.Tensor:
     arr = np.asarray(value)
     if flax_path.endswith(SEP + "kernel"):
         arr = arr.T
-    t = torch.tensor(arr, dtype=like.dtype, device=like.device)
+    t = _numpy_to_torch(arr).to(dtype=like.dtype, device=like.device)
     if t.shape != like.shape:
         raise ValueError(f"{flax_path}: shape {tuple(t.shape)} does not fit "
                          f"{torch_name(flax_path)} {tuple(like.shape)}")
@@ -118,8 +127,10 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
     with torch.no_grad():
         for path in mu:
             p = named[torch_name(path)]
+            # a capturable Adam (on the card) keeps its step on the card
+            step_device = p.device if adam.defaults.get("capturable") else "cpu"
             adam.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32, device=step_device),
                 "exp_avg": _as_torch(path, mu[path], p),
                 "exp_avg_sq": _as_torch(path, nu[path], p),
             }
@@ -141,7 +152,7 @@ def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> No
             if arr.shape != tuple(port_slots[k].shape):
                 raise ValueError(f"row slot {k!r}: shape {arr.shape} does not fit "
                                  f"{tuple(port_slots[k].shape)}")
-            port_slots[k].copy_(torch.tensor(arr))
+            port_slots[k].copy_(_numpy_to_torch(arr))
 
 
 __all__ = ["copy_row_slots", "flatten", "from_flax_params", "torch_name"]

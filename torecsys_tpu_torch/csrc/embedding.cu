@@ -15,15 +15,19 @@
 //   out[i, :] = src[rows + idx[i], :]   where -rows <= idx[i] < 0,
 //   out[i, :] = NaN                     otherwise, and nothing is read,
 //
-// for any contiguous (rows, width) float32 src.  Given the (R, W) stored
+// for any contiguous (rows, width) float32 or bfloat16 src (the kernel is
+// templated on the element type, which sets only the NaN's bits and the
+// row's bytes: a row moves as raw 16-byte vectors where it can, so a bf16
+// row at E = 16 is two vectors where a float32 one is four, as the Pallas
+// gather moves the table's own dtype).  Given the (R, W) stored
 // table it is the TPU kernel's contract; given the (Vp*P, E) logical view of
 // the packed table it is packed_lookup itself: the stored-row fetch and the
 // in-row slot select in one pass.  Ids wrap as the JAX lookup's jnp.take
 // does: a negative id counts from the end, once, and an id outside
 // [-rows, rows) gives NaN (its fill mode), with no device-to-host check.
 //
-// Bound on this card: bytes.  Per id it reads the id and width*4 bytes of
-// the table and writes width*4 bytes; it does no arithmetic.  The TPU kernel
+// Bound on this card: bytes.  Per id it reads the id and one row of the
+// table and writes one row; it does no arithmetic.  The TPU kernel
 // moves whole 128-lane stored rows because a DMA there moves whole lane
 // tiles; on Hopper the unit of a read is a 32-byte sector, so a 64-byte
 // logical row (E = 16) costs two sectors and the kernel reads only the E
@@ -49,9 +53,9 @@
 // (chip_smoke.py: a build with TRS_ROW_GATHER_SWEEP defined adds
 // trs_row_gather_sweep, the same kernel at chunks 8-32 and 2-8 reads in
 // flight).  The ids are read as they come, int64 (what the embedding module
-// makes) or int32, with no conversion pass.  A width that is not a multiple
-// of 4, or a pointer not 16-byte aligned, takes the same kernel with 4-byte
-// vectors.
+// makes) or int32, with no conversion pass.  A row whose bytes are not a
+// multiple of 16, or a pointer not 16-byte aligned, takes the same kernel
+// with 4-byte vectors (2-byte ones for a bf16 row of odd width).
 // ---------------------------------------------------------------------------
 // trs_unique_stored_gather replaces torecsys_tpu/ops/pallas/embedding.py
 // _unique_gather_kernel / unique_stored_gather.
@@ -81,6 +85,7 @@
 // aligned, takes the same kernel with 4-byte vectors.
 // ---------------------------------------------------------------------------
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,11 +93,19 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void set_nan(float& v) { v = __int_as_float(0x7fc00000); }
-__device__ __forceinline__ void set_nan(float4& v) {
-  float n = __int_as_float(0x7fc00000);
-  v = make_float4(n, n, n, n);
-}
+// The bits of a quiet NaN of the element type, repeated over 32 bits: what
+// torch's masked_fill(nan) writes (0x7fc00000 for float32, 0x7fc0 for bf16).
+template <typename Elem> struct NanWord;
+template <> struct NanWord<float> { static constexpr uint32_t value = 0x7fc00000u; };
+template <> struct NanWord<__nv_bfloat16> { static constexpr uint32_t value = 0x7fc07fc0u; };
+
+// Raw vectors a row moves in: 16, 4 or 2 bytes.
+__device__ __forceinline__ void set_word(uint4& v, uint32_t w) { v = make_uint4(w, w, w, w); }
+__device__ __forceinline__ void set_word(uint32_t& v, uint32_t w) { v = w; }
+__device__ __forceinline__ void set_word(uint16_t& v, uint32_t w) { v = (uint16_t)w; }
+__device__ __forceinline__ uint4 load_row(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ uint32_t load_row(const uint32_t* p) { return __ldg(p); }
+__device__ __forceinline__ uint16_t load_row(const uint16_t* p) { return __ldg(p); }
 
 // An id, on the read-only path without L1 allocation (it is read once).
 __device__ __forceinline__ int64_t load_id(const int64_t* p) {
@@ -110,7 +123,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;     // ids a warp takes at a time, one a lane
 constexpr int kInFlight = 4;   // row reads a lane issues before it stores any
 
-template <typename Vec, typename Index, int Chunk, int InFlight>
+template <typename Elem, typename Vec, typename Index, int Chunk, int InFlight>
 __global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const Vec* __restrict__ src, const Index* __restrict__ idx,
                   Vec* __restrict__ out, int64_t num, int64_t rows, int vecs_per_row,
@@ -136,9 +149,9 @@ row_gather_kernel(const Vec* __restrict__ src, const Index* __restrict__ idx,
         int64_t r = __shfl_sync(0xffffffffu, row, q & 31);
         if (f < total) {
           if (r >= 0) {
-            v[k] = __ldg(src + r * vecs_per_row + (f - q * vecs_per_row));
+            v[k] = load_row(src + r * vecs_per_row + (f - q * vecs_per_row));
           } else {
-            set_nan(v[k]);
+            set_word(v[k], NanWord<Elem>::value);
           }
         }
       }
@@ -165,10 +178,11 @@ int64_t resident_blocks(Kernel kernel) {
   return sms * per_sm > 0 ? (int64_t)sms * per_sm : 1;
 }
 
-template <typename Vec, typename Index, int Chunk = kChunk, int InFlight = kInFlight>
-void launch_gather(const float* src, const void* idx, float* out, int64_t num,
+template <typename Elem, typename Vec, typename Index, int Chunk = kChunk,
+          int InFlight = kInFlight>
+void launch_gather(const void* src, const void* idx, void* out, int64_t num,
                    int64_t rows, int vecs_per_row, cudaStream_t st) {
-  auto kernel = row_gather_kernel<Vec, Index, Chunk, InFlight>;
+  auto kernel = row_gather_kernel<Elem, Vec, Index, Chunk, InFlight>;
   constexpr int64_t kIdsPerBlock = kWarps * Chunk;
   // The occupancy query costs the host microseconds a call: asked once per
   // card (a race between threads writes the same value).
@@ -241,26 +255,47 @@ void launch_unique(const float* table, const int* uids, float* out,
       num, num_logical, pack, vecs_per_row);
 }
 
+template <typename Elem>
+void launch_gather_elem(const void* src, const void* idx, int idx_bytes, void* out,
+                        int64_t num, int64_t rows, int width, cudaStream_t st) {
+  const int64_t row_bytes = (int64_t)width * sizeof(Elem);
+  auto aligned = [&](int a) {
+    return row_bytes % a == 0 && reinterpret_cast<uintptr_t>(src) % a == 0 &&
+           reinterpret_cast<uintptr_t>(out) % a == 0;
+  };
+  bool i64 = idx_bytes == 8;
+  if (aligned(16)) {
+    (i64 ? launch_gather<Elem, uint4, int64_t> : launch_gather<Elem, uint4, int32_t>)(
+        src, idx, out, num, rows, (int)(row_bytes / 16), st);
+  } else if (aligned(4)) {
+    (i64 ? launch_gather<Elem, uint32_t, int64_t> : launch_gather<Elem, uint32_t, int32_t>)(
+        src, idx, out, num, rows, (int)(row_bytes / 4), st);
+  } else {
+    (i64 ? launch_gather<Elem, uint16_t, int64_t> : launch_gather<Elem, uint16_t, int32_t>)(
+        src, idx, out, num, rows, (int)(row_bytes / 2), st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// src (rows, width) float32, idx (num,) of idx_bytes = 4 (int32) or 8 (int64),
-// out (num, width) float32; width < 2^23, so a chunk's output run fits
-// 32-bit offsets.
-int trs_row_gather(const float* src, const void* idx, int idx_bytes,
-                   float* out, int64_t num, int64_t rows, int width, void* stream) {
+
+// src (rows, width) of elem_bytes = 4 (float32) or 2 (bfloat16), idx (num,)
+// of idx_bytes = 4 (int32) or 8 (int64), out (num, width) of src's type;
+// width < 2^23, so a chunk's output run fits 32-bit offsets.
+int trs_row_gather(const void* src, const void* idx, int idx_bytes, void* out, int64_t num,
+                   int64_t rows, int width, int elem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((idx_bytes != 8 && idx_bytes != 4) || width >= (1 << 23)) {
+  if ((idx_bytes != 8 && idx_bytes != 4) || (elem_bytes != 4 && elem_bytes != 2) ||
+      width >= (1 << 23)) {
     return (int)cudaErrorInvalidValue;
   }
-  bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-              reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  auto launch = vec4 ? (idx_bytes == 8 ? launch_gather<float4, int64_t>
-                                       : launch_gather<float4, int32_t>)
-                     : (idx_bytes == 8 ? launch_gather<float, int64_t>
-                                       : launch_gather<float, int32_t>);
-  launch(src, idx, out, num, rows, vec4 ? width / 4 : width, st);
+  if (elem_bytes == 4) {
+    launch_gather_elem<float>(src, idx, idx_bytes, out, num, rows, width, st);
+  } else {
+    launch_gather_elem<__nv_bfloat16>(src, idx, idx_bytes, out, num, rows, width, st);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -277,7 +312,7 @@ int trs_row_gather_sweep(const float* src, const int64_t* idx, float* out, int64
   }
 #define TRS_GATHER_CASE(C, K)                                                   \
   if (chunk == C && in_flight == K) {                                           \
-    launch_gather<float4, int64_t, C, K>(src, idx, out, num, rows, width / 4, st); \
+    launch_gather<float, uint4, int64_t, C, K>(src, idx, out, num, rows, width / 4, st); \
     return (int)cudaGetLastError();                                             \
   }
   TRS_GATHER_CASE(8, 2) TRS_GATHER_CASE(8, 4) TRS_GATHER_CASE(8, 8)

@@ -1,13 +1,19 @@
 """Host-side id-stream preprocessing for the sparse embedding train path.
 
-The port's own copy of ``torecsys_tpu/data/presort.py`` (NumPy route only).
-All of a batch's id preprocessing depends only on its integer ids, which the
-host holds before the step: the sort order, the in-row slot of each sorted
+The port's own copy of ``torecsys_tpu/data/presort.py``.  All of a batch's
+id preprocessing depends only on its integer ids, which the host holds
+before the step: the sort order, the in-row slot of each sorted
 id, its stored-row segment, the compact unique stored-row ids and their
 count.  :class:`Presorter` computes them and attaches them to the batch
 under ``__presort__<key>/<name>``; the consuming embedding module derives the
 same key from its own schema (:meth:`PresortSpec.key`, a content hash that
 equals the JAX package's for the same schema).
+
+Two routes give the same bits: the C++ radix presort (``data/native``,
+``trs_presort_ids``), built with ``g++`` at first use and called with the
+interpreter lock released, so prefetch worker threads presort in parallel;
+and numpy's stable argsort, taken where no compiler works (a warning is
+logged) or when asked for with ``force_numpy``.
 
 Unlike the reference, the Presorter refuses a batch it cannot describe
 before the trusted device route sees it: an empty id stream, or an id
@@ -16,6 +22,7 @@ outside the table's logical rows, raises ``ValueError``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -101,13 +108,31 @@ def _presort_numpy(flat: np.ndarray, pack: int, num_stored: int):
 class Presorter:
     """Batch-dict transform attaching the trusted-presort aux arrays.
 
-    Stateless per batch.  ``n_unique`` is attached as a ``(1,)`` int32 array
-    as in the JAX package; the trainer reads it on the host to size the
-    update kernel's grid.
+    Stateless per batch, so prefetch worker threads may call it at once.
+    ``n_unique`` is attached as a ``(1,)`` int32 array as in the JAX
+    package.  :attr:`native` says whether the C++ presort runs.
+
+    Args:
+        specs: the id streams to presort.
+        force_numpy: presort with numpy even where the C++ presort builds.
     """
 
-    def __init__(self, specs: Iterable[PresortSpec]):
+    def __init__(self, specs: Iterable[PresortSpec], force_numpy: bool = False):
         self.specs = list(specs)
+        for spec in self.specs:
+            if not 0 < spec.num_rows < 2**31 or not 0 < spec.num_stored_rows < 2**31:
+                raise ValueError(f"presort spec {spec.key}: {spec.num_rows} rows in "
+                                 f"{spec.num_stored_rows} stored rows do not fit int32 ids")
+        self._lib = None
+        if not force_numpy:
+            from torecsys_tpu_torch.data.native import presort_lib
+
+            self._lib = presort_lib()
+        self._offs = {s.key: np.asarray(s.slot_offsets, np.int32) for s in self.specs}
+
+    @property
+    def native(self) -> bool:
+        return self._lib is not None
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         out = dict(batch)
@@ -115,25 +140,50 @@ class Presorter:
             if any(f not in batch for f in spec.slot_fields):
                 continue  # e.g. an eval batch lacking this stream's fields
             cols = [np.asarray(batch[f]).reshape(-1) for f in spec.slot_fields]
-            stacked = np.stack(cols, axis=1).astype(np.int64)  # (B, K)
+            stacked = np.stack(cols, axis=1)  # (B, K), the columns' own dtype
             if stacked.size == 0:
                 raise ValueError(f"empty id stream for presort spec {spec.key}")
-            flat = (stacked + np.asarray(spec.slot_offsets, np.int64)[None, :]).reshape(-1)
-            lo_id, hi_id = int(flat.min()), int(flat.max())
+            if stacked.size >= 2**31:
+                raise ValueError(f"id stream of {stacked.size} ids for presort spec "
+                                 f"{spec.key} is too long for int32 positions")
+            offs = self._offs[spec.key]
+            # the fused ids' range in int64, from each slot's own min and max
+            offs64 = offs.astype(np.int64)
+            lo_id = int((stacked.min(axis=0).astype(np.int64) + offs64).min())
+            hi_id = int((stacked.max(axis=0).astype(np.int64) + offs64).max())
             if lo_id < 0 or hi_id >= spec.num_rows:
                 raise ValueError(
                     f"ids outside [0, {spec.num_rows}) for presort spec {spec.key}: "
                     f"min {lo_id}, max {hi_id}"
                 )
-            order, lo, seg, uids, n_unique = _presort_numpy(
-                flat.astype(np.int32), spec.pack, spec.num_stored_rows
-            )
+            # every fused id lies in [0, num_rows) and num_rows < 2**31: int32
+            # holds the raw ids and their sums with the offsets
+            stacked = np.ascontiguousarray(stacked, dtype=np.int32)
+            if self._lib is not None:
+                order, lo, seg, uids, n_unique = self._presort_native(stacked, offs, spec)
+            else:
+                order, lo, seg, uids, n_unique = _presort_numpy(
+                    (stacked + offs[None, :]).reshape(-1), spec.pack, spec.num_stored_rows
+                )
             out[spec.aux_key("order")] = order
             out[spec.aux_key("lo")] = lo
             out[spec.aux_key("seg")] = seg
             out[spec.aux_key("uids")] = uids
             out[spec.aux_key("n_unique")] = np.full((1,), n_unique, np.int32)
         return out
+
+    def _presort_native(self, stacked: np.ndarray, offs: np.ndarray, spec: PresortSpec):
+        """``trs_presort_ids`` on a checked ``(B, K)`` int32 id matrix."""
+        m, k = stacked.size, stacked.shape[1]
+        order, lo, seg, uids = (np.empty(m, np.int32) for _ in range(4))
+        p = ctypes.POINTER(ctypes.c_int32)
+        n_unique = self._lib.trs_presort_ids(
+            stacked.ctypes.data_as(p), m, k, offs.ctypes.data_as(p), spec.pack,
+            spec.num_stored_rows, order.ctypes.data_as(p), lo.ctypes.data_as(p),
+            seg.ctypes.data_as(p), uids.ctypes.data_as(p))
+        if n_unique < 0:
+            raise ValueError(f"native presort refused the batch for spec {spec.key}")
+        return order, lo, seg, uids, int(n_unique)
 
 
 __all__ = ["AUX_NAMES", "AUX_PREFIX", "PresortSpec", "Presorter",

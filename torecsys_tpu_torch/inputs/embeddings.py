@@ -68,7 +68,9 @@ class MultiIndicesEmbedding(BaseInput):
 
     One packed table ``embedding`` of ``sum(field_sizes)`` logical rows; raw
     per-field ids are shifted by static offsets before one gather.
-    ``flatten=True`` reshapes the output to ``(B, 1, N*E)``.
+    ``flatten=True`` reshapes the output to ``(B, 1, N*E)``.  The table is
+    float32, or bfloat16 on the dense route (:meth:`set_table_dtype`); the
+    output is float32 either way.
     """
 
     def __init__(self, embed_size: int, field_sizes: Sequence[int], fields: Sequence[str],
@@ -97,8 +99,23 @@ class MultiIndicesEmbedding(BaseInput):
         self.reset_parameters(default_generator(dev, generator=generator))
 
     def reset_parameters(self, generator=None) -> None:
+        """Draw the table in float32 and store it in its dtype (a bf16 table
+        holds the float32 draw rounded)."""
         with torch.no_grad():
-            self.embedding.normal_(0.0, self.init_std, generator=generator)
+            if self.embedding.dtype == torch.float32:
+                self.embedding.normal_(0.0, self.init_std, generator=generator)
+            else:
+                drawn = torch.empty(self.embedding.shape, dtype=torch.float32,
+                                    device=self.embedding.device)
+                self.embedding.copy_(drawn.normal_(0.0, self.init_std, generator=generator))
+
+    def set_table_dtype(self, dtype: torch.dtype) -> None:
+        """Store the table in ``dtype`` (float32 or bfloat16; the pipeline's
+        ``set_table_dtype``); its values are rounded to it."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
+        if self.embedding.dtype != dtype:
+            self.embedding = nn.Parameter(self.embedding.detach().to(dtype))
 
     @property
     def pack(self) -> int:
@@ -115,7 +132,9 @@ class MultiIndicesEmbedding(BaseInput):
         """Lookup of raw per-field ids ``(B, N) → (B, N, E)``."""
         shifted = ids.to(torch.int64) + self.offsets[None, :]
         if not (self.sparse_grads and torch.is_grad_enabled()):
-            return packed_lookup(self.embedding, shifted, self.embed_size)
+            # rows of a bf16 table are cast to float32 here, at the module
+            # boundary: the model and the loss see float32
+            return packed_lookup(self.embedding, shifted, self.embed_size).float()
         if self._lookup is not None:
             raise RuntimeError(
                 "MultiIndicesEmbedding applied twice in one step: sparse embedding "

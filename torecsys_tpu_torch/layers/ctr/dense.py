@@ -6,6 +6,7 @@ import math
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
@@ -31,6 +32,11 @@ class MultilayerPerceptionLayer(nn.Module):
 
     Sub-layers are named ``dense_0 .. dense_{k-1}`` and ``output`` as in the
     JAX package; their ``weight`` is the transpose of flax's ``kernel``.
+
+    ``compute_dtype`` (None: float32; set by the pipeline,
+    ``layers.precision``): under bf16 each product casts its input, weight
+    and bias to bf16, as flax ``Dense(dtype=bf16, param_dtype=f32)`` does;
+    the activations run in bf16 and the output is bf16.
     """
 
     def __init__(self, in_features: int, output_size: int,
@@ -49,16 +55,24 @@ class MultilayerPerceptionLayer(nn.Module):
             self.hidden.append(f"dense_{i}")
             fan_in = size
         self.output = nn.Linear(fan_in, output_size, device=dev)
+        self.compute_dtype: Optional[torch.dtype] = None
         self.reset_parameters(default_generator(dev, generator=generator))
 
     def reset_parameters(self, generator=None) -> None:
         for name in (*self.hidden, "output"):
             reset_linear(getattr(self, name), generator)
 
+    def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        if dtype is None:
+            return layer(x)
+        bias = None if layer.bias is None else layer.bias.to(dtype)
+        return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x = inputs
         for name in self.hidden:
-            x = self.activation(getattr(self, name)(x))
+            x = self.activation(self._linear(getattr(self, name), x))
             if self.dropout is not None:
                 x = self.dropout(x)
-        return self.output(x)
+        return self._linear(self.output, x)

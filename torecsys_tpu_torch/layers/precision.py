@@ -1,0 +1,61 @@
+"""Mixed precision: the dense towers' compute dtype and the embedding tables'
+storage dtype (counterpart of ``torecsys_tpu/layers/precision.py``).
+
+The JAX package reads both from a thread-local context while it traces.
+torch has no trace time, so here each is an attribute of the modules it
+concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
+``set_table_dtype``, applied at ``finalize``):
+
+* ``compute_dtype`` on :class:`~torecsys_tpu_torch.layers.ctr.dense.MultilayerPerceptionLayer`:
+  under bf16 each of its products casts the input, weight and bias to bf16
+  (``torch.nn.functional.linear``, cuBLAS on the card), as flax
+  ``Dense(dtype=bf16, param_dtype=f32)`` does; the parameters stay float32
+  and ``Sequential`` casts a bf16 model output to float32;
+* the table dtype of :class:`~torecsys_tpu_torch.inputs.embeddings.MultiIndicesEmbedding`:
+  its table is stored in it, and its looked-up rows are cast to float32 at
+  the module boundary.  A bf16 table is a dense-route feature, as in the JAX
+  package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+DtypeLike = Union[str, torch.dtype, None]
+
+
+def resolve_dtype(dtype: DtypeLike) -> Optional[torch.dtype]:
+    """``None``, ``"float32"`` or ``"f32"`` → None (full float32);
+    ``"bfloat16"`` (or ``torch.bfloat16``) → ``torch.bfloat16``."""
+    if dtype is None or dtype in ("float32", "f32", torch.float32):
+        return None
+    if dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unsupported dtype {dtype!r}: use 'bfloat16' or 'float32'/None")
+
+
+def is_reduced(dtype: DtypeLike) -> bool:
+    """True for a dtype narrower than float32."""
+    return resolve_dtype(dtype) is not None
+
+
+def apply_compute_dtype(module: nn.Module, dtype: DtypeLike) -> None:
+    """Set the compute dtype of every module under ``module`` that has one."""
+    resolved = resolve_dtype(dtype)
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = resolved
+
+
+def apply_table_dtype(module: nn.Module, dtype: DtypeLike) -> None:
+    """Store every embedding table under ``module`` in ``dtype``."""
+    resolved = resolve_dtype(dtype) or torch.float32
+    for m in module.modules():
+        if hasattr(m, "set_table_dtype"):
+            m.set_table_dtype(resolved)
+
+
+__all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype"]

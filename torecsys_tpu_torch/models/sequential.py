@@ -20,7 +20,10 @@ class Sequential(nn.Module):
         self.model = model
 
     def forward(self, batch: Dict[str, torch.Tensor]):
-        return self.model(**self.inputs(batch))
+        out = self.model(**self.inputs(batch))
+        # Towers may compute in bf16 (layers.precision); losses and metrics
+        # always take float32 scores.
+        return out.float() if out.dtype == torch.bfloat16 else out
 
     def reset_parameters(self, generator=None) -> None:
         """Re-draw every parameter from ``generator``: inputs, then model."""

@@ -54,10 +54,11 @@ def unpack_table(packed: torch.Tensor, embed_size: int, total_rows: int) -> torc
     return packed.reshape(-1, embed_size)[:total_rows]
 
 
-def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape) -> torch.Tensor:
+def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The packed table's gradient of a lookup: each row of the ``(M, E)``
     cotangent ``grad`` added into logical row ``ids[i]`` of a zero
-    ``(Vp, P*E)`` table, with one writer per row and no atomics.
+    ``(Vp, P*E)`` table of ``dtype``, with one writer per row and no atomics.
 
     Ids wrap as in the forward
     (:func:`~torecsys_tpu_torch.ops.kernels.embedding.wrap_ids`): an id in
@@ -73,6 +74,13 @@ def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape) -> torch.Tens
     sentinel's stored row Vp lies past the table and is summed but never
     written.  On the CPU the plain versions sum each row in position order,
     as ``index_add_`` does.
+
+    A bf16 table (the dense route's, ``layers.precision``) gets a bf16
+    cotangent: it is summed in float32 all the same and the sum rounded once
+    to ``dtype``, where the JAX package's ``.at[].add`` adds in bf16.  A row
+    touched once gets the same bits either way; one touched L times differs
+    from the bf16 sum by its L - 1 intermediate roundings, up to about
+    ``(L - 1) * 2**-8`` of the sum's magnitude.
     """
     vp, w = table_shape
     e = grad.shape[1]
@@ -83,13 +91,13 @@ def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape) -> torch.Tens
     row, valid = _kernels.wrap_ids(ids, rows)
     keys = torch.where(valid, row, torch.full_like(row, rows)).to(torch.int32)
     sorted_ids, order = torch.sort(keys, stable=True)
-    g_sorted = _kernels.row_gather(grad.contiguous(), order)
-    d_table = grad.new_zeros(vp, w)
-    hyper = grad.new_zeros(7)
+    g_sorted = _kernels.row_gather(grad.float().contiguous(), order)
+    d_table = g_sorted.new_zeros(vp, w)
+    hyper = g_sorted.new_zeros(7)
     hyper[:1].fill_(-1.0)  # lr, sgd reads nothing else; a fill, not a copy from the host
     _sparse_kernels.fused_sorted_dedup_update(sorted_ids, g_sorted, d_table, (), hyper,
                                               pack, "sgd")
-    return d_table
+    return d_table.to(dtype)
 
 
 class _RowGather(torch.autograd.Function):
@@ -106,12 +114,13 @@ class _RowGather(torch.autograd.Function):
     def forward(ctx, packed_table: torch.Tensor, ids: torch.Tensor, embed_size: int):
         ctx.save_for_backward(ids)
         ctx.table_shape = packed_table.shape
+        ctx.table_dtype = packed_table.dtype
         return _kernels.row_gather(packed_table.reshape(-1, embed_size), ids)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (ids,) = ctx.saved_tensors
-        return table_grad(ids, grad, ctx.table_shape), None, None
+        return table_grad(ids, grad, ctx.table_shape, ctx.table_dtype), None, None
 
 
 def packed_lookup(packed_table: torch.Tensor, ids: torch.Tensor,

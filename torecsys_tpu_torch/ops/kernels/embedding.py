@@ -27,13 +27,14 @@ from torecsys_tpu_torch.ops import kernels as _k
 
 SOURCE = "embedding.cu"
 INDEX_DTYPES = (torch.int32, torch.int64)
+ROW_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib():
     lib = _k.load_library(SOURCE)
     if not getattr(lib, "_trs_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.trs_row_gather.argtypes = [p, p, i, p, i64, i64, i, p]
+        lib.trs_row_gather.argtypes = [p, p, i, p, i64, i64, i, i, p]
         lib.trs_row_gather.restype = i
         lib.trs_unique_stored_gather.argtypes = [p, p, p, i64, i64, i, i, p]
         lib.trs_unique_stored_gather.restype = i
@@ -59,7 +60,7 @@ def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``src[idx]`` for a 2-D float32 ``src``.
+    """``src[idx]`` for a 2-D float32 or bfloat16 ``src``.
 
     On the card the grid is as many blocks as the card holds at once; a warp
     reads a chunk of 32 consecutive ids once, issues 4 row reads per lane
@@ -67,18 +68,20 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Nothing is allocated but the output, and nothing is read back.
 
     Args:
-        src: ``(rows, width)`` float32: the ``(R, P*E)`` stored table, its
-            ``(Vp*P, E)`` logical view (``packed_lookup``), or a grad stream
-            to permute.
+        src: ``(rows, width)`` float32 or bfloat16 (a bf16 table of the
+            dense route): the ``(R, P*E)`` stored table, its ``(Vp*P, E)``
+            logical view (``packed_lookup``), or a grad stream to permute.
         idx: ``(num,)`` int32 or int64 row ids.
 
     Returns:
-        ``(num, width)`` float32.  Ids wrap as ``jnp.take`` wraps them: an id
-        in ``[-rows, 0)`` reads row ``rows + id``, and the row of an id
-        outside ``[-rows, rows)`` is NaN, as the JAX lookup's fill mode gives.
+        ``(num, width)`` of ``src``'s dtype.  Ids wrap as ``jnp.take`` wraps
+        them: an id in ``[-rows, 0)`` reads row ``rows + id``, and the row of
+        an id outside ``[-rows, rows)`` is NaN, as the JAX lookup's fill mode
+        gives.
     """
-    _k.require(src.dim() == 2 and src.dtype == torch.float32,
-               f"src must be (rows, width) float32, got {tuple(src.shape)} {src.dtype}")
+    _k.require(src.dim() == 2 and src.dtype in ROW_DTYPES,
+               f"src must be (rows, width) float32 or bfloat16, got {tuple(src.shape)} "
+               f"{src.dtype}")
     _k.require(idx.dim() == 1 and idx.dtype in INDEX_DTYPES,
                f"idx must be (num,) int32 or int64, got {tuple(idx.shape)} {idx.dtype}")
     if _k.device_kind(src, idx) == "cpu":
@@ -87,12 +90,12 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rows, width = src.shape
     _k.require(width < 2**23, "width too large for the kernel's 32-bit offsets")
     num = idx.shape[0]
-    out = torch.empty(num, width, dtype=torch.float32, device=src.device)
+    out = torch.empty(num, width, dtype=src.dtype, device=src.device)
     if num == 0 or width == 0:
         return out
     status = _lib().trs_row_gather(
         _k.ptr(src), _k.ptr(idx), idx.element_size(), _k.ptr(out), num, rows, width,
-        _k.current_stream(src.device),
+        src.element_size(), _k.current_stream(src.device),
     )
     _k.check_status(status, "row_gather")
     row_gather.launches += 1
@@ -161,5 +164,5 @@ def unique_stored_gather(table: torch.Tensor, uids: torch.Tensor,
 
 unique_stored_gather.launches = 0
 
-__all__ = ["row_gather", "row_gather_plain", "unique_stored_gather",
+__all__ = ["ROW_DTYPES", "row_gather", "row_gather_plain", "unique_stored_gather",
            "unique_stored_gather_plain", "wrap_ids"]

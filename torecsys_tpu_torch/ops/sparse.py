@@ -8,9 +8,9 @@ applies its rule to just the stored rows the batch touched.  Two routes:
 
 * the trusted presorted route (:meth:`~_RowOptimizerBase.update_from_host_aux`):
   the host presort (``data.presort``) supplies the sort order, in-row slots,
-  segment ids and compact unique stored-row ids, so the device permutes the
-  narrow ``(M, E)`` grads (the ``row_gather`` kernel), sums them per stored
-  row widened to ``(M, P*E)`` (:func:`_sorted_gsum`: the
+  segment ids, compact unique stored-row ids and their count (placed on the
+  card), so the device permutes the narrow ``(M, E)`` grads (the
+  ``row_gather`` kernel), sums them per stored row widened to ``(M, P*E)`` (:func:`_sorted_gsum`: the
   ``widen_segment_sum`` kernel, or ``segment_sum_wide`` at ``P == 1``) and
   updates the unique rows in place (the ``fused_rowwise_update`` kernel);
 * the on-device route (:meth:`~_RowOptimizerBase.update_sorted`), for a
@@ -225,17 +225,23 @@ class _RowOptimizerBase:
             slots: the optimizer's slots of ``table``.
             flat_g: ``(M, E)`` per-slot grads in original slot order.
             aux: ``order``, ``lo``, ``seg``, ``uids`` (``(M,)`` int32 on the
-                table's device) and ``n_unique`` (host int) from the port's
+                table's device) and ``n_unique`` from the port's
                 :class:`~torecsys_tpu_torch.data.presort.Presorter`, which
                 has checked that every id addresses a row of ``table``.
+                ``n_unique`` is a host int, or (as the trainer places it) a
+                one-element int32 tensor on the table's device, which the
+                update kernel reads there: nothing is read back, so the step
+                can be captured in a CUDA graph.
             step: 0-d int tensor of completed steps.
         """
         e = flat_g.shape[-1]
         pack = table.shape[-1] // e
         g_sorted = KE.row_gather(flat_g.contiguous(), aux["order"])
         gsum = _sorted_gsum(g_sorted, aux["lo"], aux["seg"], pack)
-        return self.update(table, slots, aux["uids"], gsum, step,
-                           n_valid=int(aux["n_unique"]))
+        n_unique = aux["n_unique"]
+        if isinstance(n_unique, torch.Tensor):
+            n_unique = n_unique.reshape(())
+        return self.update(table, slots, aux["uids"], gsum, step, n_valid=n_unique)
 
 
 @dataclasses.dataclass(frozen=True)

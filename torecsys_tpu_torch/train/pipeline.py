@@ -2,10 +2,13 @@
 
 The port carries the ``ctr`` objective on both embedding routes:
 ``set_objective("ctr")``, ``set_inputs``, ``set_model``, ``set_criterion``,
-``set_optimizer``, ``set_sparse_embeddings`` and ``set_target_fields``.
+``set_optimizer``, ``set_sparse_embeddings``, ``set_compute_dtype``,
+``set_table_dtype`` and ``set_target_fields``.
 ``set_sparse_embeddings(True)`` selects the sparse (touched-rows-only)
-route, ``False`` the dense one; the JAX package's automatic choice
-(``None``) is not ported, because its thresholds were measured on a TPU.
+route, ``False`` the dense one, and ``None`` (the default) the automatic
+choice, which the Trainer makes from the tables' size with thresholds
+measured on the card (``train/trainer.py``).  A bf16 table keeps the dense
+route.
 
 A torch module is built on its device with its widths known, so the
 pipeline holds the ``device`` its model is built on (default: the card) and
@@ -19,6 +22,12 @@ from typing import Any, Callable, Dict, Optional
 from torch import nn
 
 from torecsys_tpu_torch.inputs import Inputs
+from torecsys_tpu_torch.layers.precision import (
+    apply_compute_dtype,
+    apply_table_dtype,
+    is_reduced,
+    resolve_dtype,
+)
 from torecsys_tpu_torch.losses import BCEWithLogitsLoss, get_loss
 from torecsys_tpu_torch.models import Sequential, get_model
 from torecsys_tpu_torch.train.optimizers import get_optimizer
@@ -42,9 +51,11 @@ class Pipeline:
         self.optimizer: Any = None
         self.optimizer_spec: Optional[Dict[str, Any]] = None
         self.target_fields = "label"
-        # True: sparse route; False: dense route; None (the JAX package's
-        # automatic choice) is refused by finalize().
+        # True: sparse route; False: dense route; None: the Trainer's
+        # automatic choice.
         self.sparse_embeddings: Optional[bool] = None
+        self.compute_dtype: Optional[str] = None
+        self.table_dtype: Optional[str] = None
 
     def set_objective(self, objective: str) -> "Pipeline":
         if objective not in OBJECTIVES:
@@ -82,16 +93,34 @@ class Pipeline:
         self.sparse_embeddings = enabled
         return self
 
+    def set_compute_dtype(self, dtype: Optional[str]) -> "Pipeline":
+        """``'bfloat16'`` runs the dense towers' products in bf16 (float32
+        parameters, float32 loss); None or ``'float32'`` keeps float32."""
+        resolve_dtype(dtype)
+        self.compute_dtype = dtype
+        return self
+
+    def set_table_dtype(self, dtype: Optional[str]) -> "Pipeline":
+        """The embedding tables' storage dtype (``'bfloat16'``, or None /
+        ``'float32'``).  A bf16 table halves the dense route's table and
+        Adam-moment traffic; its rows are cast to float32 at the lookup.  It
+        keeps the pipeline on the dense route, and ``finalize`` refuses it
+        with ``set_sparse_embeddings(True)``."""
+        resolve_dtype(dtype)
+        self.table_dtype = dtype
+        return self
+
     def set_target_fields(self, fields: str) -> "Pipeline":
         self.target_fields = fields
         return self
 
     def row_optimizer(self):
         """The row-wise (lazy) optimizer of the embedding tables, or None on
-        the dense route."""
+        the dense route (``set_sparse_embeddings(False)``, or a bf16
+        table)."""
         from torecsys_tpu_torch.ops.sparse import get_row_optimizer
 
-        if self.sparse_embeddings is False:
+        if self.sparse_embeddings is False or is_reduced(self.table_dtype):
             return None
         spec = dict(self.optimizer_spec)
         row = get_row_optimizer(spec.pop("method", "Adam"), **spec)
@@ -114,15 +143,17 @@ class Pipeline:
             self.criterion = BCEWithLogitsLoss()
         if self.optimizer is None:
             self.set_optimizer("Adam", lr=1e-3)
-        if self.sparse_embeddings is None:
-            raise NotImplementedError(
-                "the automatic dense/sparse choice is not ported (its thresholds were "
-                "measured on a TPU): call set_sparse_embeddings(True) for the sparse "
-                "route or set_sparse_embeddings(False) for the dense route"
-            )
-        if self.sparse_embeddings not in (True, False):
+        if self.sparse_embeddings not in (True, False, None):
+            raise ValueError(f"sparse_embeddings must be True, False or None, got "
+                             f"{self.sparse_embeddings!r}")
+        if is_reduced(self.table_dtype) and self.sparse_embeddings:
             raise ValueError(
-                f"sparse_embeddings must be True or False, got {self.sparse_embeddings!r}")
+                f"table_dtype={self.table_dtype!r} requires the dense embedding path: the "
+                "sparse touched-rows kernels store float32 rows.  Unset sparse_embeddings "
+                "or table_dtype."
+            )
+        apply_compute_dtype(self.sequential, self.compute_dtype)
+        apply_table_dtype(self.sequential, self.table_dtype)
         return self
 
 

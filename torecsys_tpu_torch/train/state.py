@@ -3,7 +3,10 @@
 The parameters live in the modules; the state holds what the step carries
 besides them: the optimizer state, the step counter and the loss
 accumulators.  ``step`` and ``loss_sum`` are device tensors, so the training
-loop never waits on the device to count or accumulate.
+loop never waits on the device to count or accumulate, and a CUDA graph of
+the step advances them on its own.  ``loss_count`` is a host int that the
+trainer advances by the steps of each dispatch (a graph replay runs no
+Python).
 """
 
 from __future__ import annotations

@@ -15,15 +15,20 @@ The train step dispatches on the state's optimizer layout, chosen at
   scatter-add of the lookup's backward), and one Adam step over every
   parameter, the tables included.
 
+:func:`make_train_scan` runs K consecutive train steps as one dispatch (the
+JAX package's ``lax.scan`` of the step): on the card, a CUDA graph that
+captures the K steps, replayed once per dispatch.
+
 The eval steps run the model in ``eval`` mode under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from torecsys_tpu_torch.data.packed import BatchLayout
 from torecsys_tpu_torch.ops.sparse import sort_slot_grads
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
@@ -40,10 +45,10 @@ def _split_batch(batch: Batch, pipeline: Pipeline) -> Tuple[Batch, Optional[torc
 
 
 def _account(state: TrainState, loss: torch.Tensor) -> Tuple[TrainState, Dict]:
+    """Advance the device counters; the caller advances ``loss_count``."""
     with torch.no_grad():
         state.step += 1
         state.loss_sum += loss.detach()
-    state.loss_count += 1
     return state, {"loss": loss.detach()}
 
 
@@ -106,6 +111,109 @@ def make_train_step(pipeline: Pipeline) -> Callable[[TrainState, Batch], Tuple[T
     return train_step
 
 
+def _held_tensors(seq: torch.nn.Module, state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a train step reads or updates in place and keeps: the
+    parameters, the optimizer state and the step and loss accumulators.  A
+    CUDA graph holds them by address."""
+    held = list(seq.parameters()) + [state.step, state.loss_sum]
+    opt = state.opt_state
+    dense = opt["dense"] if is_hybrid_opt_state(opt) else opt
+    for param_state in dense.state.values():
+        held += [v for v in param_state.values() if isinstance(v, torch.Tensor)]
+    if is_hybrid_opt_state(opt):
+        for slots in opt["sparse"].values():
+            held += list(slots.values())
+    return held
+
+
+class TrainScan:
+    """K consecutive train steps as one dispatch (counterpart of the JAX
+    package's ``make_train_scan``, a ``lax.scan`` of the step).
+
+    A dispatch takes a packed ``(K, nbytes)`` uint8 group of K host batches
+    of one :class:`BatchLayout` (pinned, for the card) and copies it with one
+    non-blocking copy into a static buffer on the device; step ``k`` reads
+    row ``k`` of it, and writes its loss into row ``k`` of a static ``(K,)``
+    buffer, which the dispatch returns cloned.
+
+    On the card the K steps are one CUDA graph.  The first dispatch runs
+    them eagerly on a side stream (warm-up steps that count as training
+    steps: they load every kernel and settle the caching allocator), then
+    captures them with ``capture_error_mode="thread_local"``, so the
+    prefetch workers may pin memory meanwhile; each later dispatch replays
+    the graph once.  The graph holds the parameters and the optimizer state
+    by address: a dispatch that finds one of them moved (a state replaced
+    rather than copied into) captures again.  A failed capture raises.  On
+    the CPU the K steps run eagerly in place of the graph.
+    """
+
+    def __init__(self, train_step, seq: torch.nn.Module, k: int, layout: BatchLayout,
+                 device: torch.device):
+        self.train_step = train_step
+        self.seq = seq
+        self.k = k
+        self.layout = layout
+        self.device = device
+        self.static = torch.empty((k, layout.nbytes), dtype=torch.uint8, device=device)
+        self.losses = torch.zeros(k, dtype=torch.float32, device=device)
+        self._batches = [layout.unpack(self.static[i]) for i in range(k)]
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.graph = None
+        self._held: Optional[List[int]] = None
+        self.captures = 0
+        self.replays = 0
+
+    def _steps(self, state: TrainState) -> TrainState:
+        for i, batch in enumerate(self._batches):
+            state, logs = self.train_step(state, batch)
+            self.losses[i].copy_(logs["loss"])
+        return state
+
+    def _held_ptrs(self, state: TrainState) -> List[int]:
+        return [t.data_ptr() for t in _held_tensors(self.seq, state)]
+
+    def _capture(self, state: TrainState) -> None:
+        self.graph = None  # its memory pool goes before the new capture
+        graph = torch.cuda.CUDAGraph()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            self._steps(state)
+        self.graph = graph
+        self._held = self._held_ptrs(state)
+        self.captures += 1
+
+    def __call__(self, state: TrainState, packed: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        """Take the K steps of ``packed``; returns the state (updated in
+        place) and the ``(K,)`` float32 losses on the device."""
+        if tuple(packed.shape) != (self.k, self.layout.nbytes):
+            raise ValueError(f"packed group {tuple(packed.shape)} does not fit the scan's "
+                             f"{(self.k, self.layout.nbytes)}")
+        self.static.copy_(packed, non_blocking=True)
+        if self._stream is None:
+            return self._steps(state), self.losses.clone()
+        if self.graph is None:
+            current = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                state = self._steps(state)
+            current.wait_stream(self._stream)
+            losses = self.losses.clone()
+            self._capture(state)
+            return state, losses
+        if self._held_ptrs(state) != self._held:
+            self._capture(state)
+        self.graph.replay()
+        self.replays += 1
+        return state, self.losses.clone()
+
+
+def make_train_scan(train_step, seq: torch.nn.Module, k: int, layout: BatchLayout,
+                    device: torch.device) -> TrainScan:
+    """K steps of ``train_step`` per dispatch over packed groups of
+    ``layout`` (:class:`TrainScan`)."""
+    return TrainScan(train_step, seq, k, layout, device)
+
+
 def make_eval_step(pipeline: Pipeline):
     """Build the eval step ``(state, device batch) → (probabilities, targets)``:
     a sigmoid over raw-score models (models that already emit probabilities
@@ -140,4 +248,5 @@ def make_eval_metrics_step(pipeline: Pipeline, auc, logloss):
     return step
 
 
-__all__ = ["make_eval_metrics_step", "make_eval_step", "make_train_step"]
+__all__ = ["TrainScan", "make_eval_metrics_step", "make_eval_step", "make_train_scan",
+           "make_train_step"]

@@ -1,42 +1,90 @@
 """Trainer: the fit / evaluate loop around the steps (counterpart of
 ``torecsys_tpu/train/trainer.py``).
 
-Per host batch: on the sparse route with the presort on (the default),
-presort the id streams on the host (``data.presort``); move the batch to the
-device (:meth:`Trainer._place_batch`); take the step.  The loop never waits
-on the device except where it reads the loss or a metric: the copies to the
-card are asynchronous from pinned memory, the step enqueues its kernels, and
-the host prepares the next batch meanwhile.
+The training loop's host input path, per group of ``steps_per_execution``
+consecutive batches of one layout (``data.packed.group_batches``): on the
+sparse route with the presort on, presort each batch's id streams
+(``data.presort``, the C++ radix presort) and pack the group into one
+buffer, pinned for the card (``data.packed``), in ``prefetch`` worker
+threads; without a presort, pack the group on the loop's thread, where
+worker threads would only contend with the loop for the interpreter lock;
+then, on the loop's thread, copy the group to the card with one
+non-blocking copy and
+dispatch its steps: one replay of a CUDA graph of K steps
+(``train.steps.make_train_scan``) for a full group of the captured layout,
+else single eager steps.  The loop never waits on the device except where
+it reads the loss or a metric.
+
+The automatic dense/sparse choice (``set_sparse_embeddings(None)``) takes
+the sparse route from a table size that depends on whether the presort
+applies (:data:`SPARSE_AUTO_MIN_ELEMENTS`,
+:data:`SPARSE_AUTO_MIN_ELEMENTS_PRESORTED`); a bf16 table keeps the dense
+route.
 
 Evaluation (``ctr``) accumulates streaming AUC and logloss on the device and
 reads them once at the end.
 
-Not ported yet: the automatic dense/sparse choice (its thresholds were
-measured on a TPU), prefetch workers, ranking evaluation (``ltr``/``emb``),
-checkpoints and meshes.
+Not ported yet: ranking evaluation (``ltr``/``emb``), checkpoints and
+meshes.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from torecsys_tpu_torch.data.packed import BatchLayout, group_batches
+from torecsys_tpu_torch.data.prefetch import prefetch_map
 from torecsys_tpu_torch.data.presort import AUX_PREFIX, Presorter, build_presort_specs
 from torecsys_tpu_torch.metrics import StreamingAUC, StreamingLogLoss
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
 from torecsys_tpu_torch.train.steps import (
+    TrainScan,
     make_eval_metrics_step,
     make_eval_step,
+    make_train_scan,
     make_train_step,
 )
 
 logger = logging.getLogger(__name__)
+
+# The automatic choice's thresholds, in elements of the packed tables
+# (stored rows x stored width; 16 a logical row at E = 16): below them the
+# dense route is taken.  Measured by
+# ``chip_smoke.py --auto-sweep`` on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit, in two runs: the dense route against each sparse route at
+# 62.5k to 4M and to 16M logical rows (E = 16, the bench's field
+# proportions, batch 4096, bf16 tower, 8 steps a dispatch, median of 3
+# runs of 64 steps).  The on-device route beat the dense one at every size
+# from 250k rows in both runs; at 125k it tied in one (4.884M examples/sec
+# each) and won in the other, at 62.5k it lost in both (4.86-5.02M against
+# 5.04-5.06M): 250k rows, 4,000,000 elements.  The presorted route waits
+# on its host presort (1.17-1.56M examples/sec at every size) and beat the
+# dense one from 8M rows on (1.35M against 0.98M; it lost at 4M,
+# 1.33-1.41M against 1.64-1.66M): 8M rows, 128,000,000 elements.  So on this card the presort raises the crossover, where on
+# the TPU v5e (the JAX package's) it lowers it.
+SPARSE_AUTO_MIN_ELEMENTS = 4_000_000
+SPARSE_AUTO_MIN_ELEMENTS_PRESORTED = 128_000_000
+
+
+class _Group:
+    """A packed group of host batches, ready to copy to the card."""
+
+    def __init__(self, packed: torch.Tensor, layout: BatchLayout, n_examples: int):
+        self.packed = packed
+        self.layout = layout
+        self.n_examples = n_examples
+
+    def __len__(self) -> int:
+        return self.packed.shape[0]
 
 
 class Trainer:
@@ -50,99 +98,212 @@ class Trainer:
         seed: seed of the ``torch.Generator`` that :meth:`init_state` draws
             the parameters from.
         presort: host-side id-stream preprocessing (``data.presort``) on the
-            sparse route.  None (the default) and True presort every
-            training batch on the host, so the sparse step takes the trusted
-            presorted route (the port is single-device, where the JAX
-            package's automatic choice presorts too).  False builds no
-            presorter: the batch carries no aux and the sparse step sorts
-            and dedups on the card (the on-device route).  The dense route
-            builds no presorter either way.
+            sparse route.  True presorts every training batch on the host,
+            so the sparse step takes the trusted presorted route.  False
+            builds no presorter: the batch carries no aux and the sparse
+            step sorts and dedups on the device (the on-device route).  None
+            (the default) presorts on the CPU, as the JAX package does on
+            one host, and not on a CUDA card: there the device sort costs
+            about 0.03 ms a step against the presort's milliseconds of a
+            host core a batch, and every graphed sparse route waits on the
+            host (``PERF.md`` §7).  The dense route builds no presorter
+            either way.
+        steps_per_execution: steps per dispatch K.  On the card a full group
+            of K batches is one replay of a CUDA graph of K steps; an
+            epoch's remainder of fewer than K batches, or a group whose
+            batches' shapes differ from the captured ones, takes single
+            eager steps.  On the CPU the K steps run eagerly.
+        prefetch: look-ahead of the presort, in dispatches: up to
+            ``prefetch`` groups are presorted and packed by ``min(4,
+            prefetch)`` worker threads while the card runs earlier ones (the
+            C++ presort releases the interpreter lock).  0, or a route
+            without a presort, prepares each group on the loop's thread.
+        profile_dir: where a ``torch.profiler`` trace
+            (``trainer_trace.json``) of a few steps is written once: from
+            the first dispatch that starts at step 4 or later through the
+            dispatch that reaches step 8, or the next one (at least one
+            dispatch), as the JAX package traces steps 4-8.
     """
 
     def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0,
-                 presort: Optional[bool] = None):
+                 presort: Optional[bool] = None, steps_per_execution: int = 1,
+                 prefetch: int = 4, profile_dir: Optional[str] = None):
         self.pipeline = pipeline.finalize()
         self.device = pipeline.device
         self.log_every = log_every
         self.seed = seed
         self.presort = presort
+        self.steps_per_execution = max(1, int(steps_per_execution))
+        self.prefetch = max(0, int(prefetch))
+        self.profile_dir = profile_dir
         self.state: Optional[TrainState] = None
         self.history: List[Dict[str, float]] = []
+        self.sparse: Optional[bool] = None
         self._presorter: Optional[Presorter] = None
         self._train_step_fn = None
+        self._train_scan: Optional[TrainScan] = None
         self._eval_step_fn = None
         self._eval_metrics_fn = None
         self._auc = StreamingAUC()
         self._logloss = StreamingLogLoss()
-        # Host wall time (ms) that train_steps spent presorting, placing and
-        # enqueuing steps; the step itself runs on after its enqueue returns.
-        self.host_ms = {"presort": 0.0, "place": 0.0, "step": 0.0}
+        # Host wall ms of the training input path, summed over steps: presort
+        # and pack (pinning included), in the workers or on the loop's
+        # thread; on the loop's thread the wait for a prepared group (which
+        # takes in the presort and pack where they run there), the copy of
+        # each eager step's batch to the card (place) and the steps' enqueue
+        # or the graph's copy and replay (step); the steps run on after their
+        # enqueue returns.
+        self.host_ms = {"presort": 0.0, "pack": 0.0, "wait": 0.0, "place": 0.0, "step": 0.0}
+        self._host_lock = threading.Lock()
 
     # ---- setup ----------------------------------------------------------
 
     def _build_steps(self) -> None:
         self._train_step_fn = make_train_step(self.pipeline)
+        self._train_scan = None
         self._eval_step_fn = make_eval_step(self.pipeline)
         self._eval_metrics_fn = make_eval_metrics_step(self.pipeline, self._auc,
                                                        self._logloss)
 
+    def _presort_applicable(self) -> bool:
+        """Would the host presort run on the sparse route?  It also picks
+        the automatic choice's threshold."""
+        if self.presort is None:
+            return self.device.type != "cuda"
+        return bool(self.presort)
+
+    def _choose_sparse(self, row_tx, modules) -> bool:
+        """The route: sparse where the pipeline asks for it, else (None,
+        the automatic choice) sparse from the threshold on, in table
+        elements, of the presorted or the on-device route."""
+        if row_tx is None or not modules:
+            return False
+        if self.pipeline.sparse_embeddings is not None:
+            return True
+        elements = sum(m.embedding.numel() for m in modules.values())
+        threshold = (SPARSE_AUTO_MIN_ELEMENTS_PRESORTED if self._presort_applicable()
+                     else SPARSE_AUTO_MIN_ELEMENTS)
+        return elements >= threshold
+
     def init_state(self, example_batch: Optional[Dict[str, np.ndarray]] = None) -> TrainState:
-        """Draw the parameters from ``seed`` and build the optimizer state of
-        the pipeline's route.  ``example_batch`` is accepted for the JAX
+        """Draw the parameters from ``seed``, choose the route and build its
+        optimizer state.  ``example_batch`` is accepted for the JAX
         package's signature; torch modules know their shapes without one."""
         del example_batch
         seq = self.pipeline.sequential
         seq.reset_parameters(torch.Generator(device=self.device).manual_seed(self.seed))
         row_tx = self.pipeline.row_optimizer()
         modules = sparse_modules(seq)
-        sparse = row_tx is not None and bool(modules)
+        self.sparse = self._choose_sparse(row_tx, modules)
         for module in modules.values():
-            module.sparse_grads = sparse
-        self.state = TrainState.create(seq, self.pipeline.optimizer, row_tx,
-                                       set(modules) if sparse else None, self.device)
+            module.sparse_grads = self.sparse
+        self.state = TrainState.create(seq, self.pipeline.optimizer,
+                                       row_tx if self.sparse else None,
+                                       set(modules) if self.sparse else None, self.device)
         self._presorter = (Presorter(build_presort_specs(self.pipeline.inputs))
-                           if sparse and self.presort is not False else None)
+                           if self.sparse and self._presort_applicable() else None)
         self._build_steps()
         return self.state
 
-    def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, object]:
-        """Host batch → device tensors.  The presort's ``n_unique`` stays a
-        host int: it sizes the update kernel's grid without a device read."""
+    def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host batch → device tensors (the evaluation's path)."""
         placed = {}
         for k, v in batch.items():
-            if k.startswith(AUX_PREFIX) and k.endswith("/n_unique"):
-                placed[k] = int(np.asarray(v).reshape(-1)[0])
-                continue
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 t = t.pin_memory()
             placed[k] = t.to(self.device, non_blocking=True)
         return placed
 
+    # ---- the training input path ----------------------------------------
+
+    def _add_host_ms(self, **ms: float) -> None:
+        with self._host_lock:
+            for k, v in ms.items():
+                self.host_ms[k] += v
+
+    def _prepare(self, group: List[Dict[str, np.ndarray]]) -> _Group:
+        """The input path's transform, in a worker or on the loop's thread:
+        presort each batch (where the presort runs), then pack the group into
+        one buffer, pinned where the card reads it."""
+        clock = time.perf_counter
+        if self._presorter is not None:
+            t0 = clock()
+            group = [self._presorter(b) for b in group]
+            self._add_host_ms(presort=(clock() - t0) * 1e3)
+        t1 = clock()
+        layout = BatchLayout.of(group[0])
+        packed = layout.pack(group, pin=self.device.type == "cuda")
+        self._add_host_ms(pack=(clock() - t1) * 1e3)
+        n_examples = sum(next(np.shape(v)[0] for k, v in b.items()
+                              if not k.startswith(AUX_PREFIX)) for b in group)
+        return _Group(packed, layout, n_examples)
+
+    def _prepared(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[_Group]:
+        groups = group_batches(batches, self.steps_per_execution)
+        workers = min(4, self.prefetch) if self._presorter is not None else 0
+        return prefetch_map(groups, self._prepare, num_workers=workers, depth=self.prefetch)
+
+    def _dispatch(self, group: _Group) -> List[torch.Tensor]:
+        """Take the steps of one packed group; returns their losses as 0-d
+        device tensors."""
+        clock = time.perf_counter
+        k = self.steps_per_execution
+        if k > 1 and len(group) == k:
+            if self._train_scan is None:
+                self._train_scan = make_train_scan(self._train_step_fn,
+                                                   self.pipeline.sequential, k, group.layout,
+                                                   self.device)
+            if self._train_scan.layout == group.layout:
+                t0 = clock()
+                self.state, losses = self._train_scan(self.state, group.packed)
+                self._add_host_ms(step=(clock() - t0) * 1e3)
+                self.state.loss_count += k
+                return list(losses.unbind(0))
+        losses = []
+        for row in group.packed:
+            t0 = clock()
+            if self.device.type == "cuda":
+                row = row.to(self.device, non_blocking=True)
+            placed = group.layout.unpack(row)
+            t1 = clock()
+            self.state, logs = self._train_step_fn(self.state, placed)
+            self._add_host_ms(place=(t1 - t0) * 1e3, step=(clock() - t1) * 1e3)
+            self.state.loss_count += 1
+            losses.append(logs["loss"])
+        return losses
+
+    def _dispatches(self, batches: Iterable[Dict[str, np.ndarray]]
+                    ) -> Iterator[Tuple[int, List[torch.Tensor]]]:
+        """(examples, per-step losses) of each dispatch over ``batches``."""
+        if self.state is None:
+            self.init_state()
+        prepared = self._prepared(batches)
+        clock = time.perf_counter
+        try:
+            while True:
+                t0 = clock()
+                group = next(prepared, None)
+                self._add_host_ms(wait=(clock() - t0) * 1e3)
+                if group is None:
+                    return
+                yield group.n_examples, self._dispatch(group)
+        finally:
+            prepared.close()
+
     # ---- training -------------------------------------------------------
 
     def train_steps(self, batches: Iterable[Dict[str, np.ndarray]]) -> List[torch.Tensor]:
-        """Presort (sparse route), place and train on each host batch;
-        returns the per-step losses as 0-d device tensors (nothing is read
-        back here)."""
-        if self.state is None:
-            self.init_state()
-        losses = []
-        clock = time.perf_counter
-        for batch in batches:
-            t0 = clock()
-            if self._presorter is not None:
-                batch = self._presorter(batch)
-                self.host_ms["presort"] += (clock() - t0) * 1e3
-            t1 = clock()
-            placed = self._place_batch(batch)
-            t2 = clock()
-            self.state, logs = self._train_step_fn(self.state, placed)
-            t3 = clock()
-            losses.append(logs["loss"])
-            self.host_ms["place"] += (t2 - t1) * 1e3
-            self.host_ms["step"] += (t3 - t2) * 1e3
-        return losses
+        """Train on each host batch through the input path and the
+        dispatches; returns the per-step losses as 0-d device tensors
+        (nothing is read back here)."""
+        return [loss for _, losses in self._dispatches(batches) for loss in losses]
+
+    @property
+    def graph_stats(self) -> Dict[str, int]:
+        """CUDA graph captures and replays of the K-step dispatch so far."""
+        scan = self._train_scan
+        return {"captures": scan.captures if scan else 0, "replays": scan.replays if scan else 0}
 
     def _check_finite_loss(self, loss_sum: float, step: int) -> None:
         if not np.isfinite(loss_sum):
@@ -157,27 +318,38 @@ class Trainer:
         epoch when ``val_loader`` is given.
 
         ``train_loader`` and ``val_loader`` may be re-iterable containers or
-        zero-arg callables returning a fresh iterator per epoch.
+        zero-arg callables returning a fresh iterator per epoch.  With
+        ``max_steps`` the loop stops after the dispatch that reaches it (up
+        to K - 1 steps past it), as the JAX package's does.
         """
         if self.state is None:
             self.init_state()
         metrics: Dict[str, float] = {}
         step = 0
+        profiler = None
         for epoch in range(max_epochs):
             t0 = time.perf_counter()
             n_examples = 0
             self.state.reset_metrics()
-            for batch in self._epoch_iter(train_loader):
-                n_examples += next(v.shape[0] for k, v in batch.items()
-                                   if not k.startswith(AUX_PREFIX))
-                self.train_steps([batch])
-                step += 1
-                if step % self.log_every == 0:
-                    mean = float(self.state.mean_loss())
-                    self._check_finite_loss(mean, step)
-                    logger.info("epoch %d step %d loss %.5f", epoch, step, mean)
-                if max_steps is not None and step >= max_steps:
-                    break
+            dispatches = self._dispatches(self._epoch_iter(train_loader))
+            try:
+                for examples, losses in dispatches:
+                    n_examples += examples
+                    step += len(losses)
+                    if profiler is not None and step >= 8:
+                        profiler = self._stop_profile(profiler)
+                    if step % self.log_every == 0:
+                        mean = float(self.state.mean_loss())
+                        self._check_finite_loss(mean, step)
+                        logger.info("epoch %d step %d loss %.5f", epoch, step, mean)
+                    if max_steps is not None and step >= max_steps:
+                        break
+                    if self.profile_dir and profiler is None and step >= 4:
+                        profiler = self._start_profile()
+            finally:
+                dispatches.close()
+                if profiler is not None:
+                    profiler = self._stop_profile(profiler)
             mean = float(self.state.mean_loss())  # waits for the device
             self._check_finite_loss(mean, step)
             elapsed = max(time.perf_counter() - t0, 1e-9)
@@ -190,6 +362,26 @@ class Trainer:
             if max_steps is not None and step >= max_steps:
                 break
         return metrics
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Stop the trace, write it to ``profile_dir`` once and clear it."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(self.profile_dir, "trainer_trace.json"))
+        self.profile_dir = None
+        return None
 
     @staticmethod
     def _epoch_iter(loader):
@@ -215,11 +407,12 @@ class Trainer:
                 "val_logloss": float(self._logloss.compute(ll_state))}
 
     def predict(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """Probability scores ``(B, 1)`` of one host batch, on the device."""
+        """Probability scores ``(B, 1)`` float32 of one host batch, on the
+        device."""
         if self.state is None:
             raise RuntimeError("call fit() or init_state() before predict()")
         preds, _ = self._eval_step_fn(self.state, self._place_batch(batch))
         return preds
 
 
-__all__ = ["Trainer"]
+__all__ = ["SPARSE_AUTO_MIN_ELEMENTS", "SPARSE_AUTO_MIN_ELEMENTS_PRESORTED", "Trainer"]
