@@ -82,6 +82,24 @@ Phases (any failure raises and the exit code is not 0):
     presort there).  Its launches are the
     counters' (warm-up and capture) plus the replays times a traced
     replay's.
+11. bench.py's file-fed configuration (bench.py:314-393) and the port's
+    CLI, on a Criteo DAC TSV of about 256 MB written with numpy into a
+    temporary directory (Zipf(1.2) tokens capped at the bench's first 26
+    field sizes) and deleted at the end: the C++ parser must be the route
+    taken and bit-identical to the Python route on the file's first 4 MB
+    (then its rows/sec on one 64 MB chunk); the ``CriteoFileIterable``
+    alone over 400 batches (examples/sec, no card in the loop); two epochs
+    of ``Trainer.fit`` over the stream in 64 MB chunks (automatic route,
+    which must be the on-device one; bf16 tower; 8 steps a dispatch;
+    prefetch 8): launches as phase 10's, each step's kernels, the second
+    epoch's examples/sec, host ms per stage, device busy share and peak
+    memory; then the CLI in this process through ``cli.main`` at full
+    width (``train --stream on --criteo_hash_size 1264800``, 64 steps with
+    a checkpoint; a trainer restored from it holds the saved state to the
+    bit, restored twice in place, and saves it again to the bit; the same
+    train command again resumes and takes 16 more steps; ``evaluate
+    --load_from`` the last checkpoint), with the save and restore seconds
+    and the checkpoint's GB.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -104,6 +122,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import itertools
 import json
 import os
 import subprocess
@@ -179,13 +198,34 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+PROFILE_LEAD_CYCLES = 100_000_000  # about 50 ms of the card's clock
+
+
+@contextlib.contextmanager
+def card_profile():
+    """A torch.profiler window over the block, the card's events included.
+    The profiler starts recording the card's events some milliseconds into
+    its window and loses those before: a spin kernel, waited for, first puts
+    the block's launches, copies and kernels after that
+    (:func:`device_events` leaves it out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+
+
 def device_events(prof):
-    """The kernels and copies the card ran in a torch.profiler window."""
+    """The kernels and copies the card ran in a :func:`card_profile`
+    window, its lead spin kernel left out."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+            and not e.name.startswith(("Optimizer.", "ProfilerStep"))
+            and "spin_kernel" not in e.name]
 
 
 def device_ms(fn, iters: int, before=None) -> float:
@@ -194,11 +234,10 @@ def device_ms(fn, iters: int, before=None) -> float:
     window, the card's own time.  ``before``, where given, runs before each
     call, and its kernels are left out by name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     skip = set()
     for _ in range(3 if before is not None else 0):  # as below: retried
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             before()
             torch.cuda.synchronize()
         skip = {e.name for e in device_events(prof)}
@@ -207,7 +246,7 @@ def device_ms(fn, iters: int, before=None) -> float:
     if before is not None and not skip:
         raise AssertionError("torch.profiler recorded no kernel of the call before")
     for _ in range(3):  # a window now and then comes back without its kernels
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             for _ in range(iters):
                 if before is not None:
                     before()
@@ -1652,11 +1691,9 @@ def profile_steps(trainer, batches, out_dir, path: str):
     kernel, and the device's busy time as the union of its kernel and copy
     intervals."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
+        t0 = time.perf_counter()
         trainer.train_steps(batches)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
@@ -1792,22 +1829,58 @@ def held_state(trainer):
                                                       trainer.state)]
 
 
+REPLAY_MARK_CYCLES = PROFILE_LEAD_CYCLES // 10  # about 5 ms of the card's clock
+REPLAY_MARK_MAX_US = 20_000  # the mark is shorter, the lead (about 50 ms) longer
+REPLAY_WINDOWS = 4
+
+
+def marked_events(prof):
+    """The card's events of a :func:`replay_profile` window that come after
+    its mark, the short spin kernel between its two replays; None where the
+    window holds no mark.  The profiler loses a prefix of a window's
+    events now and then, the lead spin kernel and 50 ms and more after it
+    with it (a traced replay once held 15 row gathers of 16): a window
+    whose mark was recorded lost nothing after it."""
+    from torch.autograd import DeviceType
+
+    spins = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and "spin_kernel" in e.name), key=lambda e: e.time_range.start)
+    if not spins:
+        return None
+    last = spins[-1].time_range
+    if last.end - last.start > REPLAY_MARK_MAX_US:
+        return None  # the lead alone: the mark was lost
+    return [e for e in device_events(prof) if e.time_range.start >= last.end]
+
+
 def replay_profile(trainer, batches, out_dir, path: str):
     """torch.profiler over one dispatch of ``batches`` (one graph replay):
     the port's kernels the card ran in it, per wrapper launch, and the
-    device busy time (union of kernel and copy intervals) per step."""
+    device busy time (union of kernel and copy intervals) per step.  Each
+    window replays twice, with a short spin kernel between: the second
+    replay is the one read (:func:`marked_events`), and a window without
+    its mark is taken again, up to ``REPLAY_WINDOWS`` windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     n = len(batches)
-    torch.cuda.synchronize()
-    before = trainer.graph_stats["replays"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_steps(batches)
+    for window in range(1, REPLAY_WINDOWS + 1):
         torch.cuda.synchronize()
-    if trainer.graph_stats["replays"] != before + 1:
-        raise AssertionError(f"{path}: the traced dispatch was not one replay")
-    device = device_events(prof)
+        before = trainer.graph_stats["replays"]
+        with card_profile() as prof:
+            trainer.train_steps(batches)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(REPLAY_MARK_CYCLES)
+            torch.cuda.synchronize()
+            trainer.train_steps(batches)
+            torch.cuda.synchronize()
+        if trainer.graph_stats["replays"] != before + 2:
+            raise AssertionError(f"{path}: the traced dispatches were not two replays")
+        device = marked_events(prof)
+        if device is not None:
+            break
+    else:
+        raise AssertionError(f"{path}: torch.profiler lost the mark of {REPLAY_WINDOWS} "
+                             "traced windows in a row")
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -1821,12 +1894,13 @@ def replay_profile(trainer, batches, out_dir, path: str):
             seen[kernel] = seen.get(kernel, 0) + 1
             us[kernel] = us.get(kernel, 0.0) + (e.time_range.end - e.time_range.start) / n
     per_replay = {k: v // DEVICE_KERNELS_PER_LAUNCH.get(k, 1) for k, v in seen.items()}
-    log(f"[{path}] traced replay of {n} steps: device busy {busy_us / n / 1e3:.4f} ms/step; "
-        f"port kernels launched in it {per_replay} ({', '.join(f'{k} {v:.1f} us/step' for k, v in sorted(us.items()))})")
+    log(f"[{path}] traced replay of {n} steps (window {window}): device busy "
+        f"{busy_us / n / 1e3:.4f} ms/step; port kernels launched in it {per_replay} "
+        f"({', '.join(f'{k} {v:.1f} us/step' for k, v in sorted(us.items()))})")
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"chip_smoke_replay_{path}.json"))
     return {"launches_per_replay": per_replay, "device_busy_ms_per_step": busy_us / n / 1e3,
-            "kernel_us_per_step": us}
+            "kernel_us_per_step": us, "windows": window}
 
 
 @contextlib.contextmanager
@@ -1960,7 +2034,7 @@ def phase_graph(seed: int, out_dir):
                 raise AssertionError(f"{path}: captured again: {trainer.graph_stats}")
             traced = replay_profile(trainer, cmp_group, out_dir, path)
             want = {n: k * c for n, c in per_step.items()}
-            if traced["launches_per_replay"] and traced["launches_per_replay"] != want:
+            if traced["launches_per_replay"] != want:
                 raise AssertionError(f"{path}: traced replay launched "
                                      f"{traced['launches_per_replay']}, expected {want}")
             log(f"[{path}] examples/sec eager {eager_eps:.1f} vs graphed {graph_eps:.1f} "
@@ -2029,6 +2103,10 @@ def phase_headline(seed: int, out_dir):
     # the traced replay shows
     ran = stats["replays"] - stats["captures"]
     total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
+    steps = 2 * len(batches)
+    if total != expect(**{n: steps * c for n, c in per_step.items()}):
+        raise AssertionError(f"headline: launches {total} over {steps} steps, expected "
+                             f"{per_step} a step")
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
     log(f"[headline] auto choice: sparse, on-device (presort None on the card), table "
         f"{tuple(table.shape)} {table.dtype}, tower bf16; {stats['captures']} capture, "
@@ -2051,6 +2129,446 @@ def phase_headline(seed: int, out_dir):
             "first_epoch_examples_per_sec": first["examples_per_sec"],
             "train_loss": second["train_loss"], "host_ms_per_step": host,
             "peak_memory_gb": peak, "reserved_gb": reserved, "profile": traced}
+
+
+# ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
+
+# bench.py's file-fed configuration (bench.py:314-393): the Criteo DAC format
+# has 26 categorical columns, so the first 26 of the bench's fields.
+FILE_FIELD_SIZES = FIELD_SIZES[:26]
+FILE_BYTES = 256 << 20
+FILE_CHUNK_BYTES = 64 << 20     # 4 chunks: 3 chunk boundaries an epoch
+FILE_BLOCK_ROWS = 131_072       # rows generated and written at a time
+PARSE_CHECK_BYTES = 4 << 20     # C++ against the Python route, bit for bit
+HOST_ONLY_BATCHES = 400         # as bench.py's host-pipeline-only count
+FILE_PREFETCH = 8               # as bench.py's file-fed Trainer
+CLI_HASH_SIZE = 1_264_800       # 26 x 1,264,800 = 32,884,800 rows
+CLI_STEPS, CLI_RESUME_STEPS = 64, 16
+CHECKPOINT_DISK_BYTES = 24 << 30  # two full-width checkpoints and a spare
+
+
+def tsv_bytes(cols) -> bytes:
+    """Rows of non-negative integers ``(n, c)`` as tab-separated decimal
+    lines, formatted with numpy alone."""
+    n, c = cols.shape
+    width = len(str(int(cols.max())))
+    cells = np.empty((n, c, width + 1), np.uint8)
+    v = cols.astype(np.int32)
+    for k in range(width - 1, -1, -1):
+        cells[:, :, k] = v % 10 + 48
+        v //= 10
+    digits = np.ones(cols.shape, np.int32)
+    for k in range(1, width):
+        digits += cols >= 10 ** k
+    keep = np.ones(cells.shape, bool)
+    keep[:, :, :width] = np.arange(width)[None, None, :] >= (width - digits)[:, :, None]
+    cells[:, :, width] = 9    # tab
+    cells[:, -1, width] = 10  # newline
+    return cells[keep].tobytes()
+
+
+def write_criteo_file(path: str, seed: int, target_bytes: int) -> int:
+    """A Criteo DAC TSV of about ``target_bytes`` as bench.py:319-342 makes
+    one: a 0/1 label, 13 dense integers in [0, 1000) and 26 Zipf(1.2)
+    tokens capped at ``FILE_FIELD_SIZES`` (the same token hashes to the same
+    id, so the id stream keeps the bench's duplication).  Returns the rows."""
+    rng = np.random.default_rng(seed)
+    rows = 0
+    with open(path, "wb") as f:
+        while f.tell() < target_bytes:
+            n = FILE_BLOCK_ROWS
+            cols = np.empty((n, 1 + NUM_DENSE + len(FILE_FIELD_SIZES)), np.int64)
+            cols[:, 0] = rng.integers(0, 2, n)
+            cols[:, 1:1 + NUM_DENSE] = rng.integers(0, 1000, (n, NUM_DENSE))
+            for i, v in enumerate(FILE_FIELD_SIZES):
+                cols[:, 1 + NUM_DENSE + i] = np.minimum(rng.zipf(1.2, n) - 1, v - 1)
+            f.write(tsv_bytes(cols))
+            rows += n
+    return rows
+
+
+def same_arrays(a, b) -> bool:
+    """Same dtype, shape and bits."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                               np.ascontiguousarray(b).view(np.uint8)))
+
+
+def check_parser(path: str):
+    """The parser on the card's host: the C++ route must be the one taken,
+    bit-identical to the Python route on the file's first 4 MB; then its
+    rows/sec on one whole chunk (best of 3)."""
+    from torecsys_tpu_torch.data import native
+
+    if not native.native_available():
+        raise AssertionError("the card's host parses Criteo files in Python: the C++ parser "
+                             "did not build or load")
+    route = "c++"
+    with open(path, "rb") as f:
+        head = f.read(PARSE_CHECK_BYTES)
+        f.seek(0)
+        chunk = f.read(FILE_CHUNK_BYTES)
+    head, chunk = head[:head.rfind(b"\n") + 1], chunk[:chunk.rfind(b"\n") + 1]
+    cpp = native.parse_criteo_tsv(head, FILE_FIELD_SIZES)
+    t0 = time.perf_counter()
+    py = native.parse_criteo_tsv(head, FILE_FIELD_SIZES, force_python=True)
+    python_s = time.perf_counter() - t0
+    rows_head = len(cpp["label"])
+    for k in ("label", "dense", "cats"):
+        if not same_arrays(cpp[k], py[k]):
+            raise AssertionError(f"C++ parse differs from the Python route at {k!r}")
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = native.parse_criteo_tsv(chunk, FILE_FIELD_SIZES)
+        best = min(best, time.perf_counter() - t0)
+    rows = len(out["label"])
+    rec = {"route": route, "threads": os.cpu_count(), "check_rows": rows_head,
+           "chunk_rows": rows, "chunk_mb": len(chunk) / 1e6, "rows_per_sec": rows / best,
+           "mb_per_sec": len(chunk) / 1e6 / best,
+           "python_rows_per_sec": rows_head / python_s}
+    log(f"[file-parser] route {route}: C++ bit-identical to the Python route on the first "
+        f"{len(head) / 1e6:.1f} MB ({rows_head} rows; labels, dense, cats); one "
+        f"{len(chunk) / 1e6:.1f} MB chunk ({rows} rows) on {os.cpu_count()} threads, best of 3: "
+        f"{rows / best:.1f} rows/sec, {len(chunk) / 1e6 / best:.1f} MB/s (Python route "
+        f"{rows_head / python_s:.1f} rows/sec)")
+    return rec
+
+
+def file_loader(path: str):
+    from torecsys_tpu_torch.data import CriteoFileIterable
+
+    return CriteoFileIterable(path, FILE_FIELD_SIZES, batch_size=BATCH,
+                              chunk_bytes=FILE_CHUNK_BYTES, shuffle=False)
+
+
+def host_pipeline_only(path: str):
+    """The file stream alone, no card in the loop (bench.py:380-390 without
+    the presort, which the card's route does not run): examples/sec over
+    ``HOST_ONLY_BATCHES`` batches or all the file has."""
+    loader = file_loader(path)
+    n = 0
+    t0 = time.perf_counter()
+    for _ in loader:
+        n += 1
+        if n >= HOST_ONLY_BATCHES:
+            break
+    eps = n * BATCH / (time.perf_counter() - t0)
+    log(f"[file-host] CriteoFileIterable alone ({FILE_CHUNK_BYTES >> 20} MB chunks): {n} batches, "
+        f"{eps:.1f} examples/sec")
+    return {"batches": n, "examples_per_sec": eps}
+
+
+def file_fed_training(path: str, seed: int, batches_per_epoch: int, out_dir):
+    """bench.py's file-fed configuration through ``Trainer.fit``: two epochs
+    of the stream at 8 steps a dispatch, prefetch 8, the automatic route and
+    the bf16 tower.  The automatic choice must take the on-device sparse
+    route; every step must launch its kernels (warm-up, capture and the
+    remainders' eager steps counted by the wrappers, replays from a traced
+    replay)."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    fns = kernels()
+    k = GRAPH_K
+    loader = file_loader(path)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(bench_pipeline(FILE_FIELD_SIZES, sparse=None, compute="bfloat16"),
+                      log_every=10**9, seed=seed, steps_per_execution=k, prefetch=FILE_PREFETCH)
+    reset_counts(fns)
+    first = trainer.fit(loader, max_epochs=1)
+    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+    t0 = time.perf_counter()
+    second = trainer.fit(loader, max_epochs=1)
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts(fns)
+    if not (trainer.sparse and trainer._presorter is None):
+        raise AssertionError("file-fed: the automatic choice did not take the on-device sparse "
+                             "route")
+    per_step = GRAPH_ROUTES["ondevice"][3]
+    eager = 2 * k + 2 * (batches_per_epoch % k)  # warm-up, capture, each epoch's remainder
+    check_counts("file-fed warm-up, capture and remainders", counts,
+                 expect(**{n: eager * c for n, c in per_step.items()}))
+    stats = dict(trainer.graph_stats)
+    host = {n: v / batches_per_epoch for n, v in trainer.host_ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    traced = replay_profile(trainer, list(itertools.islice(iter(loader), k)), out_dir, "file")
+    per_replay = traced["launches_per_replay"]
+    if not per_replay:
+        raise AssertionError("file-fed: the trace of a replay shows none of the port's kernels")
+    total = {n: counts[n] + (stats["replays"] - stats["captures"]) * per_replay.get(n, 0)
+             for n in counts}
+    steps = 2 * batches_per_epoch
+    if total != expect(**{n: steps * c for n, c in per_step.items()}):
+        raise AssertionError(f"file-fed: launches {total} over {steps} steps, expected "
+                             f"{per_step} a step")
+    step_ms = epoch_s / batches_per_epoch * 1e3
+    busy = traced["device_busy_ms_per_step"]
+    log(f"[file-fed] auto choice: sparse, on-device; {batches_per_epoch} batches an epoch, "
+        f"{stats['captures']} capture, {stats['replays']} replays; first epoch "
+        f"{first['examples_per_sec']:.1f} examples/sec (warm-up and capture), second "
+        f"{second['examples_per_sec']:.1f}; train_loss {second['train_loss']:.6f}; host ms/step "
+        "(second epoch): " + " ".join(f"{n}={v:.3f}" for n, v in host.items())
+        + f"; step {step_ms:.3f} ms, device busy {busy:.4f} ms/step ({busy / step_ms:.1%}); "
+        f"peak allocated {peak:.3f} GB; launches {total} over {steps} steps")
+    if not np.isfinite(second["train_loss"]):
+        raise AssertionError(f"file-fed: non-finite loss {second}")
+    del trainer
+    release()
+    return {"launches": total, "launches_counted": counts, "graph_stats": stats,
+            "batches_per_epoch": batches_per_epoch,
+            "examples_per_sec": second["examples_per_sec"],
+            "first_epoch_examples_per_sec": first["examples_per_sec"],
+            "train_loss": second["train_loss"], "host_ms_per_step": host,
+            "step_ms": step_ms, "device_busy_ms_per_step": busy,
+            "device_busy_share": busy / step_ms, "peak_memory_gb": peak, "profile": traced}
+
+
+def checkpoint_tensors(path: str):
+    """A checkpoint file's counters (step, loss_count) and every tensor by a
+    flat name, on the CPU."""
+    import torch
+
+    saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    flat = {f"params/{n}": t for n, t in saved["params"].items()}
+    for i, st in saved["dense_opt"]["state"].items():
+        flat.update({f"dense_opt/{i}/{k}": v for k, v in st.items()})
+    for table, slots in saved["row_slots"].items():
+        flat.update({f"row_slots/{table}/{k}": v for k, v in slots.items()})
+    flat["loss_sum"] = saved["loss_sum"]
+    return {"step": saved["step"], "loss_count": saved["loss_count"]}, flat
+
+
+def live_tensors(trainer):
+    """The trainer's live counters and state under
+    :func:`checkpoint_tensors`' names."""
+    seq, opt = trainer.pipeline.sequential, trainer.state.opt_state
+    flat = {f"params/{n}": p for n, p in seq.named_parameters()}
+    dense = opt["dense"] if isinstance(opt, dict) else opt
+    for i, st in dense.state_dict()["state"].items():
+        flat.update({f"dense_opt/{i}/{k}": v for k, v in st.items()})
+    for table, slots in (opt["sparse"].items() if isinstance(opt, dict) else ()):
+        flat.update({f"row_slots/{table}/{k}": v for k, v in slots.items()})
+    flat["loss_sum"] = trainer.state.loss_sum
+    counters = {"step": int(trainer.state.step), "loss_count": int(trainer.state.loss_count)}
+    return counters, flat
+
+
+def differing(a, b):
+    """Names of the tensors that differ in bits between ``a`` and ``b``
+    (each compared on ``a``'s device), and those only one of them has."""
+    import torch
+
+    return sorted(set(a) ^ set(b)) + [
+        n for n in a if n in b
+        and not torch.equal(bits(a[n].detach()), bits(b[n].detach().to(a[n].device)))]
+
+
+def cli_launches(what: str, counts, stats, per_replay, steps: int):
+    """A CLI train command's launches: the wrappers' counts (warm-up and
+    capture) plus its replays after the capture x a traced replay's, held to
+    ``steps`` x the on-device route's launches a step."""
+    total = {n: counts[n] + (stats["replays"] - stats["captures"]) * per_replay.get(n, 0)
+             for n in counts}
+    per_step = GRAPH_ROUTES["ondevice"][3]
+    if total != expect(**{n: steps * c for n, c in per_step.items()}):
+        raise AssertionError(f"cli {what}: launches {total} over {steps} steps (counted "
+                             f"{counts}, graph {stats}), expected {per_step} a step")
+    return total
+
+
+def cli_round_trip(path: str, work: str, out_dir):
+    """The port's CLI in this process (``cli.run``, which returns the
+    trainer), at full width on the file: train 64 steps with a checkpoint,
+    whose file must hold the trainer's live state to the bit; a trainer
+    restored from it (the state to the bit, twice in place; its save again,
+    to the bit); the same train command again, which must resume and take
+    16 more steps and equal the first trainer taking the same 16 steps
+    straight on (losses and state to the bit, CUDA graph replays against a
+    fresh warm-up and capture); evaluate from the last checkpoint.  Each
+    train command's launches are its counted ones plus its replays x a
+    traced replay's, held to its steps x the on-device route's per step."""
+    import io
+
+    import torch
+
+    from torecsys_tpu_torch import cli
+    from torecsys_tpu_torch.train import Pipeline, Trainer
+    from torecsys_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    fns = kernels()
+    ckpt_dir = os.path.join(work, "ckpts")
+    model = {"method": "DeepFM", "deep_layer_sizes": list(TOWER)}
+    data = ["--train_file", path, "--stream", "on", "--criteo_hash_size", str(CLI_HASH_SIZE),
+            "--embed_size", str(EMBED), "--batch_size", str(BATCH)]
+    train = ["train", "--model_config", json.dumps(model), *data,
+             "--steps_per_execution", str(GRAPH_K), "--checkpoint_dir", ckpt_dir]
+
+    def run(argv):
+        out = io.StringIO()
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli.run(argv)
+        seconds = time.perf_counter() - t0
+        return result, json.loads(out.getvalue().strip().splitlines()[-1]), seconds, \
+            read_counts(fns)
+
+    first_trainer, first, first_s, first_counts = run(
+        [*train, "--max_num_iterations", str(CLI_STEPS)])
+    first_stats = dict(first_trainer.graph_stats)
+    if first_trainer.device.type != DEVICE or not (
+            first_trainer.sparse and first_trainer._presorter is None):
+        raise AssertionError(f"cli train: runs on {first_trainer.device}, sparse="
+                             f"{first_trainer.sparse}, presorted="
+                             f"{first_trainer._presorter is not None}; expected the card's "
+                             "on-device sparse route")
+    ckpt = latest_checkpoint(ckpt_dir)
+    if ckpt is None or os.path.basename(ckpt) != f"ckpt_{CLI_STEPS}.pt":
+        raise AssertionError(f"cli train: checkpoint {ckpt}, expected ckpt_{CLI_STEPS}.pt")
+    gb = os.path.getsize(ckpt) / 1e9
+    # the file holds what the trainer that wrote it holds
+    counters, saved = checkpoint_tensors(ckpt)
+    held, live = live_tensors(first_trainer)
+    differ = differing(live, saved)
+    if counters != held or counters["step"] != CLI_STEPS or differ:
+        raise AssertionError(f"cli train: ckpt_{CLI_STEPS}.pt is not the trainer's state: "
+                             f"counters {counters} against {held}, differ {differ}")
+    del live
+    # a trainer restored from the checkpoint, built as the CLI builds it
+    pipeline = Pipeline.build(objective="ctr",
+                              inputs_config=cli._criteo_schema_inputs(CLI_HASH_SIZE, EMBED),
+                              model_config=model, load_from=ckpt)
+    trainer = Trainer(pipeline, resume=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if trainer.device.type != DEVICE or not trainer.sparse:
+        raise AssertionError(f"cli: the restored trainer runs on {trainer.device}, "
+                             f"sparse={trainer.sparse}")
+    _, live = live_tensors(trainer)
+    ptrs = {n: t.data_ptr() for n, t in live.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(ckpt, trainer.pipeline.sequential, trainer.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    held, live = live_tensors(trainer)
+    moved = [n for n, t in live.items() if t.data_ptr() != ptrs.get(n)]
+    differ = differing(live, saved)
+    if held != counters or moved or differ:
+        raise AssertionError(f"cli: restore not to the bit or not in place: counters {held} "
+                             f"against {counters}, moved {moved}, differ {differ}")
+    resave = os.path.join(work, "resave.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(resave)
+    save_s = time.perf_counter() - t0
+    counters2, again = checkpoint_tensors(resave)
+    differ = differing(again, saved)
+    if counters2 != counters or differ:
+        raise AssertionError(f"cli: a restored state saved again differs from its checkpoint: "
+                             f"counters {counters2} against {counters}, differ {differ}")
+    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    log(f"[cli] train {CLI_STEPS} steps in {first_s:.1f} s (train_loss "
+        f"{first['train_loss']:.6f}); checkpoint {os.path.basename(ckpt)} {gb:.3f} GB: the "
+        f"trainer's live state to the bit ({len(saved)} tensors, step and loss_count); table "
+        f"{tuple(table.shape)}, restored to the bit, twice in place (no tensor moved); "
+        f"init_state with the restore {init_s:.2f} s, the restore again (file in the page "
+        f"cache) {restore_s:.2f} s; save {save_s:.2f} s ({gb / save_s:.2f} GB/s), saved again "
+        "to the bit")
+    del trainer, pipeline, live, saved, again, table
+    os.remove(resave)
+    release()
+    resumed, second, second_s, resumed_counts = run(
+        [*train, "--max_num_iterations", str(CLI_RESUME_STEPS)])
+    resumed_stats = dict(resumed.graph_stats)
+    last = latest_checkpoint(ckpt_dir)
+    want = f"ckpt_{CLI_STEPS + CLI_RESUME_STEPS}.pt"
+    if last is None or os.path.basename(last) != want:
+        raise AssertionError(f"cli: the second train did not resume: newest checkpoint "
+                             f"{last}, expected {want}")
+    # the first trainer takes the resumed run's 16 steps straight on: its
+    # loader as the CLI builds it, a fresh epoch 0 as the resumed run's
+    args = cli.make_parser().parse_args(train)
+    loader = lambda: cli._streaming_loader(  # noqa: E731
+        args.train_file, args.criteo_hash_size, args.target_fields, args.batch_size,
+        args.stream_chunk_mb, shuffle=True)
+    first_trainer.checkpoint_dir = None
+    straight = first_trainer.fit(loader(), max_epochs=1, max_steps=CLI_RESUME_STEPS)
+    counters, live = live_tensors(first_trainer)
+    held, resumed_live = live_tensors(resumed)
+    differ = differing(live, resumed_live)
+    if straight["train_loss"] != second["train_loss"] or counters != held or differ:
+        raise AssertionError(f"cli: the resumed run differs from {CLI_STEPS} + "
+                             f"{CLI_RESUME_STEPS} steps straight through: train_loss "
+                             f"{second['train_loss']!r} against {straight['train_loss']!r}, "
+                             f"counters {held} against {counters}, differ {differ}")
+    del live, resumed_live, resumed
+    release()
+    traced = replay_profile(first_trainer, list(itertools.islice(iter(loader()), GRAPH_K)),
+                            out_dir, "cli")
+    per_replay = traced["launches_per_replay"]
+    train_total = cli_launches(f"train {CLI_STEPS}", first_counts, first_stats, per_replay,
+                               CLI_STEPS)
+    resume_total = cli_launches(f"train again {CLI_RESUME_STEPS}", resumed_counts,
+                                resumed_stats, per_replay, CLI_RESUME_STEPS)
+    del first_trainer
+    os.remove(ckpt)
+    release()
+    _, metrics, eval_s, _ = run(["evaluate", "--model_config", json.dumps(model), "--load_from",
+                                 last, "--eval_file", path, *data[2:]])
+    if not (0.0 <= metrics["val_auc"] <= 1.0 and np.isfinite(metrics["val_logloss"])):
+        raise AssertionError(f"cli evaluate: {metrics}")
+    log(f"[cli] train again: resumed from step {CLI_STEPS}, {CLI_RESUME_STEPS} more steps in "
+        f"{second_s:.1f} s -> {os.path.basename(last)}, equal to the first trainer taking "
+        f"them straight on (train_loss {second['train_loss']:.6f}, every tensor to the bit); "
+        f"launches: train {train_total} ({first_stats}), train again {resume_total} "
+        f"({resumed_stats}); evaluate --load_from in {eval_s:.1f} s: {metrics}")
+    os.remove(last)
+    release()
+    launches = {n: train_total[n] + resume_total[n] for n in train_total}
+    return {"launches": launches, "launches_train": train_total,
+            "launches_resume": resume_total, "first_train_s": first_s,
+            "resume_train_s": second_s, "evaluate_s": eval_s, "checkpoint_gb": gb,
+            "save_s": save_s, "init_with_restore_s": init_s, "restore_s": restore_s,
+            "train": first, "resumed": second, "evaluate": metrics, "profile": traced}
+
+
+def phase_file(seed: int, out_dir):
+    """Phase 11: a 256 MB Criteo DAC file, written here and deleted at the
+    end, through the parser, the stream alone, ``Trainer.fit`` (bench.py's
+    file-fed configuration) and the port's CLI with checkpoints."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_file_")
+    try:
+        free = shutil.disk_usage(work).free
+        if free < CHECKPOINT_DISK_BYTES + 2 * FILE_BYTES:
+            raise AssertionError(f"{work}: {free / 1e9:.1f} GB free, the checkpoints need "
+                                 f"{CHECKPOINT_DISK_BYTES / 1e9:.1f}")
+        path = os.path.join(work, "criteo.tsv")
+        t0 = time.perf_counter()
+        rows = write_criteo_file(path, seed + 8, FILE_BYTES)
+        size = os.path.getsize(path)
+        if size <= 3 * FILE_CHUNK_BYTES:
+            raise AssertionError("the file crosses fewer than 3 chunk boundaries")
+        batches = file_loader(path).shard_batch_counts()[0]
+        log(f"[file] {rows} rows, {size / 1e6:.1f} MB in {time.perf_counter() - t0:.1f} s "
+            f"({-(-size // FILE_CHUNK_BYTES)} chunks of {FILE_CHUNK_BYTES >> 20} MB, {batches} "
+            f"batches of {BATCH}); {free / 1e9:.1f} GB free under {work}")
+        parser = check_parser(path)
+        host = host_pipeline_only(path)
+        fed = file_fed_training(path, seed, batches, out_dir)
+        cli = cli_round_trip(path, work, out_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"file": {"rows": rows, "bytes": size, "batches_per_epoch": batches},
+            "parser": parser, "host_only": host, "fed": fed, "cli": cli}
 
 
 # ---- --auto-sweep: the automatic choice's crossover --------------------------
@@ -2204,8 +2722,10 @@ def main(argv=None):
     pack1 = timed("pack1", phase_pack1, args.seed, args.out, args.profile)
     graph = timed("graph", phase_graph, args.seed, args.out)
     headline = timed("headline", phase_headline, args.seed, args.out)
+    file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
-             **graph, "headline": headline}
+             **graph, "headline": headline, "file_fed": file_fed["fed"],
+             "cli": file_fed["cli"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -2224,7 +2744,7 @@ def main(argv=None):
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
-                       "presort": presort, **paths}, f, indent=1)
+                       "presort": presort, **paths, "file": file_fed}, f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

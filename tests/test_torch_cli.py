@@ -1,0 +1,177 @@
+"""The port's CLI (``torecsys_tpu_torch/cli``) on the CPU (``--device cpu``),
+mirroring ``tests/test_e2e_criteo.py``: the parsed column dict equals the
+JAX ``_load_table``'s (Criteo TSV and CSV); ``FM`` trained through
+``main(["train", ...])`` on the bundled sample learns (``val_auc > 0.6``);
+train → checkpoint → auto-resume → evaluate; streaming; the refusals (a
+CSV with ``--stream on``, mesh options, unported inputs, objectives,
+regularizers and miners); ``build`` and ``version``."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from torecsys_tpu.cli import _load_table as jax_load_table
+from torecsys_tpu_torch.cli import UsageError, _build_inputs, _load_table, main, run
+from torecsys_tpu_torch.train import Pipeline
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHARD = os.path.join(REPO, "torecsys_tpu", "data", "sample", "criteo_sample.tsv")
+
+
+def _same_columns(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert np.array_equal(np.ascontiguousarray(got[k]).view(np.uint8),
+                              np.ascontiguousarray(want[k]).view(np.uint8)), k
+
+
+@pytest.mark.parametrize("target", ["label", "click"])
+def test_criteo_columns_equal_the_jax_load_table(target):
+    got = _load_table(SHARD, "criteo", target, criteo_hash_size=2000)
+    _same_columns(got, jax_load_table(SHARD, "criteo", target, criteo_hash_size=2000))
+    assert len(got[target]) == 4096
+
+
+def _toy_csv(path, n=2048):
+    rng = np.random.default_rng(0)
+    cat = rng.integers(0, 50, n).astype(np.int32)
+    dense = rng.normal(size=n).astype(np.float32)
+    label = ((cat % 7 == 0) | (dense > 1.0)).astype(np.float32)
+    pd.DataFrame({"user": cat, "score": dense, "label": label}).to_csv(path, index=False)
+    return path
+
+
+def test_csv_columns_equal_the_jax_load_table(tmp_path):
+    path = _toy_csv(str(tmp_path / "toy.csv"))
+    _same_columns(_load_table(path, "auto", "label", 100),
+                  jax_load_table(path, "auto", "label", 100))
+    with pytest.raises(UsageError, match="not in CSV columns"):
+        _load_table(path, "csv", "clicked", 100)
+
+
+def _metrics(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_fm_trained_through_main_learns(capsys):
+    assert main(["train", "--device", "cpu", "--model_config", '{"method": "FM"}',
+                 "--train_file", SHARD, "--batch_size", "256", "--embed_size", "8",
+                 "--criteo_hash_size", "2000", "--max_num_epochs", "6",
+                 "--optimizer_config", '{"method": "Adam", "lr": 0.01}']) == 0
+    metrics = _metrics(capsys)
+    assert metrics["epoch"] == 5 and metrics["val_auc"] > 0.6, metrics
+
+
+COMMON = ["--device", "cpu", "--model_config", '{"method": "FM"}', "--train_file", SHARD,
+          "--batch_size", "512", "--embed_size", "4", "--criteo_hash_size", "500",
+          "--max_num_iterations", "4"]
+
+
+@pytest.mark.parametrize("stream", ["off", "on"])
+def test_train_checkpoint_resume_evaluate(tmp_path, capsys, stream):
+    ckpt_dir = str(tmp_path / "ckpts")
+    argv = ["train", *COMMON, "--checkpoint_dir", ckpt_dir, "--stream", stream,
+            "--stream_chunk_mb", "1", "--steps_per_execution", "2"]
+    assert main(argv) == 0
+    assert os.listdir(ckpt_dir) == ["ckpt_4.pt"]
+    trainer = run(argv)  # auto-resumes: the step counter goes on from 4
+    assert int(trainer.state.step) == 8
+    assert sorted(os.listdir(ckpt_dir)) == ["ckpt_4.pt", "ckpt_8.pt"]
+    capsys.readouterr()
+    assert main(["evaluate", "--device", "cpu", "--model_config", '{"method": "FM"}',
+                 "--load_from", os.path.join(ckpt_dir, "ckpt_8.pt"), "--eval_file", SHARD,
+                 "--batch_size", "512", "--embed_size", "4", "--criteo_hash_size", "500",
+                 "--stream", stream]) == 0
+    metrics = _metrics(capsys)
+    assert 0.0 <= metrics["val_auc"] <= 1.0 and np.isfinite(metrics["val_logloss"])
+    # --no-resume starts afresh; --load_from restores an explicit checkpoint
+    assert int(run([*argv, "--no-resume"]).state.step) == 4
+    assert int(run([*argv, "--no-resume", "--load_from",
+                    os.path.join(ckpt_dir, "ckpt_4.pt")]).state.step) == 8
+
+
+def test_csv_train_file_and_synthetic_data(tmp_path, capsys):
+    path = _toy_csv(str(tmp_path / "toy.csv"))
+    assert main(["train", "--device", "cpu", "--model_config", '{"method": "FM"}',
+                 "--train_file", path, "--batch_size", "256", "--embed_size", "4",
+                 "--max_num_iterations", "4"]) == 0
+    assert np.isfinite(_metrics(capsys)["train_loss"])
+    trainer = run(["train", "--device", "cpu", "--model_config",
+                   '{"method": "DeepFM", "deep_layer_sizes": [8]}', "--num_rows", "3000",
+                   "--batch_size", "256", "--max_num_iterations", "3", "--no_presort",
+                   "--prefetch", "0"])
+    assert trainer.presort is False and trainer.prefetch == 0 and int(trainer.state.step) == 3
+
+
+def test_stream_on_rejects_a_csv(tmp_path, capsys):
+    path = str(tmp_path / "t.csv")
+    pd.DataFrame({"a": [1, 2], "label": [0.0, 1.0]}).to_csv(path, index=False)
+    assert main(["train", "--device", "cpu", "--model_config", '{"method": "FM"}',
+                 "--train_file", path, "--stream", "on"]) == 2
+    assert "criteo" in capsys.readouterr().err
+
+
+def test_a_missing_file_is_a_usage_error(capsys):
+    with pytest.raises(SystemExit) as e:
+        main(["train", "--model_config", '{"method": "FM"}', "--train_file", SHARD + ".nope"])
+    assert e.value.code == 2 and "does not exist" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--table_parallel", "4"],
+                                   ["--lookup_strategy", "psum"], ["--capacity_factor", "4"],
+                                   ["--min_rows_to_shard", "10"]])
+def test_mesh_options_beyond_one_device_are_refused(flags):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run(["train", *COMMON, *flags])
+
+
+def test_single_device_mesh_options_run():
+    trainer = run(["train", *COMMON, "--data_parallel", "1", "--table_parallel", "1",
+                   "--lookup_strategy", "auto", "--capacity_factor", "2.0"])
+    assert int(trainer.state.step) == 4
+
+
+def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _build_inputs({"emb_inputs": {"method": "SingleIndexEmbedding", "embed_size": 4,
+                                      "field_size": 9, "fields": ["a"]}}, "cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Pipeline.build(device="cpu", objective="ltr", model_config={"method": "FM"})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Pipeline.build(device="cpu", model_config={"method": "FM"},
+                       regularizer_config={"weight_decay": 0.1})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Pipeline.build(device="cpu", model_config={"method": "FM"},
+                       miner_config={"method": "UniformBatchMiner"})
+
+
+def test_build_and_version(capsys):
+    inputs = json.dumps({
+        "feat_inputs": {"method": "ValueInput", "fields": ["d0", "d1"]},
+        "emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4,
+                       "field_sizes": [10, 20], "fields": ["c0", "c1"]}})
+    pipe = run(["build", "--device", "cpu", "--model_config",
+                '{"method": "DeepFM", "deep_layer_sizes": [8]}', "--inputs_config", inputs,
+                "--optimizer_config", '{"method": "Adam", "lr": 0.01}'])
+    out = capsys.readouterr().out
+    assert "DeepFactorizationMachineModel" in out and "cpu" in out
+    assert pipe.sequential is not None and pipe.inputs.schema["emb_inputs"].field_sizes == (10, 20)
+    assert main(["build", "--device", "cpu", "--model_config", '{"method": "LR"}']) == 0
+    assert "LogisticRegressionModel" in capsys.readouterr().out
+    import torecsys_tpu_torch
+
+    assert main(["version"]) == 0
+    assert capsys.readouterr().out.strip() == torecsys_tpu_torch.__version__
+
+
+def test_module_entry_point_runs():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-m", "torecsys_tpu_torch.cli", "version"], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "0.1.0", proc.stderr[-2000:]

@@ -1,8 +1,10 @@
 """The port stands alone: importing it and ``chip_smoke.py``, and running
 its paths (sparse training on the presorted and the on-device route, on
 both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training, evaluation,
-prediction), loads neither JAX (nor flax, optax) nor anything of the JAX
-package."""
+prediction, and the CLI: streamed training from the bundled Criteo sample
+with a checkpoint, a resumed run and evaluation, which also parse, collate
+and load data), loads neither JAX (nor flax, optax) nor anything of the JAX
+package, nor click or pandas."""
 
 import os
 import subprocess
@@ -33,8 +35,27 @@ for fused in ("0", "1"):
 dense = Trainer(pipe.set_sparse_embeddings(False))
 assert np.isfinite(dense.fit([batch, batch], val_loader=[batch])["val_logloss"])
 assert dense.predict(batch).shape == (16, 1)
+import tempfile
+from torecsys_tpu_torch.cli import main
+from torecsys_tpu_torch.data import CollateFunction, DataLoader, FieldSpec, NdarrayToDataset
+from torecsys_tpu_torch.data.sample_data import load_criteo_data
+sample = os.path.join("torecsys_tpu", "data", "sample", "criteo_sample.tsv")
+with tempfile.TemporaryDirectory() as ckpts:
+    train = ["train", "--device", "cpu", "--model_config", '{"method": "FM"}', "--train_file",
+             sample, "--stream", "on", "--batch_size", "512", "--embed_size", "4",
+             "--criteo_hash_size", "500", "--max_num_iterations", "2", "--checkpoint_dir", ckpts]
+    assert main(train) == 0 and main(train) == 0
+    assert main(["evaluate", "--device", "cpu", "--model_config", '{"method": "FM"}',
+                 "--load_from", os.path.join(ckpts, "ckpt_4.pt"), "--eval_file", sample,
+                 "--stream", "on", "--batch_size", "512", "--embed_size", "4",
+                 "--criteo_hash_size", "500"]) == 0
+assert len(load_criteo_data(sample, nrows=5)["C1"]) == 5
+loader = DataLoader(NdarrayToDataset(np.arange(12).reshape(6, 2), ["a", "b"]), 3,
+                    CollateFunction({"a": FieldSpec("values"), "b": FieldSpec("indices")}))
+assert len(list(loader)) == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu", "click",
+                                    "pandas"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """

@@ -6,13 +6,16 @@ or anything of ``torecsys_tpu``.  Its entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``; with no
 device given and no CUDA present they raise.
 
-Ported so far: the DeepFM CTR model trained on the sparse embedding route
-(host-presorted, or sorted and deduped on the card with
-``Trainer(presort=False)``) or on the dense-table route, its evaluation
-(streaming AUC and logloss) and prediction, with every kernel the JAX
-package wrote for the TPU (row gather, unique stored-row gather, two
-segment-sums, row-wise update, fused dedup and update) hand-written in CUDA
-for Hopper (``ops/kernels``, sources in ``csrc/``).
+Ported so far: the LR, FM and DeepFM CTR models trained on the sparse
+embedding route (host-presorted, or sorted and deduped on the card with
+``Trainer(presort=False)``) or on the dense-table route, their evaluation
+(streaming AUC and logloss) and prediction, checkpoints with resume
+(``train.checkpoint``), the data utilities with the C++ Criteo parser and
+chunked file streaming (``data``), and the command line (``cli``:
+``python -m torecsys_tpu_torch.cli``), with every kernel the JAX package
+wrote for the TPU (row gather, unique stored-row gather, two segment-sums,
+row-wise update, fused dedup and update) hand-written in CUDA for Hopper
+(``ops/kernels``, sources in ``csrc/``).
 """
 
 from torecsys_tpu_torch.inputs import Inputs, MultiIndicesEmbedding, ValueInput

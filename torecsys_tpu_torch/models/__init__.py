@@ -7,8 +7,16 @@ from torecsys_tpu_torch.models.base import (
     get_model,
     register_model,
 )
-from torecsys_tpu_torch.models.ctr import DeepFactorizationMachineModel, DeepFM
+from torecsys_tpu_torch.models.ctr import (
+    FM,
+    LR,
+    DeepFactorizationMachineModel,
+    DeepFM,
+    FactorizationMachineModel,
+    LogisticRegressionModel,
+)
 from torecsys_tpu_torch.models.sequential import Sequential
 
-__all__ = ["MODELS", "BaseModel", "CtrBaseModel", "DeepFM",
-           "DeepFactorizationMachineModel", "Sequential", "get_model", "register_model"]
+__all__ = ["FM", "LR", "MODELS", "BaseModel", "CtrBaseModel", "DeepFM",
+           "DeepFactorizationMachineModel", "FactorizationMachineModel",
+           "LogisticRegressionModel", "Sequential", "get_model", "register_model"]

@@ -1,5 +1,13 @@
 """CTR models (counterpart of ``torecsys_tpu/models/ctr``)."""
 
-from torecsys_tpu_torch.models.ctr.fm_family import DeepFactorizationMachineModel, DeepFM
+from torecsys_tpu_torch.models.ctr.fm_family import (
+    FM,
+    LR,
+    DeepFactorizationMachineModel,
+    DeepFM,
+    FactorizationMachineModel,
+    LogisticRegressionModel,
+)
 
-__all__ = ["DeepFM", "DeepFactorizationMachineModel"]
+__all__ = ["FM", "LR", "DeepFM", "DeepFactorizationMachineModel", "FactorizationMachineModel",
+           "LogisticRegressionModel"]

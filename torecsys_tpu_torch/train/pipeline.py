@@ -13,6 +13,10 @@ route.
 A torch module is built on its device with its widths known, so the
 pipeline holds the ``device`` its model is built on (default: the card) and
 builds the model from the inputs it was given (``set_inputs`` first).
+
+:meth:`Pipeline.build` assembles a pipeline from JSON-style configs (the
+CLI's entry), :meth:`Pipeline.summary` prints its components, and
+``load_from`` names a checkpoint the Trainer restores.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ class Pipeline:
         self.sparse_embeddings: Optional[bool] = None
         self.compute_dtype: Optional[str] = None
         self.table_dtype: Optional[str] = None
+        # a checkpoint the Trainer restores (Trainer(load_from=...) wins)
+        self.load_from: Optional[str] = None
 
     def set_objective(self, objective: str) -> "Pipeline":
         if objective not in OBJECTIVES:
@@ -155,6 +161,82 @@ class Pipeline:
         apply_compute_dtype(self.sequential, self.compute_dtype)
         apply_table_dtype(self.sequential, self.table_dtype)
         return self
+
+    def summary(self) -> str:
+        """Human-readable component table."""
+        rows = [
+            ("objective", self.objective),
+            ("inputs", type(self.inputs).__name__ if self.inputs is not None else "-"),
+            ("model", type(self.model).__name__ if self.model is not None else "-"),
+            ("criterion", type(self.criterion).__name__ if self.criterion else "-"),
+            ("optimizer", "set" if self.optimizer is not None else "-"),
+            ("target_fields", self.target_fields),
+            ("sparse_embeddings", {None: "auto", True: "on",
+                                   False: "off"}[self.sparse_embeddings]),
+            ("compute_dtype", self.compute_dtype or "float32"),
+            ("table_dtype", self.table_dtype or "float32"),
+            ("device", str(self.device)),
+        ]
+        width = max(len(k) for k, _ in rows)
+        return "\n".join(f"{k:{width}s} : {v}" for k, v in rows)
+
+    @classmethod
+    def build(cls, device: DeviceLike = None, **config) -> "Pipeline":
+        """Assemble a pipeline on ``device`` (default: the card) from a
+        JSON-style config; sub-configs are ``{"method": <registry name>,
+        ...kwargs}`` dicts::
+
+            Pipeline.build(
+                objective="ctr",
+                inputs_config=inputs_instance,
+                model_config={"method": "DeepFM", "deep_layer_sizes": [64, 64]},
+                criterion_config={"method": "BCEWithLogitsLoss"},
+                optimizer_config={"method": "Adam", "lr": 1e-3},
+                target_fields="label",
+            )
+
+        Also ``sparse_embeddings``, ``compute_dtype``, ``table_dtype`` and
+        ``load_from``.  The ``ltr`` and ``emb`` objectives, a
+        ``regularizer_config`` and a ``miner_config`` (or
+        ``miner_target_field``) raise ``NotImplementedError``: they are not
+        ported yet.
+        """
+        objective = config.get("objective", "ctr")
+        if objective in ("ltr", "emb"):
+            raise NotImplementedError(f"objective {objective!r} is not ported yet (ROADMAP "
+                                      "queue 1 item 10: the ltr and emb objectives)")
+        if config.get("regularizer_config") is not None:
+            raise NotImplementedError("regularizer_config is not ported yet (ROADMAP queue 1 "
+                                      "item 8: layers/regularization.py with "
+                                      "Pipeline.set_regularizer)")
+        if config.get("miner_config") is not None or config.get("miner_target_field"):
+            raise NotImplementedError("miner_config and miner_target_field are not ported yet "
+                                      "(ROADMAP queue 1 item 10: miners/ with "
+                                      "Pipeline.set_miner)")
+        p = cls(device=device)
+        p.set_objective(objective)
+        if config.get("inputs_config") is not None:
+            p.set_inputs(config["inputs_config"])
+        if config.get("model_config") is not None:
+            mc = dict(config["model_config"])
+            p.set_model(mc.pop("method"), **mc)
+        if config.get("criterion_config") is not None:
+            cc = dict(config["criterion_config"])
+            p.set_criterion(cc.pop("method"), **cc)
+        if config.get("optimizer_config") is not None:
+            oc = dict(config["optimizer_config"])
+            p.set_optimizer(oc.pop("method", "Adam"), **oc)
+        if config.get("target_fields") is not None:
+            p.set_target_fields(config["target_fields"])
+        if "sparse_embeddings" in config:
+            p.set_sparse_embeddings(config["sparse_embeddings"])
+        if config.get("compute_dtype") is not None:
+            p.set_compute_dtype(config["compute_dtype"])
+        if config.get("table_dtype") is not None:
+            p.set_table_dtype(config["table_dtype"])
+        if config.get("load_from") is not None:
+            p.load_from = config["load_from"]
+        return p
 
 
 __all__ = ["OBJECTIVES", "Pipeline"]

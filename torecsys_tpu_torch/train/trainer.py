@@ -24,8 +24,12 @@ route.
 Evaluation (``ctr``) accumulates streaming AUC and logloss on the device and
 reads them once at the end.
 
-Not ported yet: ranking evaluation (``ltr``/``emb``), checkpoints and
-meshes.
+Checkpoints (``train.checkpoint``): with ``checkpoint_dir`` the trainer
+writes ``ckpt_<step>.pt`` after each epoch, and :meth:`init_state`
+restores ``load_from``, or else (``resume``) the newest checkpoint in
+``checkpoint_dir``, in place into the fresh state.
+
+Not ported yet: ranking evaluation (``ltr``/``emb``) and meshes.
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ from torecsys_tpu_torch.data.packed import BatchLayout, group_batches
 from torecsys_tpu_torch.data.prefetch import prefetch_map
 from torecsys_tpu_torch.data.presort import AUX_PREFIX, Presorter, build_presort_specs
 from torecsys_tpu_torch.metrics import StreamingAUC, StreamingLogLoss
+from torecsys_tpu_torch.train.checkpoint import (
+    checkpoint_name,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
@@ -123,12 +133,24 @@ class Trainer:
             the first dispatch that starts at step 4 or later through the
             dispatch that reaches step 8, or the next one (at least one
             dispatch), as the JAX package traces steps 4-8.
+        checkpoint_dir: where a checkpoint ``ckpt_<step>.pt`` is written
+            after each epoch (None: none is written).
+        load_from: a checkpoint restored by :meth:`init_state` (default:
+            the pipeline's ``load_from``); a missing file raises
+            ``FileNotFoundError``.
+        resume: with no ``load_from``, restore the newest checkpoint in
+            ``checkpoint_dir`` if there is one (``load_from`` wins over it).
     """
 
     def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0,
                  presort: Optional[bool] = None, steps_per_execution: int = 1,
-                 prefetch: int = 4, profile_dir: Optional[str] = None):
+                 prefetch: int = 4, profile_dir: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None, load_from: Optional[str] = None,
+                 resume: bool = True):
         self.pipeline = pipeline.finalize()
+        self.checkpoint_dir = checkpoint_dir
+        self.load_from = load_from or self.pipeline.load_from
+        self.resume = resume
         self.device = pipeline.device
         self.log_every = log_every
         self.seed = seed
@@ -187,8 +209,10 @@ class Trainer:
 
     def init_state(self, example_batch: Optional[Dict[str, np.ndarray]] = None) -> TrainState:
         """Draw the parameters from ``seed``, choose the route and build its
-        optimizer state.  ``example_batch`` is accepted for the JAX
-        package's signature; torch modules know their shapes without one."""
+        optimizer state, then restore ``load_from`` or, with ``resume``, the
+        newest checkpoint in ``checkpoint_dir`` into it.  ``example_batch``
+        is accepted for the JAX package's signature; torch modules know their
+        shapes without one."""
         del example_batch
         seq = self.pipeline.sequential
         seq.reset_parameters(torch.Generator(device=self.device).manual_seed(self.seed))
@@ -203,7 +227,29 @@ class Trainer:
         self._presorter = (Presorter(build_presort_specs(self.pipeline.inputs))
                            if self.sparse and self._presort_applicable() else None)
         self._build_steps()
+        self._maybe_restore()
         return self.state
+
+    def _maybe_restore(self) -> None:
+        """Restore ``load_from`` (explicit) or the newest checkpoint in
+        ``checkpoint_dir`` (auto-resume) into the state, in place."""
+        path = self.load_from
+        if path is None and self.resume and self.checkpoint_dir:
+            path = latest_checkpoint(self.checkpoint_dir)
+        if path is None:
+            return
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"load_from checkpoint not found: {path}")
+        restore_checkpoint(path, self.pipeline.sequential, self.state)
+
+    def save_checkpoint(self, path: Optional[str] = None) -> str:
+        """Write the state to ``path`` (default: ``ckpt_<step>.pt`` in
+        ``checkpoint_dir``); returns the path."""
+        if path is None:
+            if not self.checkpoint_dir:
+                raise ValueError("save_checkpoint needs a path or the trainer's checkpoint_dir")
+            path = os.path.join(self.checkpoint_dir, checkpoint_name(int(self.state.step)))
+        return save_checkpoint(path, self.pipeline.sequential, self.state)
 
     def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch → device tensors (the evaluation's path)."""
@@ -359,6 +405,8 @@ class Trainer:
                 metrics.update(self.evaluate(val_loader))
             logger.info("epoch %d done: %s", epoch, metrics)
             self.history.append(metrics)
+            if self.checkpoint_dir:
+                self.save_checkpoint()
             if max_steps is not None and step >= max_steps:
                 break
         return metrics
