@@ -101,6 +101,29 @@ Phases (any failure raises and the exit code is not 0):
     --load_from`` the last checkpoint), with the save and restore seconds
     and the checkpoint's GB.
 
+12. (Phases 12-14 run after phase 10, before phase 11.)  xDeepFM
+    (BASELINE.md configuration 4) at full width on the bench's
+    workload: CIN (200, 200, 200) split-half with BatchNorm, DNN (400, 400),
+    bf16 tower, ``set_sparse_embeddings(None)``,
+    ``Trainer(steps_per_execution=8)``: one eager step from one state with
+    the kernels against their plain versions (losses, touched rows and the
+    running statistics), two epochs of ``fit`` over 96 batches (launches as
+    phase 10's; the loss finite and falling), a replay against 8 eager
+    steps to the bit with the running statistics, ``evaluate`` in ``eval()``
+    mode, and the CIN's and the GEMMs' device time a step.
+13. DCN (the JAX package's defaults: 3 cross layers, deep (64, 64), deep
+    output 16) at the same fingerprint, eager: timed steps, then steps each
+    from one state with the kernels against their plain versions.
+14. FFM (BASELINE.md configuration 2) over the field-aware table, E = 4 on
+    the 28 fields: 3,211,264 ids a batch at pack 32.  (a) With each field
+    capped at 1M rows: 3 on-device steps on the default combine and 3 with
+    the fused dedup, and one presorted step, each from one state with the
+    kernels against their plain versions, and a replay against 8 eager
+    steps to the bit.  (b) At the full vocabulary (a 14.73 GB table and
+    29.46 GB of slots): two epochs of ``fit`` over 32 batches at 8 steps a
+    dispatch, then a second capture with ``TORECSYS_TPU_FUSED_DEDUP=1``;
+    each kernel's in-graph time beside its bound.
+
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
 prints each kernel's device time in the step.  The second-to-last lines are
@@ -1250,23 +1273,32 @@ def sweep_unique_gather(shifted, table0):
 
 # ---- phases 3-7: the trainer's paths ----------------------------------------
 
+def ctr_pipeline(model: str, model_kwargs, field_sizes=None, sparse=None, compute=None,
+                 embed: int = EMBED, table: str = "emb_inputs"):
+    """A CTR pipeline over the bench's fields: 13 dense values (but for DCN,
+    whose only input is the table) and one table of the fields, fused
+    (``emb_inputs``) or field-aware (``field_emb_inputs``)."""
+    from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding, MultiIndicesFieldAwareEmbedding
+
+    field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
+    cls = MultiIndicesFieldAwareEmbedding if table == "field_emb_inputs" else MultiIndicesEmbedding
+    schema = {} if model == "DCN" else {
+        "feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE)))}
+    schema[table] = cls(embed, field_sizes, tuple(f"cat_{i}" for i in range(len(field_sizes))),
+                        device=DEVICE)
+    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(Inputs(schema))
+            .set_model(model, **model_kwargs).set_criterion("BCEWithLogitsLoss")
+            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(sparse)
+            .set_compute_dtype(compute).set_target_fields("label"))
+
+
 def bench_pipeline(field_sizes=None, sparse=None, compute=None, embed: int = EMBED):
     """The bench DeepFM's pipeline (bench.py:81-95) as the port spells it;
     ``bench_pipeline(sparse=None, compute="bfloat16")`` is bench.py's
     headline configuration (bench.py:444-448)."""
-    from torecsys_tpu_torch import Inputs, MultiIndicesEmbedding, Pipeline, ValueInput
-
-    field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
-    inputs = Inputs({
-        "feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
-        "emb_inputs": MultiIndicesEmbedding(
-            embed, field_sizes, tuple(f"cat_{i}" for i in range(len(field_sizes))),
-            device=DEVICE),
-    })
-    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
-            .set_model("DeepFM", deep_layer_sizes=TOWER).set_criterion("BCEWithLogitsLoss")
-            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(sparse)
-            .set_compute_dtype(compute).set_target_fields("label"))
+    return ctr_pipeline("DeepFM", {"deep_layer_sizes": TOWER}, field_sizes, sparse, compute,
+                        embed)
 
 
 def build_trainer(seed: int, sparse=True, embed: int = EMBED, field_sizes=None,
@@ -1296,10 +1328,13 @@ def _optimizers(trainer):
 
 
 def snapshot(trainer):
+    from torecsys_tpu_torch.train.state import batch_stats
+
     seq = trainer.pipeline.sequential
     dense_opt, slots = _optimizers(trainer)
     return {
         "params": {n: p.detach().clone() for n, p in seq.named_parameters()},
+        "buffers": {n: b.clone() for n, b in batch_stats(seq).items()},
         "adam": copy.deepcopy(dense_opt.state_dict()),
         "slots": {k: {n: v.clone() for n, v in s.items()} for k, s in slots.items()},
         "step": trainer.state.step.clone(),
@@ -1308,17 +1343,21 @@ def snapshot(trainer):
 
 
 def restore(trainer, snap):
-    """Copy a snapshot back into the trainer's own tensors, in place: a
-    captured CUDA graph holds the parameters and the optimizer state by
-    address (``load_state_dict`` would replace Adam's tensors and make the
+    """Copy a snapshot back into the trainer's own tensors, in place (the
+    running statistics too): a captured CUDA graph holds the parameters and
+    the optimizer state by address (``load_state_dict`` would replace Adam's tensors and make the
     trainer capture again)."""
     import torch
+
+    from torecsys_tpu_torch.train.state import batch_stats
 
     seq = trainer.pipeline.sequential
     dense_opt, slots = _optimizers(trainer)
     with torch.no_grad():
         for n, p in seq.named_parameters():
             p.copy_(snap["params"][n])
+        for n, b in batch_stats(seq).items():
+            b.copy_(snap["buffers"][n])
         for k, s in slots.items():
             for n, v in s.items():
                 v.copy_(snap["slots"][k][n])
@@ -1380,36 +1419,56 @@ def compare_with_plain(trainer, batches, fns, path: str, rows_of, loss_rtol, row
     updates by up to ~1e-5.  Their divergence is printed as a measurement."""
     import torch
 
-    table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
+    from torecsys_tpu_torch.train.state import batch_stats
+
+    table = table_module(trainer).table_view()
+    stats = batch_stats(trainer.pipeline.sequential)
     start = snapshot(trainer)
-    loss_k, loss_p, row_err = [], [], 0.0
+    loss_k, loss_p, row_err, stat_err = [], [], 0.0, 0.0
     for batch in batches:
         before = snapshot(trainer)
         with plain_versions(fns):
             loss_p += trainer.train_steps([batch])
-        rows_p = rows_of(table.detach())
+        rows_p = rows_of(table)
+        stats_p = {n: b.clone() for n, b in stats.items()}
         restore(trainer, before)
         del before
         loss_k += trainer.train_steps([batch])
-        row_err = max(row_err, (rows_of(table.detach()) - rows_p).abs().max().item())
+        row_err = max(row_err, (rows_of(table) - rows_p).abs().max().item())
+        stat_err = max([stat_err] + [(b - stats_p[n]).abs().max().item()
+                                     for n, b in stats.items()])
     loss_k, loss_p = torch.stack(loss_k).tolist(), torch.stack(loss_p).tolist()
-    rows_k = rows_of(table.detach())
+    rows_k = rows_of(table)
     restore(trainer, start)
     del start
     with plain_versions(fns):
         trainer.train_steps(batches)
-    free_err = (rows_of(table.detach()) - rows_k).abs().max().item()
+    free_err = (rows_of(table) - rows_k).abs().max().item()
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss_p))
     log(f"[{path}] kernels vs plain, {len(batches)} steps each from the kernels' state: losses "
         f"{loss_k} vs {loss_p} (max rel diff {loss_rel:.3g}, rtol {loss_rtol}); "
-        f"{rows_k.shape[0]} table rows max_abs_err={row_err:.3g} (atol {rows_atol}); "
-        f"left to run alone for {len(batches)} steps the two differ by {free_err:.3g} (not held)")
+        f"{rows_k.shape[0]} table rows max_abs_err={row_err:.3g} (atol {rows_atol})"
+        + (f"; {len(stats)} running statistics max_abs_err={stat_err:.3g} (atol {rows_atol})"
+           if stats else "")
+        + f"; left to run alone for {len(batches)} steps the two differ by {free_err:.3g} "
+        "(not held)")
     if not loss_rel <= loss_rtol:
         raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
     if not row_err <= rows_atol:
         raise AssertionError(f"{path}: table rows with kernels and plain versions disagree")
+    if not stat_err <= rows_atol:
+        raise AssertionError(f"{path}: running statistics with kernels and plain versions "
+                             "disagree")
     return {"loss_kernels": loss_k, "loss_plain": loss_p, "row_max_abs_err": row_err,
-            "free_running_row_max_abs_err": free_err}
+            "stats_max_abs_err": stat_err, "free_running_row_max_abs_err": free_err}
+
+
+def table_module(trainer):
+    """The trainer's one embedding table module."""
+    from torecsys_tpu_torch.train.sparse import sparse_modules
+
+    (module,) = sparse_modules(trainer.pipeline.sequential).values()
+    return module
 
 
 def phase_train(seed: int, steps: int, out_dir, profile: bool):
@@ -1434,7 +1493,7 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
         prof_info = profile_steps(trainer, batches[:3], out_dir, "train")
 
     cmp_batches = batches[steps:steps + COMPARE_STEPS]
-    touched = touched_rows(cmp_batches, table.device)
+    touched = stored_rows(trainer, cmp_batches)
     compare = compare_with_plain(trainer, cmp_batches, fns, "train",
                                  lambda t: t.index_select(0, touched),
                                  TRAIN_LOSS_RTOL, TRAIN_ROWS_ATOL)
@@ -1442,17 +1501,6 @@ def phase_train(seed: int, steps: int, out_dir, profile: bool):
                      "step_ms": BATCH / eps * 1e3, "host_ms_per_step": host,
                      "peak_memory_gb": peak, "losses": loss_vals, "compare": compare,
                      "profile": prof_info}
-
-
-def touched_rows(batches, dev):
-    """The stored rows (P = 8) that ``batches`` touch, as int64 on ``dev``."""
-    import torch
-
-    touched = []
-    for b in batches:
-        _, aux = presorted_stream(b, 8)
-        touched.append(torch.from_numpy(aux["uids"][:int(aux["n_unique"][0])]))
-    return torch.unique(torch.cat(touched)).to(dev).long()
 
 
 def phase_eval(trainer, seed: int):
@@ -1534,7 +1582,7 @@ def phase_ondevice(seed: int, steps: int, presorted_eps: float, out_dir, profile
 
     cmp_batches = batches[steps:]
     presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
-    touched = touched_rows(cmp_batches, table.device)
+    touched = stored_rows(trainer, cmp_batches)
     # One step at a time along the reference's trajectory (compare_with_plain
     # says why runs left to go on alone are not held); the reference runs
     # last, so the trainer goes on from its state.  The fused kernel sums
@@ -1829,6 +1877,39 @@ def held_state(trainer):
                                                       trainer.state)]
 
 
+def replay_vs_eager(trainer, group, start, path: str):
+    """From the snapshot ``start``: one replay of the captured graph over
+    ``group`` against its K steps taken eagerly; the losses and every kept
+    tensor (table, slots, Adam state, parameters, running statistics) must be
+    the same bits.  The graphed state is cloned; the eager one is compared
+    where it lies.  Returns (graphed losses, eager losses, same)."""
+    import torch
+
+    from torecsys_tpu_torch.train.steps import _held_tensors
+
+    k = trainer.steps_per_execution
+    restore(trainer, start)
+    graphed = torch.stack(trainer.train_steps(group)).tolist()
+    graphed_state = held_state(trainer)
+    restore(trainer, start)
+    trainer.steps_per_execution = 1
+    eager = torch.stack(trainer.train_steps(group)).tolist()
+    eager_state = _held_tensors(trainer.pipeline.sequential, trainer.state)
+    trainer.steps_per_execution = k
+    same = graphed == eager and all(torch.equal(bits(a), bits(b))
+                                    for a, b in zip(graphed_state, eager_state))
+    log(f"[{path}] one replay vs {k} eager steps from one state: losses {graphed} vs "
+        f"{eager}; {len(graphed_state)} kept tensors (table, slots, Adam state, parameters, "
+        f"running statistics) {'bit-identical' if same else 'NOT bit-identical'}")
+    if not same:
+        # one temporary the size of a tensor at a time: the slots of a large
+        # table take a third of the card
+        worst = max(torch.sub(a.float(), b.float()).abs_().max().item()
+                    for a, b in zip(graphed_state, eager_state))
+        raise AssertionError(f"{path}: graphed and eager steps differ, by up to {worst:.3g}")
+    return graphed, eager, same
+
+
 REPLAY_MARK_CYCLES = PROFILE_LEAD_CYCLES // 10  # about 5 ms of the card's clock
 REPLAY_MARK_MAX_US = 20_000  # the mark is shorter, the lead (about 50 ms) longer
 REPLAY_WINDOWS = 4
@@ -1887,12 +1968,14 @@ def replay_profile(trainer, batches, out_dir, path: str):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    seen, us = {}, {}
+    seen, us, by_name = {}, {}, {}
     for e in device:
+        dur = (e.time_range.end - e.time_range.start) / n
+        by_name[e.name] = by_name.get(e.name, 0.0) + dur
         kernel = port_kernel(e.name)
         if kernel:
             seen[kernel] = seen.get(kernel, 0) + 1
-            us[kernel] = us.get(kernel, 0.0) + (e.time_range.end - e.time_range.start) / n
+            us[kernel] = us.get(kernel, 0.0) + dur
     per_replay = {k: v // DEVICE_KERNELS_PER_LAUNCH.get(k, 1) for k, v in seen.items()}
     log(f"[{path}] traced replay of {n} steps (window {window}): device busy "
         f"{busy_us / n / 1e3:.4f} ms/step; port kernels launched in it {per_replay} "
@@ -1900,7 +1983,7 @@ def replay_profile(trainer, batches, out_dir, path: str):
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"chip_smoke_replay_{path}.json"))
     return {"launches_per_replay": per_replay, "device_busy_ms_per_step": busy_us / n / 1e3,
-            "kernel_us_per_step": us, "windows": window}
+            "kernel_us_per_step": us, "device_us_per_step_by_name": by_name, "windows": window}
 
 
 @contextlib.contextmanager
@@ -1996,23 +2079,7 @@ def phase_graph(seed: int, out_dir):
             graph_peak = torch.cuda.max_memory_allocated() / 1e9
             reserved = torch.cuda.memory_reserved() / 1e9
             start = snapshot(trainer)
-            graphed = torch.stack(trainer.train_steps(cmp_group)).tolist()
-            graphed_state = held_state(trainer)
-            restore(trainer, start)
-            trainer.steps_per_execution = 1
-            eager = torch.stack(trainer.train_steps(cmp_group)).tolist()
-            eager_state = held_state(trainer)
-            trainer.steps_per_execution = k
-            same = graphed == eager and all(torch.equal(bits(a), bits(b))
-                                            for a, b in zip(graphed_state, eager_state))
-            worst = max((a.float() - b.float()).abs().max().item()
-                        for a, b in zip(graphed_state, eager_state))
-            log(f"[{path}] one replay vs {k} eager steps from one state: losses {graphed} vs "
-                f"{eager}; {len(graphed_state)} kept tensors (table, slots, Adam state, "
-                f"parameters) {'bit-identical' if same else f'NOT bit-identical ({worst:.3g})'}")
-            if not same:
-                raise AssertionError(f"{path}: graphed and eager steps differ")
-            del graphed_state, eager_state
+            graphed, eager, same = replay_vs_eager(trainer, cmp_group, start, path)
             restore(trainer, start)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -2059,16 +2126,74 @@ def phase_graph(seed: int, out_dir):
     return records
 
 
+def graphed_fit(trainer, batches, fns, path: str, out_dir):
+    """Two epochs of ``fit`` over ``batches`` at the trainer's K steps a
+    dispatch, the second timed, then a traced replay; the route must be the
+    on-device one.  Launches: the wrappers' counts over both epochs (warm-up
+    and capture), and the replays' from the trace, replays x per replay;
+    each step must launch the on-device route's kernels."""
+    import torch
+
+    k = trainer.steps_per_execution
+    reset_counts(fns)
+    first = trainer.fit(batches, max_epochs=1)
+    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+    second = trainer.fit(batches, max_epochs=1)
+    counts = read_counts(fns)
+    if not (trainer.sparse and trainer._presorter is None):
+        raise AssertionError(f"{path}: the automatic choice did not take the on-device sparse "
+                             "route")
+    per_step = GRAPH_ROUTES["ondevice"][3]
+    check_counts(f"{path} warm-up + capture", counts,
+                 expect(**{n: 2 * k * c for n, c in per_step.items()}))
+    stats = dict(trainer.graph_stats)
+    host = {n: v / len(batches) for n, v in trainer.host_ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
+    traced = replay_profile(trainer, batches[:k], out_dir, path)
+    per_replay = traced["launches_per_replay"]
+    if DEVICE == "cuda" and not per_replay:
+        raise AssertionError(f"{path}: the trace of a replay shows none of the port's kernels")
+    # launches that ran: the wrappers counted the warm-up's eager steps and
+    # the capture's records; a capture runs nothing, each replay runs what
+    # the traced replay shows
+    ran = stats["replays"] - stats["captures"]
+    total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
+    steps = 2 * len(batches)
+    if total != expect(**{n: steps * c for n, c in per_step.items()}):
+        raise AssertionError(f"{path}: launches {total} over {steps} steps, expected "
+                             f"{per_step} a step")
+    for epoch in (first, second):
+        if not np.isfinite(epoch["train_loss"]):
+            raise AssertionError(f"{path}: non-finite loss {epoch}")
+    step_ms = BATCH / second["examples_per_sec"] * 1e3
+    busy = traced["device_busy_ms_per_step"]
+    log(f"[{path}] {stats['captures']} capture, {stats['replays']} replays; first epoch "
+        f"{first['examples_per_sec']:.1f} examples/sec (warm-up and capture), second "
+        f"{second['examples_per_sec']:.1f}; train_loss {first['train_loss']:.6f} then "
+        f"{second['train_loss']:.6f}; host ms/step (second epoch): "
+        + " ".join(f"{n}={v:.3f}" for n, v in host.items())
+        + f"; device busy {busy:.4f} of a {step_ms:.4f} ms step ({busy / step_ms:.3f}); peak "
+        f"allocated {peak:.3f} GB, reserved {reserved:.3f} GB; launches: wrappers (warm-up and "
+        f"capture) {counts}; run, the warm-up's and the replays' (a traced replay's x replays) "
+        f"{total}")
+    return {"launches": total, "launches_counted": counts, "graph_stats": stats,
+            "examples_per_sec": second["examples_per_sec"],
+            "first_epoch_examples_per_sec": first["examples_per_sec"],
+            "train_loss": second["train_loss"], "first_epoch_train_loss": first["train_loss"],
+            "host_ms_per_step": host, "step_ms": step_ms, "device_busy_share": busy / step_ms,
+            "peak_memory_gb": peak, "reserved_gb": reserved, "profile": traced}
+
+
 def phase_headline(seed: int, out_dir):
     """Phase 10: the headline configuration through the entry points a user
     calls: ``Pipeline(...).set_sparse_embeddings(None)
     .set_compute_dtype("bfloat16")`` and ``Trainer(pipeline,
     steps_per_execution=8)`` (prefetch 4 and presort None, the defaults),
     two epochs of ``fit`` over 96 batches, the second timed; then a traced
-    replay.  At the bench size the automatic choice takes the sparse route,
-    and on the card presort None takes the on-device route.  Launches: the
-    wrappers' counts over both epochs (warm-up and capture), and the
-    replays' from the trace, replays x per replay."""
+    replay (:func:`graphed_fit`).  At the bench size the automatic choice
+    takes the sparse route, and on the card presort None takes the on-device
+    route."""
     import torch
 
     from torecsys_tpu_torch import Trainer
@@ -2079,56 +2204,339 @@ def phase_headline(seed: int, out_dir):
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(bench_pipeline(sparse=None, compute="bfloat16"), log_every=10**9,
                       seed=seed, steps_per_execution=k)
-    reset_counts(fns)
-    first = trainer.fit(batches, max_epochs=1)
-    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
-    second = trainer.fit(batches, max_epochs=1)
-    counts = read_counts(fns)
-    if not (trainer.sparse and trainer._presorter is None):
-        raise AssertionError("headline: the automatic choice did not take the on-device sparse "
-                             "route")
-    per_step = GRAPH_ROUTES["ondevice"][3]
-    check_counts("headline warm-up + capture", counts,
-                 expect(**{n: 2 * k * c for n, c in per_step.items()}))
-    stats = dict(trainer.graph_stats)
-    host = {n: v / len(batches) for n, v in trainer.host_ms.items()}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    reserved = torch.cuda.memory_reserved() / 1e9
-    traced = replay_profile(trainer, batches[:k], out_dir, "headline")
-    per_replay = traced["launches_per_replay"]
-    if DEVICE == "cuda" and not per_replay:
-        raise AssertionError("headline: the trace of a replay shows none of the port's kernels")
-    # launches that ran: the wrappers counted the warm-up's eager steps and
-    # the capture's records; a capture runs nothing, each replay runs what
-    # the traced replay shows
-    ran = stats["replays"] - stats["captures"]
-    total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
-    steps = 2 * len(batches)
-    if total != expect(**{n: steps * c for n, c in per_step.items()}):
-        raise AssertionError(f"headline: launches {total} over {steps} steps, expected "
-                             f"{per_step} a step")
+    record = graphed_fit(trainer, batches, fns, "headline", out_dir)
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
     log(f"[headline] auto choice: sparse, on-device (presort None on the card), table "
-        f"{tuple(table.shape)} {table.dtype}, tower bf16; {stats['captures']} capture, "
-        f"{stats['replays']} replays; first epoch {first['examples_per_sec']:.1f} examples/sec "
-        f"(warm-up and capture), second {second['examples_per_sec']:.1f}; train_loss "
-        f"{second['train_loss']:.6f}; host ms/step (second epoch): "
-        + " ".join(f"{n}={v:.3f}" for n, v in host.items())
-        + f"; device busy {traced['device_busy_ms_per_step']:.4f} ms/step; peak allocated "
-        f"{peak:.3f} GB, reserved {reserved:.3f} GB; launches: wrappers (warm-up and capture) "
-        f"{counts}; run, the warm-up's and the replays' (a traced replay's x replays) {total}")
-    if not np.isfinite(second["train_loss"]):
-        raise AssertionError(f"headline: non-finite loss {second}")
+        f"{tuple(table.shape)} {table.dtype}, tower bf16")
     scores = trainer.predict(batches[0])
     if scores.dtype != torch.float32 or not torch.isfinite(scores).all():
         raise AssertionError("headline: predict gave non-finite or non-float32 scores")
     del trainer, table
     release()
-    return {"launches": total, "launches_counted": counts, "graph_stats": stats,
-            "examples_per_sec": second["examples_per_sec"],
-            "first_epoch_examples_per_sec": first["examples_per_sec"],
-            "train_loss": second["train_loss"], "host_ms_per_step": host,
-            "peak_memory_gb": peak, "reserved_gb": reserved, "profile": traced}
+    return record
+
+
+# ---- phases 12-14: xDeepFM, DCN and FFM at the bench's fingerprint ----------
+
+# xDeepFM (BASELINE.md configuration 4): the CIN (200, 200, 200) split-half
+# with BatchNorm, 200 feature maps a layer as the xDeepFM paper (Lian et al.,
+# KDD 2018, section 4) takes on Criteo, and the DNN (400, 400), the DeepFM
+# headline's tower width; bf16 tower, 8 steps a dispatch, as the headline.
+XDEEPFM = {"cin_layer_sizes": (200, 200, 200), "deep_layer_sizes": (400, 400),
+           "cin_is_direct": False, "use_batchnorm": True}
+XDEEPFM_DISPATCHES = 12   # two epochs of 96 batches, as the headline
+CIN_ITERS = 5
+# DCN (BASELINE.md configuration 4's other model): the JAX package's defaults.
+DCN = {"cross_num_layers": 3, "deep_layer_sizes": (64, 64), "deep_output_size": 16}
+DCN_STEPS = 5
+# FFM (BASELINE.md configuration 2) over the field-aware table: E = 4, the
+# latent size of the FFM paper (Juan et al., RecSys 2016) on Criteo, on the
+# bench's 28 fields: 28 x 28 = 784 ids an example, pack 32.
+FFM_EMBED = 4
+FFM_HELD_STEPS = 3
+FFM_DISPATCHES = 4        # two epochs of 32 batches
+# cuBLAS's and CUTLASS's GEMM kernels, by name
+GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def stored_rows(trainer, batches):
+    """The stored rows of the trainer's table that ``batches`` touch (its own
+    presort spec), as int64 on the card."""
+    import torch
+
+    from torecsys_tpu_torch.data.presort import Presorter, spec_for_module
+
+    spec = spec_for_module(table_module(trainer))
+    presorter = Presorter([spec])
+    touched = []
+    for b in batches:
+        out = presorter(b)
+        n = int(out[spec.aux_key("n_unique")][0])
+        touched.append(torch.from_numpy(out[spec.aux_key("uids")][:n]))
+    return torch.unique(torch.cat(touched)).to(DEVICE).long()
+
+
+def cin_device_ms(cin, gen):
+    """Device ms of the CIN's forward and backward on one batch of random
+    ``(B, N, E)`` rows, in training mode (its batch norm moves its running
+    statistics: run it last)."""
+    import torch
+
+    n = cin.conv_0.shape[2]
+    x = torch.randn(BATCH, n, EMBED, device=DEVICE, generator=gen).mul_(0.01)
+    x.requires_grad_(True)
+    cin.train()
+
+    def fwd_bwd():
+        cin(x).sum().backward()
+
+    return time_ms(fwd_bwd, CIN_ITERS)
+
+
+def cin_flops(cin, num_fields: int) -> float:
+    """Multiply-adds x 2 of the CIN's compressions in one forward."""
+    total, h_prev = 0, num_fields
+    last = len(cin.layer_sizes) - 1
+    for k, h in enumerate(cin.layer_sizes):
+        total += h * h_prev * num_fields
+        h_prev = h if cin.is_direct or k == last else h - h // 2
+    return 2.0 * BATCH * EMBED * total
+
+
+def phase_xdeepfm(seed: int, out_dir):
+    """Phase 12: xDeepFM at full width on the bench's workload through the
+    entry points (``set_sparse_embeddings(None)``, ``set_compute_dtype(
+    "bfloat16")``, ``Trainer(steps_per_execution=8)``): one eager step from
+    one state with the kernels against their plain versions (losses, touched
+    rows and the running statistics); two epochs of ``fit`` over 96 batches
+    (:func:`graphed_fit`), the loss finite and falling; one replay against 8
+    eager steps to the bit, running statistics included; ``evaluate`` in
+    ``eval()`` mode, which reads the running statistics and moves none; the
+    CIN's and the GEMMs' device time a step."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.train.state import batch_stats
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 9, XDEEPFM_DISPATCHES * k)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(ctr_pipeline("xDeepFM", XDEEPFM, compute="bfloat16"), log_every=10**9,
+                      seed=seed, steps_per_execution=k)
+    trainer.init_state()
+    seq = trainer.pipeline.sequential
+    stats = batch_stats(seq)
+    cin = seq.model.cin
+    log(f"[xdeepfm] CIN {cin.layer_sizes} split-half with BatchNorm ({len(stats)} running "
+        f"statistics), DNN {XDEEPFM['deep_layer_sizes']}, bf16 tower; "
+        f"{sum(p.numel() for n, p in seq.named_parameters() if 'inputs' not in n)} dense "
+        f"parameters; CIN forward {cin_flops(cin, len(FIELD_SIZES)) / 1e9:.1f} GFLOP a step")
+    trainer.steps_per_execution = 1
+    touched = stored_rows(trainer, batches[:1])
+    compare = compare_with_plain(trainer, batches[:1], fns, "xdeepfm",
+                                 lambda t: t.index_select(0, touched), TRAIN_LOSS_RTOL,
+                                 TRAIN_ROWS_ATOL)
+    trainer.steps_per_execution = k
+    torch.cuda.reset_peak_memory_stats()  # the fit's own peak, without the comparison's copies
+    record = graphed_fit(trainer, batches, fns, "xdeepfm", out_dir)
+    if not record["train_loss"] < record["first_epoch_train_loss"]:
+        raise AssertionError(f"xdeepfm: the loss did not fall: {record}")
+    start = snapshot(trainer)
+    replay_vs_eager(trainer, batches[:k], start, "xdeepfm")
+    restore(trainer, start)
+    del start
+    before = {n: b.clone() for n, b in stats.items()}
+    reset_counts(fns)
+    evaluation = trainer.evaluate(batches[:EVAL_BATCHES])
+    check_counts("xdeepfm eval", read_counts(fns), expect(row_gather=EVAL_BATCHES))
+    if seq.training or any(not torch.equal(b, before[n]) for n, b in stats.items()):
+        raise AssertionError("xdeepfm: evaluate ran in training mode or moved the running "
+                             "statistics")
+    if not all(np.isfinite(v) for v in evaluation.values()):
+        raise AssertionError(f"xdeepfm: evaluate gave {evaluation}")
+    by_name = record["profile"]["device_us_per_step_by_name"]
+    gemm_us = sum(us for name, us in by_name.items()
+                  if any(mark in name.lower() for mark in GEMM_MARKS))
+    cin_t = cin_device_ms(cin, torch.Generator(device=DEVICE).manual_seed(seed))
+    cin_ops = 3 * cin_flops(cin, len(FIELD_SIZES))  # forward, and twice that backward
+    kernel_us = record["profile"]["kernel_us_per_step"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[xdeepfm] evaluate (eval mode, running statistics) on {EVAL_BATCHES} batches: "
+        f"{evaluation}; in a replayed step: GEMMs {gemm_us:.1f} us, port kernels "
+        + ", ".join(f"{n} {us:.1f} us" for n, us in sorted(kernel_us.items()))
+        + f"; the CIN's forward and backward alone {cin_t[0] * 1e3:.1f} us device (events "
+        f"{cin_t[1] * 1e3:.1f}), {cin_ops / cin_t[0] / 1e9:.1f} TFLOP/s float32 against 67; "
+        "top kernels a step: " + "; ".join(f"{us:.1f} us {name[:80]}" for name, us in top))
+    del trainer, seq, cin, stats, before
+    release()
+    return {**record, "compare": compare, "eval": evaluation, "gemm_us_per_step": gemm_us,
+            "cin_fwd_bwd_ms": cin_t[0], "cin_fwd_bwd_events_ms": cin_t[1],
+            "cin_gflop_fwd": cin_ops / 3 / 1e9}
+
+
+def phase_dcn(seed: int, out_dir):
+    """Phase 13: DCN with the JAX package's defaults (3 cross layers, deep
+    (64, 64), deep output 16; float32) at the bench's fingerprint, on the
+    route the automatic choice takes, eager: timed steps, then steps each
+    from one state with the kernels against their plain versions."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    fns = kernels()
+    batches = make_batches(seed + 10, DCN_STEPS + COMPARE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(ctr_pipeline("DCN", DCN), log_every=10**9, seed=seed)
+    trainer.init_state()
+    if not (trainer.sparse and trainer._presorter is None):
+        raise AssertionError("dcn: the automatic choice did not take the on-device route")
+    counts, loss_vals, eps, host = timed_steps(trainer, batches[:DCN_STEPS], fns, "dcn")
+    check_counts("dcn", counts, expect(widen_segment_sum=DCN_STEPS,
+                                       fused_rowwise_update=DCN_STEPS,
+                                       row_gather=2 * DCN_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cmp_batches = batches[DCN_STEPS:]
+    touched = stored_rows(trainer, cmp_batches)
+    compare = compare_with_plain(trainer, cmp_batches, fns, "dcn",
+                                 lambda t: t.index_select(0, touched), TRAIN_LOSS_RTOL,
+                                 TRAIN_ROWS_ATOL)
+    del trainer
+    release()
+    return {"launches": counts, "examples_per_sec": eps, "host_ms_per_step": host,
+            "peak_memory_gb": peak, "losses": loss_vals, "compare": compare}
+
+
+def ffm_trainer(seed: int, field_sizes=None, spe: int = 1):
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(ctr_pipeline("FFM", {}, field_sizes, embed=FFM_EMBED,
+                                   table="field_emb_inputs"),
+                      log_every=10**9, seed=seed, steps_per_execution=spe)
+    trainer.init_state()
+    module = table_module(trainer)
+    slots = sum(v.numel() for s in trainer.state.opt_state["sparse"].values()
+                for v in s.values())
+    log(f"[ffm] field-aware table {tuple(module.embedding.shape)} "
+        f"({module.embedding.numel() * 4 / 1e9:.2f} GB; {module.table_view().shape[0]} stored "
+        f"rows of pack {module.pack}), Adam slots {slots * 4 / 1e9:.2f} GB; "
+        f"{BATCH * len(module.fields) ** 2} ids a batch; route "
+        f"{'sparse' if trainer.sparse else 'dense'}, "
+        f"{'presorted' if trainer._presorter is not None else 'on-device'}")
+    if not (trainer.sparse and trainer._presorter is None):
+        raise AssertionError("ffm: the automatic choice did not take the on-device route")
+    return trainer
+
+
+def phase_ffm_held(seed: int, out_dir):
+    """Phase 14a: FFM over the field-aware table with each field capped at
+    1M rows (so a snapshot of the table and its slots fits beside them):
+    three on-device steps on the default combine and three with the fused
+    dedup, then one presorted step, each from one state with the kernels
+    against their plain versions; then a replay of 8 steps against 8 eager
+    steps to the bit."""
+    import torch
+
+    from torecsys_tpu_torch.data.presort import Presorter, build_presort_specs
+
+    fns = kernels()
+    k = GRAPH_K
+    field_sizes = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    n = FFM_HELD_STEPS
+    batches = make_batches(seed + 11, n + 1 + 2 * k, field_sizes)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ffm_trainer(seed, field_sizes)
+    cmp = batches[:n]
+    touched = stored_rows(trainer, cmp)
+    records = {}
+    for path, flag, want in (
+            ("ffm_held_ondevice", "0", expect(widen_segment_sum=n, fused_rowwise_update=n,
+                                              row_gather=2 * n)),
+            ("ffm_held_fused", "1", expect(fused_sorted_dedup_update=n, row_gather=2 * n))):
+        with fused_dedup(flag):
+            reset_counts(fns)
+            records[path] = compare_with_plain(trainer, cmp, fns, path,
+                                               lambda t: t.index_select(0, touched),
+                                               TRAIN_LOSS_RTOL, TRAIN_ROWS_ATOL)
+            check_counts(path, read_counts(fns), want)
+    presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
+    if not presorter.native:
+        raise AssertionError("ffm: the C++ presort did not load")
+    touched = stored_rows(trainer, batches[n:n + 1])
+    reset_counts(fns)
+    records["ffm_held_presorted"] = compare_with_plain(
+        trainer, [presorter(batches[n])], fns, "ffm_held_presorted",
+        lambda t: t.index_select(0, touched), TRAIN_LOSS_RTOL, TRAIN_ROWS_ATOL)
+    check_counts("ffm_held_presorted", read_counts(fns),
+                 expect(widen_segment_sum=1, fused_rowwise_update=1, row_gather=2))
+    trainer.steps_per_execution = k
+    per_step = GRAPH_ROUTES["ondevice"][3]
+    reset_counts(fns)
+    trainer.train_steps(batches[n + 1:n + 1 + k])
+    check_counts("ffm_held warm-up + capture", read_counts(fns),
+                 expect(**{name: 2 * k * c for name, c in per_step.items()}))
+    start = snapshot(trainer)
+    graphed, eager, same = replay_vs_eager(trainer, batches[n + 1 + k:], start, "ffm_held")
+    del start
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[ffm_held] {sum(field_sizes)} rows a table, peak allocated {peak:.3f} GB")
+    del trainer
+    release()
+    return {"compare": records, "graph": {"losses_graphed": graphed, "losses_eager": eager,
+                                          "bit_identical": same}, "peak_memory_gb": peak}
+
+
+def ffm_bounds(trainer, batch):
+    """(bound_ms, bound_by) of each kernel of an FFM step on ``batch``, from
+    its bytes: the lookup and the grad permute (``row_gather``, both), the
+    widened sums, the row-wise update and the fused dedup."""
+    from torecsys_tpu_torch.data.presort import Presorter, spec_for_module
+
+    module = table_module(trainer)
+    spec = spec_for_module(module)
+    out = Presorter([spec])(batch)
+    m = out[spec.aux_key("order")].shape[0]
+    u = int(out[spec.aux_key("n_unique")][0])
+    flat = (np.stack([batch[f] for f in spec.slot_fields], axis=1).astype(np.int64)
+            + np.asarray(spec.slot_offsets, np.int64))
+    d = np.unique(flat).size
+    e, w = FFM_EMBED, module.embedding.shape[-1]
+    lookup = bound(m * 8 + d * e * 4 + m * e * 4, 0)
+    permute = bound(m * e * 4 + m * 8 + m * e * 4, 0)
+    return {"ids": m, "distinct_ids": d, "stored_rows": u,
+            "row_gather": (lookup[0] + permute[0], "bytes"),
+            "widen_segment_sum": bound(m * e * 4 + 2 * m * 4 + m * w * 4, m * e),
+            "fused_rowwise_update": bound(u * (4 + w * 4 + 2 * (w * 4 + 2 * w * 4)),
+                                          u * w * 14),
+            "fused_sorted_dedup_update": bound(m * 4 + m * e * 4 + u * 2 * (w * 4 + 2 * w * 4),
+                                               u * w * 14)}
+
+
+def phase_ffm(seed: int, out_dir):
+    """Phase 14b: FFM at the full vocabulary (32,884,400 rows a table: a
+    14.73 GB field-aware table and 29.46 GB of Adam slots) through ``fit``,
+    two epochs of 32 batches at 8 steps a dispatch (:func:`graphed_fit`);
+    then, with ``TORECSYS_TPU_FUSED_DEDUP=1``, a second capture and a traced
+    replay of the fused dedup.  Each kernel's in-graph time at this shape is
+    printed beside its bound."""
+    import torch
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 12, FFM_DISPATCHES * k)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ffm_trainer(seed, spe=k)
+    record = graphed_fit(trainer, batches, fns, "ffm", out_dir)
+    bounds = ffm_bounds(trainer, batches[0])
+    with fused_dedup("1"):
+        trainer._train_scan = None  # the next dispatch captures the fused route
+        per_step = GRAPH_ROUTES["ondevice_fused"][3]
+        reset_counts(fns)
+        trainer.train_steps(batches[:k])
+        fused_counts = read_counts(fns)
+        check_counts("ffm_fused warm-up + capture", fused_counts,
+                     expect(**{n: 2 * k * c for n, c in per_step.items()}))
+        fused = replay_profile(trainer, batches[:k], out_dir, "ffm_fused")
+        if fused["launches_per_replay"] != {n: k * c for n, c in per_step.items()}:
+            raise AssertionError(f"ffm_fused: a traced replay launched "
+                                 f"{fused['launches_per_replay']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    in_graph = {**record["profile"]["kernel_us_per_step"],
+                "fused_sorted_dedup_update": fused["kernel_us_per_step"].get(
+                    "fused_sorted_dedup_update", 0.0)}
+    log(f"[ffm] M={bounds['ids']} ids a batch, {bounds['distinct_ids']} distinct, "
+        f"{bounds['stored_rows']} stored rows; in-graph us a step against the bound: "
+        + ", ".join(f"{n} {in_graph.get(n, 0.0):.1f} (bound {bounds[n][0] * 1e3:.1f}, "
+                    f"{bounds[n][1]})" for n in ("row_gather", "widen_segment_sum",
+                                                 "fused_rowwise_update",
+                                                 "fused_sorted_dedup_update"))
+        + f"; fused route busy {fused['device_busy_ms_per_step']:.4f} ms a step; peak "
+        f"allocated {peak:.3f} GB over both captures")
+    del trainer
+    release()
+    return {**record, "bounds": {n: v for n, v in bounds.items()}, "in_graph_us": in_graph,
+            "fused": {"launches_counted": fused_counts, "profile": fused},
+            "peak_memory_gb_both_captures": peak}
 
 
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
@@ -2722,10 +3130,14 @@ def main(argv=None):
     pack1 = timed("pack1", phase_pack1, args.seed, args.out, args.profile)
     graph = timed("graph", phase_graph, args.seed, args.out)
     headline = timed("headline", phase_headline, args.seed, args.out)
+    xdeepfm = timed("xdeepfm", phase_xdeepfm, args.seed, args.out)
+    dcn = timed("dcn", phase_dcn, args.seed, args.out)
+    ffm_held = timed("ffm_held", phase_ffm_held, args.seed, args.out)
+    ffm = timed("ffm", phase_ffm, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
-             **graph, "headline": headline, "file_fed": file_fed["fed"],
-             "cli": file_fed["cli"]}
+             **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
+             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -2738,13 +3150,17 @@ def main(argv=None):
     kernel_lines = []
     for name in KERNEL_NAMES:
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
-        kernel_lines.append({**records[name], "launches": by_path[home[name]],
-                             "launches_by_path": by_path})
+        line = {**records[name], "launches": by_path[home[name]], "launches_by_path": by_path}
+        if name in ffm["in_graph_us"]:  # at FFM's shape: 3.2M ids a step, pack 32
+            line["ffm_in_graph_us"] = ffm["in_graph_us"][name]
+            line["ffm_bound_ms"], line["ffm_bound_by"] = ffm["bounds"][name]
+        kernel_lines.append(line)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
-                       "presort": presort, **paths, "file": file_fed}, f, indent=1)
+                       "presort": presort, **paths, "ffm_held": ffm_held, "file": file_fed},
+                      f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

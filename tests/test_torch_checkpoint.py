@@ -4,7 +4,10 @@ restore round trip is bit-exact on the presorted, on-device and dense
 routes (and on a bf16 table), and leaves every live tensor where it was;
 N steps, a checkpoint, a fresh Trainer restored from it and M more steps
 equal N + M steps straight through; ``latest_checkpoint``; ``load_from``
-over auto-resume; the sparse/dense layout mismatch; a missing file."""
+over auto-resume; the sparse/dense layout mismatch; a missing file.  The
+same for xDeepFM, whose running statistics (the CIN's BatchNorm buffers)
+are saved under ``buffers`` and restored to the bit, in place; and a
+checkpoint of the format before ``buffers`` (none) still restores DeepFM."""
 
 import os
 
@@ -182,3 +185,71 @@ def test_checkpoint_holds_only_tensors_and_plain_values(tmp_path):
     assert set(saved["params"]) == {n for n, _ in trainer.pipeline.sequential.named_parameters()}
     assert set(saved["row_slots"]) == {"inputs.schema.emb_inputs.embedding"}
     assert np.isfinite(float(saved["loss_sum"]))
+
+
+def _xdeepfm_trainer(route, **kw):
+    sparse, presort, _ = ROUTES[route]
+    inputs = Inputs({
+        "feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(3))),
+        "emb_inputs": MultiIndicesEmbedding(8, FIELDS, tuple(f"cat_{i}" for i in range(4)),
+                                            device="cpu")})
+    pipe = (Pipeline(device="cpu").set_inputs(inputs)
+            .set_model("xDeepFM", cin_layer_sizes=(6, 4), deep_layer_sizes=(16,))
+            .set_optimizer("Adam", lr=1e-2).set_sparse_embeddings(sparse))
+    trainer = Trainer(pipe, presort=presort, seed=3, **kw)
+    trainer.init_state()
+    return trainer
+
+
+def _stats(trainer):
+    from torecsys_tpu_torch.train.state import batch_stats
+
+    return batch_stats(trainer.pipeline.sequential)
+
+
+@pytest.mark.parametrize("route", ["presorted", "ondevice", "dense"])
+def test_xdeepfm_batch_stats_save_restore_and_resume(route, tmp_path):
+    batches = _batches(7, seed=2)
+    straight = _xdeepfm_trainer(route)
+    want = [float(x) for x in straight.train_steps(batches)]
+    first = _xdeepfm_trainer(route, checkpoint_dir=str(tmp_path))
+    got = [float(x) for x in first.train_steps(batches[:4])]
+    stats = {k: v.clone() for k, v in _stats(first).items()}
+    assert sorted(stats) == [f"model.cin.bn_{k}.{n}" for k in (0, 1) for n in ("mean", "var")]
+    assert not torch.equal(stats["model.cin.bn_0.var"], torch.ones(6))
+    path = first.save_checkpoint()
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(saved["buffers"]) == set(stats)
+    first.train_steps(batches[4:])
+    live = _stats(first)
+    ptrs = {k: v.data_ptr() for k, v in live.items()}
+    restore_checkpoint(path, first.pipeline.sequential, first.state)
+    for name, value in _stats(first).items():
+        assert value.data_ptr() == ptrs[name]
+        assert torch.equal(_bits(value), _bits(stats[name])), name
+    resumed = _xdeepfm_trainer(route, checkpoint_dir=str(tmp_path))  # auto-resume
+    assert int(resumed.state.step) == 4
+    got += [float(x) for x in resumed.train_steps(batches[4:])]
+    assert got == want
+    _assert_same_state(resumed, straight)
+
+
+def test_a_checkpoint_without_buffers_restores_deepfm_and_not_xdeepfm(tmp_path):
+    """A checkpoint of the format before running statistics (no ``buffers``
+    key) restores a model without them, and is refused by one with them."""
+    trainer = _trainer("ondevice")
+    trainer.train_steps(_batches(2))
+    path = trainer.save_checkpoint(str(tmp_path / "c.pt"))
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    assert saved["buffers"] == {}
+    del saved["buffers"]
+    old = str(tmp_path / "old.pt")
+    torch.save(saved, old)
+    _assert_same_state(_trainer("ondevice", load_from=old), trainer)
+    xdeepfm = _xdeepfm_trainer("ondevice")
+    path = xdeepfm.save_checkpoint(str(tmp_path / "x.pt"))
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    del saved["buffers"]
+    torch.save(saved, old)
+    with pytest.raises(ValueError, match="running statistics"):
+        _xdeepfm_trainer("ondevice", load_from=old)

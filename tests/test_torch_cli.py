@@ -2,7 +2,9 @@
 mirroring ``tests/test_e2e_criteo.py``: the parsed column dict equals the
 JAX ``_load_table``'s (Criteo TSV and CSV); ``FM`` trained through
 ``main(["train", ...])`` on the bundled sample learns (``val_auc > 0.6``);
-train → checkpoint → auto-resume → evaluate; streaming; the refusals (a
+train → checkpoint → auto-resume → evaluate; streaming; xDeepFM (its
+running statistics in the checkpoint) trained and evaluated on the bundled
+sample; every input class from JSON, containers included; the refusals (a
 CSV with ``--stream on``, mesh options, unported inputs, objectives,
 regularizers and miners); ``build`` and ``version``."""
 
@@ -139,7 +141,7 @@ def test_single_device_mesh_options_run():
 
 def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
     with pytest.raises(NotImplementedError, match="item 8"):
-        _build_inputs({"emb_inputs": {"method": "SingleIndexEmbedding", "embed_size": 4,
+        _build_inputs({"emb_inputs": {"method": "SequenceIndicesEmbedding", "embed_size": 4,
                                       "field_size": 9, "fields": ["a"]}}, "cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         Pipeline.build(device="cpu", objective="ltr", model_config={"method": "FM"})
@@ -175,3 +177,51 @@ def test_module_entry_point_runs():
     proc = subprocess.run([sys.executable, "-m", "torecsys_tpu_torch.cli", "version"], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "0.1.0", proc.stderr[-2000:]
+
+
+def test_xdeepfm_trains_and_evaluates_through_the_cli(tmp_path, capsys):
+    """xDeepFM with the JAX CLI's default inputs (13 dense values, one fused
+    26-field table) on the bundled sample: train with a checkpoint, then
+    evaluate it, the CIN's running statistics restored."""
+    model = json.dumps({"method": "xDeepFM", "embed_size": 4, "num_fields": 26,
+                        "cin_layer_sizes": [8, 8], "deep_layer_sizes": [16]})
+    ckpt_dir = str(tmp_path / "ckpts")
+    trainer = run(["train", "--device", "cpu", "--model_config", model, "--train_file", SHARD,
+                   "--batch_size", "256", "--embed_size", "4", "--criteo_hash_size", "500",
+                   "--max_num_epochs", "2", "--checkpoint_dir", ckpt_dir,
+                   "--steps_per_execution", "2"])
+    metrics = trainer.history[-1]
+    assert np.isfinite(metrics["train_loss"]) and 0.0 <= metrics["val_auc"] <= 1.0
+    assert trainer.history[-1]["train_loss"] < trainer.history[0]["train_loss"]
+    seq = trainer.pipeline.sequential
+    assert type(seq.model).__name__ == "XDeepFactorizationMachineModel"
+    (ckpt,) = sorted(os.listdir(ckpt_dir))[-1:]
+    capsys.readouterr()
+    assert main(["evaluate", "--device", "cpu", "--model_config", model, "--load_from",
+                 os.path.join(ckpt_dir, ckpt), "--eval_file", SHARD, "--batch_size", "256",
+                 "--embed_size", "4", "--criteo_hash_size", "500"]) == 0
+    got = _metrics(capsys)
+    assert 0.0 <= got["val_auc"] <= 1.0 and np.isfinite(got["val_logloss"])
+
+
+def test_every_input_class_builds_from_json():
+    inputs = _build_inputs({
+        "feat_inputs": {"method": "ValueInput", "fields": ["d"]},
+        "field_emb_inputs": {"method": "MultiIndicesFieldAwareEmbedding", "embed_size": 4,
+                             "field_sizes": [10, 20], "fields": ["a", "b"]},
+        "emb_inputs": {"method": "StackedInput", "inputs": [
+            {"method": "SingleIndexEmbedding", "field_size": 10, "embed_size": 8,
+             "fields": ["a"], "pretrained": np.ones((10, 8)).tolist()},
+            {"method": "SingleIndexEmbedding", "field_size": 20, "embed_size": 8,
+             "fields": ["b"]}]},
+        "wide": {"method": "ConcatInput", "inputs": [
+            {"method": "MultiIndicesEmbedding", "embed_size": 4, "field_sizes": [10, 20],
+             "fields": ["a", "b"]}, {"method": "ValueInput", "fields": ["d"]}]},
+    }, "cpu")
+    assert inputs.schema["emb_inputs"].output_shape() == (2, 8)
+    assert float(inputs.schema["emb_inputs"][0].embedding.detach().sum()) == 80.0
+    assert inputs.schema["wide"].output_shape() == (1, 9)
+    assert inputs.schema["field_emb_inputs"].output_shape() == (4, 4)
+    pipe = Pipeline.build(device="cpu", inputs_config=inputs,
+                          model_config={"method": "FFM", "num_fields": 2})
+    assert type(pipe.model).__name__ == "FieldAwareFactorizationMachineModel"

@@ -1,10 +1,12 @@
-"""The port stands alone: importing it and ``chip_smoke.py``, and running
-its paths (sparse training on the presorted and the on-device route, on
-both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training, evaluation,
-prediction, and the CLI: streamed training from the bundled Criteo sample
-with a checkpoint, a resumed run and evaluation, which also parse, collate
-and load data), loads neither JAX (nor flax, optax) nor anything of the JAX
-package, nor click or pandas."""
+"""The port stands alone: importing it (every module) and ``chip_smoke.py``,
+and running its paths (sparse training on the presorted and the on-device
+route, on both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training,
+evaluation, prediction; each model of the registry built and applied, and
+xDeepFM, FFM over the field-aware table and NCF over two single-index
+tables trained on both routes and checkpointed; and the CLI: streamed
+training from the bundled Criteo sample with a checkpoint, a resumed run and
+evaluation, which also parse, collate and load data), loads neither JAX (nor
+flax, optax) nor anything of the JAX package, nor click or pandas."""
 
 import os
 import subprocess
@@ -36,6 +38,34 @@ dense = Trainer(pipe.set_sparse_embeddings(False))
 assert np.isfinite(dense.fit([batch, batch], val_loader=[batch])["val_logloss"])
 assert dense.predict(batch).shape == (16, 1)
 import tempfile
+import torch
+from torecsys_tpu_torch import inputs as I
+from torecsys_tpu_torch.models import MODELS
+cats = {"a": rng.integers(0, 50, 16), "b": rng.integers(0, 9, 16)}
+schemas = {
+    "xDeepFM": {"feat_inputs": I.ValueInput(("d",)),
+                "emb_inputs": I.MultiIndicesEmbedding(4, (50, 9), ("a", "b"), device="cpu")},
+    "FFM": {"feat_inputs": I.ValueInput(("d",)),
+            "field_emb_inputs": I.MultiIndicesFieldAwareEmbedding(4, (50, 9), ("a", "b"),
+                                                                  device="cpu")},
+    "DCN": {"emb_inputs": I.MultiIndicesEmbedding(4, (50, 9), ("a", "b"), device="cpu")},
+    "NCF": {"emb_inputs": I.StackedInput([I.SingleIndexEmbedding(50, 8, ("a",), device="cpu"),
+                                          I.SingleIndexEmbedding(9, 8, ("b",), device="cpu")])},
+}
+for name, schema in schemas.items():
+    for sparse in (True, False):
+        pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schema)).set_model(name)
+        t = Trainer(pipe.set_sparse_embeddings(sparse), steps_per_execution=2)
+        assert np.isfinite(float(t.train_steps([batch, batch])[-1]))
+        with tempfile.TemporaryDirectory() as d:
+            t.save_checkpoint(os.path.join(d, "c.pt"))
+for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
+    if name.__name__ in ("FieldAwareFactorizationMachineModel", "LogisticRegressionModel",
+                         "NeuralCollaborativeFilteringModel", "DeepAndCrossNetworkModel"):
+        continue  # other inputs (above, or in the steps before)
+    pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schemas["xDeepFM"])).set_model(
+        name.__name__, **({"attn_size": 4} if "Attentional" in name.__name__ else {}))
+    assert pipe.sequential({k: torch.as_tensor(v) for k, v in batch.items()}).shape == (16, 1)
 from torecsys_tpu_torch.cli import main
 from torecsys_tpu_torch.data import CollateFunction, DataLoader, FieldSpec, NdarrayToDataset
 from torecsys_tpu_torch.data.sample_data import load_criteo_data

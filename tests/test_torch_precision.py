@@ -60,7 +60,8 @@ def test_bf16_forward_matches_the_jax_package():
     ref = _jax(batches, compute="bfloat16")
     port = _port(jax.device_get(ref.state.params), compute="bfloat16")
     mlp = port.pipeline.sequential.model.deep
-    assert mlp.compute_dtype == torch.bfloat16
+    assert all(mlp.get_submodule(n).compute_dtype == torch.bfloat16
+               for n in (*mlp.hidden, "output"))
     for batch in batches[:2]:
         with ref._eval_contexts():
             want = np.asarray(ref._eval_step_fn(ref.state, jax.device_put(batch))[0])

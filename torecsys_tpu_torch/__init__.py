@@ -6,9 +6,12 @@ or anything of ``torecsys_tpu``.  Its entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``; with no
 device given and no CUDA present they raise.
 
-Ported so far: the LR, FM and DeepFM CTR models trained on the sparse
-embedding route (host-presorted, or sorted and deduped on the card with
-``Trainer(presort=False)``) or on the dense-table route, their evaluation
+Ported so far: the CTR models LR, FM, FMNN, FFM, AFM, NFM, DeepFM, PNN,
+DCN, xDeepFM, NCF and Wide&Deep over the single-index, fused and
+field-aware embedding inputs (xDeepFM's BatchNorm statistics as module
+buffers), trained on the sparse embedding route (host-presorted, or sorted
+and deduped on the card with ``Trainer(presort=False)``) or on the
+dense-table route, their evaluation
 (streaming AUC and logloss) and prediction, checkpoints with resume
 (``train.checkpoint``), the data utilities with the C++ Criteo parser and
 chunked file streaming (``data``), and the command line (``cli``:

@@ -48,28 +48,43 @@ def _parse(cfg: Optional[str]):
     return json.loads(cfg) if cfg else None
 
 
-def _build_inputs(cfg: dict, device=None):
-    """JSON → ``Inputs``: ``{arg_name: {"method": <class>, ...kwargs}}``; the
-    port's input classes only (``ValueInput``, ``MultiIndicesEmbedding``)."""
+def _build_input(spec: dict, device=None):
+    """One ``{"method": <class>, ...kwargs}`` input spec → an input module; a
+    container's ``inputs`` is a list of such specs."""
     from torecsys_tpu_torch import inputs as inputs_mod
 
-    known = {"ValueInput": inputs_mod.ValueInput,
-             "MultiIndicesEmbedding": inputs_mod.MultiIndicesEmbedding}
-    schema = {}
-    for arg_name, spec in cfg.items():
-        spec = dict(spec)
-        method = spec.pop("method")
-        if method not in known:
-            raise NotImplementedError(
-                f"input {method!r} is not ported yet (ROADMAP queue 1 item 8: the other "
-                f"inputs); the port has {sorted(known)}")
-        for key in ("fields", "field_sizes"):
-            if key in spec and isinstance(spec[key], list):
-                spec[key] = tuple(spec[key])
-        if method == "MultiIndicesEmbedding":
-            spec.setdefault("device", device)
-        schema[arg_name] = known[method](**spec)
-    return inputs_mod.Inputs(schema)
+    known = {name: getattr(inputs_mod, name) for name in (
+        "ValueInput", "SingleIndexEmbedding", "MultiIndicesEmbedding",
+        "MultiIndicesFieldAwareEmbedding", "ConcatInput", "StackedInput")}
+    spec = dict(spec)
+    method = spec.pop("method")
+    if method not in known:
+        raise NotImplementedError(
+            f"input {method!r} is not ported yet (ROADMAP queue 1 item 8: the other "
+            f"inputs); the port has {sorted(known)}")
+    if method in ("ConcatInput", "StackedInput"):
+        return known[method]([_build_input(child, device) for child in spec.pop("inputs")],
+                             **spec)
+    for key in ("fields", "field_sizes"):
+        if key in spec and isinstance(spec[key], list):
+            spec[key] = tuple(spec[key])
+    if spec.get("pretrained") is not None:
+        spec["pretrained"] = np.asarray(spec["pretrained"], dtype=np.float32)
+    if method != "ValueInput":
+        spec.setdefault("device", device)
+    return known[method](**spec)
+
+
+def _build_inputs(cfg: dict, device=None):
+    """JSON → ``Inputs``: ``{arg_name: {"method": <class>, ...kwargs}}``, the
+    port's input classes: ``ValueInput``, ``SingleIndexEmbedding``,
+    ``MultiIndicesEmbedding``, ``MultiIndicesFieldAwareEmbedding``, and the
+    containers ``ConcatInput`` and ``StackedInput``, whose ``inputs`` is a
+    list of such specs."""
+    from torecsys_tpu_torch import inputs as inputs_mod
+
+    return inputs_mod.Inputs({arg_name: _build_input(spec, device)
+                              for arg_name, spec in cfg.items()})
 
 
 def _data_format(path: str, data_format: str) -> str:

@@ -4,18 +4,26 @@ The JAX package keeps its parameters as a nested dict (flax), the port in
 ``nn.Module``s.  :func:`from_flax_params` copies the first into the second:
 
 * ``inputs/schema_<name>/embedding`` → ``inputs.schema.<name>.embedding``,
-  the packed ``(ceil(V/P), P*E)`` table, as it is (both sides store the
-  same layout, float32 or bfloat16);
-* ``model/.../kernel`` ``(in, out)`` → ``model.....weight`` ``(out, in)``,
-  transposed; ``bias`` as it is.
+  the packed ``(ceil(V/P), P*E)`` table (a field-aware table's
+  ``(N, ceil(V/P), P*E)``), as it is (both sides store the same layout,
+  float32 or bfloat16); a container's child ``inputs_<i>`` is
+  ``inputs.<i>``;
+* ``model/.../kernel`` → ``model.....weight``, transposed (its axes
+  reversed: a Dense kernel ``(in, out)`` becomes ``(out, in)``, PNN's outer
+  kernel ``(E, P, E)`` its reverse); every other parameter as it is.
+
+With ``batch_stats`` it fills the model's running statistics (flax's
+``batch_stats`` collection, a BatchNorm's ``mean`` and ``var``) into the
+port's buffers of the same names.
 
 With ``opt_state_np`` it also carries the optimizer state into a port
 :class:`~torecsys_tpu_torch.train.TrainState`: optax Adam's ``count``,
 ``mu`` and ``nu`` into the ``torch.optim.Adam`` (over the dense parameters
 on the sparse route, over every parameter on the dense route), and on the
 sparse route each table's row-wise slots as they are (``RowAdam``'s ``mv``,
-``RowAdagrad``'s ``v``; :func:`copy_row_slots`), so that both sides take
-their next step from the same state.
+``RowAdagrad``'s ``v``; :func:`copy_row_slots`; a field-aware table's
+``(N, Vp, ...)`` slots into the port's ``(N*Vp, ...)``), so that both sides
+take their next step from the same state.
 
 Arrays come in as numpy (``jax.device_get`` of the JAX side); this module
 needs neither JAX nor the JAX package.
@@ -23,6 +31,7 @@ needs neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -31,6 +40,7 @@ from torch import nn
 
 SEP = "/"
 _SCHEMA = "schema_"
+_CHILD = re.compile(r"^inputs_(\d+)$")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -50,6 +60,7 @@ def torch_name(flax_path: str) -> str:
     parts = flax_path.split(SEP)
     if len(parts) > 1 and parts[0] == "inputs" and parts[1].startswith(_SCHEMA):
         parts = ["inputs", "schema", parts[1][len(_SCHEMA):], *parts[2:]]
+    parts = [f"inputs.{m.group(1)}" if (m := _CHILD.match(p)) else p for p in parts]
     if parts[-1] == "kernel":
         parts[-1] = "weight"
     return ".".join(parts)
@@ -66,7 +77,7 @@ def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
 
 def _as_torch(flax_path: str, value, like: torch.Tensor) -> torch.Tensor:
     arr = np.asarray(value)
-    if flax_path.endswith(SEP + "kernel"):
+    if flax_path.split(SEP)[-1] == "kernel":
         arr = arr.T
     t = _numpy_to_torch(arr).to(dtype=like.dtype, device=like.device)
     if t.shape != like.shape:
@@ -80,7 +91,8 @@ def _get(obj, name: str):
 
 
 def from_flax_params(seq: nn.Module, params_np: Mapping,
-                     opt_state_np: Optional[Mapping] = None, state=None) -> nn.Module:
+                     opt_state_np: Optional[Mapping] = None, state=None,
+                     batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Fill ``seq``'s parameters (in place) from the JAX package's params.
 
     Args:
@@ -94,6 +106,8 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
             sparse route, or the dense route's plain optax Adam state over
             every parameter, the tables included.
         state: the port's ``TrainState`` to receive ``opt_state_np``.
+        batch_stats: optionally flax's ``batch_stats`` tree as numpy, copied
+            into the buffers of the same names; each must exist.
 
     Returns:
         ``seq``.  Every parameter of ``seq`` must be filled.
@@ -109,6 +123,14 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
             if name not in named:
                 raise KeyError(f"flax parameter {path!r} has no counterpart {name!r}")
             named[name].copy_(_as_torch(path, value, named[name]))
+    if batch_stats is not None:
+        buffers = dict(seq.named_buffers())
+        with torch.no_grad():
+            for path, value in flatten(batch_stats).items():
+                name = torch_name(path)
+                if name not in buffers:
+                    raise KeyError(f"flax batch_stats {path!r} has no buffer {name!r}")
+                buffers[name].copy_(_as_torch(path, value, buffers[name]))
     if opt_state_np is not None:
         if state is None:
             raise ValueError("opt_state_np needs the port's TrainState to fill")
@@ -142,14 +164,18 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
 def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> None:
     """Copy one table's row-wise optimizer slots from the JAX package (numpy;
     ``{"mv": (R, 2, W)}`` of ``RowAdam``, ``{"v": (R, W)}`` of ``RowAdagrad``,
-    ``{}`` of ``RowSGD``) into the port's, in place; the names and shapes
-    must match."""
+    ``{}`` of ``RowSGD``) into the port's, in place; the names must match,
+    and the shapes but for the leading stored-row axes, which the port
+    flattens (a field-aware table's ``(N, Vp, 2, W)`` fills ``(N*Vp, 2, W)``)."""
     if set(slots_np) != set(port_slots):
         raise KeyError(f"row slots {sorted(slots_np)} do not match {sorted(port_slots)}")
     with torch.no_grad():
         for k, v in slots_np.items():
             arr = np.asarray(v)
-            if arr.shape != tuple(port_slots[k].shape):
+            shape = tuple(port_slots[k].shape)
+            if arr.ndim > len(shape) and arr.shape[arr.ndim - len(shape) + 1:] == shape[1:]:
+                arr = arr.reshape(shape)
+            if arr.shape != shape:
                 raise ValueError(f"row slot {k!r}: shape {arr.shape} does not fit "
                                  f"{tuple(port_slots[k].shape)}")
             port_slots[k].copy_(_numpy_to_torch(arr))

@@ -60,9 +60,13 @@ class PresortSpec:
 
 
 def spec_for_module(module) -> Optional[PresortSpec]:
-    """The spec of one of the port's input modules, or None when it has no
-    host-presortable id stream."""
-    from torecsys_tpu_torch.inputs.embeddings import MultiIndicesEmbedding
+    """The spec of one of the port's table modules, or None when the module
+    has no host-presortable id stream."""
+    from torecsys_tpu_torch.inputs.embeddings import (
+        MultiIndicesEmbedding,
+        MultiIndicesFieldAwareEmbedding,
+        SingleIndexEmbedding,
+    )
     from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
 
     if isinstance(module, MultiIndicesEmbedding):
@@ -75,16 +79,45 @@ def spec_for_module(module) -> Optional[PresortSpec]:
             num_stored_rows=vp,
             num_rows=v,
         )
+    if isinstance(module, MultiIndicesFieldAwareEmbedding):
+        # slot (i, j): field j in field-aware table i, at the flat logical id
+        # shifted[j] + i * Vp * P (the module's lookup)
+        n = len(module.field_sizes)
+        vp, w = packed_shape(int(sum(module.field_sizes)), module.embed_size)
+        pack = w // module.embed_size
+        offs = field_offsets(module.field_sizes)
+        return PresortSpec(
+            slot_fields=tuple(module.fields[j] for i in range(n) for j in range(n)),
+            slot_offsets=tuple(int(offs[j]) + i * vp * pack for i in range(n) for j in range(n)),
+            pack=pack,
+            num_stored_rows=n * vp,
+            num_rows=n * vp * pack,
+        )
+    if isinstance(module, SingleIndexEmbedding):
+        return PresortSpec(
+            slot_fields=tuple(module.fields),
+            slot_offsets=(0,) * len(module.fields),
+            pack=1,
+            num_stored_rows=module.field_size,
+            num_rows=module.field_size,
+        )
     return None
+
+
+def iter_embedding_specs(inputs_module) -> Iterable[PresortSpec]:
+    """The spec of every presortable table module under an inputs tree, the
+    children of ``ConcatInput`` and ``StackedInput`` included."""
+    for module in inputs_module.modules():
+        spec = spec_for_module(module)
+        if spec is not None:
+            yield spec
 
 
 def build_presort_specs(inputs_module) -> List[PresortSpec]:
     """All distinct specs under an ``Inputs`` tree (deduped by key)."""
     seen = {}
-    for module in inputs_module.modules():
-        spec = spec_for_module(module)
-        if spec is not None:
-            seen.setdefault(spec.key, spec)
+    for spec in iter_embedding_specs(inputs_module):
+        seen.setdefault(spec.key, spec)
     return list(seen.values())
 
 
@@ -187,4 +220,4 @@ class Presorter:
 
 
 __all__ = ["AUX_NAMES", "AUX_PREFIX", "PresortSpec", "Presorter",
-           "build_presort_specs", "spec_for_module"]
+           "build_presort_specs", "iter_embedding_specs", "spec_for_module"]

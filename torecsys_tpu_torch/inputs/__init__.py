@@ -13,7 +13,15 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
-from torecsys_tpu_torch.inputs.embeddings import MultiIndicesEmbedding, ValueInput
+from torecsys_tpu_torch.inputs.embeddings import (
+    ConcatInput,
+    MultiIndicesEmbedding,
+    MultiIndicesFieldAwareEmbedding,
+    SingleIndexEmbedding,
+    StackedInput,
+    TableInput,
+    ValueInput,
+)
 
 
 class Inputs(nn.Module):
@@ -31,4 +39,6 @@ class Inputs(nn.Module):
             module.reset_parameters(generator)
 
 
-__all__ = ["BaseInput", "Inputs", "MultiIndicesEmbedding", "ValueInput"]
+__all__ = ["BaseInput", "ConcatInput", "Inputs", "MultiIndicesEmbedding",
+           "MultiIndicesFieldAwareEmbedding", "SingleIndexEmbedding", "StackedInput",
+           "TableInput", "ValueInput"]

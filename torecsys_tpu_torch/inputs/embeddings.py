@@ -1,25 +1,32 @@
 """Categorical / value input modules (the embedding front-end).
 
-Counterpart of ``torecsys_tpu/inputs/embeddings.py``: :class:`ValueInput`
-and :class:`MultiIndicesEmbedding`, the fused table of several categorical
-fields with per-field offsets, stored packed (``ops.embedding``).
+Counterpart of ``torecsys_tpu/inputs/embeddings.py``: :class:`ValueInput`;
+three table modules, :class:`SingleIndexEmbedding` (one unpacked table),
+:class:`MultiIndicesEmbedding` (the fused table of several categorical
+fields with per-field offsets, stored packed, ``ops.embedding``) and
+:class:`MultiIndicesFieldAwareEmbedding` (N such tables in one parameter);
+and the containers :class:`ConcatInput` and :class:`StackedInput`.
 
-The sparse route.  In flax, ``perturb`` and ``sow`` let the train step take
-per-slot gradients and read back the ids.  Here a module with
+The sparse route, shared by the three table modules (:class:`TableInput`).
+In flax, ``perturb`` and ``sow`` let the train step take per-slot gradients
+and read back the ids.  Here a module with
 ``sparse_grads`` set, running with autograd on, gathers its rows from the
 detached table and returns them as a fresh leaf tensor that requires grad;
-it records that leaf, the shifted ids and the batch's presort aux as one
-:class:`SparseLookup`, which the train step takes back with
-:meth:`MultiIndicesEmbedding.take_lookup` after ``loss.backward()``.  A
-second application before the lookup is taken raises: its gradient would be
-summed against one call site's ids.
+it records that leaf, the table's logical row ids and the batch's presort
+aux as one :class:`SparseLookup`, which the train step takes back with
+:meth:`TableInput.take_lookup` after ``loss.backward()``.  A second
+application before the lookup is taken raises: its gradient would be summed
+against one call site's ids.  The row-wise optimizer sees each table as the
+2-D ``(rows, W)`` view :meth:`TableInput.table_view`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -62,8 +69,124 @@ class ValueInput(BaseInput):
             out = self.transform(out)
         return out
 
+    def output_shape(self) -> Tuple[int, int]:
+        return len(self.fields), 1
 
-class MultiIndicesEmbedding(BaseInput):
+
+class TableInput(BaseInput):
+    """What the three table modules share: the ``embedding`` parameter, its
+    storage dtype, and the sparse route's lookup (see the module's
+    docstring).  Subclasses build the table and call :meth:`_lookup_rows`
+    with logical row ids of :meth:`table_view`'s ``(Vp*P, E)`` view."""
+
+    embed_size: int
+    embedding: nn.Parameter
+
+    def _init_table(self, shape, device) -> None:
+        self.embedding = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+        self.sparse_grads = False
+        self._lookup: Optional[SparseLookup] = None
+
+    def _draw(self, table: torch.Tensor, generator) -> None:
+        """Draw the float32 table in place (the subclass's initializer)."""
+        raise NotImplementedError
+
+    def reset_parameters(self, generator=None) -> None:
+        """Draw the table in float32 and store it in its dtype (a bf16 table
+        holds the float32 draw rounded)."""
+        with torch.no_grad():
+            if self.embedding.dtype == torch.float32:
+                self._draw(self.embedding, generator)
+            else:
+                drawn = torch.empty(self.embedding.shape, dtype=torch.float32,
+                                    device=self.embedding.device)
+                self._draw(drawn, generator)
+                self.embedding.copy_(drawn)
+
+    def set_table_dtype(self, dtype: torch.dtype) -> None:
+        """Store the table in ``dtype`` (float32 or bfloat16; the pipeline's
+        ``set_table_dtype``); its values are rounded to it."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
+        if self.embedding.dtype != dtype:
+            self.embedding = nn.Parameter(self.embedding.detach().to(dtype))
+
+    @property
+    def pack(self) -> int:
+        return self.embedding.shape[-1] // self.embed_size
+
+    def table_view(self) -> torch.Tensor:
+        """The table as the ``(rows, W)`` stored rows the row-wise optimizer
+        and the update kernels work on (a view, detached)."""
+        return self.embedding.detach().reshape(-1, self.embedding.shape[-1])
+
+    def _lookup_rows(self, ids: torch.Tensor, batch: Optional[Batch]) -> torch.Tensor:
+        """``logical_table[ids]``, float32: through autograd into the table,
+        or on the sparse route as a recorded leaf."""
+        if not (self.sparse_grads and torch.is_grad_enabled()):
+            # rows of a bf16 table are cast to float32 here, at the module
+            # boundary: the model and the loss see float32
+            return packed_lookup(self.embedding, ids, self.embed_size).float()
+        if self._lookup is not None:
+            raise RuntimeError(
+                f"{type(self).__name__} applied twice in one step: sparse embedding "
+                "gradients need exactly one lookup per module per step"
+            )
+        rows = packed_lookup(self.embedding.detach(), ids, self.embed_size)
+        rows.requires_grad_(True)
+        self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch))
+        return rows
+
+    def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
+        """This module's presort aux in the batch, if the pipeline attached it."""
+        from torecsys_tpu_torch.data.presort import AUX_NAMES, spec_for_module
+
+        spec = spec_for_module(self)
+        if batch is None or spec.aux_key("order") not in batch:
+            return None
+        return {name: batch[spec.aux_key(name)] for name in AUX_NAMES}
+
+    def take_lookup(self) -> Optional[SparseLookup]:
+        """Hand the step's recorded lookup over and clear it."""
+        lookup, self._lookup = self._lookup, None
+        return lookup
+
+
+class SingleIndexEmbedding(TableInput):
+    """One unpacked ``(field_size, E)`` table for one categorical field (or
+    several fields sharing it) → ``(B, k, E)``, ``k`` the number of fields.
+
+    Drawn from N(0, 0.01²), or copied from ``pretrained`` (a
+    ``(field_size, E)`` array), as in the JAX package.
+    """
+
+    def __init__(self, field_size: int, embed_size: int, fields: Sequence[str],
+                 pretrained: Optional[np.ndarray] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.field_size = int(field_size)
+        self.embed_size = int(embed_size)
+        self.fields = tuple(fields)
+        self.pretrained = pretrained
+        self._init_table((self.field_size, self.embed_size), dev)
+        self.reset_parameters(default_generator(dev, generator=generator))
+
+    def _draw(self, table, generator) -> None:
+        if self.pretrained is not None:
+            table.copy_(torch.as_tensor(np.asarray(self.pretrained), dtype=torch.float32))
+        else:
+            table.normal_(0.0, 0.01, generator=generator)
+
+    def output_shape(self) -> Tuple[int, int]:
+        return len(self.fields), self.embed_size
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        ids = self._stack_fields(batch, self.fields).to(torch.int64)  # (B, k)
+        return self._lookup_rows(ids, batch)
+
+
+class MultiIndicesEmbedding(TableInput):
     """Fused embedding over several categorical fields → ``(B, N, E)``.
 
     One packed table ``embedding`` of ``sum(field_sizes)`` logical rows; raw
@@ -87,39 +210,20 @@ class MultiIndicesEmbedding(BaseInput):
         self.fields = tuple(fields)
         self.flatten = flatten
         self.init_std = init_std
-        shape = packed_shape(int(sum(self.field_sizes)), self.embed_size)
-        self.embedding = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=dev))
+        self._init_table(packed_shape(int(sum(self.field_sizes)), self.embed_size), dev)
         self.register_buffer(
             "offsets",
             torch.as_tensor(field_offsets(self.field_sizes), dtype=torch.int64, device=dev),
             persistent=False,
         )
-        self.sparse_grads = False
-        self._lookup: Optional[SparseLookup] = None
         self.reset_parameters(default_generator(dev, generator=generator))
 
-    def reset_parameters(self, generator=None) -> None:
-        """Draw the table in float32 and store it in its dtype (a bf16 table
-        holds the float32 draw rounded)."""
-        with torch.no_grad():
-            if self.embedding.dtype == torch.float32:
-                self.embedding.normal_(0.0, self.init_std, generator=generator)
-            else:
-                drawn = torch.empty(self.embedding.shape, dtype=torch.float32,
-                                    device=self.embedding.device)
-                self.embedding.copy_(drawn.normal_(0.0, self.init_std, generator=generator))
+    def _draw(self, table, generator) -> None:
+        table.normal_(0.0, self.init_std, generator=generator)
 
-    def set_table_dtype(self, dtype: torch.dtype) -> None:
-        """Store the table in ``dtype`` (float32 or bfloat16; the pipeline's
-        ``set_table_dtype``); its values are rounded to it."""
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
-        if self.embedding.dtype != dtype:
-            self.embedding = nn.Parameter(self.embedding.detach().to(dtype))
-
-    @property
-    def pack(self) -> int:
-        return self.embedding.shape[1] // self.embed_size
+    def output_shape(self) -> Tuple[int, int]:
+        n = len(self.fields)
+        return (1, n * self.embed_size) if self.flatten else (n, self.embed_size)
 
     def forward(self, batch: Batch) -> torch.Tensor:
         ids = self._stack_fields(batch, self.fields)  # (B, N)
@@ -130,34 +234,120 @@ class MultiIndicesEmbedding(BaseInput):
 
     def embed(self, ids: torch.Tensor, batch: Optional[Batch] = None) -> torch.Tensor:
         """Lookup of raw per-field ids ``(B, N) → (B, N, E)``."""
-        shifted = ids.to(torch.int64) + self.offsets[None, :]
-        if not (self.sparse_grads and torch.is_grad_enabled()):
-            # rows of a bf16 table are cast to float32 here, at the module
-            # boundary: the model and the loss see float32
-            return packed_lookup(self.embedding, shifted, self.embed_size).float()
-        if self._lookup is not None:
-            raise RuntimeError(
-                "MultiIndicesEmbedding applied twice in one step: sparse embedding "
-                "gradients need exactly one lookup per module per step"
+        return self._lookup_rows(ids.to(torch.int64) + self.offsets[None, :], batch)
+
+
+class MultiIndicesFieldAwareEmbedding(TableInput):
+    """Field-aware (FFM) embedding → ``(B, N*N, E)``: output entry ``i*N +
+    j`` is field ``j``'s row in field-aware table ``i``.
+
+    N logical tables of ``sum(field_sizes)`` rows each, stored packed as one
+    ``(N, Vp, P*E)`` parameter, drawn from flax's ``xavier_uniform`` with the
+    logical ``(V, E)`` fans.  Both routes look up the flat ``(N*Vp*P, E)``
+    logical view with the global ids ``i*Vp*P + shifted[:, j]``, the ids the
+    JAX package's sparse route sows, in one gather; on its dense route the
+    JAX package gathers each table and transposes the result into the same
+    order.  ``flatten=True`` → ``(B, 1, N*N*E)``.
+    """
+
+    def __init__(self, embed_size: int, field_sizes: Sequence[int], fields: Sequence[str],
+                 flatten: bool = False, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if len(fields) != len(field_sizes):
+            raise ValueError(
+                f"fields ({len(fields)}) and field_sizes ({len(field_sizes)}) must align"
             )
-        rows = packed_lookup(self.embedding.detach(), shifted, self.embed_size)
-        rows.requires_grad_(True)
-        self._lookup = SparseLookup(rows=rows, ids=shifted, aux=self._find_presort_aux(batch))
-        return rows
+        dev = resolve_device(device)
+        self.embed_size = int(embed_size)
+        self.field_sizes = tuple(int(v) for v in field_sizes)
+        self.fields = tuple(fields)
+        self.flatten = flatten
+        n = len(self.field_sizes)
+        vp, w = packed_shape(int(sum(self.field_sizes)), self.embed_size)
+        self._init_table((n, vp, w), dev)
+        rows_per_table = vp * (w // self.embed_size)
+        self.register_buffer(
+            "offsets",  # (N, N): table i, field j
+            torch.as_tensor(field_offsets(self.field_sizes), dtype=torch.int64, device=dev)[None]
+            + torch.arange(n, dtype=torch.int64, device=dev)[:, None] * rows_per_table,
+            persistent=False,
+        )
+        self.reset_parameters(default_generator(dev, generator=generator))
 
-    def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
-        """This module's presort aux in the batch, if the pipeline attached it."""
-        from torecsys_tpu_torch.data.presort import AUX_NAMES, spec_for_module
+    def _draw(self, table, generator) -> None:
+        limit = math.sqrt(6.0 / (sum(self.field_sizes) + self.embed_size))
+        table.uniform_(-limit, limit, generator=generator)
 
-        spec = spec_for_module(self)
-        if batch is None or spec.aux_key("order") not in batch:
-            return None
-        return {name: batch[spec.aux_key(name)] for name in AUX_NAMES}
+    def output_shape(self) -> Tuple[int, int]:
+        n = len(self.fields)
+        return (1, n * n * self.embed_size) if self.flatten else (n * n, self.embed_size)
 
-    def take_lookup(self) -> Optional[SparseLookup]:
-        """Hand the step's recorded lookup over and clear it."""
-        lookup, self._lookup = self._lookup, None
-        return lookup
+    def forward(self, batch: Batch) -> torch.Tensor:
+        ids = self._stack_fields(batch, self.fields).to(torch.int64)  # (B, N)
+        b, n = ids.shape
+        gids = ids[:, None, :] + self.offsets[None]  # (B, Ntab, Nfield)
+        out = self._lookup_rows(gids, batch).reshape(b, n * n, self.embed_size)
+        if self.flatten:
+            out = out.reshape(b, 1, -1)
+        return out
 
 
-__all__ = ["MultiIndicesEmbedding", "SparseLookup", "ValueInput"]
+class _Container(BaseInput):
+    """An input whose children are other inputs, in order."""
+
+    def __init__(self, inputs: Sequence[BaseInput]):
+        super().__init__()
+        self.inputs = nn.ModuleList(inputs)
+
+    def reset_parameters(self, generator=None) -> None:
+        for m in self.inputs:
+            m.reset_parameters(generator)
+
+    def __getitem__(self, idx):
+        """A child by position, or the child that reads raw field ``idx``."""
+        if isinstance(idx, str):
+            for m in self.inputs:
+                if idx in getattr(m, "fields", ()):
+                    return m
+            raise KeyError(idx)
+        return self.inputs[idx]
+
+
+class ConcatInput(_Container):
+    """Concatenate the children along the embedding axis, each flattened to
+    ``(B, 1, N_i*E_i)`` → ``(B, 1, Σ N_i*E_i)``.  ``embed_size`` is the sum
+    of the children's, as in the JAX package."""
+
+    @property
+    def embed_size(self) -> int:
+        return sum(m.embed_size for m in self.inputs)
+
+    def output_shape(self) -> Tuple[int, int]:
+        return 1, sum(math.prod(m.output_shape()) for m in self.inputs)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        outs = [m(batch) for m in self.inputs]
+        return torch.cat([o.reshape(o.shape[0], 1, -1) for o in outs], dim=2)
+
+
+class StackedInput(_Container):
+    """Stack the children along the field axis → ``(B, Σ N_i, E)``; every
+    child must emit the same ``E``."""
+
+    @property
+    def embed_size(self) -> int:
+        sizes = {m.embed_size for m in self.inputs}
+        if len(sizes) != 1:
+            raise ValueError(f"StackedInput children disagree on embed size: {sizes}")
+        return sizes.pop()
+
+    def output_shape(self) -> Tuple[int, int]:
+        return sum(m.output_shape()[0] for m in self.inputs), self.embed_size
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        return torch.cat([m(batch) for m in self.inputs], dim=1)
+
+
+__all__ = ["ConcatInput", "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding",
+           "SingleIndexEmbedding", "SparseLookup", "StackedInput", "TableInput", "ValueInput"]

@@ -1,5 +1,7 @@
 """Layers of the port (counterpart of ``torecsys_tpu/layers``)."""
 
-from torecsys_tpu_torch.layers.ctr import FactorizationMachineLayer, MultilayerPerceptionLayer
+from torecsys_tpu_torch.layers.ctr import *  # noqa: F401,F403
+from torecsys_tpu_torch.layers.ctr import __all__ as _ctr_all
+from torecsys_tpu_torch.layers.emb import GeneralizedMatrixFactorizationLayer
 
-__all__ = ["FactorizationMachineLayer", "MultilayerPerceptionLayer"]
+__all__ = [*_ctr_all, "GeneralizedMatrixFactorizationLayer"]

@@ -6,12 +6,15 @@ torch has no trace time, so here each is an attribute of the modules it
 concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
 ``set_table_dtype``, applied at ``finalize``):
 
-* ``compute_dtype`` on :class:`~torecsys_tpu_torch.layers.ctr.dense.MultilayerPerceptionLayer`:
-  under bf16 each of its products casts the input, weight and bias to bf16
-  (``torch.nn.functional.linear``, cuBLAS on the card), as flax
-  ``Dense(dtype=bf16, param_dtype=f32)`` does; the parameters stay float32
-  and ``Sequential`` casts a bf16 model output to float32;
-* the table dtype of :class:`~torecsys_tpu_torch.inputs.embeddings.MultiIndicesEmbedding`:
+* ``compute_dtype`` on each :class:`~torecsys_tpu_torch.layers.ctr.dense.Dense`
+  (the JAX package's ``Dense`` sites: the MLP towers, the Wide layer, LR,
+  AFM's attention, the CIN's and DCN's heads): under bf16 each product
+  casts the input, weight and bias to bf16 (``torch.nn.functional.linear``,
+  cuBLAS on the card), as flax ``Dense(dtype=bf16, param_dtype=f32)`` does;
+  every other layer computes in float32, as in the JAX package; the
+  parameters stay float32 and ``Sequential`` casts a bf16 model output to
+  float32;
+* the table dtype of each table module (:class:`~torecsys_tpu_torch.inputs.embeddings.TableInput`):
   its table is stored in it, and its looked-up rows are cast to float32 at
   the module boundary.  A bf16 table is a dense-route feature, as in the JAX
   package.

@@ -7,16 +7,9 @@ from torecsys_tpu_torch.models.base import (
     get_model,
     register_model,
 )
-from torecsys_tpu_torch.models.ctr import (
-    FM,
-    LR,
-    DeepFactorizationMachineModel,
-    DeepFM,
-    FactorizationMachineModel,
-    LogisticRegressionModel,
-)
+from torecsys_tpu_torch.models.ctr import *  # noqa: F401,F403
+from torecsys_tpu_torch.models.ctr import __all__ as _ctr_all
 from torecsys_tpu_torch.models.sequential import Sequential
 
-__all__ = ["FM", "LR", "MODELS", "BaseModel", "CtrBaseModel", "DeepFM",
-           "DeepFactorizationMachineModel", "FactorizationMachineModel",
-           "LogisticRegressionModel", "Sequential", "get_model", "register_model"]
+__all__ = ["MODELS", "BaseModel", "CtrBaseModel", "Sequential", "get_model", "register_model",
+           *_ctr_all]

@@ -9,7 +9,7 @@ which reads them off the ``Inputs`` it will be applied to.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Type
+from typing import Callable, Dict, Tuple, Type
 
 from torch import nn
 
@@ -42,6 +42,15 @@ def get_model(name_or_model, inputs=None, **kwargs):
     if inputs is not None:
         return cls.from_inputs(inputs, **kwargs)
     return cls(**kwargs)
+
+
+def input_shape(inputs, name: str) -> Tuple[int, int]:
+    """The ``(N, E)`` of the ``(B, N, E)`` tensor that ``inputs.schema[name]``
+    emits (its ``output_shape()``)."""
+    if name not in inputs.schema:
+        raise KeyError(f"the model reads {name!r}, which the inputs do not give "
+                       f"(they give {sorted(inputs.schema)})")
+    return inputs.schema[name].output_shape()
 
 
 class BaseModel(nn.Module):

@@ -9,6 +9,7 @@ carry-over from the JAX package stay a reshape.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -58,7 +59,9 @@ def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The packed table's gradient of a lookup: each row of the ``(M, E)``
     cotangent ``grad`` added into logical row ``ids[i]`` of a zero
-    ``(Vp, P*E)`` table of ``dtype``, with one writer per row and no atomics.
+    ``(Vp, P*E)`` table of ``dtype`` (of ``table_shape``: a field-aware
+    ``(N, Vp, P*E)`` table's gradient is summed over its ``(N*Vp, P*E)``
+    rows), with one writer per row and no atomics.
 
     Ids wrap as in the forward
     (:func:`~torecsys_tpu_torch.ops.kernels.embedding.wrap_ids`): an id in
@@ -82,7 +85,8 @@ def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape,
     from the bf16 sum by its L - 1 intermediate roundings, up to about
     ``(L - 1) * 2**-8`` of the sum's magnitude.
     """
-    vp, w = table_shape
+    w = table_shape[-1]
+    vp = math.prod(table_shape[:-1])
     e = grad.shape[1]
     pack = w // e
     rows = vp * pack
@@ -97,7 +101,7 @@ def table_grad(ids: torch.Tensor, grad: torch.Tensor, table_shape,
     hyper[:1].fill_(-1.0)  # lr, sgd reads nothing else; a fill, not a copy from the host
     _sparse_kernels.fused_sorted_dedup_update(sorted_ids, g_sorted, d_table, (), hyper,
                                               pack, "sgd")
-    return d_table.to(dtype)
+    return d_table.reshape(table_shape).to(dtype)
 
 
 class _RowGather(torch.autograd.Function):

@@ -7,6 +7,10 @@ CPU) and plain Python values:
 
 * ``params``: every parameter of the ``Sequential`` by name, the embedding
   tables included, in their dtype;
+* ``buffers``: the model's running statistics (``train.state.batch_stats``,
+  a BatchNorm's ``mean`` and ``var``) by name; a checkpoint written before
+  the port had them has no such key, and restores into a model without
+  them;
 * ``dense_opt``: the dense optimizer's ``state_dict()`` (Adam's moments and
   its step count, a float32 tensor that a capturable Adam keeps on the
   card);
@@ -40,7 +44,7 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state
-from torecsys_tpu_torch.train.state import TrainState
+from torecsys_tpu_torch.train.state import TrainState, batch_stats
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +78,7 @@ def _checkpoint_dict(seq: nn.Module, state: TrainState) -> Dict:
         "format": FORMAT,
         "sparse": hybrid,
         "params": {name: _cpu(p) for name, p in seq.named_parameters()},
+        "buffers": {name: _cpu(b) for name, b in batch_stats(seq).items()},
         "dense_opt": _cpu(_dense_optimizer(state).state_dict()),
         "row_slots": ({path: _cpu(slots) for path, slots in state.opt_state["sparse"].items()}
                       if hybrid else {}),
@@ -165,9 +170,17 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
         raise ValueError(f"checkpoint {path!r} holds parameters "
                          f"{sorted(set(saved['params']) ^ set(named))} that the model does "
                          "not have, or lacks some it has")
+    buffers = batch_stats(seq)
+    saved_buffers = saved.get("buffers", {})
+    if set(saved_buffers) != set(buffers):
+        raise ValueError(f"checkpoint {path!r} holds running statistics "
+                         f"{sorted(set(saved_buffers) ^ set(buffers))} that the model does not "
+                         "have, or lacks some it has")
     with torch.no_grad():
         for name, value in saved["params"].items():
             _copy_into(named[name], value, f"parameter {name!r}")
+        for name, value in saved_buffers.items():
+            _copy_into(buffers[name], value, f"buffer {name!r}")
         _restore_dense_optimizer(_dense_optimizer(state), saved["dense_opt"])
         if hybrid:
             live_slots = state.opt_state["sparse"]

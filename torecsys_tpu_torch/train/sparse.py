@@ -2,8 +2,12 @@
 ``torecsys_tpu/train/sparse.py``).
 
 The embedding tables of the sparse route are found structurally: every
-:class:`~torecsys_tpu_torch.inputs.embeddings.MultiIndicesEmbedding` under
-the model owns one table, its ``embedding`` parameter.  The hybrid optimizer
+table module (:class:`~torecsys_tpu_torch.inputs.embeddings.TableInput`:
+``SingleIndexEmbedding``, ``MultiIndicesEmbedding`` and
+``MultiIndicesFieldAwareEmbedding``) under the model owns one table, its
+``embedding`` parameter.  The row-wise optimizer sees each table as its
+``(R, W)`` stored rows (:meth:`TableInput.table_view`), so a field-aware
+table's ``(N, Vp, W)`` has the slots of ``N*Vp`` rows.  The hybrid optimizer
 state is::
 
     {"dense": <torch Adam over the non-table parameters>,
@@ -20,17 +24,17 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from torecsys_tpu_torch.inputs.embeddings import MultiIndicesEmbedding
+from torecsys_tpu_torch.inputs.embeddings import TableInput
 
 PARAM_NAME = "embedding"
 
 
-def sparse_modules(seq: nn.Module) -> Dict[str, MultiIndicesEmbedding]:
+def sparse_modules(seq: nn.Module) -> Dict[str, TableInput]:
     """``{table parameter name: owning module}`` of every sparse-route table."""
     return {
         f"{name}.{PARAM_NAME}" if name else PARAM_NAME: module
         for name, module in seq.named_modules()
-        if isinstance(module, MultiIndicesEmbedding)
+        if isinstance(module, TableInput)
     }
 
 
@@ -50,11 +54,13 @@ def is_hybrid_opt_state(opt_state) -> bool:
 
 
 def init_hybrid_opt_state(optimizer_factory, row_tx, seq: nn.Module, table_paths) -> Dict:
-    """Build the hybrid optimizer state over ``seq``'s partitioned parameters."""
+    """Build the hybrid optimizer state over ``seq``'s partitioned
+    parameters: row slots of each table's ``(R, W)`` stored rows."""
     dense, tables = split_params(seq, table_paths)
     return {
         "dense": optimizer_factory(list(dense.values())),
-        "sparse": {p: row_tx.init(t.detach()) for p, t in tables.items()},
+        "sparse": {p: row_tx.init(t.detach().reshape(-1, t.shape[-1]))
+                   for p, t in tables.items()},
     }
 
 

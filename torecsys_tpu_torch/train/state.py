@@ -1,20 +1,31 @@
 """Train state (counterpart of ``torecsys_tpu/train/state.py``).
 
-The parameters live in the modules; the state holds what the step carries
-besides them: the optimizer state, the step counter and the loss
-accumulators.  ``step`` and ``loss_sum`` are device tensors, so the training
-loop never waits on the device to count or accumulate, and a CUDA graph of
-the step advances them on its own.  ``loss_count`` is a host int that the
-trainer advances by the steps of each dispatch (a graph replay runs no
-Python).
+The parameters live in the modules, and so do the running statistics that
+the JAX package's state carries as ``batch_stats``: the model's persistent
+buffers (:func:`batch_stats`), which a train step moves in place.  The
+state holds what the step carries besides them: the optimizer state, the
+step counter and the loss accumulators.  ``step`` and ``loss_sum`` are
+device tensors, so the training loop never waits on the device to count or
+accumulate, and a CUDA graph of the step advances them on its own.
+``loss_count`` is a host int that the trainer advances by the steps of each
+dispatch (a graph replay runs no Python).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
 import torch
+from torch import nn
+
+
+def batch_stats(seq: nn.Module) -> Dict[str, torch.Tensor]:
+    """``{name: buffer}`` of ``seq``'s persistent buffers, the port's
+    ``batch_stats`` (the BatchNorms' ``mean`` and ``var``); the tensors
+    themselves, not copies."""
+    params = {name for name, _ in seq.named_parameters()}
+    return {name: t for name, t in seq.state_dict(keep_vars=True).items() if name not in params}
 
 
 @dataclasses.dataclass
@@ -54,4 +65,4 @@ class TrainState:
         self.loss_count = 0
 
 
-__all__ = ["TrainState"]
+__all__ = ["TrainState", "batch_stats"]

@@ -15,11 +15,17 @@ The train step dispatches on the state's optimizer layout, chosen at
   scatter-add of the lookup's backward), and one Adam step over every
   parameter, the tables included.
 
+Both run the model in ``train`` mode, where a BatchNorm normalizes with the
+batch's statistics and moves its running statistics (the JAX package's
+``batch_stats``, here module buffers) in place, in eager steps and in the
+captured graph alike.
+
 :func:`make_train_scan` runs K consecutive train steps as one dispatch (the
 JAX package's ``lax.scan`` of the step): on the card, a CUDA graph that
 captures the K steps, replayed once per dispatch.
 
-The eval steps run the model in ``eval`` mode under ``torch.no_grad()``.
+The eval steps run the model in ``eval`` mode under ``torch.no_grad()``: a
+BatchNorm normalizes with its running statistics.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ def make_train_step(pipeline: Pipeline) -> Callable[[TrainState, Batch], Tuple[T
                 g = lookup.rows.grad
                 if g is None:
                     g = torch.zeros_like(lookup.rows)
-                table, slots = module.embedding.detach(), state.opt_state["sparse"][path]
+                table, slots = module.table_view(), state.opt_state["sparse"][path]
                 if lookup.aux is not None:
                     row_tx.update_from_host_aux(table, slots, g.reshape(-1, e), lookup.aux,
                                                 state.step)
@@ -113,9 +119,10 @@ def make_train_step(pipeline: Pipeline) -> Callable[[TrainState, Batch], Tuple[T
 
 def _held_tensors(seq: torch.nn.Module, state: TrainState) -> List[torch.Tensor]:
     """Every tensor a train step reads or updates in place and keeps: the
-    parameters, the optimizer state and the step and loss accumulators.  A
-    CUDA graph holds them by address."""
-    held = list(seq.parameters()) + [state.step, state.loss_sum]
+    parameters, the buffers (a BatchNorm's running statistics among them),
+    the optimizer state and the step and loss accumulators.  A CUDA graph
+    holds them by address."""
+    held = list(seq.parameters()) + list(seq.buffers()) + [state.step, state.loss_sum]
     opt = state.opt_state
     dense = opt["dense"] if is_hybrid_opt_state(opt) else opt
     for param_state in dense.state.values():
