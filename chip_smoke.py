@@ -123,6 +123,23 @@ Phases (any failure raises and the exit code is not 0):
     29.46 GB of slots): two epochs of ``fit`` over 32 batches at 8 steps a
     dispatch, then a second capture with ``TORECSYS_TPU_FUSED_DEDUP=1``;
     each kernel's in-graph time beside its bound.
+15. (Run after phase 14, before phase 11.)  NCF + BPR (BASELINE.md
+    configuration 5) at the MovieLens-20M vocabulary (138,493 users, 26,744
+    items; E = 64, tower (256, 128, 64), the NCF paper's) on 4M implicit
+    interactions written with numpy (a planted user→item preference, Zipf
+    item popularity; 95% trained, 5% held out): ``set_objective("ltr")``
+    with ``UniformBatchMiner(num_negs=4)``, batch 1024, Adam 1e-3, float32,
+    ``Trainer(steps_per_execution=8)``, one epoch of ``fit``.  The miner's
+    draws on the card equal the CPU's; one step from one state with the
+    kernels against their plain versions (losses, every parameter and its
+    Adam moments); NDCG@10 on the held-out batches must rise by more than
+    0.05 over the epoch; launches (4 row gathers and 2 table-gradient sums a
+    step, the dense route's two applications) from the counters and a
+    traced replay; a replay against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; positive examples a second, step ms,
+    host ms, device busy and peak GB.  Then MF with ListNet and a
+    regularizer on its table, and StarSpace on ``emb``, at E = 16: steps
+    each from one state against the plain versions.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -2003,7 +2020,8 @@ def input_workers(trainer, n: int):
         del trainer._prepared
 
 
-def timed_dispatches(trainer, batches, path: str, steps_per_execution: int):
+def timed_dispatches(trainer, batches, path: str, steps_per_execution: int,
+                     batch_size: int = BATCH):
     """Train on ``batches`` at ``steps_per_execution`` steps a dispatch with
     the host counters set to 0: (examples/sec, host ms a step per stage)."""
     import torch
@@ -2015,7 +2033,7 @@ def timed_dispatches(trainer, batches, path: str, steps_per_execution: int):
     losses = trainer.train_steps(batches)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    eps = BATCH * len(batches) / elapsed
+    eps = batch_size * len(batches) / elapsed
     host = {k: v / len(batches) for k, v in trainer.host_ms.items()}
     loss_vals = torch.stack(losses).tolist()
     if not all(np.isfinite(loss_vals)):
@@ -2537,6 +2555,333 @@ def phase_ffm(seed: int, out_dir):
     return {**record, "bounds": {n: v for n, v in bounds.items()}, "in_graph_us": in_graph,
             "fused": {"launches_counted": fused_counts, "profile": fused},
             "peak_memory_gb_both_captures": peak}
+
+
+# ---- phase 15: NCF + BPR at the MovieLens-20M vocabulary --------------------
+
+# BASELINE.md configuration 5: NCF trained pairwise (BPR) on implicit
+# feedback with in-batch negatives, evaluated by NDCG@10.  The vocabulary is
+# MovieLens-20M's (the ml-20m README: 138,493 users, 26,744 rated movies);
+# E = 64, the NCF paper's largest predictive factor, and the tower (256,
+# 128, 64) the paper's three layers for that factor (He et al., WWW 2017,
+# section 4.1); 4 negatives a positive and batch 1024, the paper's.
+ML_USERS = 138_493
+ML_ITEMS = 26_744
+NCF_LTR_EMBED = 64
+NCF_LTR_TOWER = (256, 128, 64)
+NCF_LTR_INTERACTIONS = 4_000_000
+NCF_LTR_HELD = 0.05
+NCF_LTR_BATCH = 1024
+NCF_LTR_NEGS = 4
+NCF_LTR_PLANTED = 0.8     # share of a user's interactions in its planted cluster
+NCF_LTR_ZIPF = 1.0        # item popularity of the other interactions
+NCF_LTR_NDCG_K = 10
+NCF_LTR_NDCG_RISE = 0.05
+NCF_LTR_TIMED_DISPATCHES = 64
+NCF_LTR_MINER_KEYS = 8
+# the lookup and the grad permute of each application, the per-row sum of
+# each application's table gradient: two applications a step
+LTR_PER_STEP = {"row_gather": 4, "fused_sorted_dedup_update": 2}
+RANKING_SMALL_EMBED = 16
+RANKING_SMALL_STEPS = 3
+
+
+def interaction_batches(seed: int):
+    """Implicit feedback over the MovieLens-20M vocabulary, written with
+    numpy: users uniform; each user prefers a cluster of three items
+    (``3u mod items`` and the two after it, as ``tests/test_trainer.py``
+    plants one) for 80% of its interactions, the rest drawn from a Zipf(1.0)
+    item popularity.  Returns (training batches, held-out batches): 95% and
+    5% of the interactions, in batches of 1024 (the remainders dropped)."""
+    rng = np.random.default_rng(seed)
+    n = NCF_LTR_INTERACTIONS
+    users = rng.integers(0, ML_USERS, n)
+    popularity = 1.0 / np.arange(1, ML_ITEMS + 1) ** NCF_LTR_ZIPF
+    popular = rng.choice(ML_ITEMS, size=n, p=popularity / popularity.sum())
+    planted = (users * 3 + rng.integers(0, 3, n)) % ML_ITEMS
+    items = np.where(rng.uniform(size=n) < NCF_LTR_PLANTED, planted, popular)
+    cols = {"user": users.astype(np.int32), "item": items.astype(np.int32),
+            "label": np.ones(n, np.float32)}
+    b = NCF_LTR_BATCH
+    split = int(n * (1 - NCF_LTR_HELD))
+
+    def cut(lo, hi):
+        return [{k: v[s:s + b] for k, v in cols.items()} for s in range(lo, hi - b + 1, b)]
+
+    return cut(0, split), cut(split, n)
+
+
+def ranking_pipeline(objective: str, model: str, model_kwargs, criterion: str, embed: int,
+                     regularizer=None):
+    """A ranking pipeline on the card over the MovieLens-20M vocabulary: one
+    fused (user, item) table for ``ltr`` (MF, NCF), a context (user) and a
+    target (item) table for StarSpace on ``emb``; Adam 1e-3, float32."""
+    from torecsys_tpu_torch import Inputs, Pipeline
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding
+
+    if objective == "ltr":
+        schema = {"emb_inputs": MultiIndicesEmbedding(embed, (ML_USERS, ML_ITEMS),
+                                                      ("user", "item"), device=DEVICE)}
+    else:
+        schema = {"context_inputs": MultiIndicesEmbedding(embed, (ML_USERS,), ("user",),
+                                                          device=DEVICE),
+                  "target_inputs": MultiIndicesEmbedding(embed, (ML_ITEMS,), ("item",),
+                                                         device=DEVICE)}
+    pipe = (Pipeline(device=DEVICE).set_objective(objective).set_inputs(Inputs(schema))
+            .set_model(model, **model_kwargs).set_criterion(criterion)
+            .set_miner("UniformBatchMiner", num_negs=NCF_LTR_NEGS)
+            .set_miner_target_field("item").set_optimizer("Adam", lr=1e-3)
+            .set_target_fields("label"))
+    if regularizer is not None:
+        pipe.set_regularizer(regularizer)
+    return pipe
+
+
+def check_miner_draws(seed: int):
+    """The miner's draws on the card and on the CPU, as integers, for the
+    train keys of steps 0-7 (device keys from the state's step) and the
+    evaluation keys of batches 0-7."""
+    import torch
+
+    from torecsys_tpu_torch.miners import UniformBatchMiner
+    from torecsys_tpu_torch.train.steps import eval_miner_key, miner_key
+
+    miner = UniformBatchMiner(NCF_LTR_NEGS)
+    n = 0
+    for i in range(NCF_LTR_MINER_KEYS):
+        step = torch.tensor(i, dtype=torch.int32)
+        pairs = ((miner_key(seed, step.to(DEVICE)), miner_key(seed, step)),
+                 (eval_miner_key(i), eval_miner_key(i)))
+        for card_key, cpu_key in pairs:
+            card = miner.draw(card_key, NCF_LTR_BATCH, DEVICE)
+            cpu = miner.draw(cpu_key, NCF_LTR_BATCH, "cpu")
+            if card.device.type != torch.device(DEVICE).type or not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"ncf_bpr: the miner's draws on the card differ from the "
+                                     f"CPU's for key {int(cpu_key)}")
+            n += card.numel()
+    log(f"[ncf_bpr] miner: {n} draws of {2 * NCF_LTR_MINER_KEYS} keys (train steps 0-"
+        f"{NCF_LTR_MINER_KEYS - 1} from the device step, evaluation batches 0-"
+        f"{NCF_LTR_MINER_KEYS - 1}) equal on the card and on the CPU")
+    return n
+
+
+def dense_state(trainer):
+    """Every parameter and its Adam moments, cloned."""
+    seq = trainer.pipeline.sequential
+    opt = trainer.state.opt_state
+    out = {}
+    for name, p in seq.named_parameters():
+        out[name] = p.detach().clone()
+        moments = opt.state.get(p, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in moments:
+                out[f"{name}:{key}"] = moments[key].clone()
+    return out
+
+
+def ranking_steps_vs_plain(trainer, batches, fns, path: str):
+    """Each of ``batches`` one step from the kernels' state, with the kernels
+    and with their plain versions: the losses within DENSE_LOSS_RTOL, every
+    parameter (the tables among them) and its Adam moments within
+    DENSE_TABLE_ATOL, as phase 6 holds the dense route.  The kernels'
+    launches over the kernel steps must be LTR_PER_STEP's."""
+    import torch
+
+    losses, worst, where = [], 0.0, ""
+    reset_counts(fns)
+    for batch in batches:
+        before = snapshot(trainer)
+        with plain_versions(fns):
+            loss_p = trainer.train_steps([batch])[0].item()
+        plain = dense_state(trainer)
+        restore(trainer, before)
+        del before
+        loss_k = trainer.train_steps([batch])[0].item()
+        for name, t in dense_state(trainer).items():
+            err = (t - plain[name]).abs().max().item()
+            if err > worst:
+                worst, where = err, name
+        losses.append((loss_k, loss_p))
+        del plain
+    counts = read_counts(fns)
+    check_counts(f"{path} kernel steps", counts,
+                 expect(**{n: len(batches) * c for n, c in LTR_PER_STEP.items()}))
+    rel = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"[{path}] kernels vs plain, {len(batches)} steps each from the kernels' state: losses "
+        f"{losses} (max rel diff {rel:.3g}, rtol {DENSE_LOSS_RTOL}); every parameter and Adam "
+        f"moment max_abs_err={worst:.3g} ({where or 'all equal'}; atol {DENSE_TABLE_ATOL})")
+    if not rel <= DENSE_LOSS_RTOL:
+        raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
+    if not worst <= DENSE_TABLE_ATOL:
+        raise AssertionError(f"{path}: {where} with kernels and plain versions disagrees by "
+                             f"{worst:.3g}")
+    if not all(np.isfinite(a) for a, _ in losses):
+        raise AssertionError(f"{path}: non-finite loss {losses}")
+    torch.cuda.synchronize()
+    return {"losses": losses, "max_loss_rel_diff": rel, "max_abs_err": worst,
+            "launches": counts}
+
+
+def ltr_bounds(trainer, batch, seed: int):
+    """(bound_ms, "bytes") of the row gathers and the table gradients' sums
+    of one NCF + BPR step on ``batch`` (step 0's draws): for each
+    application, the lookup reads its int64 ids and each distinct row once
+    and writes the (M, E) rows; the permute reads the cotangent and the
+    order and writes it permuted; the sum reads int32 rows and the permuted
+    cotangent and reads and writes each touched stored row of the zero
+    table."""
+    import torch
+
+    from torecsys_tpu_torch.train.steps import miner_key
+
+    module = table_module(trainer)
+    e, w, pack = module.embed_size, module.embedding.shape[-1], module.pack
+    draws = trainer.pipeline.miner.draw(miner_key(seed, torch.tensor(0, dtype=torch.int32)),
+                                        NCF_LTR_BATCH, "cpu").numpy()
+    users, items = batch["user"].astype(np.int64), batch["item"].astype(np.int64) + ML_USERS
+    views = {"pos": np.stack([users, items], 1),
+             "neg": np.stack([np.repeat(users, NCF_LTR_NEGS), items[draws]], 1)}
+    gather_bytes = sum_bytes = 0.0
+    detail = {}
+    for name, ids in views.items():
+        m, d = ids.size, np.unique(ids).size
+        u = np.unique(ids // pack).size
+        gather_bytes += m * 8 + d * e * 4 + m * e * 4 + (m * e * 4 + m * 8 + m * e * 4)
+        sum_bytes += m * 4 + m * e * 4 + 2 * u * w * 4
+        detail[name] = {"ids": m, "distinct_ids": d, "stored_rows": u}
+    return {"row_gather": bound(gather_bytes, 0), "fused_sorted_dedup_update": bound(sum_bytes, 0),
+            "views": detail}
+
+
+def phase_ncf_ltr(seed: int, out_dir):
+    """Phase 15: NCF + BPR at the MovieLens-20M vocabulary through the entry
+    points a user calls (``Pipeline().set_objective("ltr")``, ``set_miner``,
+    ``set_miner_target_field``, ``Trainer(steps_per_execution=8)``, ``fit``
+    for one epoch, ``evaluate`` with ``ndcg_k=10``): the miner's draws held
+    to the CPU's; one step from one state against the plain versions
+    (losses, table and Adam moments); NDCG@10 on the held-out 5% before and
+    after the epoch, which must rise by more than 0.05; launches, the
+    wrappers' counts of the warm-up and capture plus the replays times a
+    traced replay's, equal to 4 row gathers and 2 table-gradient sums a
+    step; a replay against 8 eager steps to the bit and a replay under
+    ``set_sync_debug_mode("error")``; then positive examples a second, step
+    ms, host ms a step, device busy and peak GB over 64 timed dispatches.
+    Then two short eager runs at E = 16, each step from one state against
+    the plain versions: MF with ListNet and a regularizer on the table
+    (``key_filter`` the table's name), and StarSpace on ``emb``."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.layers import Regularizer
+
+    fns = kernels()
+    k = GRAPH_K
+    card = card_line()
+    train, held = interaction_batches(seed + 13)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = ranking_pipeline("ltr", "NCF", {"deep_layer_sizes": NCF_LTR_TOWER},
+                            "BayesianPersonalizedRankingLoss", NCF_LTR_EMBED)
+    trainer = Trainer(pipe, log_every=10**9, seed=seed, steps_per_execution=k,
+                      ndcg_k=NCF_LTR_NDCG_K)
+    trainer.init_state()
+    table = table_module(trainer)
+    if trainer.sparse or trainer._presorter is not None:
+        raise AssertionError("ncf_bpr: the ltr objective left the dense route")
+    log(f"[ncf_bpr] {ML_USERS} users, {ML_ITEMS} items: table {tuple(table.embedding.shape)} "
+        f"(pack {table.pack}, {table.embedding.numel() * 4 / 1e6:.1f} MB; with Adam's moments "
+        f"{table.embedding.numel() * 12 / 1e6:.1f} MB), tower {NCF_LTR_TOWER}, "
+        f"{NCF_LTR_NEGS} negatives a positive, batch {NCF_LTR_BATCH}; {len(train)} training "
+        f"batches, {len(held)} held out")
+    miner_draws = check_miner_draws(seed)
+    reset_counts(fns)
+    before = trainer.evaluate(held)[f"val_ndcg@{NCF_LTR_NDCG_K}"]
+    check_counts("ncf_bpr evaluate", read_counts(fns), expect(row_gather=2 * len(held)))
+    start = snapshot(trainer)
+    trainer.steps_per_execution = 1
+    compare = ranking_steps_vs_plain(trainer, train[:1], fns, "ncf_bpr")
+    trainer.steps_per_execution = k
+    restore(trainer, start)
+    del start
+    reset_counts(fns)
+    epoch = trainer.fit(train, max_epochs=1)
+    counts = read_counts(fns)
+    stats = dict(trainer.graph_stats)
+    after = trainer.evaluate(held)[f"val_ndcg@{NCF_LTR_NDCG_K}"]
+    log(f"[ncf_bpr] NDCG@{NCF_LTR_NDCG_K} on {len(held)} held-out batches: {before:.6f} before "
+        f"training, {after:.6f} after one epoch (train_loss {epoch['train_loss']:.6f}, "
+        f"{epoch['examples_per_sec']:.1f} positive examples/sec with the warm-up and capture)")
+    if not after > before + NCF_LTR_NDCG_RISE:
+        raise AssertionError(f"ncf_bpr: NDCG@{NCF_LTR_NDCG_K} rose from {before:.6f} to "
+                             f"{after:.6f}, not by more than {NCF_LTR_NDCG_RISE}")
+    traced = replay_profile(trainer, train[:k], out_dir, "ncf_bpr")
+    per_replay = traced["launches_per_replay"]
+    want_replay = {n: k * c for n, c in LTR_PER_STEP.items()}
+    if per_replay != want_replay:
+        raise AssertionError(f"ncf_bpr: a traced replay launched {per_replay}, expected "
+                             f"{want_replay}")
+    ran = stats["replays"] - stats["captures"]
+    total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
+    check_counts(f"ncf_bpr fit ({len(train)} steps: counted {counts}, + {ran} replays x "
+                 f"{per_replay})", total,
+                 expect(**{n: len(train) * c for n, c in LTR_PER_STEP.items()}))
+    start = snapshot(trainer)
+    graphed, eager, same = replay_vs_eager(trainer, train[k:2 * k], start, "ncf_bpr")
+    restore(trainer, start)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_steps(train[k:2 * k])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[ncf_bpr] a replay with the host input path under set_sync_debug_mode('error'): no "
+        "synchronising call")
+    restore(trainer, start)
+    del start
+    timed = train[:NCF_LTR_TIMED_DISPATCHES * k]
+    eps, host = timed_dispatches(trainer, timed, "ncf_bpr", k, NCF_LTR_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = NCF_LTR_BATCH / eps * 1e3
+    busy = traced["device_busy_ms_per_step"]
+    bounds = ltr_bounds(trainer, train[0], seed)
+    in_graph = traced["kernel_us_per_step"]
+    top = sorted(traced["device_us_per_step_by_name"].items(), key=lambda kv: -kv[1])[:10]
+    log(f"[ncf_bpr] {card}: {eps:.1f} positive examples/sec ({NCF_LTR_BATCH * (1 + NCF_LTR_NEGS)}"
+        f" scored pairs a step), step {step_ms:.4f} ms, device busy {busy:.4f} ms a step "
+        f"({busy / step_ms:.3f}), host ms/step: "
+        + " ".join(f"{n}={v:.3f}" for n, v in host.items())
+        + f", peak allocated {peak:.3f} GB; in-graph us a step: "
+        + ", ".join(f"{n} {in_graph.get(n, 0.0):.1f} (bound {bounds[n][0] * 1e3:.1f}, "
+                    f"{bounds[n][1]})" for n in LTR_PER_STEP)
+        + "; top kernels a step: " + "; ".join(f"{us:.1f} us {name[:80]}" for name, us in top))
+    scores = trainer.predict(held[0])
+    if tuple(scores.shape) != (NCF_LTR_BATCH, 1) or not torch.isfinite(scores).all():
+        raise AssertionError("ncf_bpr: predict gave non-finite scores or another shape")
+    del trainer, table
+    release()
+    small = {}
+    for path, (objective, model, kwargs, criterion, regularizer) in {
+        "mf_listnet": ("ltr", "MF", {}, "ListnetLoss",
+                       Regularizer(weight_decay=1e-4, key_filter="schema_emb_inputs")),
+        "starspace": ("emb", "StarSpace", {"num_neg": NCF_LTR_NEGS},
+                      "BayesianPersonalizedRankingLoss", None),
+    }.items():
+        t = Trainer(ranking_pipeline(objective, model, kwargs, criterion,
+                                     RANKING_SMALL_EMBED, regularizer),
+                    log_every=10**9, seed=seed)
+        t.init_state()
+        small[path] = ranking_steps_vs_plain(t, train[:RANKING_SMALL_STEPS], fns, path)
+        del t
+        release()
+    return {"launches": total, "launches_counted": counts, "graph_stats": stats,
+            "miner_draws_held": miner_draws, "compare": compare,
+            "ndcg_before": before, "ndcg_after": after, "train_loss": epoch["train_loss"],
+            "fit_examples_per_sec": epoch["examples_per_sec"], "examples_per_sec": eps,
+            "step_ms": step_ms, "host_ms_per_step": host, "device_busy_ms_per_step": busy,
+            "device_busy_share": busy / step_ms, "peak_memory_gb": peak,
+            "replay_bit_identical": same, "losses_graphed": graphed, "losses_eager": eager,
+            "profile": traced, "in_graph_us": in_graph,
+            "bounds": {n: bounds[n] for n in LTR_PER_STEP}, "views": bounds["views"],
+            "small": small, "card": card}
 
 
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
@@ -3134,10 +3479,11 @@ def main(argv=None):
     dcn = timed("dcn", phase_dcn, args.seed, args.out)
     ffm_held = timed("ffm_held", phase_ffm_held, args.seed, args.out)
     ffm = timed("ffm", phase_ffm, args.seed, args.out)
+    ncf_bpr = timed("ncf_bpr", phase_ncf_ltr, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
-             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+             "ncf_bpr": ncf_bpr, "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -3154,6 +3500,9 @@ def main(argv=None):
         if name in ffm["in_graph_us"]:  # at FFM's shape: 3.2M ids a step, pack 32
             line["ffm_in_graph_us"] = ffm["in_graph_us"][name]
             line["ffm_bound_ms"], line["ffm_bound_by"] = ffm["bounds"][name]
+        if name in LTR_PER_STEP:  # NCF + BPR's step: two applications, E = 64, pack 2
+            line["ltr_in_graph_us"] = ncf_bpr["in_graph_us"].get(name, 0.0)
+            line["ltr_bound_ms"], line["ltr_bound_by"] = ncf_bpr["bounds"][name]
         kernel_lines.append(line)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:

@@ -140,17 +140,44 @@ def test_single_device_mesh_options_run():
 
 
 def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
+    """What is still not ported is refused, by name, with its ROADMAP item:
+    the sequence and image inputs, and PRM (the attention slice), as an
+    ``ltr`` model.  The objectives, the regularizer and the miner are ported
+    (``test_build_takes_the_ranking_objectives_miner_and_regularizer``)."""
     with pytest.raises(NotImplementedError, match="item 8"):
         _build_inputs({"emb_inputs": {"method": "SequenceIndicesEmbedding", "embed_size": 4,
                                       "field_size": 9, "fields": ["a"]}}, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Pipeline.build(device="cpu", objective="ltr", model_config={"method": "FM"})
     with pytest.raises(NotImplementedError, match="item 8"):
-        Pipeline.build(device="cpu", model_config={"method": "FM"},
-                       regularizer_config={"weight_decay": 0.1})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Pipeline.build(device="cpu", model_config={"method": "FM"},
-                       miner_config={"method": "UniformBatchMiner"})
+        _build_inputs({"image_inputs": {"method": "PretrainedImageInput", "embed_size": 4}},
+                      "cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _build_inputs({"seq_inputs": {"method": "ListIndicesEmbedding", "embed_size": 4,
+                                      "field_size": 9, "fields": ["a"]}}, "cpu")
+    inputs = _build_inputs({"emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4,
+                                           "field_sizes": [10, 20], "fields": ["u", "i"]}},
+                           "cpu")
+    with pytest.raises(NotImplementedError, match="item 8: the attention slice"):
+        Pipeline.build(device="cpu", objective="ltr", inputs_config=inputs,
+                       model_config={"method": "PRM", "max_num_position": 5},
+                       miner_target_field="i")
+
+
+def test_build_takes_the_ranking_objectives_miner_and_regularizer(capsys):
+    inputs = json.dumps({"emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4,
+                                        "field_sizes": [10, 20], "fields": ["u", "i"]}})
+    pipe = run(["build", "--device", "cpu", "--objective", "ltr", "--model_config",
+                '{"method": "NCF", "deep_layer_sizes": [8]}', "--inputs_config", inputs,
+                "--criterion_config", '{"method": "BayesianPersonalizedRankingLoss"}',
+                "--miner_config", '{"method": "UniformBatchMiner", "num_negs": 4}',
+                "--miner_target_field", "i", "--regularizer_config",
+                '{"weight_decay": 0.01, "key_filter": "kernel"}'])
+    out = capsys.readouterr().out
+    assert "ltr" in out and "UniformBatchMiner" in out and "key_filter='kernel'" in out
+    assert pipe.objective == "ltr" and pipe.num_negs == 4 and pipe.miner_target_field == "i"
+    assert pipe.regularizer.weight_decay == 0.01
+    pipe = run(["build", "--device", "cpu", "--objective", "emb", "--model_config",
+                '{"method": "MF"}', "--inputs_config", inputs, "--miner_target_field", "i"])
+    assert pipe.objective == "emb" and type(pipe.model).__name__ == "MatrixFactorizationModel"
 
 
 def test_build_and_version(capsys):

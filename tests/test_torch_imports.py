@@ -3,10 +3,13 @@ and running its paths (sparse training on the presorted and the on-device
 route, on both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training,
 evaluation, prediction; each model of the registry built and applied, and
 xDeepFM, FFM over the field-aware table and NCF over two single-index
-tables trained on both routes and checkpointed; and the CLI: streamed
-training from the bundled Criteo sample with a checkpoint, a resumed run and
-evaluation, which also parse, collate and load data), loads neither JAX (nor
-flax, optax) nor anything of the JAX package, nor click or pandas."""
+tables trained on both routes and checkpointed; the ``ltr`` objective (NCF
+with BPR and the miner, a regularizer) fit and evaluated, eager and at 2
+steps a dispatch, and StarSpace on ``emb``; and the CLI: streamed training
+from the bundled Criteo sample with a checkpoint, a resumed run and
+evaluation, which also parse, collate and load data, and ``build
+--objective ltr``), loads neither JAX (nor flax, optax) nor anything of the
+JAX package, nor click or pandas."""
 
 import os
 import subprocess
@@ -61,12 +64,41 @@ for name, schema in schemas.items():
             t.save_checkpoint(os.path.join(d, "c.pt"))
 for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
     if name.__name__ in ("FieldAwareFactorizationMachineModel", "LogisticRegressionModel",
-                         "NeuralCollaborativeFilteringModel", "DeepAndCrossNetworkModel"):
-        continue  # other inputs (above, or in the steps before)
+                         "NeuralCollaborativeFilteringModel", "DeepAndCrossNetworkModel",
+                         "StarSpaceModel", "LearningToRankWrapper",
+                         "PersonalizedReRankingModel"):
+        continue  # other inputs (above, or in the steps before and after), or not ported
+    if name.__name__ == "MatrixFactorizationModel":
+        pipe = Pipeline(device="cpu").set_inputs(I.Inputs({"emb_inputs": schemas["DCN"][
+            "emb_inputs"]})).set_model("MF")
+        assert pipe.sequential({k: torch.as_tensor(v) for k, v in cats.items()}).shape == (16, 1)
+        continue
     pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schemas["xDeepFM"])).set_model(
         name.__name__, **({"attn_size": 4} if "Attentional" in name.__name__ else {}))
     assert pipe.sequential({k: torch.as_tensor(v) for k, v in batch.items()}).shape == (16, 1)
+ranking = {"u": rng.integers(0, 50, 16), "i": rng.integers(0, 9, 16),
+           "label": np.ones(16, np.float32)}
+for spe in (1, 2):
+    pipe = (Pipeline(device="cpu").set_objective("ltr")
+            .set_inputs(I.Inputs({"emb_inputs": I.MultiIndicesEmbedding(8, (50, 9), ("u", "i"),
+                                                                         device="cpu")}))
+            .set_model("NCF", deep_layer_sizes=(8,)).set_criterion("BayesianPersonalizedRankingLoss")
+            .set_miner("UniformBatchMiner", num_negs=4).set_miner_target_field("i")
+            .set_regularizer(weight_decay=0.01))
+    t = Trainer(pipe, steps_per_execution=spe)
+    assert 0.0 < t.fit([ranking, ranking], val_loader=[ranking])["val_ndcg@10"] <= 1.0
+    assert not t.sparse
+pipe = (Pipeline(device="cpu").set_objective("emb")
+        .set_inputs(I.Inputs({"context_inputs": I.SingleIndexEmbedding(50, 8, ("u",), device="cpu"),
+                              "target_inputs": I.SingleIndexEmbedding(9, 8, ("i",), device="cpu")}))
+        .set_model("StarSpace", num_neg=3).set_miner("UniformBatchMiner", num_negs=3)
+        .set_miner_target_field("i"))
+assert np.isfinite(float(Trainer(pipe).train_steps([ranking])[-1]))
 from torecsys_tpu_torch.cli import main
+assert main(["build", "--device", "cpu", "--objective", "ltr", "--model_config",
+             '{"method": "MF"}', "--inputs_config",
+             '{"emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4, '
+             '"field_sizes": [50, 9], "fields": ["u", "i"]}}', "--miner_target_field", "i"]) == 0
 from torecsys_tpu_torch.data import CollateFunction, DataLoader, FieldSpec, NdarrayToDataset
 from torecsys_tpu_torch.data.sample_data import load_criteo_data
 sample = os.path.join("torecsys_tpu", "data", "sample", "criteo_sample.tsv")

@@ -12,7 +12,10 @@ field-aware embedding inputs (xDeepFM's BatchNorm statistics as module
 buffers), trained on the sparse embedding route (host-presorted, or sorted
 and deduped on the card with ``Trainer(presort=False)``) or on the
 dense-table route, their evaluation
-(streaming AUC and logloss) and prediction, checkpoints with resume
+(streaming AUC and logloss) and prediction; the ``ltr`` and ``emb``
+objectives (the ranking and embedding losses, the in-batch miner, MF,
+StarSpace and the LTR wrapper, NDCG evaluation) on the dense route and the
+regularizer on every route; checkpoints with resume
 (``train.checkpoint``), the data utilities with the C++ Criteo parser and
 chunked file streaming (``data``), and the command line (``cli``:
 ``python -m torecsys_tpu_torch.cli``), with every kernel the JAX package

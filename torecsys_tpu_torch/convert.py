@@ -66,6 +66,28 @@ def torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def flax_path(name: str) -> str:
+    """The port's parameter name → the flax parameter path: the inverse of
+    :func:`torch_name` (``inputs.schema.<name>`` → ``inputs/schema_<name>``,
+    a container's child ``inputs.<i>`` → ``inputs_<i>``, ``weight`` →
+    ``kernel``)."""
+    parts = name.split(".")
+    out = []
+    if len(parts) > 2 and parts[:2] == ["inputs", "schema"]:
+        out, parts = ["inputs", _SCHEMA + parts[2]], parts[3:]
+    i = 0
+    while i < len(parts):
+        if parts[i] == "inputs" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"inputs_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append(parts[i])
+        i += 1
+    if out[-1] == "weight":
+        out[-1] = "kernel"
+    return SEP.join(out)
+
+
 def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
     """A numpy array as a tensor; a bfloat16 array (ml_dtypes, what
     ``jax.device_get`` gives of a bf16 array) keeps its bits."""
@@ -181,4 +203,4 @@ def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> No
             port_slots[k].copy_(_numpy_to_torch(arr))
 
 
-__all__ = ["copy_row_slots", "flatten", "from_flax_params", "torch_name"]
+__all__ = ["copy_row_slots", "flatten", "flax_path", "from_flax_params", "torch_name"]

@@ -2,6 +2,7 @@
 
 from torecsys_tpu_torch.layers.ctr import *  # noqa: F401,F403
 from torecsys_tpu_torch.layers.ctr import __all__ as _ctr_all
-from torecsys_tpu_torch.layers.emb import GeneralizedMatrixFactorizationLayer
+from torecsys_tpu_torch.layers.emb import GeneralizedMatrixFactorizationLayer, StarSpaceLayer
+from torecsys_tpu_torch.layers.regularization import Regularizer
 
-__all__ = [*_ctr_all, "GeneralizedMatrixFactorizationLayer"]
+__all__ = [*_ctr_all, "GeneralizedMatrixFactorizationLayer", "Regularizer", "StarSpaceLayer"]

@@ -1,46 +1,150 @@
 """Losses (counterpart of ``torecsys_tpu/losses``): the pointwise CTR
-criterion of the main path."""
+criteria, the learning-to-rank losses and the embedding loss.
+
+A loss is a frozen dataclass over the functions of
+:mod:`torecsys_tpu_torch.losses.functional`.  The ranking losses take
+``(pos, neg, mask=None)``, but :class:`ListnetLoss`, whose
+``groupwise = True`` makes the ``ltr`` train step hand it per-anchor
+``[pos | negs]`` lists with one-hot relevance, ``(y_true, y_pred)``.
+:data:`LOSSES` resolves the JAX package's names.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Type
+from typing import Dict, Optional, Type
 
 import torch
 
-
-def align_targets(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Reshape ``(B,)`` targets against ``(B, 1)`` predictions (and the
-    reverse) so elementwise losses never silently broadcast ``(B, B)``."""
-    if targets.shape != preds.shape and targets.numel() == preds.numel():
-        return targets.reshape(preds.shape)
-    return targets
-
-
-def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Numerically stable per-example BCE on logits, written as the JAX
-    package writes it."""
-    targets = targets.to(logits.dtype)
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
-
+from torecsys_tpu_torch.losses import functional as F
+from torecsys_tpu_torch.losses.functional import align_targets, binary_cross_entropy_with_logits
 
 _REDUCTIONS = {"mean": torch.mean, "sum": torch.sum, "none": lambda x: x}
+
+
+def _reduce(loss: torch.Tensor, reduction: str, mask) -> torch.Tensor:
+    if mask is not None:
+        return F.apply_mask(loss, mask)
+    return _REDUCTIONS[reduction](loss)
 
 
 class Loss:
     """Base loss.  Subclasses implement ``__call__`` returning a scalar."""
 
 
+class RankingLoss(Loss):
+    """Base of the ranking losses: ``loss(pos_outputs, neg_outputs, mask=None)``."""
+
+
+class EmbLoss(Loss):
+    """Base of the embedding losses."""
+
+
+# ---- pointwise CTR criteria ------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class BCEWithLogitsLoss(Loss):
     reduction: str = "mean"
 
-    def __call__(self, preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        loss = binary_cross_entropy_with_logits(preds, align_targets(preds, targets))
-        return _REDUCTIONS[self.reduction](loss)
+    def __call__(self, preds, targets, mask=None):
+        return _reduce(F.binary_cross_entropy_with_logits(preds, F.align_targets(preds, targets)),
+                       self.reduction, mask)
 
 
-LOSSES: Dict[str, Type[Loss]] = {"BCEWithLogitsLoss": BCEWithLogitsLoss}
+@dataclasses.dataclass(frozen=True)
+class BCELoss(Loss):
+    reduction: str = "mean"
+
+    def __call__(self, preds, targets, mask=None):
+        return _reduce(F.binary_cross_entropy(preds, F.align_targets(preds, targets)),
+                       self.reduction, mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class MSELoss(Loss):
+    reduction: str = "mean"
+
+    def __call__(self, preds, targets, mask=None):
+        return _reduce(F.mean_squared_error(preds, F.align_targets(preds, targets)),
+                       self.reduction, mask)
+
+
+# ---- learning to rank ------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PointwiseLogisticLoss(RankingLoss):
+    def __call__(self, pos, neg, mask=None):
+        return F.apply_mask(F.pointwise_logistic_ranking_loss(pos, neg), mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class BayesianPersonalizedRankingLoss(RankingLoss):
+    def __call__(self, pos, neg, mask=None):
+        return F.apply_mask(F.bayesian_personalized_ranking_loss(pos, neg), mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class HingeLoss(RankingLoss):
+    margin: float = 1.0
+
+    def __call__(self, pos, neg, mask=None):
+        return F.apply_mask(F.hinge_loss(pos, neg, self.margin), mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveHingeLoss(RankingLoss):
+    """Hinge against each anchor's hardest negative."""
+
+    margin: float = 1.0
+
+    def __call__(self, pos, negs, mask=None):
+        return F.apply_mask(F.adaptive_hinge_loss(pos, negs, self.margin), mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class TripletLoss(RankingLoss):
+    """Margin ranking, or soft margin when ``margin`` is None."""
+
+    margin: Optional[float] = 1.0
+
+    def __call__(self, pos, neg, mask=None):
+        if self.margin is None:
+            loss = F.soft_margin_loss(pos, neg)
+        else:
+            loss = F.margin_ranking_loss(pos, neg, self.margin)
+        return F.apply_mask(loss, mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class ListnetLoss(RankingLoss):
+    """Groupwise ListNet top-1 cross entropy over ``(B, L)`` lists."""
+
+    groupwise = True
+
+    def __call__(self, y_true, y_pred, mask=None):
+        return torch.mean(F.listnet_loss(y_true, y_pred, mask))
+
+
+# ---- embedding -------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SkipGramLoss(EmbLoss):
+    def __call__(self, content, pos, negs, mask=None):
+        return F.apply_mask(F.skip_gram_loss(content, pos, negs), mask)
+
+
+LOSSES: Dict[str, Type[Loss]] = {
+    "AdaptiveHingeLoss": AdaptiveHingeLoss,
+    "BCELoss": BCELoss,
+    "BCEWithLogitsLoss": BCEWithLogitsLoss,
+    "BayesianPersonalizedRankingLoss": BayesianPersonalizedRankingLoss,
+    "HingeLoss": HingeLoss,
+    "ListnetLoss": ListnetLoss,
+    "MSELoss": MSELoss,
+    "PointwiseLogisticLoss": PointwiseLogisticLoss,
+    "SkipGramLoss": SkipGramLoss,
+    "TripletLoss": TripletLoss,
+}
 
 
 def get_loss(name_or_loss, **kwargs):
@@ -52,5 +156,9 @@ def get_loss(name_or_loss, **kwargs):
     return LOSSES[name_or_loss](**kwargs)
 
 
-__all__ = ["BCEWithLogitsLoss", "LOSSES", "Loss", "align_targets",
-           "binary_cross_entropy_with_logits", "get_loss"]
+__all__ = [
+    "AdaptiveHingeLoss", "BCELoss", "BCEWithLogitsLoss", "BayesianPersonalizedRankingLoss",
+    "EmbLoss", "HingeLoss", "LOSSES", "ListnetLoss", "Loss", "MSELoss", "PointwiseLogisticLoss",
+    "RankingLoss", "SkipGramLoss", "TripletLoss", "align_targets",
+    "binary_cross_entropy_with_logits", "functional", "get_loss",
+]

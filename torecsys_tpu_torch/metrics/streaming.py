@@ -8,7 +8,11 @@ hosts) is a tensor add; ``compute`` gives a 0-d tensor, read on the host
 once at the end.
 
 AUC is the fixed-bin score-histogram formulation of the JAX package: 8192
-bins, one ``index_add_`` per batch, trapezoidal area at the end.
+bins, one ``index_add_`` per batch, trapezoidal area at the end.  NDCG@k
+ranks each list by a stable sort of its scores (``jnp.argsort``'s order: of
+two tied scores the earlier position ranks first) and accumulates the mean
+of the per-list NDCG; novelty accumulates the self-information of
+recommended items.
 """
 
 from __future__ import annotations
@@ -120,4 +124,70 @@ class StreamingLogLoss:
     merge = staticmethod(StreamingMean.merge)
 
 
-__all__ = ["AUCState", "MeanState", "StreamingAUC", "StreamingLogLoss", "StreamingMean"]
+@dataclasses.dataclass(frozen=True)
+class StreamingNDCG:
+    """Streaming mean NDCG@k over ``(G, L)`` lists of predicted scores and
+    graded relevance."""
+
+    k: Optional[int] = None
+    exp: bool = True
+    _mean: StreamingMean = StreamingMean()
+
+    def init(self, device: DeviceLike = None) -> MeanState:
+        return self._mean.init(device)
+
+    def update(self, state: MeanState, scores: torch.Tensor,
+               relevance: torch.Tensor) -> MeanState:
+        from torecsys_tpu_torch.metrics.functional import (
+            discounted_cumulative_gain,
+            ideal_discounted_cumulative_gain,
+        )
+
+        order = torch.sort(-scores, dim=-1, stable=True).indices
+        ranked = torch.gather(relevance, -1, order)
+        dcg = discounted_cumulative_gain(ranked, k=self.k, exp=self.exp)
+        idcg = ideal_discounted_cumulative_gain(relevance, k=self.k, exp=self.exp)
+        return self._mean.update(state, dcg / torch.clamp_min(idcg, 1e-12))
+
+    def compute(self, state: MeanState) -> torch.Tensor:
+        return self._mean.compute(state)
+
+    merge = staticmethod(StreamingMean.merge)
+
+
+class NoveltyState(NamedTuple):
+    total_info: torch.Tensor
+    count: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Novelty:
+    """Streaming mean self-information ``-log2(occurrence / num_users)`` of
+    recommended item ids (``-1`` pads left out)."""
+
+    occurrence: torch.Tensor  # (V,) item occurrence counts
+    num_users: int
+
+    def init(self, device: DeviceLike = None) -> NoveltyState:
+        dev = resolve_device(device)
+        return NoveltyState(total_info=torch.zeros((), dtype=torch.float32, device=dev),
+                            count=torch.zeros((), dtype=torch.float32, device=dev))
+
+    def update(self, state: NoveltyState, rec_ids: torch.Tensor) -> NoveltyState:
+        from torecsys_tpu_torch.metrics.functional import self_information
+
+        occurrence = torch.as_tensor(self.occurrence, device=rec_ids.device)
+        info, valid = self_information(rec_ids, occurrence, self.num_users)
+        return NoveltyState(total_info=state.total_info + torch.sum(info * valid),
+                            count=state.count + torch.sum(valid))
+
+    def compute(self, state: NoveltyState) -> torch.Tensor:
+        return state.total_info / torch.clamp_min(state.count, 1.0)
+
+    @staticmethod
+    def merge(a: NoveltyState, b: NoveltyState) -> NoveltyState:
+        return NoveltyState(*(x + y for x, y in zip(a, b)))
+
+
+__all__ = ["AUCState", "MeanState", "Novelty", "NoveltyState", "StreamingAUC",
+           "StreamingLogLoss", "StreamingMean", "StreamingNDCG"]

@@ -70,3 +70,11 @@ class CtrBaseModel(BaseModel):
     """Base class for CTR models — ``forward(**inputs) → (B, 1)`` raw scores."""
 
     outputs_probability = False
+
+
+class EmbBaseModel(BaseModel):
+    """Base class for embedding models."""
+
+
+class LtrBaseModel(BaseModel):
+    """Base class for learning-to-rank models."""

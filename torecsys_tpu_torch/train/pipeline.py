@@ -1,14 +1,18 @@
 """Training pipeline builder (counterpart of ``torecsys_tpu/train/pipeline.py``).
 
-The port carries the ``ctr`` objective on both embedding routes:
-``set_objective("ctr")``, ``set_inputs``, ``set_model``, ``set_criterion``,
-``set_optimizer``, ``set_sparse_embeddings``, ``set_compute_dtype``,
-``set_table_dtype`` and ``set_target_fields``.
-``set_sparse_embeddings(True)`` selects the sparse (touched-rows-only)
-route, ``False`` the dense one, and ``None`` (the default) the automatic
-choice, which the Trainer makes from the tables' size with thresholds
-measured on the card (``train/trainer.py``).  A bf16 table keeps the dense
-route.
+The port carries the three objectives: ``ctr`` on both embedding routes,
+``ltr`` and ``emb`` (with a miner, ``set_miner`` and
+``set_miner_target_field``) on the dense route, and a regularizer
+(``set_regularizer``) on each; the setters are ``set_objective``,
+``set_inputs``, ``set_model``, ``set_criterion``, ``set_optimizer``,
+``set_regularizer``, ``set_miner``, ``set_miner_target_field``,
+``set_sparse_embeddings``, ``set_compute_dtype``, ``set_table_dtype`` and
+``set_target_fields``.  ``set_sparse_embeddings(True)`` selects the sparse
+(touched-rows-only) route, ``False`` the dense one, and ``None`` (the
+default) the automatic choice, which the Trainer makes from the tables' size
+with thresholds measured on the card (``train/trainer.py``).  A bf16 table,
+and the ``ltr`` and ``emb`` objectives, keep the dense route; with them
+``set_sparse_embeddings(True)`` raises, as in the JAX package.
 
 A torch module is built on its device with its widths known, so the
 pipeline holds the ``device`` its model is built on (default: the card) and
@@ -32,12 +36,14 @@ from torecsys_tpu_torch.layers.precision import (
     is_reduced,
     resolve_dtype,
 )
+from torecsys_tpu_torch.layers.regularization import Regularizer
 from torecsys_tpu_torch.losses import BCEWithLogitsLoss, get_loss
+from torecsys_tpu_torch.miners import BaseMiner, get_miner
 from torecsys_tpu_torch.models import Sequential, get_model
 from torecsys_tpu_torch.train.optimizers import get_optimizer
 from torecsys_tpu_torch.utils import DeviceLike, resolve_device
 
-OBJECTIVES = ("ctr",)
+OBJECTIVES = ("ctr", "emb", "ltr")
 
 
 class Pipeline:
@@ -54,6 +60,10 @@ class Pipeline:
         self.criterion: Optional[Callable] = None
         self.optimizer: Any = None
         self.optimizer_spec: Optional[Dict[str, Any]] = None
+        self.regularizer: Optional[Regularizer] = None
+        self.miner: Optional[BaseMiner] = None
+        self.miner_target_field: Optional[str] = None
+        self.num_negs = 1
         self.target_fields = "label"
         # True: sparse route; False: dense route; None: the Trainer's
         # automatic choice.
@@ -95,6 +105,25 @@ class Pipeline:
         self.optimizer_spec = {"method": optimizer, **kwargs}
         return self
 
+    def set_regularizer(self, regularizer: Optional[Regularizer] = None,
+                        **kwargs) -> "Pipeline":
+        """A :class:`Regularizer`, or one built from ``kwargs``
+        (``weight_decay``, ``norm``, ``key_filter``)."""
+        self.regularizer = regularizer if regularizer is not None else Regularizer(**kwargs)
+        return self
+
+    def set_miner(self, miner, **kwargs) -> "Pipeline":
+        """A miner instance or registry name (``ltr``/``emb``); its
+        ``num_negs`` becomes the pipeline's."""
+        self.miner = get_miner(miner, **kwargs)
+        if hasattr(self.miner, "num_negs"):
+            self.num_negs = self.miner.num_negs
+        return self
+
+    def set_miner_target_field(self, field: str) -> "Pipeline":
+        self.miner_target_field = field
+        return self
+
     def set_sparse_embeddings(self, enabled: Optional[bool]) -> "Pipeline":
         self.sparse_embeddings = enabled
         return self
@@ -122,11 +151,17 @@ class Pipeline:
 
     def row_optimizer(self):
         """The row-wise (lazy) optimizer of the embedding tables, or None on
-        the dense route (``set_sparse_embeddings(False)``, or a bf16
-        table)."""
+        the dense route (``set_sparse_embeddings(False)``, a bf16 table, or
+        the ``ltr`` and ``emb`` objectives, for which
+        ``set_sparse_embeddings(True)`` raises)."""
         from torecsys_tpu_torch.ops.sparse import get_row_optimizer
 
         if self.sparse_embeddings is False or is_reduced(self.table_dtype):
+            return None
+        if self.objective != "ctr":
+            if self.sparse_embeddings is True:
+                raise ValueError(f"sparse_embeddings=True requires objective='ctr' "
+                                 f"(got {self.objective!r})")
             return None
         spec = dict(self.optimizer_spec)
         row = get_row_optimizer(spec.pop("method", "Adam"), **spec)
@@ -149,6 +184,11 @@ class Pipeline:
             self.criterion = BCEWithLogitsLoss()
         if self.optimizer is None:
             self.set_optimizer("Adam", lr=1e-3)
+        if self.objective in ("ltr", "emb"):
+            if self.miner is None:
+                self.set_miner("UniformBatchMiner")
+            if self.miner_target_field is None:
+                raise ValueError(f"objective {self.objective!r} requires set_miner_target_field")
         if self.sparse_embeddings not in (True, False, None):
             raise ValueError(f"sparse_embeddings must be True, False or None, got "
                              f"{self.sparse_embeddings!r}")
@@ -170,6 +210,9 @@ class Pipeline:
             ("model", type(self.model).__name__ if self.model is not None else "-"),
             ("criterion", type(self.criterion).__name__ if self.criterion else "-"),
             ("optimizer", "set" if self.optimizer is not None else "-"),
+            ("regularizer", repr(self.regularizer) if self.regularizer else "-"),
+            ("miner", type(self.miner).__name__ if self.miner else "-"),
+            ("miner_target_field", self.miner_target_field or "-"),
             ("target_fields", self.target_fields),
             ("sparse_embeddings", {None: "auto", True: "on",
                                    False: "off"}[self.sparse_embeddings]),
@@ -192,29 +235,17 @@ class Pipeline:
                 model_config={"method": "DeepFM", "deep_layer_sizes": [64, 64]},
                 criterion_config={"method": "BCEWithLogitsLoss"},
                 optimizer_config={"method": "Adam", "lr": 1e-3},
+                regularizer_config={"weight_decay": 0.01},
                 target_fields="label",
             )
 
-        Also ``sparse_embeddings``, ``compute_dtype``, ``table_dtype`` and
-        ``load_from``.  The ``ltr`` and ``emb`` objectives, a
-        ``regularizer_config`` and a ``miner_config`` (or
-        ``miner_target_field``) raise ``NotImplementedError``: they are not
-        ported yet.
+        Also ``miner_config`` (``{"method": "UniformBatchMiner",
+        "num_negs": 4}``) and ``miner_target_field`` for ``ltr``/``emb``,
+        ``sparse_embeddings``, ``compute_dtype``, ``table_dtype`` and
+        ``load_from``.
         """
-        objective = config.get("objective", "ctr")
-        if objective in ("ltr", "emb"):
-            raise NotImplementedError(f"objective {objective!r} is not ported yet (ROADMAP "
-                                      "queue 1 item 10: the ltr and emb objectives)")
-        if config.get("regularizer_config") is not None:
-            raise NotImplementedError("regularizer_config is not ported yet (ROADMAP queue 1 "
-                                      "item 8: layers/regularization.py with "
-                                      "Pipeline.set_regularizer)")
-        if config.get("miner_config") is not None or config.get("miner_target_field"):
-            raise NotImplementedError("miner_config and miner_target_field are not ported yet "
-                                      "(ROADMAP queue 1 item 10: miners/ with "
-                                      "Pipeline.set_miner)")
         p = cls(device=device)
-        p.set_objective(objective)
+        p.set_objective(config.get("objective", "ctr"))
         if config.get("inputs_config") is not None:
             p.set_inputs(config["inputs_config"])
         if config.get("model_config") is not None:
@@ -226,6 +257,13 @@ class Pipeline:
         if config.get("optimizer_config") is not None:
             oc = dict(config["optimizer_config"])
             p.set_optimizer(oc.pop("method", "Adam"), **oc)
+        if config.get("regularizer_config") is not None:
+            p.set_regularizer(**config["regularizer_config"])
+        if config.get("miner_config") is not None:
+            mc = dict(config["miner_config"])
+            p.set_miner(mc.pop("method", "UniformBatchMiner"), **mc)
+        if config.get("miner_target_field") is not None:
+            p.set_miner_target_field(config["miner_target_field"])
         if config.get("target_fields") is not None:
             p.set_target_fields(config["target_fields"])
         if "sparse_embeddings" in config:

@@ -1,5 +1,4 @@
-"""Train and eval step factories (counterpart of ``torecsys_tpu/train/steps.py``,
-the CTR steps).
+"""Train and eval step factories (counterpart of ``torecsys_tpu/train/steps.py``).
 
 The train step dispatches on the state's optimizer layout, chosen at
 :meth:`TrainState.create`, as the JAX package's does:
@@ -15,17 +14,40 @@ The train step dispatches on the state's optimizer layout, chosen at
   scatter-add of the lookup's backward), and one Adam step over every
   parameter, the tables included.
 
-Both run the model in ``train`` mode, where a BatchNorm normalizes with the
-batch's statistics and moves its running statistics (the JAX package's
-``batch_stats``, here module buffers) in place, in eager steps and in the
-captured graph alike.
+The loss of each objective, as the JAX package's:
+
+* ``ctr``: ``criterion(model(batch), batch[target])``;
+* ``ltr``: the miner splits the batch into a positive and a negative view,
+  the model is applied to each, in that order (a BatchNorm's statistics
+  pass from the first application to the second), and the loss is
+  ``criterion(pos (B, 1), negs (B, K))``, or, for a ``groupwise``
+  criterion (ListNet), ``criterion(relevance, scores)`` over per-anchor
+  ``[pos | negs]`` lists with one-hot relevance;
+* ``emb``: the two views interleaved in per-anchor blocks ``[pos, negs]``
+  (:func:`interleave_pos_neg`, the StarSpace layout), scored in one
+  application, and ``criterion(scores[:, :1], scores[:, 1:])``;
+
+plus the regularizer's penalty where the pipeline has one.  The miner's key
+is :func:`miner_key` of the Trainer's seed and the state's step counter,
+a device integer: the draws are device ops of the step, and a replay of a
+captured step draws what the eager step draws.  ``ltr`` and ``emb`` train on
+the dense route only; the sparse step refuses them, and a regularizer whose
+filter matches a sparse table (its penalty's gradient cannot reach the
+table there).
+
+Both steps run the model in ``train`` mode, where a BatchNorm normalizes
+with the batch's statistics and moves its running statistics (the JAX
+package's ``batch_stats``, here module buffers) in place, in eager steps
+and in the captured graph alike.
 
 :func:`make_train_scan` runs K consecutive train steps as one dispatch (the
 JAX package's ``lax.scan`` of the step): on the card, a CUDA graph that
 captures the K steps, replayed once per dispatch.
 
 The eval steps run the model in ``eval`` mode under ``torch.no_grad()``: a
-BatchNorm normalizes with its running statistics.
+BatchNorm normalizes with its running statistics.  The ranking eval step
+(``ltr``/``emb``) mines with the key :func:`eval_miner_key` of the batch's
+index and accumulates NDCG@k over the ``[pos | negs]`` lists.
 """
 
 from __future__ import annotations
@@ -34,13 +56,57 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from torecsys_tpu_torch.convert import flax_path
 from torecsys_tpu_torch.data.packed import BatchLayout
+from torecsys_tpu_torch.miners import fold_in, seed_key
 from torecsys_tpu_torch.ops.sparse import sort_slot_grads
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+
+# The stream constants the JAX package folds in: the step key from the state's
+# key and the step, then 2 for the miner (1 is its dropout stream).
+_STATE_STREAM = 1
+_MINER_STREAM = 2
+
+
+def miner_key(seed: int, step: torch.Tensor) -> torch.Tensor:
+    """The train step's miner key: a 0-d int64 device tensor of the
+    Trainer's ``seed`` and the state's ``step`` counter."""
+    return fold_in(fold_in(fold_in(seed_key(seed), _STATE_STREAM), step.to(torch.int64)),
+                   _MINER_STREAM)
+
+
+def eval_miner_key(index: int) -> int:
+    """The ranking evaluation's miner key of its ``index``-th batch, which
+    does not depend on the seed (the JAX package's ``fold_in(PRNGKey(0),
+    index)``)."""
+    return fold_in(seed_key(0), index)
+
+
+def interleave_pos_neg(pos: Batch, neg: Batch, num_negs: int) -> Batch:
+    """The aggregated ``(B·(1+k), ...)`` batch of per-anchor blocks
+    ``[pos_i, neg_i1, ..., neg_ik]``, the layout StarSpace-style models
+    reshape on."""
+    out = {}
+    for name, p in pos.items():
+        b, tail = p.shape[0], p.shape[1:]
+        blocks = torch.cat([p.reshape(b, 1, *tail), neg[name].reshape(b, num_negs, *tail)], dim=1)
+        out[name] = blocks.reshape(b * (1 + num_negs), *tail)
+    return out
+
+
+def ranking_lists(pos_out: torch.Tensor, neg_out: torch.Tensor,
+                  num_negs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-anchor ``(B, 1 + k)`` score lists ``[pos | negs]`` and their one-hot
+    relevance (1 for the positive)."""
+    b = pos_out.shape[0]
+    pos_s, neg_s = pos_out.reshape(b, 1), neg_out.reshape(b, num_negs)
+    scores = torch.cat([pos_s, neg_s], dim=1)
+    relevance = torch.cat([torch.ones_like(pos_s), torch.zeros_like(neg_s)], dim=1)
+    return scores, relevance
 
 
 def _split_batch(batch: Batch, pipeline: Pipeline) -> Tuple[Batch, Optional[torch.Tensor]]:
@@ -58,32 +124,74 @@ def _account(state: TrainState, loss: torch.Tensor) -> Tuple[TrainState, Dict]:
     return state, {"loss": loss.detach()}
 
 
-def make_train_step(pipeline: Pipeline) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
+def make_train_step(pipeline: Pipeline,
+                    seed: int = 0) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """Build the train step ``(state, device batch) → (state, logs)``; the
-    step updates the modules and ``state`` in place."""
+    step updates the modules and ``state`` in place.  ``seed`` keys the
+    miner of the ``ltr`` and ``emb`` objectives (:func:`miner_key`)."""
     seq = pipeline.sequential
     criterion = pipeline.criterion
+    regularizer = pipeline.regularizer
+    objective = pipeline.objective
     modules = sparse_modules(seq)
+    table_paths = {flax_path(path) for path in modules}  # as the JAX package names them
+
+    def objective_loss(state: TrainState, batch: Batch) -> torch.Tensor:
+        features, targets = _split_batch(batch, pipeline)
+        if objective == "ctr":
+            loss = criterion(seq(features), targets)
+        else:
+            k = pipeline.num_negs
+            pos_b, neg_b = pipeline.miner(miner_key(seed, state.step), features,
+                                          pipeline.miner_target_field)
+            if objective == "emb":
+                scores = seq(interleave_pos_neg(pos_b, neg_b, k)).reshape(-1, 1 + k)
+                loss = criterion(scores[:, :1], scores[:, 1:])
+            else:  # ltr
+                pos_out = seq(pos_b)
+                neg_out = seq(neg_b)
+                if getattr(criterion, "groupwise", False):
+                    scores, relevance = ranking_lists(pos_out, neg_out, k)
+                    loss = criterion(relevance, scores)
+                else:
+                    b = pos_out.shape[0]
+                    loss = criterion(pos_out.reshape(b, 1), neg_out.reshape(b, k))
+        if regularizer is not None:
+            loss = loss + regularizer(seq)
+        return loss
 
     def dense_train_step(state: TrainState, batch: Batch):
-        features, targets = _split_batch(batch, pipeline)
         seq.train()
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = criterion(seq(features), targets)
+        loss = objective_loss(state, batch)
         loss.backward()
         opt.step()
         return _account(state, loss)
 
+    def check_sparse() -> None:
+        if objective != "ctr":
+            raise ValueError("sparse embedding optimization currently supports the 'ctr' "
+                             f"objective only, got {objective!r}")
+        key_filter = getattr(regularizer, "key_filter", "kernel")
+        if regularizer is not None and any(key_filter in tp for tp in table_paths):
+            raise ValueError(
+                f"Regularizer(key_filter={regularizer.key_filter!r}) matches "
+                f"sparse embedding tables {sorted(table_paths)}; their "
+                "penalty gradient cannot flow on the touched-rows path. "
+                "Use AdamW-style decoupled weight_decay (applied per touched "
+                "row by the row optimizer) or set "
+                "Pipeline.sparse_embeddings=False.")
+
     def sparse_train_step(state: TrainState, batch: Batch):
+        check_sparse()
         row_tx = pipeline.row_optimizer()
-        features, targets = _split_batch(batch, pipeline)
         for module in modules.values():
             module.take_lookup()  # drop what a failed earlier step left
         seq.train()
         dense_opt = state.opt_state["dense"]
         dense_opt.zero_grad(set_to_none=True)
-        loss = criterion(seq(features), targets)
+        loss = objective_loss(state, batch)
         loss.backward()
         dense_opt.step()
         with torch.no_grad():
@@ -241,6 +349,28 @@ def make_eval_step(pipeline: Pipeline):
     return eval_step
 
 
+def make_eval_ranking_step(pipeline: Pipeline, ndcg):
+    """The ranking eval step of the ``ltr`` and ``emb`` objectives:
+    ``(state, batch, index, ndcg_state) → ndcg_state``.  It mines each
+    anchor's ``[pos | negs]`` list with :func:`eval_miner_key` of the
+    batch's ``index``, scores the positive and the negative view (two
+    applications, in eval mode) and accumulates NDCG@k with one-hot
+    relevance on the device."""
+    seq = pipeline.sequential
+
+    def step(state: TrainState, batch: Batch, index: int, ndcg_state):
+        del state  # the parameters live in the modules
+        features, _ = _split_batch(batch, pipeline)
+        pos_b, neg_b = pipeline.miner(eval_miner_key(index), features,
+                                      pipeline.miner_target_field)
+        seq.eval()
+        with torch.no_grad():
+            scores, relevance = ranking_lists(seq(pos_b), seq(neg_b), pipeline.num_negs)
+            return ndcg.update(ndcg_state, scores, relevance)
+
+    return step
+
+
 def make_eval_metrics_step(pipeline: Pipeline, auc, logloss):
     """Eval step with on-device streaming-metric accumulation:
     ``(state, batch, auc_state, ll_state) → (auc_state, ll_state)``; nothing
@@ -255,5 +385,6 @@ def make_eval_metrics_step(pipeline: Pipeline, auc, logloss):
     return step
 
 
-__all__ = ["TrainScan", "make_eval_metrics_step", "make_eval_step", "make_train_scan",
-           "make_train_step"]
+__all__ = ["TrainScan", "eval_miner_key", "interleave_pos_neg", "make_eval_metrics_step",
+           "make_eval_ranking_step", "make_eval_step", "make_train_scan", "make_train_step",
+           "miner_key", "ranking_lists"]

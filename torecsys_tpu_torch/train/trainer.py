@@ -21,15 +21,19 @@ applies (:data:`SPARSE_AUTO_MIN_ELEMENTS`,
 :data:`SPARSE_AUTO_MIN_ELEMENTS_PRESORTED`); a bf16 table keeps the dense
 route.
 
-Evaluation (``ctr``) accumulates streaming AUC and logloss on the device and
-reads them once at the end.
+Evaluation accumulates its metrics on the device and reads them once at
+the end: streaming AUC and logloss for ``ctr``, and for ``ltr`` and ``emb``
+mean NDCG@k (``ndcg_k``) over each held-out anchor's ``[pos | mined negs]``
+list, mined with a key of the batch's index.  The ``ltr`` and ``emb``
+objectives train on the dense route: the automatic choice never takes the
+sparse one for them, and no presorter is built.
 
 Checkpoints (``train.checkpoint``): with ``checkpoint_dir`` the trainer
 writes ``ckpt_<step>.pt`` after each epoch, and :meth:`init_state`
 restores ``load_from``, or else (``resume``) the newest checkpoint in
 ``checkpoint_dir``, in place into the fresh state.
 
-Not ported yet: ranking evaluation (``ltr``/``emb``) and meshes.
+Not ported yet: meshes.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from torecsys_tpu_torch.data.packed import BatchLayout, group_batches
 from torecsys_tpu_torch.data.prefetch import prefetch_map
 from torecsys_tpu_torch.data.presort import AUX_PREFIX, Presorter, build_presort_specs
-from torecsys_tpu_torch.metrics import StreamingAUC, StreamingLogLoss
+from torecsys_tpu_torch.metrics import StreamingAUC, StreamingLogLoss, StreamingNDCG
 from torecsys_tpu_torch.train.checkpoint import (
     checkpoint_name,
     latest_checkpoint,
@@ -59,6 +63,7 @@ from torecsys_tpu_torch.train.state import TrainState
 from torecsys_tpu_torch.train.steps import (
     TrainScan,
     make_eval_metrics_step,
+    make_eval_ranking_step,
     make_eval_step,
     make_train_scan,
     make_train_step,
@@ -106,7 +111,8 @@ class Trainer:
         log_every: training-loss log cadence in steps (each log reads the
             loss on the host).
         seed: seed of the ``torch.Generator`` that :meth:`init_state` draws
-            the parameters from.
+            the parameters from, and of the ``ltr``/``emb`` miner's keys
+            (``train.steps.miner_key``).
         presort: host-side id-stream preprocessing (``data.presort``) on the
             sparse route.  True presorts every training batch on the host,
             so the sparse step takes the trusted presorted route.  False
@@ -140,13 +146,15 @@ class Trainer:
             ``FileNotFoundError``.
         resume: with no ``load_from``, restore the newest checkpoint in
             ``checkpoint_dir`` if there is one (``load_from`` wins over it).
+        ndcg_k: the cut-off of the ``ltr``/``emb`` evaluation's NDCG
+            (None: the whole list).
     """
 
     def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0,
                  presort: Optional[bool] = None, steps_per_execution: int = 1,
                  prefetch: int = 4, profile_dir: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None, load_from: Optional[str] = None,
-                 resume: bool = True):
+                 resume: bool = True, ndcg_k: Optional[int] = 10):
         self.pipeline = pipeline.finalize()
         self.checkpoint_dir = checkpoint_dir
         self.load_from = load_from or self.pipeline.load_from
@@ -168,6 +176,9 @@ class Trainer:
         self._eval_metrics_fn = None
         self._auc = StreamingAUC()
         self._logloss = StreamingLogLoss()
+        self.ndcg_k = ndcg_k
+        self._ndcg = StreamingNDCG(k=ndcg_k)
+        self._eval_ranking_fn = None
         # Host wall ms of the training input path, summed over steps: presort
         # and pack (pinning included), in the workers or on the loop's
         # thread; on the loop's thread the wait for a prepared group (which
@@ -181,11 +192,13 @@ class Trainer:
     # ---- setup ----------------------------------------------------------
 
     def _build_steps(self) -> None:
-        self._train_step_fn = make_train_step(self.pipeline)
+        self._train_step_fn = make_train_step(self.pipeline, self.seed)
         self._train_scan = None
         self._eval_step_fn = make_eval_step(self.pipeline)
         self._eval_metrics_fn = make_eval_metrics_step(self.pipeline, self._auc,
                                                        self._logloss)
+        if self.pipeline.objective in ("ltr", "emb"):
+            self._eval_ranking_fn = make_eval_ranking_step(self.pipeline, self._ndcg)
 
     def _presort_applicable(self) -> bool:
         """Would the host presort run on the sparse route?  It also picks
@@ -360,7 +373,7 @@ class Trainer:
             val_loader: Optional[Iterable[Dict[str, np.ndarray]]] = None,
             max_epochs: int = 1, max_steps: Optional[int] = None) -> Dict[str, float]:
         """Run the training loop; returns the last epoch's metrics, with
-        ``val_auc`` and ``val_logloss`` from :meth:`evaluate` after each
+        the metrics of :meth:`evaluate` after each
         epoch when ``val_loader`` is given.
 
         ``train_loader`` and ``val_loader`` may be re-iterable containers or
@@ -438,10 +451,13 @@ class Trainer:
     # ---- evaluation -----------------------------------------------------
 
     def evaluate(self, loader: Iterable[Dict[str, np.ndarray]]) -> Dict[str, float]:
-        """Streaming AUC and logloss on the target field over a validation
-        loader; the metric states stay on the device until the end."""
+        """Streaming metrics over a validation loader; the metric states stay
+        on the device until the end.  ``ctr``: AUC and logloss on the target
+        field.  ``ltr``/``emb``: ``val_ndcg@k`` (:meth:`_evaluate_ranking`)."""
         if self.state is None:
             raise RuntimeError("call fit() or init_state() before evaluate()")
+        if self.pipeline.objective in ("ltr", "emb"):
+            return self._evaluate_ranking(loader)
         target = self.pipeline.target_fields
         auc_state = self._auc.init(self.device)
         ll_state = self._logloss.init(self.device)
@@ -453,6 +469,17 @@ class Trainer:
                 self.state, self._place_batch(batch), auc_state, ll_state)
         return {"val_auc": float(self._auc.compute(auc_state)),
                 "val_logloss": float(self._logloss.compute(ll_state))}
+
+    def _evaluate_ranking(self, loader) -> Dict[str, float]:
+        """Mean NDCG@k over each anchor's ``[pos | mined negs]`` list, the
+        ``i``-th batch mined with the key of ``i``
+        (``train.steps.eval_miner_key``), so every evaluation of one loader
+        draws the same lists."""
+        state = self._ndcg.init(self.device)
+        for i, batch in enumerate(self._epoch_iter(loader)):
+            state = self._eval_ranking_fn(self.state, self._place_batch(batch), i, state)
+        key = f"val_ndcg@{self.ndcg_k}" if self.ndcg_k else "val_ndcg"
+        return {key: float(self._ndcg.compute(state))}
 
     def predict(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """Probability scores ``(B, 1)`` float32 of one host batch, on the
