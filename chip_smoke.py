@@ -141,6 +141,44 @@ Phases (any failure raises and the exit code is not 0):
     regularizer on its table, and StarSpace on ``emb``, at E = 16: steps
     each from one state against the plain versions.
 
+16. (Phases 16-18 run after phase 15, before phase 11.)  FAT-DeepFFM (and
+    DeepFFM) under Adagrad, as the FFM paper trains FFM, on FFM's shape
+    (E = 4, pack 32, 3,211,264 ids a batch): RowAdagrad on the table, the
+    optax-exact Adagrad on the tower (400, 400, 400), on the on-device
+    route.  (a) With each field capped at 1M rows: one step of each model
+    from one state on the default combine and on the fused dedup, with the
+    kernels against their plain versions (losses, the table, its ``v``
+    slot, the tower and its accumulators, each by its change over the step;
+    the table first scaled to a trained table's magnitude, which the check
+    needs to see the step at all, as in phases 17 and 18); a replay of 8 FAT-DeepFFM steps
+    against 8 eager steps to the bit, and one under
+    ``set_sync_debug_mode("error")``.  (b) At the full vocabulary (a 14.73
+    GB table and a 14.73 GB slot): two epochs of ``fit`` over 32 batches at
+    8 steps a dispatch, then the fused dedup captured; each kernel's
+    in-graph time beside its bound.
+17. FiBiNET at the FiBiNET paper's Criteo settings (E = 10, SENET reduction
+    3, DNN (400, 400, 400), Adam 1e-4, bilinear "all", no dropout) over the
+    bench's fields: E = 10 packs 8 rows into a stored row of 80 floats, so
+    the segment sum and the fused dedup take their scalar instantiations and
+    the grad permute moves 40-byte rows.  One step from one state with the
+    kernels against their plain versions on the on-device route (both
+    dedup settings) and the presorted one, and for the "each" and
+    "interaction" types with fields capped at 1M rows; a replay against 8
+    eager steps to the bit and one under ``set_sync_debug_mode("error")``;
+    two epochs of ``fit`` (48 batches) on the route the automatic choice
+    takes, then the fused dedup captured; each kernel's in-graph time
+    beside its bound.  Phase 2's segment-sum and dedup sweeps also run
+    their streams at E = 10.
+18. The bench DeepFM with fields capped at 100,000 rows under each of the
+    twelve optimizers on the dense route, and under Adam, AdamW, Adagrad and
+    SGD (their row rules) on the on-device route with both dedup settings:
+    3 steps each from one state with the kernels against their plain
+    versions; a replay against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; graphed examples/sec and a traced
+    replay; then one step of an opaque optimizer factory and of Lamb under
+    the automatic choice, both on the dense route.  The kernels line gives
+    the row rules each path launched the two row-update kernels under.
+
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
 prints each kernel's device time in the step.  The second-to-last lines are
@@ -185,6 +223,9 @@ TOWER = (400, 400, 400)
 # capped at 1M rows (12,884,400 rows); the cap is the only cut.
 EMBED_WIDE = 128
 ROWS_CAP = 1_000_000
+# FiBiNET's Criteo embedding (phase 17; Huang et al., RecSys 2019): 8 rows of
+# 10 floats a stored row of 80
+FIBINET_EMBED = 10
 PACK1_STEPS = 5
 EVAL_BATCHES = 8
 
@@ -1085,35 +1126,40 @@ def sweep_streams(bench_seg):
 
 def sweep_segment_sums(bench_streams, gen, dev):
     """Both segment sums on every sweep stream (``widen_segment_sum`` at
-    P = 8, E = 16 on the bench's pack-8 stream, ``segment_sum_wide`` at
-    W = 128 on its pack-1 stream): grid grads bit-identical to the plain
-    version; real-valued grads within (L_s - 1) * 2^-24 * sum|g| of a float64
-    sum over each segment of L_s positions; two launches bit-identical.
-    Returns each kernel's time and longest segment per stream."""
+    P = 8, E = 16 on the bench's pack-8 stream, and at P = 8, E = 10, the
+    FiBiNET width, whose rows of 10 floats take the kernel's scalar
+    instantiation; ``segment_sum_wide`` at W = 128 on its pack-1 stream):
+    grid grads bit-identical to the plain version; real-valued grads within
+    (L_s - 1) * 2^-24 * sum|g| of a float64 sum over each segment of L_s
+    positions; two launches bit-identical.  Returns each kernel's time and
+    longest segment per stream (the E = 10 streams labelled so)."""
     import torch
 
     from torecsys_tpu_torch.ops.kernels import sparse_update as K
 
     pack = 8
     results = {"widen_segment_sum": {}, "segment_sum_wide": {}}
-    for name, bench_pack in (("widen_segment_sum", 8), ("segment_sum_wide", 1)):
+    for name, bench_pack, e in (("widen_segment_sum", 8, EMBED),
+                                ("widen_segment_sum", 8, FIBINET_EMBED),
+                                ("segment_sum_wide", 1, EMBED_WIDE)):
         bench_lo, bench_seg = bench_streams[bench_pack]
-        for label, seg in sweep_streams(bench_seg).items():
+        suffix = "" if e in (EMBED, EMBED_WIDE) else f" E={e}"
+        for stream, seg in sweep_streams(bench_seg).items():
+            label = stream + suffix
             m = seg.shape[0]
             if name == "widen_segment_sum":
-                if label == "bench":
+                if stream == "bench":
                     lo = bench_lo
                 else:  # slots ascending inside each stored row, as ids sort
                     ids = seg.long() * pack + torch.randint(0, pack, (m,), device=dev,
                                                             generator=gen)
                     lo = (torch.sort(ids).values % pack).to(torch.int32)
-                width = EMBED
                 kernel = lambda x: K.widen_segment_sum(x, lo, seg, pack)  # noqa: E731
                 plain = lambda x: K.widen_segment_sum_plain(x, lo, seg, pack)  # noqa: E731
             else:
-                width = EMBED_WIDE
                 kernel = lambda x: K.segment_sum_wide(x, seg)  # noqa: E731
                 plain = lambda x: K.segment_sum_wide_plain(x, seg)  # noqa: E731
+            width = e
             grid = grid_randn((m, width), gen, dev)
             if not torch.equal(kernel(grid), plain(grid)):
                 raise AssertionError(f"{name} on the {label} stream: grid grads differ "
@@ -1137,8 +1183,9 @@ def sweep_segment_sums(bench_streams, gen, dev):
                 f"{times_text('kernel_ms', t)}")
             results[name][label] = {"M": m, "longest": longest, "err_share_of_bound": share,
                                     **time_keys("ms", t)}
-        one, bench = results[name]["one segment"]["ms"], results[name]["bench"]["ms"]
-        log(f"[sweep] {name}: one segment over all M takes {one / bench:.3f}x the bench "
+        one, bench = (results[name][f"one segment{suffix}"]["ms"],
+                      results[name][f"bench{suffix}"]["ms"])
+        log(f"[sweep] {name}{suffix}: one segment over all M takes {one / bench:.3f}x the bench "
             f"stream's device time")
     return results
 
@@ -1163,7 +1210,8 @@ def dedup_sweep_ids(seg, lo, pack: int, label: str, dev):
 
 def sweep_fused_dedup(bench_streams, gen, dev):
     """``fused_sorted_dedup_update`` on every sweep stream of the segment sums
-    and a sentinel tail, at P = 8, E = 16 and at P = 1, W = 128, each rule from
+    and a sentinel tail, at P = 8, E = 16, at P = 8, E = 10 (FiBiNET's width:
+    the kernel's scalar instantiation) and at P = 1, W = 128, each rule from
     one copied state, on real-valued grads: table and slots bit-identical to
     the default combine (``_combine_sorted_stored``: the segment sum, then
     ``fused_rowwise_update`` with the device count); two launches
@@ -1176,7 +1224,8 @@ def sweep_fused_dedup(bench_streams, gen, dev):
     from torecsys_tpu_torch.ops.sparse import _combine_sorted_stored
 
     results = {}
-    for pack, e in ((8, EMBED), (1, EMBED_WIDE)):
+    for pack, e in ((8, EMBED), (8, FIBINET_EMBED), (1, EMBED_WIDE)):
+        key = f"P={pack}" if e in (EMBED, EMBED_WIDE) else f"P={pack} E={e}"
         bench_lo, bench_seg = bench_streams[pack]
         streams = sweep_streams(bench_seg)
         streams["sentinel tail"] = bench_seg
@@ -1213,7 +1262,7 @@ def sweep_fused_dedup(bench_streams, gen, dev):
                     K.fused_rowwise_update(uids, gsum, t, sl, hyper, rule, n)
 
                 got, again, ref = run(fused), run(fused), run(combine)
-                where = f"fused_sorted_dedup_update P={pack} {label} {rule}"
+                where = f"fused_sorted_dedup_update P={pack} E={e} {label} {rule}"
                 for a, b, c, orig in zip(got, again, ref, [table0] + slots0):
                     if not torch.equal(a, b):
                         raise AssertionError(f"{where}: two launches differ")
@@ -1243,9 +1292,9 @@ def sweep_fused_dedup(bench_streams, gen, dev):
                                 "bound_ms": bound_ms, **time_keys("ms", t_ms)}
             del table0, slots0, t, g, touched
         one, bench = by_stream["one segment"]["ms"], by_stream["bench"]["ms"]
-        log(f"[sweep] fused_sorted_dedup_update P={pack}: one stored row over all M takes "
+        log(f"[sweep] fused_sorted_dedup_update {key}: one stored row over all M takes "
             f"{one / bench:.3f}x the bench stream's device time")
-        results[f"P={pack}"] = by_stream
+        results[key] = by_stream
     torch.cuda.empty_cache()
     return results
 
@@ -1290,23 +1339,29 @@ def sweep_unique_gather(shifted, table0):
 
 # ---- phases 3-7: the trainer's paths ----------------------------------------
 
+# the models whose only input is their table
+TABLE_ONLY_MODELS = ("DCN", "FiBiNET", "DeepFFM", "FATDeepFFM")
+
+
 def ctr_pipeline(model: str, model_kwargs, field_sizes=None, sparse=None, compute=None,
-                 embed: int = EMBED, table: str = "emb_inputs"):
-    """A CTR pipeline over the bench's fields: 13 dense values (but for DCN,
-    whose only input is the table) and one table of the fields, fused
-    (``emb_inputs``) or field-aware (``field_emb_inputs``)."""
+                 embed: int = EMBED, table: str = "emb_inputs", optimizer=("Adam", 1e-3)):
+    """A CTR pipeline over the bench's fields: 13 dense values (but for the
+    models whose only input is the table) and one table of the fields, fused
+    (``emb_inputs``) or field-aware (``field_emb_inputs``), trained by the
+    named ``optimizer`` (name, lr)."""
     from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
     from torecsys_tpu_torch.inputs import MultiIndicesEmbedding, MultiIndicesFieldAwareEmbedding
 
     field_sizes = FIELD_SIZES if field_sizes is None else field_sizes
     cls = MultiIndicesFieldAwareEmbedding if table == "field_emb_inputs" else MultiIndicesEmbedding
-    schema = {} if model == "DCN" else {
+    schema = {} if model in TABLE_ONLY_MODELS else {
         "feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE)))}
     schema[table] = cls(embed, field_sizes, tuple(f"cat_{i}" for i in range(len(field_sizes))),
                         device=DEVICE)
+    name, lr = optimizer
     return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(Inputs(schema))
             .set_model(model, **model_kwargs).set_criterion("BCEWithLogitsLoss")
-            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(sparse)
+            .set_optimizer(name, lr=lr).set_sparse_embeddings(sparse)
             .set_compute_dtype(compute).set_target_fields("label"))
 
 
@@ -1345,6 +1400,9 @@ def _optimizers(trainer):
 
 
 def snapshot(trainer):
+    """Clones of the trainer's state: parameters, running statistics, the
+    dense optimizer's ``state_dict()`` (any optimizer's), the row slots and
+    the step and loss accumulators."""
     from torecsys_tpu_torch.train.state import batch_stats
 
     seq = trainer.pipeline.sequential
@@ -1352,7 +1410,7 @@ def snapshot(trainer):
     return {
         "params": {n: p.detach().clone() for n, p in seq.named_parameters()},
         "buffers": {n: b.clone() for n, b in batch_stats(seq).items()},
-        "adam": copy.deepcopy(dense_opt.state_dict()),
+        "dense_opt": copy.deepcopy(dense_opt.state_dict()),
         "slots": {k: {n: v.clone() for n, v in s.items()} for k, s in slots.items()},
         "step": trainer.state.step.clone(),
         "loss_sum": trainer.state.loss_sum.clone(),
@@ -1362,8 +1420,8 @@ def snapshot(trainer):
 def restore(trainer, snap):
     """Copy a snapshot back into the trainer's own tensors, in place (the
     running statistics too): a captured CUDA graph holds the parameters and
-    the optimizer state by address (``load_state_dict`` would replace Adam's tensors and make the
-    trainer capture again)."""
+    the optimizer state by address (``load_state_dict`` would replace the
+    optimizer's tensors and make the trainer capture again)."""
     import torch
 
     from torecsys_tpu_torch.train.state import batch_stats
@@ -1381,9 +1439,9 @@ def restore(trainer, snap):
         trainer.state.step.copy_(snap["step"])
         trainer.state.loss_sum.copy_(snap["loss_sum"])
         live = dense_opt.state_dict()["state"]  # the optimizer's own tensors
-        saved = snap["adam"]["state"]
+        saved = snap["dense_opt"]["state"]
         if {i: set(s) for i, s in live.items()} != {i: set(s) for i, s in saved.items()}:
-            dense_opt.load_state_dict(copy.deepcopy(snap["adam"]))
+            dense_opt.load_state_dict(copy.deepcopy(snap["dense_opt"]))
             return
         for i, state in saved.items():
             for k, v in state.items():
@@ -1700,16 +1758,16 @@ def phase_dense(seed: int, steps: int, sparse_eps: float, out_dir, profile: bool
 
 def check_repeatable(trainer, batches, path: str):
     """Take ``batches`` twice with the kernels from one state: the losses, the
-    table and the table's Adam moments must be the same bits (the lookup's
-    backward sums each row with one writer, in a fixed order)."""
+    table and the table's optimizer state must be the same bits (the
+    lookup's backward sums each row with one writer, in a fixed order)."""
     import torch
 
     table = trainer.pipeline.inputs.schema["emb_inputs"].embedding
     dense_opt, _ = _optimizers(trainer)
 
     def state():
-        moments = dense_opt.state[table]
-        return [table.detach(), moments["exp_avg"], moments["exp_avg_sq"]]
+        return [table.detach()] + [v for v in dense_opt.state[table].values()
+                                   if isinstance(v, torch.Tensor)]
 
     start = snapshot(trainer)
     first = torch.stack(trainer.train_steps(batches)).tolist()
@@ -1720,7 +1778,7 @@ def check_repeatable(trainer, batches, path: str):
     restore(trainer, start)
     del start, first_state
     log(f"[{path}] two runs of {len(batches)} steps with the kernels from one state: losses "
-        f"{first} and {second}; table and its Adam moments "
+        f"{first} and {second}; table and its optimizer state "
         f"{'bit-identical' if same else 'NOT bit-identical'}")
     if not same:
         raise AssertionError(f"{path}: two runs from one state differ")
@@ -1885,6 +1943,29 @@ def bits(t):
     return t.view(width)
 
 
+def kept_tensors(trainer):
+    """``{name: tensor}`` of everything a train step keeps, the tensors
+    themselves: parameters (the tables among them), running statistics,
+    every tensor of the dense optimizer's state (any optimizer's keys), the
+    row slots and the step."""
+    import torch
+
+    from torecsys_tpu_torch.train.state import batch_stats
+
+    seq = trainer.pipeline.sequential
+    dense_opt, slots = _optimizers(trainer)
+    out = {n: p.detach() for n, p in seq.named_parameters()}
+    out.update({f"{n} (buffer)": b for n, b in batch_stats(seq).items()})
+    for n, p in seq.named_parameters():
+        for key, v in dense_opt.state.get(p, {}).items():
+            if isinstance(v, torch.Tensor):
+                out[f"{n}:{key}"] = v
+    for table, table_slots in slots.items():
+        out.update({f"{table}:{key}": v for key, v in table_slots.items()})
+    out["step"] = trainer.state.step
+    return out
+
+
 def held_state(trainer):
     """Clones of everything a train step keeps: parameters, optimizer state,
     row-wise slots, the step and loss accumulators."""
@@ -1897,7 +1978,7 @@ def held_state(trainer):
 def replay_vs_eager(trainer, group, start, path: str):
     """From the snapshot ``start``: one replay of the captured graph over
     ``group`` against its K steps taken eagerly; the losses and every kept
-    tensor (table, slots, Adam state, parameters, running statistics) must be
+    tensor (table, slots, optimizer state, parameters, running statistics) must be
     the same bits.  The graphed state is cloned; the eager one is compared
     where it lies.  Returns (graphed losses, eager losses, same)."""
     import torch
@@ -1916,7 +1997,7 @@ def replay_vs_eager(trainer, group, start, path: str):
     same = graphed == eager and all(torch.equal(bits(a), bits(b))
                                     for a, b in zip(graphed_state, eager_state))
     log(f"[{path}] one replay vs {k} eager steps from one state: losses {graphed} vs "
-        f"{eager}; {len(graphed_state)} kept tensors (table, slots, Adam state, parameters, "
+        f"{eager}; {len(graphed_state)} kept tensors (table, slots, optimizer state, parameters, "
         f"running statistics) {'bit-identical' if same else 'NOT bit-identical'}")
     if not same:
         # one temporary the size of a tensor at a time: the slots of a large
@@ -2484,10 +2565,18 @@ def phase_ffm_held(seed: int, out_dir):
                                           "bit_identical": same}, "peak_memory_gb": peak}
 
 
-def ffm_bounds(trainer, batch):
-    """(bound_ms, bound_by) of each kernel of an FFM step on ``batch``, from
-    its bytes: the lookup and the grad permute (``row_gather``, both), the
-    widened sums, the row-wise update and the fused dedup."""
+# per stored element of a row rule: its slots (each read and written) and its
+# float32 operations
+RULE_SLOTS = {"adam": 2, "adagrad": 1, "sgd": 0}
+RULE_OPS = {"adam": 14, "adagrad": 6, "sgd": 2}
+
+
+def table_bounds(trainer, batch, rule: str = "adam"):
+    """(bound_ms, bound_by) of each kernel of an on-device sparse step on
+    ``batch`` under the row rule ``rule``, from its bytes: the lookup and
+    the grad permute (``row_gather``, both), the widened sums, the row-wise
+    update and the fused dedup (each touched row's table and ``rule``'s
+    slots read and written once)."""
     from torecsys_tpu_torch.data.presort import Presorter, spec_for_module
 
     module = table_module(trainer)
@@ -2498,25 +2587,65 @@ def ffm_bounds(trainer, batch):
     flat = (np.stack([batch[f] for f in spec.slot_fields], axis=1).astype(np.int64)
             + np.asarray(spec.slot_offsets, np.int64))
     d = np.unique(flat).size
-    e, w = FFM_EMBED, module.embedding.shape[-1]
+    e, w = module.embed_size, module.embedding.shape[-1]
+    row = w * 4 * (1 + RULE_SLOTS[rule])  # a stored row and its slots
     lookup = bound(m * 8 + d * e * 4 + m * e * 4, 0)
     permute = bound(m * e * 4 + m * 8 + m * e * 4, 0)
     return {"ids": m, "distinct_ids": d, "stored_rows": u,
             "row_gather": (lookup[0] + permute[0], "bytes"),
             "widen_segment_sum": bound(m * e * 4 + 2 * m * 4 + m * w * 4, m * e),
-            "fused_rowwise_update": bound(u * (4 + w * 4 + 2 * (w * 4 + 2 * w * 4)),
-                                          u * w * 14),
-            "fused_sorted_dedup_update": bound(m * 4 + m * e * 4 + u * 2 * (w * 4 + 2 * w * 4),
-                                               u * w * 14)}
+            "fused_rowwise_update": bound(u * (4 + w * 4 + 2 * row), u * w * RULE_OPS[rule]),
+            "fused_sorted_dedup_update": bound(m * 4 + m * e * 4 + u * 2 * row,
+                                               u * w * RULE_OPS[rule])}
+
+
+def fit_and_fused_capture(trainer, batches, fns, path: str, out_dir, rule: str = "adam"):
+    """Two epochs of ``fit`` over ``batches`` on the on-device route
+    (:func:`graphed_fit`), then, with ``TORECSYS_TPU_FUSED_DEDUP=1``, a second
+    capture and a traced replay of the fused dedup; each kernel's in-graph
+    time at this shape beside its bound under the row rule ``rule``."""
+    import torch
+
+    k = trainer.steps_per_execution
+    record = graphed_fit(trainer, batches, fns, path, out_dir)
+    bounds = table_bounds(trainer, batches[0], rule)
+    with fused_dedup("1"):
+        trainer._train_scan = None  # the next dispatch captures the fused route
+        per_step = GRAPH_ROUTES["ondevice_fused"][3]
+        reset_counts(fns)
+        trainer.train_steps(batches[:k])
+        fused_counts = read_counts(fns)
+        check_counts(f"{path}_fused warm-up + capture", fused_counts,
+                     expect(**{n: 2 * k * c for n, c in per_step.items()}))
+        fused = replay_profile(trainer, batches[:k], out_dir, f"{path}_fused")
+        if fused["launches_per_replay"] != {n: k * c for n, c in per_step.items()}:
+            raise AssertionError(f"{path}_fused: a traced replay launched "
+                                 f"{fused['launches_per_replay']}")
+        fused_ran = {n: c + replays_ran(trainer, per_step).get(n, 0)
+                     for n, c in fused_counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    in_graph = {**record["profile"]["kernel_us_per_step"],
+                "fused_sorted_dedup_update": fused["kernel_us_per_step"].get(
+                    "fused_sorted_dedup_update", 0.0)}
+    log(f"[{path}] M={bounds['ids']} ids a batch, {bounds['distinct_ids']} distinct, "
+        f"{bounds['stored_rows']} stored rows; rule {rule}; in-graph us a step against the "
+        "bound: "
+        + ", ".join(f"{n} {in_graph.get(n, 0.0):.1f} (bound {bounds[n][0] * 1e3:.1f}, "
+                    f"{bounds[n][1]})" for n in ("row_gather", "widen_segment_sum",
+                                                 "fused_rowwise_update",
+                                                 "fused_sorted_dedup_update"))
+        + f"; fused route busy {fused['device_busy_ms_per_step']:.4f} ms a step; peak "
+        f"allocated {peak:.3f} GB over both captures")
+    return {**record, "bounds": dict(bounds), "in_graph_us": in_graph,
+            "fused": {"launches_counted": fused_counts, "launches": fused_ran, "profile": fused},
+            "peak_memory_gb_both_captures": peak}
 
 
 def phase_ffm(seed: int, out_dir):
     """Phase 14b: FFM at the full vocabulary (32,884,400 rows a table: a
     14.73 GB field-aware table and 29.46 GB of Adam slots) through ``fit``,
-    two epochs of 32 batches at 8 steps a dispatch (:func:`graphed_fit`);
-    then, with ``TORECSYS_TPU_FUSED_DEDUP=1``, a second capture and a traced
-    replay of the fused dedup.  Each kernel's in-graph time at this shape is
-    printed beside its bound."""
+    two epochs of 32 batches at 8 steps a dispatch, then the fused dedup
+    captured (:func:`fit_and_fused_capture`)."""
     import torch
 
     fns = kernels()
@@ -2524,37 +2653,10 @@ def phase_ffm(seed: int, out_dir):
     batches = make_batches(seed + 12, FFM_DISPATCHES * k)
     torch.cuda.reset_peak_memory_stats()
     trainer = ffm_trainer(seed, spe=k)
-    record = graphed_fit(trainer, batches, fns, "ffm", out_dir)
-    bounds = ffm_bounds(trainer, batches[0])
-    with fused_dedup("1"):
-        trainer._train_scan = None  # the next dispatch captures the fused route
-        per_step = GRAPH_ROUTES["ondevice_fused"][3]
-        reset_counts(fns)
-        trainer.train_steps(batches[:k])
-        fused_counts = read_counts(fns)
-        check_counts("ffm_fused warm-up + capture", fused_counts,
-                     expect(**{n: 2 * k * c for n, c in per_step.items()}))
-        fused = replay_profile(trainer, batches[:k], out_dir, "ffm_fused")
-        if fused["launches_per_replay"] != {n: k * c for n, c in per_step.items()}:
-            raise AssertionError(f"ffm_fused: a traced replay launched "
-                                 f"{fused['launches_per_replay']}")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    in_graph = {**record["profile"]["kernel_us_per_step"],
-                "fused_sorted_dedup_update": fused["kernel_us_per_step"].get(
-                    "fused_sorted_dedup_update", 0.0)}
-    log(f"[ffm] M={bounds['ids']} ids a batch, {bounds['distinct_ids']} distinct, "
-        f"{bounds['stored_rows']} stored rows; in-graph us a step against the bound: "
-        + ", ".join(f"{n} {in_graph.get(n, 0.0):.1f} (bound {bounds[n][0] * 1e3:.1f}, "
-                    f"{bounds[n][1]})" for n in ("row_gather", "widen_segment_sum",
-                                                 "fused_rowwise_update",
-                                                 "fused_sorted_dedup_update"))
-        + f"; fused route busy {fused['device_busy_ms_per_step']:.4f} ms a step; peak "
-        f"allocated {peak:.3f} GB over both captures")
+    record = fit_and_fused_capture(trainer, batches, fns, "ffm", out_dir)
     del trainer
     release()
-    return {**record, "bounds": {n: v for n, v in bounds.items()}, "in_graph_us": in_graph,
-            "fused": {"launches_counted": fused_counts, "profile": fused},
-            "peak_memory_gb_both_captures": peak}
+    return record
 
 
 # ---- phase 15: NCF + BPR at the MovieLens-20M vocabulary --------------------
@@ -2666,60 +2768,8 @@ def check_miner_draws(seed: int):
 
 
 def dense_state(trainer):
-    """Every parameter and its Adam moments, cloned."""
-    seq = trainer.pipeline.sequential
-    opt = trainer.state.opt_state
-    out = {}
-    for name, p in seq.named_parameters():
-        out[name] = p.detach().clone()
-        moments = opt.state.get(p, {})
-        for key in ("exp_avg", "exp_avg_sq"):
-            if key in moments:
-                out[f"{name}:{key}"] = moments[key].clone()
-    return out
-
-
-def ranking_steps_vs_plain(trainer, batches, fns, path: str):
-    """Each of ``batches`` one step from the kernels' state, with the kernels
-    and with their plain versions: the losses within DENSE_LOSS_RTOL, every
-    parameter (the tables among them) and its Adam moments within
-    DENSE_TABLE_ATOL, as phase 6 holds the dense route.  The kernels'
-    launches over the kernel steps must be LTR_PER_STEP's."""
-    import torch
-
-    losses, worst, where = [], 0.0, ""
-    reset_counts(fns)
-    for batch in batches:
-        before = snapshot(trainer)
-        with plain_versions(fns):
-            loss_p = trainer.train_steps([batch])[0].item()
-        plain = dense_state(trainer)
-        restore(trainer, before)
-        del before
-        loss_k = trainer.train_steps([batch])[0].item()
-        for name, t in dense_state(trainer).items():
-            err = (t - plain[name]).abs().max().item()
-            if err > worst:
-                worst, where = err, name
-        losses.append((loss_k, loss_p))
-        del plain
-    counts = read_counts(fns)
-    check_counts(f"{path} kernel steps", counts,
-                 expect(**{n: len(batches) * c for n, c in LTR_PER_STEP.items()}))
-    rel = max(abs(a - b) / abs(b) for a, b in losses)
-    log(f"[{path}] kernels vs plain, {len(batches)} steps each from the kernels' state: losses "
-        f"{losses} (max rel diff {rel:.3g}, rtol {DENSE_LOSS_RTOL}); every parameter and Adam "
-        f"moment max_abs_err={worst:.3g} ({where or 'all equal'}; atol {DENSE_TABLE_ATOL})")
-    if not rel <= DENSE_LOSS_RTOL:
-        raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
-    if not worst <= DENSE_TABLE_ATOL:
-        raise AssertionError(f"{path}: {where} with kernels and plain versions disagrees by "
-                             f"{worst:.3g}")
-    if not all(np.isfinite(a) for a, _ in losses):
-        raise AssertionError(f"{path}: non-finite loss {losses}")
-    torch.cuda.synchronize()
-    return {"losses": losses, "max_loss_rel_diff": rel, "max_abs_err": worst,
-            "launches": counts}
+    """:func:`kept_tensors`, cloned."""
+    return {name: t.clone() for name, t in kept_tensors(trainer).items()}
 
 
 def ltr_bounds(trainer, batch, seed: int):
@@ -2798,7 +2848,7 @@ def phase_ncf_ltr(seed: int, out_dir):
     check_counts("ncf_bpr evaluate", read_counts(fns), expect(row_gather=2 * len(held)))
     start = snapshot(trainer)
     trainer.steps_per_execution = 1
-    compare = ranking_steps_vs_plain(trainer, train[:1], fns, "ncf_bpr")
+    compare = step_vs_plain(trainer, train[0], fns, "ncf_bpr", expect(**LTR_PER_STEP))
     trainer.steps_per_execution = k
     restore(trainer, start)
     del start
@@ -2824,19 +2874,7 @@ def phase_ncf_ltr(seed: int, out_dir):
     check_counts(f"ncf_bpr fit ({len(train)} steps: counted {counts}, + {ran} replays x "
                  f"{per_replay})", total,
                  expect(**{n: len(train) * c for n, c in LTR_PER_STEP.items()}))
-    start = snapshot(trainer)
-    graphed, eager, same = replay_vs_eager(trainer, train[k:2 * k], start, "ncf_bpr")
-    restore(trainer, start)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        trainer.train_steps(train[k:2 * k])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    log("[ncf_bpr] a replay with the host input path under set_sync_debug_mode('error'): no "
-        "synchronising call")
-    restore(trainer, start)
-    del start
+    _, replay = replay_checks(trainer, train[k:2 * k], fns, "ncf_bpr", LTR_PER_STEP)
     timed = train[:NCF_LTR_TIMED_DISPATCHES * k]
     eps, host = timed_dispatches(trainer, timed, "ncf_bpr", k, NCF_LTR_BATCH)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2869,7 +2907,8 @@ def phase_ncf_ltr(seed: int, out_dir):
                                      RANKING_SMALL_EMBED, regularizer),
                     log_every=10**9, seed=seed)
         t.init_state()
-        small[path] = ranking_steps_vs_plain(t, train[:RANKING_SMALL_STEPS], fns, path)
+        small[path] = [step_vs_plain(t, b, fns, f"{path} step {i}", expect(**LTR_PER_STEP))
+                       for i, b in enumerate(train[:RANKING_SMALL_STEPS])]
         del t
         release()
     return {"launches": total, "launches_counted": counts, "graph_stats": stats,
@@ -2878,10 +2917,533 @@ def phase_ncf_ltr(seed: int, out_dir):
             "fit_examples_per_sec": epoch["examples_per_sec"], "examples_per_sec": eps,
             "step_ms": step_ms, "host_ms_per_step": host, "device_busy_ms_per_step": busy,
             "device_busy_share": busy / step_ms, "peak_memory_gb": peak,
-            "replay_bit_identical": same, "losses_graphed": graphed, "losses_eager": eager,
+            "replay": replay,
             "profile": traced, "in_graph_us": in_graph,
             "bounds": {n: bounds[n] for n in LTR_PER_STEP}, "views": bounds["views"],
             "small": small, "card": card}
+
+
+# ---- phases 16-18: the optimizers, FAT-DeepFFM and FiBiNET -----------------
+
+# FAT-DeepFFM and DeepFFM (phase 16) on FFM's shape (phase 14: E = 4, pack
+# 32, 3,211,264 ids a batch), the JAX package's defaults for the excitation
+# network (reduction 1, squared), bench.py's DeepFM tower; Adagrad, as the
+# FFM paper (Juan et al., RecSys 2016) trains FFM; lr 0.01 (the paper's
+# 0.2 is a linear model's).
+FAT_MODELS = {"DeepFFM": {"deep_layer_sizes": TOWER},
+              "FATDeepFFM": {"reduction": 1, "deep_layer_sizes": TOWER}}
+FAT_OPTIMIZER = ("Adagrad", 0.01)
+FAT_DISPATCHES = 4        # two epochs of 32 batches, as FFM's
+# FiBiNET (phase 17) at the FiBiNET paper's Criteo settings (Huang et al.,
+# RecSys 2019, its experimental setup): E = 10, SENET reduction 3, DNN (400, 400,
+# 400), Adam at lr 1e-4; the JAX default bilinear type "all"; dropout 0 (the
+# paper's 0.5 is cut: the held steps compare without dropout).
+FIBINET = {"senet_reduction": 3, "deep_layer_sizes": TOWER, "bilinear_type": "all"}
+FIBINET_OPTIMIZER = ("Adam", 1e-4)
+FIBINET_DISPATCHES = 6    # two epochs of 48 batches
+# The optimizer sweep (phase 18) on the bench DeepFM (E = 16, tower 400-400-400)
+# with each field capped at 100,000 rows.
+OPTIM_ROWS_CAP = 100_000
+OPTIM_LR = 1e-3
+ROW_TWINS = {"Adam": "adam", "AdamW": "adam", "Adagrad": "adagrad", "SGD": "sgd"}
+ONDEVICE_PER_STEP = {"0": GRAPH_ROUTES["ondevice"][3], "1": GRAPH_ROUTES["ondevice_fused"][3]}
+DENSE_PER_STEP = GRAPH_ROUTES["dense"][3]
+# The held steps of phases 15-18: kernels against plain versions by each
+# kept tensor's change over one step, element by element.  The two steps sum
+# a row's gradients in different orders (the dense route's plain twin,
+# index_add_, with atomics), so a change may differ in its last bits, and a
+# sum that nearly cancels keeps few of them: the tolerance is 2 ulps of the
+# value (each result is rounded once) and 1e-3 of the tensor's largest
+# change.  The table and each of its optimizer's tensors, which the kernels
+# write, must change by 32 ulps of their largest value, so that the check
+# sees a kernel that writes nothing or a wrong sum (the slowest rule, the
+# dense route's Adadelta at lr 1e-3, moves the table by about 50).  Phases
+# 16-18 scale the table first (scale_table) to a trained table's magnitude,
+# root mean square 0.3 for the field-aware tables (the FFM term sums 1,512
+# products at E = 4) and 0.1 for the others: there the first Adagrad step
+# moves its accumulator by thousands of ulps.
+HELD_ROUND_ULPS = 2
+HELD_RTOL = 1e-3
+HELD_MOVED_ULPS = 32
+HELD_CHUNK = 1 << 24
+FFM_HELD_RMS = 0.3
+HELD_RMS = 0.1
+
+
+def add_counts(total, counts) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def replays_ran(trainer, per_step):
+    """The launches the trainer's graph replays ran beyond what the wrappers
+    counted: the capture counted one dispatch that ran nothing, and each
+    replay ran one (``graphed_fit``'s rule)."""
+    stats = trainer.graph_stats
+    ran = stats["replays"] - stats["captures"]
+    k = trainer.steps_per_execution
+    return {n: ran * k * c for n, c in per_step.items()}
+
+
+def scale_table(trainer, rms: float) -> float:
+    """Scale the trainer's table in place to root mean square ``rms`` (the
+    padding rows stay 0) and return the factor.  The held steps of phases
+    16-18 start there: at the initial magnitude one step moves a
+    field-aware row by about 1e-8 and Adagrad's accumulator not at all, so a
+    kernel that wrote nothing would pass."""
+    import torch
+
+    table = table_module(trainer).embedding
+    with torch.no_grad():
+        factor = rms * table.numel() ** 0.5 / torch.linalg.vector_norm(table.float()).item()
+        table.mul_(factor)
+    return factor
+
+
+def held_compare(start, plain, kernel):
+    """One kept tensor after a kernel step against it after a plain step,
+    both from ``start``, element by element in chunks (a field-aware table
+    and its slot are GBs): ``(worst |kernel - plain| over its tolerance,
+    flat index of the worst, the plain step's largest change in ulps of the
+    tensor's largest value)``.  The tolerance is HELD_ROUND_ULPS ulps of the
+    element's value and HELD_RTOL of the tensor's largest change."""
+    import torch
+
+    if not start.is_floating_point():
+        same = torch.equal(plain, kernel)
+        return (0.0 if same else float("inf")), None, float((plain != start).any())
+    s, p, k = (t.reshape(-1) for t in (start, plain, kernel))
+    chunks = [slice(i, i + HELD_CHUNK) for i in range(0, s.numel(), HELD_CHUNK)]
+    largest = top = 0.0
+    for c in chunks:
+        largest = max(largest, (p[c].float() - s[c].float()).abs().max().item())
+        top = max(top, s[c].abs().max().item(), p[c].abs().max().item())
+    worst, at = 0.0, None
+    for c in chunks:
+        mag = torch.maximum(torch.maximum(s[c].abs(), p[c].abs()), k[c].abs())
+        ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).float()
+        err = (k[c].float() - p[c].float()).abs()
+        ratio = err / (HELD_ROUND_ULPS * ulp + HELD_RTOL * largest)
+        ratio = torch.where(err == 0, torch.zeros_like(err), ratio)
+        r = ratio.max().item()
+        if r != r or r > worst:
+            worst, at = r, c.start + int(torch.argmax(torch.nan_to_num(ratio, nan=float("inf"))))
+            if r != r:
+                break
+    top = torch.tensor(top, dtype=start.dtype)
+    return worst, at, largest / (torch.nextafter(top, top + 1) - top).item()
+
+
+def step_vs_plain(trainer, batch, fns, path: str, want):
+    """One step from one state with the kernels and with their plain
+    versions: the losses within TRAIN_LOSS_RTOL, and each tensor the step
+    keeps (:func:`kept_tensors`: parameters and tables, the dense
+    optimizer's state, the row slots, running statistics) by its change
+    over the step (:func:`held_compare`), which for the table and its
+    optimizer state must reach HELD_MOVED_ULPS ulps.  The kernel step's
+    launches must be ``want``.  Returns the record with its ``launches``."""
+    import torch
+
+    from torecsys_tpu_torch.train.sparse import sparse_modules
+
+    tables = tuple(sparse_modules(trainer.pipeline.sequential))
+    snap = snapshot(trainer)
+    start = dense_state(trainer)
+    with plain_versions(fns):
+        loss_p = trainer.train_steps([batch])[0].item()
+    plain = dense_state(trainer)
+    restore(trainer, snap)
+    del snap
+    reset_counts(fns)
+    loss_k = trainer.train_steps([batch])[0].item()
+    counts = read_counts(fns)
+    check_counts(f"{path} kernel step", counts, want)
+    worst, where, moved = 0.0, "all equal", {}
+    for name, t in kept_tensors(trainer).items():
+        # a torch optimizer builds its state at its first step, from 0
+        s = start[name] if name in start else torch.zeros_like(t)
+        ratio, at, ulps = held_compare(s, plain[name], t)
+        if name.split(":")[0] in tables:
+            moved[name] = ulps
+        if not ratio <= worst:
+            flat = (s.reshape(-1), plain[name].reshape(-1), t.reshape(-1))
+            worst, where = ratio, (f"{name}[{at}]: start {flat[0][at].item():.9g}, plain "
+                                   f"{flat[1][at].item():.9g}, kernels {flat[2][at].item():.9g}"
+                                   if at is not None else name)
+    del start, plain
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[{path}] kernels vs plain, one step from one state: loss {loss_k:.8f} vs "
+        f"{loss_p:.8f} (rel diff {rel:.3g}, rtol {TRAIN_LOSS_RTOL}); every kept tensor's change "
+        f"(parameters, tables, optimizer state, row slots): worst |kernels - plain| / tolerance "
+        f"{worst:.3g} ({where}); the table's largest change in ulps: "
+        + ", ".join(f"{n.rsplit('.', 1)[-1]} {u:.4g}" for n, u in moved.items()))
+    if not np.isfinite(loss_k) or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
+    if not worst <= 1.0:
+        raise AssertionError(f"{path}: the kernels' step and the plain one differ beyond the "
+                             f"tolerance: {where}, {worst:.3g} times it")
+    still = {n: u for n, u in moved.items() if not u >= HELD_MOVED_ULPS}
+    if still:
+        raise AssertionError(f"{path}: the step moved {still} ulps at most, under "
+                             f"{HELD_MOVED_ULPS}: the comparison cannot see the kernels")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_over_tolerance": worst,
+            "worst": where, "table_moved_ulps": moved, "launches": counts}
+
+
+def replay_checks(trainer, group, fns, path: str, per_step, warm=None):
+    """At the trainer's K steps a dispatch: where ``warm`` is given, the
+    first dispatch over it warms up and captures (the wrappers launch 2K
+    steps' kernels); from one state, one replay over ``group`` against its
+    K steps taken eagerly, to the bit; then one replay under
+    ``set_sync_debug_mode("error")``; the state is put back.  Returns (the
+    wrappers' launches: the warm-up's, the capture's and the eager
+    steps', record)."""
+    import torch
+
+    k = trainer.steps_per_execution
+    reset_counts(fns)
+    if warm is not None:
+        trainer.train_steps(warm)
+        check_counts(f"{path} warm-up + capture", read_counts(fns),
+                     expect(**{n: 2 * k * c for n, c in per_step.items()}))
+    captures = trainer.graph_stats["captures"]
+    if warm is not None and captures != 1:
+        raise AssertionError(f"{path}: the warm-up captured {captures} times")
+    start = snapshot(trainer)
+    graphed, eager, same = replay_vs_eager(trainer, group, start, path)
+    counts = read_counts(fns)
+    check_counts(f"{path} {'warm-up, capture and ' if warm is not None else ''}{k} eager steps",
+                 counts, expect(**{n: (3 if warm is not None else 1) * k * c
+                                   for n, c in per_step.items()}))
+    restore(trainer, start)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_steps(group)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    restore(trainer, start)
+    del start
+    if trainer.graph_stats["captures"] != captures:
+        raise AssertionError(f"{path}: captured again: {trainer.graph_stats}")
+    log(f"[{path}] a replay under set_sync_debug_mode('error'): no synchronising call")
+    return counts, {"losses_graphed": graphed, "losses_eager": eager, "bit_identical": same}
+
+
+def timed_replays(trainer, group, path: str, per_step, bounds):
+    """Graphed steps over ``group`` (examples/sec, step ms, host ms), peak
+    GB, and a traced replay (no chrome trace is written): device busy and
+    each port kernel's in-graph µs beside its bound (``table_bounds``)."""
+    import torch
+
+    k = trainer.steps_per_execution
+    eps, host = timed_dispatches(trainer, group * 2, path, k)
+    traced = replay_profile(trainer, group, None, path)
+    want = {n: k * c for n, c in per_step.items()}
+    if traced["launches_per_replay"] != want:
+        raise AssertionError(f"{path}: a traced replay launched "
+                             f"{traced['launches_per_replay']}, expected {want}")
+    step_ms = BATCH / eps * 1e3
+    busy = traced["device_busy_ms_per_step"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    us = traced["kernel_us_per_step"]
+    log(f"[{path}] graphed: {eps:.1f} examples/sec, step {step_ms:.4f} ms, device busy "
+        f"{busy:.4f} ms ({busy / step_ms:.3f}); peak allocated {peak:.3f} GB; in-graph us a "
+        "step against the bound: " + ", ".join(
+            f"{n} {v:.1f} (bound {bounds[n][0] * 1e3:.1f}, {bounds[n][1]})"
+            for n, v in sorted(us.items())))
+    return {"examples_per_sec": eps, "step_ms": step_ms, "host_ms_per_step": host,
+            "device_busy_ms_per_step": busy, "peak_memory_gb": peak, "profile": traced,
+            "bounds": dict(bounds)}
+
+
+def fat_trainer(seed: int, model: str, field_sizes=None, spe: int = 1, sparse=None):
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.ops.sparse import RowAdagrad
+
+    trainer = Trainer(ctr_pipeline(model, FAT_MODELS[model], field_sizes, sparse=sparse,
+                                   embed=FFM_EMBED, table="field_emb_inputs",
+                                   optimizer=FAT_OPTIMIZER),
+                      log_every=10**9, seed=seed, steps_per_execution=spe)
+    trainer.init_state()
+    module = table_module(trainer)
+    dense = trainer.state.opt_state["dense"]
+    log(f"[fat_deepffm] {model}: field-aware table {tuple(module.embedding.shape)} "
+        f"({module.embedding.numel() * 4 / 1e9:.2f} GB), Adagrad slot "
+        f"{module.embedding.numel() * 4 / 1e9:.2f} GB; route "
+        f"{'sparse' if trainer.sparse else 'dense'}, "
+        f"{'presorted' if trainer._presorter is not None else 'on-device'}; row rule "
+        f"{type(trainer.pipeline.row_optimizer()).__name__}, tower optimizer "
+        f"{type(dense).__name__}")
+    if not (trainer.sparse and trainer._presorter is None
+            and isinstance(trainer.pipeline.row_optimizer(), RowAdagrad)
+            and type(dense).__name__ == "Adagrad"):
+        raise AssertionError(f"fat_deepffm: {model} did not take the on-device route with "
+                             "RowAdagrad and the optax-exact Adagrad")
+    return trainer
+
+
+def phase_fat_held(seed: int, out_dir):
+    """Phase 16a: DeepFFM and FAT-DeepFFM under Adagrad with each field
+    capped at 1M rows: one on-device step of each from one state, on the
+    default combine and on the fused dedup, with the kernels against their
+    plain versions (losses, the table, its ``v`` slot, the tower and its
+    accumulators); then a replay of FAT-DeepFFM's 8 steps against 8 eager
+    steps to the bit, and one under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    fns = kernels()
+    k = GRAPH_K
+    field_sizes = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    batches = make_batches(seed + 13, 2 + 2 * k, field_sizes)
+    total, records = {}, {}
+    for model in FAT_MODELS:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = fat_trainer(seed, model, field_sizes)
+        scale_table(trainer, FFM_HELD_RMS)
+        for i, flag in enumerate(("0", "1")):
+            path = f"fat_held_{model}_{'fused' if flag == '1' else 'ondevice'}"
+            with fused_dedup(flag):
+                records[path] = step_vs_plain(trainer, batches[i], fns, path,
+                                              expect(**ONDEVICE_PER_STEP[flag]))
+            add_counts(total, records[path]["launches"])
+        if model == "FATDeepFFM":
+            trainer.steps_per_execution = k
+            counts, records["fat_held_graph"] = replay_checks(
+                trainer, batches[2 + k:], fns, "fat_held", ONDEVICE_PER_STEP["0"],
+                warm=batches[2:2 + k])
+            add_counts(total, counts)
+            add_counts(total, replays_ran(trainer, ONDEVICE_PER_STEP["0"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[fat_held] {model}: {sum(field_sizes)} rows a table, peak allocated {peak:.3f} GB "
+            "with the comparisons' copies")
+        records[f"{model}_peak_memory_gb"] = peak
+        del trainer
+        release()
+    return {"launches": total, **records}
+
+
+def phase_fat(seed: int, out_dir):
+    """Phase 16b: FAT-DeepFFM under Adagrad at the full vocabulary (a 14.73
+    GB field-aware table and a 14.73 GB ``v`` slot) through ``fit``, two
+    epochs of 32 batches at 8 steps a dispatch, then the fused dedup
+    captured (:func:`fit_and_fused_capture`, Adagrad's bounds)."""
+    import torch
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 14, FAT_DISPATCHES * k)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = fat_trainer(seed, "FATDeepFFM", spe=k)
+    # no chrome traces here (about 6 MB each): --out stays small
+    record = fit_and_fused_capture(trainer, batches, fns, "fat_deepffm", None, "adagrad")
+    del trainer
+    release()
+    return record
+
+
+def fibinet_trainer(seed: int, field_sizes=None, spe: int = 1, presort=None, sparse=True,
+                    **model_kwargs):
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(ctr_pipeline("FiBiNET", {**FIBINET, **model_kwargs}, field_sizes,
+                                   sparse=sparse, embed=FIBINET_EMBED,
+                                   optimizer=FIBINET_OPTIMIZER),
+                      log_every=10**9, seed=seed, presort=presort, steps_per_execution=spe)
+    trainer.init_state()
+    return trainer
+
+
+def phase_fibinet(seed: int, out_dir):
+    """Phase 17: FiBiNET at the FiBiNET paper's Criteo settings over the
+    bench's fields: E = 10 packs P = 8 into stored rows of W = 80, so the
+    segment sum and the fused dedup take their scalar instantiations and the
+    grad permute moves 40-byte rows.  One step from one state with the
+    kernels against their plain versions on the on-device route (default
+    combine and fused dedup) and the presorted one at the full vocabulary,
+    and on the on-device route for the "each" and "interaction" bilinear
+    types with fields capped at 1M rows; a replay against 8 eager steps to
+    the bit and one under ``set_sync_debug_mode("error")``; then two epochs
+    of ``fit`` on the route the automatic choice takes, the fused dedup
+    captured, each kernel's in-graph µs beside its bound."""
+    import torch
+
+    from torecsys_tpu_torch.data.presort import Presorter, build_presort_specs
+
+    fns = kernels()
+    k = GRAPH_K
+    batches = make_batches(seed + 15, max(FIBINET_DISPATCHES * k, 3 + 2 * k))
+    total, records = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = fibinet_trainer(seed, presort=False)
+    module = table_module(trainer)
+    log(f"[fibinet] table {tuple(module.embedding.shape)} (E={module.embed_size}, pack "
+        f"{module.pack}, {module.embedding.numel() * 4 / 1e9:.2f} GB), Adam slots "
+        f"{2 * module.embedding.numel() * 4 / 1e9:.2f} GB; bilinear pairs "
+        f"{len(FIELD_SIZES) * (len(FIELD_SIZES) - 1) // 2}, tower {TOWER}")
+    if module.pack != 8 or module.embedding.shape[-1] != 80:
+        raise AssertionError(f"fibinet: stored rows {tuple(module.embedding.shape)}, "
+                             "expected pack 8 into W = 80")
+    scale_table(trainer, HELD_RMS)
+    for i, flag in enumerate(("0", "1")):
+        path = f"fibinet_held_{'fused' if flag == '1' else 'ondevice'}"
+        with fused_dedup(flag):
+            records[path] = step_vs_plain(trainer, batches[i], fns, path,
+                                          expect(**ONDEVICE_PER_STEP[flag]))
+        add_counts(total, records[path]["launches"])
+    presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
+    if not presorter.native:
+        raise AssertionError("fibinet: the C++ presort did not load")
+    records["fibinet_held_presorted"] = step_vs_plain(
+        trainer, presorter(batches[2]), fns, "fibinet_held_presorted",
+        expect(**GRAPH_ROUTES["presorted"][3]))
+    add_counts(total, records["fibinet_held_presorted"]["launches"])
+    trainer.steps_per_execution = k
+    counts, records["fibinet_graph"] = replay_checks(trainer, batches[3 + k:3 + 2 * k], fns,
+                                                     "fibinet", ONDEVICE_PER_STEP["0"],
+                                                     warm=batches[3:3 + k])
+    add_counts(total, counts)
+    add_counts(total, replays_ran(trainer, ONDEVICE_PER_STEP["0"]))
+    del trainer, module
+    release()
+    capped = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    (capped_batch,) = make_batches(seed + 16, 1, capped)
+    for kind in ("each", "interaction"):
+        trainer = fibinet_trainer(seed, capped, presort=False, bilinear_type=kind)
+        scale_table(trainer, HELD_RMS)
+        path = f"fibinet_held_{kind}"
+        records[path] = step_vs_plain(trainer, capped_batch, fns, path,
+                                      expect(**ONDEVICE_PER_STEP["0"]))
+        add_counts(total, records[path]["launches"])
+        del trainer
+        release()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = fibinet_trainer(seed, spe=k, sparse=None)
+    route = ("sparse, on-device" if trainer.sparse and trainer._presorter is None else
+             "sparse, presorted" if trainer.sparse else "dense")
+    log(f"[fibinet] the automatic choice takes the {route} route")
+    record = fit_and_fused_capture(trainer, batches[:FIBINET_DISPATCHES * k], fns, "fibinet",
+                                   None, "adam")
+    del trainer
+    release()
+    return {**record, "held_launches": total, "route": route, "held": records}
+
+
+def optim_trainer(seed: int, name, sparse, field_sizes, spe: int = 1):
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(ctr_pipeline("DeepFM", {"deep_layer_sizes": TOWER}, field_sizes,
+                                   sparse=sparse, optimizer=(name, OPTIM_LR)),
+                      log_every=10**9, seed=seed, presort=False, steps_per_execution=spe)
+    trainer.init_state()
+    return trainer
+
+
+def phase_optim_sweep(seed: int, out_dir):
+    """Phase 18: the bench DeepFM (E = 16, tower 400-400-400, fields capped
+    at 100,000 rows) under each optimizer.  On the dense route each of the
+    twelve names, on the on-device sparse route each name with a row twin
+    (Adam, AdamW, Adagrad, SGD) on the default combine and on the fused
+    dedup: 3 steps each from one state with the kernels against their plain
+    versions (the table scaled first, :func:`scale_table`), the launches
+    held; a replay of 8 steps against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; graphed examples/sec and a traced
+    replay.  Then one step of the opaque form and of Lamb under the
+    automatic choice, which must fall back to the dense route.  The path's
+    ``launches`` are the wrappers' counts of these eager steps (held steps,
+    Lamb's and the opaque one); ``graph_launches`` those of the replay
+    checks and timed replays (warm-ups, captures and eager steps counted,
+    replays from a traced replay)."""
+    import torch
+
+    from torecsys_tpu_torch import Pipeline, Trainer
+    from torecsys_tpu_torch.train.optimizers import available_optimizers
+
+    fns = kernels()
+    k = GRAPH_K
+    field_sizes = tuple(min(v, OPTIM_ROWS_CAP) for v in FIELD_SIZES)
+    batches = make_batches(seed + 17, COMPARE_STEPS + 2 * k, field_sizes)
+    cmp, warm, group = batches[:COMPARE_STEPS], batches[COMPARE_STEPS:COMPARE_STEPS + k], \
+        batches[COMPARE_STEPS + k:]
+    held, graphs, by_rule, records = {}, {}, {}, {}
+    configs = [(name, False, "0") for name in sorted(available_optimizers())]
+    configs += [(name, True, flag) for name in ROW_TWINS for flag in ("0", "1")]
+    torch.cuda.reset_peak_memory_stats()
+    for name, sparse, flag in configs:
+        path = (f"optim_{name.lower()}_" + ("dense" if not sparse else
+                                           "fused" if flag == "1" else "ondevice"))
+        per_step = ONDEVICE_PER_STEP[flag] if sparse else DENSE_PER_STEP
+        rule = ROW_TWINS[name] if sparse else "table_grad"
+        with fused_dedup(flag):
+            trainer = optim_trainer(seed, name, sparse, field_sizes)
+            dense = trainer.state.opt_state["dense"] if sparse else trainer.state.opt_state
+            row = trainer.pipeline.row_optimizer() if sparse else None
+            if trainer.sparse != sparse or (sparse and trainer._presorter is not None):
+                raise AssertionError(f"{path}: not on the expected route")
+            scale_table(trainer, HELD_RMS)
+            launched, replayed = {}, {}
+            steps = [step_vs_plain(trainer, b, fns, f"{path} step {i}", expect(**per_step))
+                     for i, b in enumerate(cmp)]
+            for st in steps:
+                add_counts(launched, st["launches"])
+            trainer.steps_per_execution = k
+            counts, graph = replay_checks(trainer, group, fns, path, per_step, warm=warm)
+            add_counts(replayed, counts)
+            # the dense route's table gradient is the fused dedup's sgd rule
+            # at lr -1 on a zero table: its bound is that rule's
+            timed = timed_replays(trainer, group, path, per_step,
+                                  table_bounds(trainer, group[0], ROW_TWINS.get(name, "sgd")
+                                               if sparse else "sgd"))
+        add_counts(replayed, replays_ran(trainer, per_step))
+        add_counts(held, launched)
+        add_counts(graphs, replayed)
+        for kernel in ("fused_rowwise_update", "fused_sorted_dedup_update"):
+            if launched.get(kernel):
+                by_rule.setdefault(kernel, {})
+                by_rule[kernel][rule] = by_rule[kernel].get(rule, 0) + launched[kernel]
+        records[path] = {"optimizer": type(dense).__name__,
+                         "row_rule": type(row).__name__ if row else None,
+                         "steps": steps, "graph": graph, "launches": launched,
+                         "graph_launches": replayed, **timed}
+        log(f"[{path}] {type(dense).__name__} over the "
+            + (f"tower, {type(row).__name__} on the table" if sparse else "tower and the table")
+            + f"; launches: held steps {launched}, graphs {replayed}")
+        del trainer, dense, row
+        release()
+    lamb = optim_trainer(seed, "Lamb", None, field_sizes)
+    if lamb.sparse or lamb.pipeline.row_optimizer() is not None:
+        raise AssertionError("optim_sweep: Lamb under the automatic choice did not fall back "
+                             "to the dense route")
+    reset_counts(fns)
+    loss = lamb.train_steps(cmp[:1])[0].item()
+    check_counts("optim_lamb_auto", read_counts(fns), expect(**DENSE_PER_STEP))
+    single = read_counts(fns)
+    inputs = lamb.pipeline.inputs
+    del lamb
+    release()
+    pipe = (Pipeline(device=DEVICE).set_inputs(inputs).set_model("DeepFM", deep_layer_sizes=TOWER)
+            .set_optimizer(lambda params: torch.optim.SGD(params, lr=OPTIM_LR, momentum=0.9)))
+    opaque = Trainer(pipe, log_every=10**9, seed=seed)
+    reset_counts(fns)
+    opaque_loss = opaque.train_steps(cmp[:1])[0].item()
+    check_counts("optim_opaque", read_counts(fns), expect(**DENSE_PER_STEP))
+    add_counts(single, read_counts(fns))
+    add_counts(held, single)
+    table_grads = by_rule.setdefault("fused_sorted_dedup_update", {})
+    table_grads["table_grad"] = table_grads.get("table_grad", 0) + single[
+        "fused_sorted_dedup_update"]
+    if opaque.sparse or not isinstance(opaque.state.opt_state, torch.optim.SGD):
+        raise AssertionError("optim_sweep: the opaque factory did not train the dense route")
+    if not (np.isfinite(loss) and np.isfinite(opaque_loss)):
+        raise AssertionError(f"optim_sweep: non-finite loss {loss} {opaque_loss}")
+    log(f"[optim_sweep] Lamb under set_sparse_embeddings(None): dense route, loss {loss:.6f}; "
+        f"an opaque factory (torch.optim.SGD, momentum 0.9): dense route, loss "
+        f"{opaque_loss:.6f}; launches by rule {by_rule}")
+    del opaque, pipe, inputs
+    release()
+    return {"launches": held, "graph_launches": graphs, "launches_by_rule": by_rule,
+            "configs": records,
+            "lamb_auto_loss": loss, "opaque_loss": opaque_loss}
 
 
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
@@ -3480,10 +4042,24 @@ def main(argv=None):
     ffm_held = timed("ffm_held", phase_ffm_held, args.seed, args.out)
     ffm = timed("ffm", phase_ffm, args.seed, args.out)
     ncf_bpr = timed("ncf_bpr", phase_ncf_ltr, args.seed, args.out)
+    fat_held = timed("fat_held", phase_fat_held, args.seed, args.out)
+    fat = timed("fat_deepffm", phase_fat, args.seed, args.out)
+    fibinet = timed("fibinet", phase_fibinet, args.seed, args.out)
+    optim = timed("optim_sweep", phase_optim_sweep, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
-             "ncf_bpr": ncf_bpr, "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+             "ncf_bpr": ncf_bpr, "fat_deepffm_adagrad": fat,
+             "fat_deepffm_adagrad_fused": fat["fused"], "fibinet": fibinet,
+             "fibinet_fused": fibinet["fused"], "optim_sweep": optim,
+             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+    # launches_by_path: each path's own run (a fit: the wrappers' counts of
+    # its warm-up and capture plus its replays x a traced replay's; the
+    # _fused paths: the fused dedup's capture after it; optim_sweep: its
+    # eager steps); check_launches: the held steps and replay checks of
+    # phases 16-18, apart from the paths' runs.
+    checks = {"fat_held": fat_held["launches"], "fibinet_held": fibinet["held_launches"],
+              "optim_sweep_graphs": optim["graph_launches"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -3496,20 +4072,35 @@ def main(argv=None):
     kernel_lines = []
     for name in KERNEL_NAMES:
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
-        line = {**records[name], "launches": by_path[home[name]], "launches_by_path": by_path}
+        line = {**records[name], "launches": by_path[home[name]], "launches_by_path": by_path,
+                "check_launches": {p: c[name] for p, c in checks.items()}}
         if name in ffm["in_graph_us"]:  # at FFM's shape: 3.2M ids a step, pack 32
             line["ffm_in_graph_us"] = ffm["in_graph_us"][name]
             line["ffm_bound_ms"], line["ffm_bound_by"] = ffm["bounds"][name]
         if name in LTR_PER_STEP:  # NCF + BPR's step: two applications, E = 64, pack 2
             line["ltr_in_graph_us"] = ncf_bpr["in_graph_us"].get(name, 0.0)
             line["ltr_bound_ms"], line["ltr_bound_by"] = ncf_bpr["bounds"][name]
+        # FAT-DeepFFM under Adagrad at FFM's shape; FiBiNET at E = 10, W = 80
+        # (the scalar instantiations and the 4-byte gather)
+        for key, rec in (("fat_deepffm", fat), ("fibinet", fibinet)):
+            if name in rec["in_graph_us"]:
+                line[f"{key}_in_graph_us"] = rec["in_graph_us"][name]
+                line[f"{key}_bound_ms"], line[f"{key}_bound_by"] = rec["bounds"][name]
+        if name in ("fused_rowwise_update", "fused_sorted_dedup_update"):
+            # the row rules each path launched it under ("table_grad": the
+            # dense route's table gradient, the sgd rule at lr -1)
+            line["launches_by_rule"] = {"optim_sweep": optim["launches_by_rule"].get(name, {})}
+            for path, rule in (("fat_deepffm_adagrad", "adagrad"),
+                               ("fat_deepffm_adagrad_fused", "adagrad"), ("fibinet", "adam"),
+                               ("fibinet_fused", "adam"), ("headline", "adam")):
+                line["launches_by_rule"][path] = {rule: by_path[path]}
         kernel_lines.append(line)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
-                       "presort": presort, **paths, "ffm_held": ffm_held, "file": file_fed},
-                      f, indent=1)
+                       "presort": presort, **paths, "ffm_held": ffm_held, "fat_held": fat_held,
+                       "file": file_fed}, f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ and running its paths (sparse training on the presorted and the on-device
 route, on both settings of ``TORECSYS_TPU_FUSED_DEDUP``, dense training,
 evaluation, prediction; each model of the registry built and applied, and
 xDeepFM, FFM over the field-aware table and NCF over two single-index
-tables trained on both routes and checkpointed; the ``ltr`` objective (NCF
+tables trained on both routes and checkpointed; FiBiNET, DeepFFM and
+FAT-DeepFFM trained on both routes under AdamW, SGD and Adagrad, DeepFM
+under each of the twelve optimizers and under an opaque factory; the ``ltr`` objective (NCF
 with BPR and the miner, a regularizer) fit and evaluated, eager and at 2
 steps a dispatch, and StarSpace on ``emb``; and the CLI: streamed training
 from the bundled Criteo sample with a checkpoint, a resumed run and
@@ -62,11 +64,30 @@ for name, schema in schemas.items():
         assert np.isfinite(float(t.train_steps([batch, batch])[-1]))
         with tempfile.TemporaryDirectory() as d:
             t.save_checkpoint(os.path.join(d, "c.pt"))
+field_only = {"field_emb_inputs": schemas["FFM"]["field_emb_inputs"]}
+for name, schema, opt in (("FiBiNET", schemas["DCN"], "AdamW"), ("DeepFFM", field_only, "SGD"),
+                          ("FATDeepFFM", field_only, "Adagrad")):
+    for sparse in (True, False):
+        pipe = (Pipeline(device="cpu").set_inputs(I.Inputs(schema)).set_model(name)
+                .set_optimizer(opt, lr=0.01).set_sparse_embeddings(sparse))
+        t = Trainer(pipe, steps_per_execution=2)
+        assert np.isfinite(float(t.train_steps([batch, batch])[-1]))
+from torecsys_tpu_torch.train.optimizers import available_optimizers
+for opt in sorted(available_optimizers()):
+    pipe = (Pipeline(device="cpu").set_inputs(I.Inputs(schemas["xDeepFM"])).set_model("DeepFM")
+            .set_optimizer(opt))
+    t = Trainer(pipe)  # without a row twin: the dense route
+    assert np.isfinite(float(t.train_steps([batch])[-1]))
+t = Trainer(Pipeline(device="cpu").set_inputs(I.Inputs(schemas["xDeepFM"])).set_model("FM")
+            .set_optimizer(lambda params: torch.optim.SGD(params, lr=0.1)))
+assert np.isfinite(float(t.train_steps([batch])[-1])) and not t.sparse
 for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
     if name.__name__ in ("FieldAwareFactorizationMachineModel", "LogisticRegressionModel",
                          "NeuralCollaborativeFilteringModel", "DeepAndCrossNetworkModel",
                          "StarSpaceModel", "LearningToRankWrapper",
-                         "PersonalizedReRankingModel"):
+                         "PersonalizedReRankingModel", "DeepFieldAwareFactorizationMachineModel",
+                         "FieldAttentiveDeepFieldAwareFactorizationMachineModel",
+                         "FeatureImportanceAndBilinearFeatureInteractionNetwork"):
         continue  # other inputs (above, or in the steps before and after), or not ported
     if name.__name__ == "MatrixFactorizationModel":
         pipe = Pipeline(device="cpu").set_inputs(I.Inputs({"emb_inputs": schemas["DCN"][

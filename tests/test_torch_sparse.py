@@ -66,9 +66,9 @@ def test_hyper_vector_matches_jax(step):
 
 
 def test_row_optimizer_registry_is_adam_only():
-    """Adam is the one row-wise rule the port's Trainer takes (its dense
-    optimizers are Adam only); the registry itself carries every rule of the
-    JAX package's (``tests/test_torch_dedup.py`` holds the others)."""
+    """The registry's Adam twin and its refusals (the Trainer now takes the
+    AdamW, Adagrad and SGD twins too: ``tests/test_torch_optim_train.py``;
+    ``tests/test_torch_dedup.py`` holds every rule against the JAX package's)."""
     assert get_row_optimizer("adam", learning_rate=0.5).learning_rate == 0.5
     assert type(get_row_optimizer("Adagrad")).__name__ == "RowAdagrad"
     assert get_row_optimizer("Adam", momentum=0.9) is None

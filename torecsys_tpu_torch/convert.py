@@ -17,9 +17,13 @@ With ``batch_stats`` it fills the model's running statistics (flax's
 port's buffers of the same names.
 
 With ``opt_state_np`` it also carries the optimizer state into a port
-:class:`~torecsys_tpu_torch.train.TrainState`: optax Adam's ``count``,
-``mu`` and ``nu`` into the ``torch.optim.Adam`` (over the dense parameters
-on the sparse route, over every parameter on the dense route), and on the
+:class:`~torecsys_tpu_torch.train.TrainState`: every field of the optax
+chain (:func:`optax_fields`: adam's, lamb's and nadam's ``count``/``mu``/
+``nu``, adagrad's ``sum_of_squares``, rmsprop's ``nu`` and ``mu``, lion's
+``mu``, lars' and sgd's momentum ``trace``, adadelta's ``e_g``/``e_x``)
+into the dense optimizer's state of the same name (over the dense
+parameters on the sparse route, over every parameter on the dense route;
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``), and on the
 sparse route each table's row-wise slots as they are (``RowAdam``'s ``mv``,
 ``RowAdagrad``'s ``v``; :func:`copy_row_slots`; a field-aware table's
 ``(N, Vp, ...)`` slots into the port's ``(N*Vp, ...)``), so that both sides
@@ -88,6 +92,23 @@ def flax_path(name: str) -> str:
     return SEP.join(out)
 
 
+def flax_paths(module: nn.Module) -> Dict[str, str]:
+    """``{the port's parameter name: flax path}`` of every parameter of
+    ``module``: :func:`flax_path` of each name, but a layer whose flax
+    parameter is itself called ``weight`` (``keeps_flax_weight = True``:
+    the FiBiNET bilinear layers) keeps that name, which :func:`flax_path`
+    alone would read as a Dense ``kernel``."""
+    out = {}
+    for mname, m in module.named_modules():
+        for pname, _ in m.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            path = flax_path(name)
+            if pname == "weight" and getattr(m, "keeps_flax_weight", False):
+                path = path[:-len("kernel")] + "weight"
+            out[name] = path
+    return out
+
+
 def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
     """A numpy array as a tensor; a bfloat16 array (ml_dtypes, what
     ``jax.device_get`` gives of a bf16 array) keeps its bits."""
@@ -108,28 +129,26 @@ def _as_torch(flax_path: str, value, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _get(obj, name: str):
-    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
-
-
 def from_flax_params(seq: nn.Module, params_np: Mapping,
                      opt_state_np: Optional[Mapping] = None, state=None,
-                     batch_stats: Optional[Mapping] = None) -> nn.Module:
+                     batch_stats: Optional[Mapping] = None,
+                     step: Optional[int] = None) -> nn.Module:
     """Fill ``seq``'s parameters (in place) from the JAX package's params.
 
     Args:
         seq: the port's ``Sequential`` (or any module with matching names).
         params_np: the flax ``params`` tree as numpy arrays.
         opt_state_np: optionally the JAX optimizer state as numpy: the
-            hybrid layout ``{"dense": <optax Adam state, or the chain tuple
-            starting with it: fields count, mu, nu keyed by flat "/" paths>,
-            "sparse": {"<flax table path>": {"mv": (R, 2, W)}}}`` (or
-            ``{"v": (R, W)}``) of the
-            sparse route, or the dense route's plain optax Adam state over
+            hybrid layout ``{"dense": <the optax state of the named
+            optimizer (:func:`optax_fields`)>, "sparse": {"<flax table
+            path>": {"mv": (R, 2, W)}}}`` (or ``{"v": (R, W)}``, or ``{}``)
+            of the sparse route, or the dense route's plain optax state over
             every parameter, the tables included.
         state: the port's ``TrainState`` to receive ``opt_state_np``.
         batch_stats: optionally flax's ``batch_stats`` tree as numpy, copied
             into the buffers of the same names; each must exist.
+        step: the JAX state's step, for ``state.step`` (default: the optax
+            state's ``count``, where it has one).
 
     Returns:
         ``seq``.  Every parameter of ``seq`` must be filled.
@@ -156,31 +175,91 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
     if opt_state_np is not None:
         if state is None:
             raise ValueError("opt_state_np needs the port's TrainState to fill")
-        _carry_opt_state(named, opt_state_np, state)
+        _carry_opt_state(named, opt_state_np, state, step)
     return seq
 
 
-def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, state) -> None:
+def optax_fields(opt_state) -> Dict[str, Any]:
+    """The named fields of an optax state as ``{field: value}``: a chain's
+    tuple walked by position, a masked state's ``inner_state`` entered, the
+    empty states skipped (adamw's ``(ScaleByAdamState(count, mu, nu),
+    EmptyState(), EmptyState())`` gives ``count``, ``mu`` and ``nu``).  A
+    mapping (``{"count": ..., "mu": ..., "nu": ...}``) is taken as it is.
+    Each field appears once in a chain of the JAX package's registry."""
+    out: Dict[str, Any] = {}
+
+    def put(name, value):
+        if name in out:
+            raise ValueError(f"optax state field {name!r} appears twice in the chain")
+        out[name] = value
+
+    def walk(state):
+        if isinstance(state, Mapping):
+            for k, v in state.items():
+                put(k, v)
+        elif hasattr(state, "_fields"):  # a NamedTuple state
+            for k in state._fields:
+                if k == "inner_state":
+                    walk(getattr(state, k))
+                else:
+                    put(k, getattr(state, k))
+        elif isinstance(state, (tuple, list)):
+            for s in state:
+                walk(s)
+        else:
+            raise TypeError(f"not an optax state: {type(state).__name__}")
+
+    walk(opt_state)
+    return out
+
+
+# optax's field names → torch.optim.Adam's (and AdamW's) state keys
+_TORCH_ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, state,
+                     step: Optional[int]) -> None:
+    """Fill the port's optimizer state from the JAX package's: each optax
+    field's tree into the per-parameter state key of the same name
+    (``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` for ``mu``/``nu``),
+    flax kernels transposed; ``count`` into each parameter's ``step``; the
+    row-wise slots of the sparse route as they are."""
     hybrid = isinstance(opt_state_np, Mapping) and "sparse" in opt_state_np
-    dense = opt_state_np["dense"] if hybrid else opt_state_np
-    if not (isinstance(dense, Mapping) or hasattr(dense, "mu")):
-        dense = dense[0]  # optax.adam is a chain; its first state holds the moments
-    count = int(np.asarray(_get(dense, "count")))
-    mu, nu = flatten(_get(dense, "mu")), flatten(_get(dense, "nu"))
-    adam = state.opt_state["dense"] if hybrid else state.opt_state
+    fields = optax_fields(opt_state_np["dense"] if hybrid else opt_state_np)
+    count = fields.pop("count", None)
+    count = None if count is None else int(np.asarray(count))
+    opt = state.opt_state["dense"] if hybrid else state.opt_state
+    torch_adam = isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+    rename = _TORCH_ADAM_KEYS if torch_adam else {}
+    trees = {rename.get(k, k): flatten(v) for k, v in fields.items()}
+    paths = sorted({path for tree in trees.values() for path in tree})
     with torch.no_grad():
-        for path in mu:
+        for path in paths:
             p = named[torch_name(path)]
-            # a capturable Adam (on the card) keeps its step on the card
-            step_device = p.device if adam.defaults.get("capturable") else "cpu"
-            adam.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32, device=step_device),
-                "exp_avg": _as_torch(path, mu[path], p),
-                "exp_avg_sq": _as_torch(path, nu[path], p),
-            }
+            values = {k: _as_torch(path, tree[path], p) for k, tree in trees.items()}
+            live = opt.state.get(p)
+            if not live:  # torch's lazily built state: Adam's before its first step
+                if count is None:
+                    raise ValueError(f"the optax state has no count for {type(opt).__name__}")
+                # a capturable Adam (on the card) keeps its step on the card
+                step_device = p.device if opt.defaults.get("capturable") else "cpu"
+                opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32,
+                                                     device=step_device), **values}
+                continue
+            if set(live) - {"step"} != set(values):
+                raise KeyError(f"optax state {sorted(values)} of {path!r} does not match the "
+                               f"port optimizer's {sorted(set(live) - {'step'})}")
+            for k, v in values.items():
+                live[k].copy_(v)
+            if "step" in live:
+                if count is None:
+                    raise ValueError(f"the port optimizer counts steps, the optax state of "
+                                     f"{path!r} has no count")
+                live["step"].fill_(count)
         for path, slots in (opt_state_np["sparse"].items() if hybrid else ()):
             copy_row_slots(slots, state.opt_state["sparse"][torch_name(path)])
-        state.step.fill_(count)
+        if step is not None or count is not None:
+            state.step.fill_(count if step is None else step)
 
 
 def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> None:
@@ -203,4 +282,5 @@ def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> No
             port_slots[k].copy_(_numpy_to_torch(arr))
 
 
-__all__ = ["copy_row_slots", "flatten", "flax_path", "from_flax_params", "torch_name"]
+__all__ = ["copy_row_slots", "flatten", "flax_path", "flax_paths", "from_flax_params",
+           "optax_fields", "torch_name"]

@@ -18,14 +18,15 @@ import torch
 
 from torecsys_tpu_torch.losses import functional as F
 from torecsys_tpu_torch.losses.functional import align_targets, binary_cross_entropy_with_logits
+from torecsys_tpu_torch.utils import get_reduction
 
-_REDUCTIONS = {"mean": torch.mean, "sum": torch.sum, "none": lambda x: x}
 
-
-def _reduce(loss: torch.Tensor, reduction: str, mask) -> torch.Tensor:
+def _reduce(loss: torch.Tensor, reduction, mask) -> torch.Tensor:
+    """A mask's weighted mean, or else ``reduction`` resolved by
+    :func:`~torecsys_tpu_torch.utils.get_reduction`."""
     if mask is not None:
         return F.apply_mask(loss, mask)
-    return _REDUCTIONS[reduction](loss)
+    return get_reduction(reduction)(loss)
 
 
 class Loss:

@@ -2,7 +2,11 @@
 
 from torecsys_tpu_torch.models.ctr.deep import *  # noqa: F401,F403
 from torecsys_tpu_torch.models.ctr.deep import __all__ as _deep_all
+from torecsys_tpu_torch.models.ctr.ffm_deep import *  # noqa: F401,F403
+from torecsys_tpu_torch.models.ctr.ffm_deep import __all__ as _ffm_deep_all
+from torecsys_tpu_torch.models.ctr.fibinet import *  # noqa: F401,F403
+from torecsys_tpu_torch.models.ctr.fibinet import __all__ as _fibinet_all
 from torecsys_tpu_torch.models.ctr.fm_family import *  # noqa: F401,F403
 from torecsys_tpu_torch.models.ctr.fm_family import __all__ as _fm_all
 
-__all__ = [*_fm_all, *_deep_all]
+__all__ = [*_fm_all, *_deep_all, *_ffm_deep_all, *_fibinet_all]

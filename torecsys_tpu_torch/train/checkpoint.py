@@ -11,11 +11,12 @@ CPU) and plain Python values:
   a BatchNorm's ``mean`` and ``var``) by name; a checkpoint written before
   the port had them has no such key, and restores into a model without
   them;
-* ``dense_opt``: the dense optimizer's ``state_dict()`` (Adam's moments and
-  its step count, a float32 tensor that a capturable Adam keeps on the
-  card);
+* ``dense_opt``: the dense optimizer's ``state_dict()``, any optimizer's
+  (Adam's moments and its step count, a float32 tensor that a capturable
+  Adam keeps on the card; the written-out optax optimizers' slots, and
+  their step count on the parameters' device);
 * ``row_slots``: on the sparse route, each table's row-wise optimizer slots
-  (``RowAdam``'s ``mv``);
+  (``RowAdam``'s ``mv``, ``RowAdagrad``'s ``v``, none of ``RowSGD``);
 * ``sparse``: whether the state has the sparse route's hybrid layout;
 * ``step``, ``loss_sum`` and ``loss_count``: the step counter and the loss
   accumulators.
@@ -43,6 +44,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from torecsys_tpu_torch.train.optimizers import OptaxOptimizer
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state
 from torecsys_tpu_torch.train.state import TrainState, batch_stats
 
@@ -126,22 +128,31 @@ def _restore_dense_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
     if sizes != [len(g["params"]) for g in opt.param_groups]:
         raise ValueError(f"checkpoint dense optimizer has parameter groups of {sizes}, the live "
                          f"one {[len(g['params']) for g in opt.param_groups]}")
-    capturable = bool(opt.defaults.get("capturable", False))
+    # a capturable optimizer (Adam on the card, every written-out optax one)
+    # keeps its step on the parameter's device; a CPU Adam keeps it on the CPU
+    step_on_device = bool(opt.defaults.get("capturable", False))
     for i, p in enumerate(params):
         if i not in saved["state"]:
-            opt.state.pop(p, None)  # saved before this parameter's first step
+            # saved before this parameter's first step by an optimizer that
+            # builds its state then (torch's); one that builds it with
+            # itself (the written-out optax ones) never saves it empty
+            if isinstance(opt, OptaxOptimizer):
+                raise ValueError(f"checkpoint dense optimizer state of parameter {i} is empty "
+                                 f"and does not match the live {sorted(opt.state[p])} (another "
+                                 "optimizer?)")
+            opt.state.pop(p, None)
             continue
         live = opt.state.get(p)
-        if not live:
-            # a capturable Adam keeps its step on the parameter's device
-            opt.state[p] = {k: v.to(p.device if k != "step" or capturable else "cpu")
+        if not live:  # torch's lazily built state (Adam's before its first step)
+            opt.state[p] = {k: v.to(p.device if k != "step" or step_on_device else "cpu")
                             for k, v in saved["state"][i].items()}
             continue
+        if set(live) != set(saved["state"][i]):
+            raise ValueError(f"checkpoint dense optimizer state {sorted(saved['state'][i])} of "
+                             f"parameter {i} does not match the live {sorted(live)} (another "
+                             "optimizer or setting?)")
         for k, v in saved["state"][i].items():
-            if k in live and isinstance(live[k], torch.Tensor):
-                _copy_into(live[k], v, f"dense optimizer state {k!r} of parameter {i}")
-            else:
-                live[k] = v.to(p.device)
+            _copy_into(live[k], v, f"dense optimizer state {k!r} of parameter {i}")
 
 
 def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainState:

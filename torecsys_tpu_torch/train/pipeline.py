@@ -11,7 +11,8 @@ The port carries the three objectives: ``ctr`` on both embedding routes,
 (touched-rows-only) route, ``False`` the dense one, and ``None`` (the
 default) the automatic choice, which the Trainer makes from the tables' size
 with thresholds measured on the card (``train/trainer.py``).  A bf16 table,
-and the ``ltr`` and ``emb`` objectives, keep the dense route; with them
+the ``ltr`` and ``emb`` objectives, an optimizer without a row-wise twin and
+an opaque optimizer factory keep the dense route; with them
 ``set_sparse_embeddings(True)`` raises, as in the JAX package.
 
 A torch module is built on its device with its widths known, so the
@@ -100,9 +101,23 @@ class Pipeline:
         self.criterion = get_loss(criterion, **kwargs)
         return self
 
-    def set_optimizer(self, optimizer: str = "Adam", **kwargs) -> "Pipeline":
-        self.optimizer = get_optimizer(optimizer, **kwargs)
-        self.optimizer_spec = {"method": optimizer, **kwargs}
+    def set_optimizer(self, optimizer="Adam", **kwargs) -> "Pipeline":
+        """A registry name (``train.optimizers.get_optimizer``) with its
+        keywords, or the opaque form: a factory ``params ->
+        torch.optim.Optimizer``, the port's counterpart of an opaque optax
+        transform, which has no row-wise twin (``optimizer_spec`` None: the
+        tables stay on the dense route)."""
+        if isinstance(optimizer, str):
+            self.optimizer = get_optimizer(optimizer, **kwargs)
+            self.optimizer_spec = {"method": optimizer, **kwargs}
+        elif callable(optimizer):
+            if kwargs:
+                raise TypeError(f"an optimizer factory takes no keywords, got {sorted(kwargs)}")
+            self.optimizer = optimizer
+            self.optimizer_spec = None
+        else:
+            raise TypeError(f"set_optimizer takes a registry name or a factory "
+                            f"params -> torch.optim.Optimizer, got {optimizer!r}")
         return self
 
     def set_regularizer(self, regularizer: Optional[Regularizer] = None,
@@ -151,9 +166,13 @@ class Pipeline:
 
     def row_optimizer(self):
         """The row-wise (lazy) optimizer of the embedding tables, or None on
-        the dense route (``set_sparse_embeddings(False)``, a bf16 table, or
-        the ``ltr`` and ``emb`` objectives, for which
-        ``set_sparse_embeddings(True)`` raises)."""
+        the dense route, as the JAX package decides it: None under
+        ``set_sparse_embeddings(False)``, with a bf16 table, for the ``ltr``
+        and ``emb`` objectives, for an opaque optimizer factory and for a
+        named optimizer without a row-wise twin (``get_row_optimizer``:
+        Adam, AdamW, Adagrad and plain SGD have one; Lamb or
+        ``SGD(momentum=0.9)`` do not).  Under ``set_sparse_embeddings(True)``
+        the last three raise ``ValueError``."""
         from torecsys_tpu_torch.ops.sparse import get_row_optimizer
 
         if self.sparse_embeddings is False or is_reduced(self.table_dtype):
@@ -163,12 +182,17 @@ class Pipeline:
                 raise ValueError(f"sparse_embeddings=True requires objective='ctr' "
                                  f"(got {self.objective!r})")
             return None
+        if self.optimizer_spec is None:
+            if self.sparse_embeddings is True:
+                raise ValueError("sparse_embeddings=True requires a named optimizer "
+                                 "(set_optimizer('Adam', ...)), not an opaque transform")
+            return None
         spec = dict(self.optimizer_spec)
         row = get_row_optimizer(spec.pop("method", "Adam"), **spec)
-        if row is None:
+        if row is None and self.sparse_embeddings is True:
             raise ValueError(
-                f"optimizer {self.optimizer_spec!r} has no row-wise formulation in the port "
-                "(supported: Adam)"
+                f"optimizer {self.optimizer_spec!r} has no row-wise (lazy) "
+                "formulation; supported: Adam, AdamW, Adagrad, SGD(plain)"
             )
         return row
 

@@ -10,8 +10,12 @@ table module (:class:`~torecsys_tpu_torch.inputs.embeddings.TableInput`:
 table's ``(N, Vp, W)`` has the slots of ``N*Vp`` rows.  The hybrid optimizer
 state is::
 
-    {"dense": <torch Adam over the non-table parameters>,
-     "sparse": {"<table parameter name>": {"mv": (R, 2, W)}, ...}}
+    {"dense": <the named torch optimizer over the non-table parameters>,
+     "sparse": {"<table parameter name>": <the row rule's slots>, ...}}
+
+with the slots of the pipeline's row rule (``ops.sparse.get_row_optimizer``):
+``{"mv": (R, 2, W)}`` of ``RowAdam`` (Adam, AdamW), ``{"v": (R, W)}`` of
+``RowAdagrad``, ``{}`` of ``RowSGD``.
 
 The dense route's state is the torch optimizer over every parameter, the
 tables included (:meth:`TrainState.create`).

@@ -6,12 +6,12 @@ The train step dispatches on the state's optimizer layout, chosen at
 * the sparse (hybrid) step: forward with the sparse-route embeddings,
   ``loss.backward()`` (which leaves the dense gradients on the parameters
   and the per-slot table gradients on each embedding's lookup leaf), the
-  dense Adam step, then the row-wise update of each table's touched rows,
+  dense optimizer's step, then the row-wise update of each table's touched rows,
   in place through the kernels: ``update_from_host_aux`` when the batch
   carries presort aux (the trusted presorted route), else
   ``sort_slot_grads`` and ``update_sorted`` (the on-device route);
 * the dense step: forward, ``loss.backward()`` (the table gradient is the
-  scatter-add of the lookup's backward), and one Adam step over every
+  scatter-add of the lookup's backward), and one optimizer step over every
   parameter, the tables included.
 
 The loss of each objective, as the JAX package's:

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -36,4 +36,20 @@ def default_generator(device: torch.device, seed: int = 0,
     return torch.Generator(device=device).manual_seed(seed)
 
 
-__all__ = ["DeviceLike", "default_generator", "resolve_device"]
+def get_reduction(method) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A reduction by name, as the JAX package's ``get_reduction``: ``"mean"``
+    or ``"avg"`` → ``torch.mean``, ``"sum"`` → ``torch.sum``, ``"none"`` or
+    None → the identity; a callable passes through.  Anything else raises
+    ``ValueError``."""
+    if callable(method):
+        return method
+    if method in ("mean", "avg"):
+        return torch.mean
+    if method == "sum":
+        return torch.sum
+    if method in ("none", None):
+        return lambda x: x
+    raise ValueError(f"unknown reduction: {method!r}")
+
+
+__all__ = ["DeviceLike", "default_generator", "get_reduction", "resolve_device"]
