@@ -177,7 +177,41 @@ Phases (any failure raises and the exit code is not 0):
     ``set_sync_debug_mode("error")``; graphed examples/sec and a traced
     replay; then one step of an opaque optimizer factory and of Lamb under
     the automatic choice, both on the dense route.  The kernels line gives
-    the row rules each path launched the two row-update kernels under.
+    the row rules each path launched the two row-update kernels under, and
+    each path's launches (``launches_by_path``; the held steps' and replay
+    checks' of phases 16-20 in ``check_launches``).
+
+19. (Phases 19-20 run after phase 18, before phase 11.)  MMoE on bench.py's
+    workload (the MMoE paper's model, Ma et al., KDD 2018, at DeepCTR's
+    ``MMOE`` defaults: 3 experts of (256,) → 128, towers (64,) → 1, the gate
+    one Dense) with two tasks on ``(B, 2)`` labels drawn from ``--seed``,
+    Adam 1e-3, ``set_sparse_embeddings(None)``, bf16 tower,
+    ``Trainer(steps_per_execution=8)``: one step from one state with the
+    kernels against their plain versions on the on-device route (both dedup
+    settings) and the presorted one, the table scaled first; a replay
+    against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; two epochs of ``fit`` over 48 batches
+    on the route the automatic choice takes (examples/sec, step ms, host ms
+    per stage, device busy share, peak GB), then the fused dedup captured,
+    each kernel's in-graph time beside its bound; ``evaluate`` on 8
+    held-out batches and ``predict``.
+20. The other new models, each at a stated size: ESMM at E = 18 with an
+    MLP (360, 200, 80) per head (Ma et al., SIGIR 2018, section 4.2) over
+    the bench's fields capped at 1M rows, trained on (click, conversion)
+    labels with ``BCE(pCTR, click) + BCE(pCTR·pCVR, conversion)`` given as a
+    callable: E = 18 packs 4 rows into stored rows of 72 floats, so the
+    segment sum, the fused dedup and the 72-byte grad permute take their
+    scalar instantiations; ESM2, DeepMoE with two MoE layers and DeepMCP
+    (four tables, the dense route) at the JAX defaults; PAL around the
+    bench DeepFM through nested inputs; PRM at the JAX defaults over lists
+    of 30 of phase 15's 26,744 items at E = 64, 1024 lists a batch, on the
+    dense route.  One step of each from one state with the kernels against
+    their plain versions (losses, tables, every parameter and its Adam
+    moments, PRM's running statistics), ESMM's on both dedup settings; a
+    replay against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")`` for ESMM and PRM; ESMM's graphed steps
+    traced, each kernel's in-graph time beside its bound.  Phase 2's
+    segment-sum and dedup sweeps also run their streams at E = 18.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -599,6 +633,10 @@ def phase_kernels(batch, seed: int):
         n_valid = n_unique
         del wide, seg64
     records["widen_segment_sum"]["max_abs_err"] = seg_err
+    # ESMM's E = 18 packs P = 4: the bench ids' stream at that pack, for the
+    # sweeps' scalar instantiation at W = 72
+    _, aux4 = presorted_stream(batch, 4)
+    bench_streams[4] = tuple(torch.from_numpy(aux4[n]).to(dev) for n in ("lo", "seg"))
     sweep = sweep_segment_sums(bench_streams, gen, dev)
     for name, by_stream in sweep.items():
         records[name]["sweep"] = by_stream
@@ -1126,23 +1164,25 @@ def sweep_streams(bench_seg):
 
 def sweep_segment_sums(bench_streams, gen, dev):
     """Both segment sums on every sweep stream (``widen_segment_sum`` at
-    P = 8, E = 16 on the bench's pack-8 stream, and at P = 8, E = 10, the
-    FiBiNET width, whose rows of 10 floats take the kernel's scalar
-    instantiation; ``segment_sum_wide`` at W = 128 on its pack-1 stream):
+    P = 8, E = 16 on the bench's pack-8 stream, at P = 8, E = 10, the
+    FiBiNET width, and at P = 4, E = 18 on the pack-4 stream, ESMM's, whose
+    rows of 10 and 18 floats take the kernel's scalar instantiation;
+    ``segment_sum_wide`` at W = 128 on its pack-1 stream):
     grid grads bit-identical to the plain version; real-valued grads within
     (L_s - 1) * 2^-24 * sum|g| of a float64 sum over each segment of L_s
     positions; two launches bit-identical.  Returns each kernel's time and
-    longest segment per stream (the E = 10 streams labelled so)."""
+    longest segment per stream (the E = 10 and E = 18 streams labelled so)."""
     import torch
 
     from torecsys_tpu_torch.ops.kernels import sparse_update as K
 
-    pack = 8
     results = {"widen_segment_sum": {}, "segment_sum_wide": {}}
     for name, bench_pack, e in (("widen_segment_sum", 8, EMBED),
                                 ("widen_segment_sum", 8, FIBINET_EMBED),
+                                ("widen_segment_sum", 4, ESMM_EMBED),
                                 ("segment_sum_wide", 1, EMBED_WIDE)):
         bench_lo, bench_seg = bench_streams[bench_pack]
+        pack = bench_pack
         suffix = "" if e in (EMBED, EMBED_WIDE) else f" E={e}"
         for stream, seg in sweep_streams(bench_seg).items():
             label = stream + suffix
@@ -1210,8 +1250,9 @@ def dedup_sweep_ids(seg, lo, pack: int, label: str, dev):
 
 def sweep_fused_dedup(bench_streams, gen, dev):
     """``fused_sorted_dedup_update`` on every sweep stream of the segment sums
-    and a sentinel tail, at P = 8, E = 16, at P = 8, E = 10 (FiBiNET's width:
-    the kernel's scalar instantiation) and at P = 1, W = 128, each rule from
+    and a sentinel tail, at P = 8, E = 16, at P = 8, E = 10 and P = 4, E = 18
+    (FiBiNET's and ESMM's widths: the kernel's scalar instantiation) and at
+    P = 1, W = 128, each rule from
     one copied state, on real-valued grads: table and slots bit-identical to
     the default combine (``_combine_sorted_stored``: the segment sum, then
     ``fused_rowwise_update`` with the device count); two launches
@@ -1224,7 +1265,7 @@ def sweep_fused_dedup(bench_streams, gen, dev):
     from torecsys_tpu_torch.ops.sparse import _combine_sorted_stored
 
     results = {}
-    for pack, e in ((8, EMBED), (8, FIBINET_EMBED), (1, EMBED_WIDE)):
+    for pack, e in ((8, EMBED), (8, FIBINET_EMBED), (4, ESMM_EMBED), (1, EMBED_WIDE)):
         key = f"P={pack}" if e in (EMBED, EMBED_WIDE) else f"P={pack} E={e}"
         bench_lo, bench_seg = bench_streams[pack]
         streams = sweep_streams(bench_seg)
@@ -1340,15 +1381,18 @@ def sweep_unique_gather(shifted, table0):
 # ---- phases 3-7: the trainer's paths ----------------------------------------
 
 # the models whose only input is their table
-TABLE_ONLY_MODELS = ("DCN", "FiBiNET", "DeepFFM", "FATDeepFFM")
+TABLE_ONLY_MODELS = ("DCN", "FiBiNET", "DeepFFM", "FATDeepFFM", "MMoE", "DeepMoE", "ESMM",
+                     "ESM2")
 
 
 def ctr_pipeline(model: str, model_kwargs, field_sizes=None, sparse=None, compute=None,
-                 embed: int = EMBED, table: str = "emb_inputs", optimizer=("Adam", 1e-3)):
+                 embed: int = EMBED, table: str = "emb_inputs", optimizer=("Adam", 1e-3),
+                 criterion="BCEWithLogitsLoss"):
     """A CTR pipeline over the bench's fields: 13 dense values (but for the
     models whose only input is the table) and one table of the fields, fused
     (``emb_inputs``) or field-aware (``field_emb_inputs``), trained by the
-    named ``optimizer`` (name, lr)."""
+    named ``optimizer`` (name, lr) under ``criterion`` (a registry name or a
+    callable over the model's outputs and the label)."""
     from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
     from torecsys_tpu_torch.inputs import MultiIndicesEmbedding, MultiIndicesFieldAwareEmbedding
 
@@ -1360,7 +1404,7 @@ def ctr_pipeline(model: str, model_kwargs, field_sizes=None, sparse=None, comput
                         device=DEVICE)
     name, lr = optimizer
     return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(Inputs(schema))
-            .set_model(model, **model_kwargs).set_criterion("BCEWithLogitsLoss")
+            .set_model(model, **model_kwargs).set_criterion(criterion)
             .set_optimizer(name, lr=lr).set_sparse_embeddings(sparse)
             .set_compute_dtype(compute).set_target_fields("label"))
 
@@ -2985,19 +3029,21 @@ def replays_ran(trainer, per_step):
     return {n: ran * k * c for n, c in per_step.items()}
 
 
-def scale_table(trainer, rms: float) -> float:
-    """Scale the trainer's table in place to root mean square ``rms`` (the
-    padding rows stay 0) and return the factor.  The held steps of phases
-    16-18 start there: at the initial magnitude one step moves a
-    field-aware row by about 1e-8 and Adagrad's accumulator not at all, so a
-    kernel that wrote nothing would pass."""
+def scale_table(trainer, rms: float) -> None:
+    """Scale each of the trainer's tables in place to root mean square
+    ``rms`` (the padding rows stay 0).  The held steps of phases 16-20
+    start there: at the initial magnitude one step moves a field-aware row
+    by about 1e-8 and Adagrad's accumulator not at all, so a kernel that
+    wrote nothing would pass."""
     import torch
 
-    table = table_module(trainer).embedding
-    with torch.no_grad():
-        factor = rms * table.numel() ** 0.5 / torch.linalg.vector_norm(table.float()).item()
-        table.mul_(factor)
-    return factor
+    from torecsys_tpu_torch.train.sparse import sparse_modules
+
+    for module in sparse_modules(trainer.pipeline.sequential).values():
+        table = module.embedding
+        with torch.no_grad():
+            table.mul_(rms * table.numel() ** 0.5
+                       / torch.linalg.vector_norm(table.float()).item())
 
 
 def held_compare(start, plain, kernel):
@@ -3444,6 +3490,334 @@ def phase_optim_sweep(seed: int, out_dir):
     return {"launches": held, "graph_launches": graphs, "launches_by_rule": by_rule,
             "configs": records,
             "lamb_auto_loss": loss, "opaque_loss": opaque_loss}
+
+
+# ---- phases 19-20: MMoE at full width; the multi-task, attention and position models
+
+# MMoE (phase 19): the model of the MMoE paper (Ma et al., KDD 2018) at
+# DeepCTR's MMOE defaults for its widths (num_experts=3,
+# expert_dnn_hidden_units=(256, 128), tower_dnn_hidden_units=(64,),
+# gate_dnn_hidden_units=()): 3 experts of a 256 layer to 128, a tower of 64
+# to 1 per task, the gate one Dense; two tasks on (B, 2) labels drawn from
+# --seed, on bench.py's workload.
+MMOE = {"num_tasks": 2, "num_experts": 3, "expert_layer_sizes": (256,),
+        "expert_output_size": 128, "tower_layer_sizes": (64,)}
+MMOE_DISPATCHES = 6       # two epochs of 48 batches, as FiBiNET's
+# Phase 20, each model held at a stated size (no published full-width
+# configuration is claimed): ESMM at Ma et al., SIGIR 2018, section 4.2
+# (E = 18, an MLP (360, 200, 80) per head) over the bench's fields capped at
+# 1M rows: E = 18 packs P = 4 into stored rows of W = 72 floats (72-byte
+# logical rows), the scalar instantiations; ESM2, DeepMoE (two MoE layers)
+# and DeepMCP at the JAX package's defaults, and PAL around the bench
+# DeepFM, on the same capped fields; PRM at the JAX defaults (encoding 32,
+# 2 blocks, 2 heads, feed-forward 64) over lists of 30 of phase 15's 26,744
+# MovieLens-20M items at E = 64, 1024 lists a batch, on the dense route.
+ESMM_EMBED = 18
+ESMM = {"deep_layer_sizes": (360, 200, 80)}
+DEEPMOE = {"num_moe_layers": 2}
+PAL_POSITIONS = 128       # the JAX PAL's max_num_position
+PRM_LIST = 30
+PRM_EMBED = 64
+PRM_BATCH = 1024
+PRM_CLICK_RATE = 0.1
+
+
+def task_labels(batches, seed: int, tasks: int, nested: bool):
+    """Replace each batch's label by ``(B, tasks)`` labels drawn from
+    ``seed``: independent coins for MMoE's tasks, or (``nested``) a chain in
+    which each task can be 1 only where the one before is (click, then
+    conversion), the entire-space models' labels."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        n = b["label"].shape[0]
+        cols = [b["label"].astype(np.float32)]
+        for _ in range(tasks - 1):
+            coin = (rng.uniform(size=n) < 0.5).astype(np.float32)
+            cols.append(cols[-1] * coin if nested else coin)
+        b["label"] = np.stack(cols, axis=1)
+    return batches
+
+
+def esmm_criterion(preds, targets):
+    """ESMM's loss over ``(pCVR, pCTR)`` and the (click, conversion) label:
+    ``BCE(pCTR, click) + BCE(pCTR·pCVR, conversion)`` (Ma et al., SIGIR
+    2018, eq. 2-3), the registry's ``BCELoss``."""
+    from torecsys_tpu_torch.losses import BCELoss
+
+    pcvr, pctr = preds
+    bce = BCELoss()
+    return bce(pctr, targets[:, 0]) + bce(pctr * pcvr, targets[:, 1])
+
+
+def chain_criterion(preds, targets):
+    """ESM2's loss: the registry's ``BCELoss`` of each output against its
+    label column, summed."""
+    from torecsys_tpu_torch.losses import BCELoss
+
+    bce = BCELoss()
+    return sum(bce(p, targets[:, i]) for i, p in enumerate(preds))
+
+
+def mcp_criterion(preds, targets):
+    """DeepMCP's loss: the prediction subnet's logits and the matching
+    subnet against the click, the correlation subnet's positive toward 1
+    and its negatives toward 0."""
+    import torch
+
+    from torecsys_tpu_torch.losses import BCELoss, BCEWithLogitsLoss
+
+    y_pred, y_match, y_pos, y_neg = preds
+    bce = BCELoss()
+    return (BCEWithLogitsLoss()(y_pred, targets) + bce(y_match, targets)
+            + bce(y_pos, torch.ones_like(y_pos)) + bce(y_neg, torch.zeros_like(y_neg)))
+
+
+def held_trainer(pipeline, seed: int, presort=False, spe: int = 1):
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(pipeline, log_every=10**9, seed=seed, presort=presort,
+                      steps_per_execution=spe)
+    trainer.init_state()
+    return trainer
+
+
+def top_kernels(profile, n: int = 8) -> str:
+    """A traced replay's GEMM time a step and its ``n`` longest kernels."""
+    by_name = profile["device_us_per_step_by_name"]
+    gemm_us = sum(us for name, us in by_name.items()
+                  if any(mark in name.lower() for mark in GEMM_MARKS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return (f"GEMMs {gemm_us:.1f} us a step; top kernels a step: "
+            + "; ".join(f"{us:.1f} us {name[:80]}" for name, us in top))
+
+
+def phase_mmoe(seed: int, out_dir):
+    """Phase 19: MMoE at DeepCTR's widths on bench.py's workload (28 Zipf
+    fields over 32,884,400 rows, E = 16, batch 4096) with (B, 2) labels,
+    Adam 1e-3, ``set_sparse_embeddings(None)``, bf16 tower,
+    ``Trainer(steps_per_execution=8)``.  One step from one state with the
+    kernels against their plain versions on the on-device route (both dedup
+    settings) and the presorted one, the table scaled first; a replay
+    against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; two epochs of ``fit`` over 48 batches
+    on the route the automatic choice takes, then the fused dedup captured
+    (each kernel's in-graph time beside its bound); ``evaluate`` on 8
+    held-out batches."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.data.presort import Presorter, build_presort_specs
+
+    fns = kernels()
+    k = GRAPH_K
+    n_train = max(MMOE_DISPATCHES * k, 3 + 2 * k)
+    batches = task_labels(make_batches(seed + 18, n_train + EVAL_BATCHES), seed + 18,
+                          MMOE["num_tasks"], nested=False)
+    train, held_out = batches[:n_train], batches[n_train:]
+    total, records = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = held_trainer(ctr_pipeline("MMoE", MMOE, sparse=True, compute="bfloat16"), seed)
+    seq = trainer.pipeline.sequential
+    dense = sum(p.numel() for n, p in seq.named_parameters() if "inputs" not in n)
+    n_in = len(FIELD_SIZES) * EMBED
+    expert_macs = MMOE["num_experts"] * (n_in * 256 + 256 * 128)
+    tower_macs = MMOE["num_tasks"] * (MMOE["num_experts"] * 128 * 64 + 64)
+    gate_macs = n_in * MMOE["num_experts"] * MMOE["num_tasks"]
+    log(f"[mmoe] {MMOE}; {dense} dense parameters; "
+        f"{(expert_macs + tower_macs + gate_macs) / 1e6:.3f}M multiply-adds an example "
+        f"(experts {expert_macs / 1e6:.3f}M, towers {tower_macs / 1e6:.4f}M, gates "
+        f"{gate_macs / 1e6:.4f}M); labels {train[0]['label'].shape}")
+    scale_table(trainer, HELD_RMS)
+    for i, flag in enumerate(("0", "1")):
+        path = f"mmoe_held_{'fused' if flag == '1' else 'ondevice'}"
+        with fused_dedup(flag):
+            records[path] = step_vs_plain(trainer, train[i], fns, path,
+                                          expect(**ONDEVICE_PER_STEP[flag]))
+        add_counts(total, records[path]["launches"])
+    presorter = Presorter(build_presort_specs(trainer.pipeline.inputs))
+    records["mmoe_held_presorted"] = step_vs_plain(
+        trainer, presorter(train[2]), fns, "mmoe_held_presorted",
+        expect(**GRAPH_ROUTES["presorted"][3]))
+    add_counts(total, records["mmoe_held_presorted"]["launches"])
+    trainer.steps_per_execution = k
+    counts, records["mmoe_graph"] = replay_checks(trainer, train[3 + k:3 + 2 * k], fns, "mmoe",
+                                                  ONDEVICE_PER_STEP["0"], warm=train[3:3 + k])
+    add_counts(total, counts)
+    add_counts(total, replays_ran(trainer, ONDEVICE_PER_STEP["0"]))
+    del trainer, seq
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(ctr_pipeline("MMoE", MMOE, sparse=None, compute="bfloat16"),
+                      log_every=10**9, seed=seed, steps_per_execution=k)
+    trainer.init_state()
+    record = fit_and_fused_capture(trainer, train[:MMOE_DISPATCHES * k], fns, "mmoe", None,
+                                   "adam")
+    reset_counts(fns)
+    evaluation = trainer.evaluate(held_out)
+    check_counts("mmoe eval", read_counts(fns), expect(row_gather=EVAL_BATCHES))
+    scores = trainer.predict(held_out[0])
+    if not all(np.isfinite(v) for v in evaluation.values()) or tuple(scores.shape) != (
+            BATCH, MMOE["num_tasks"]) or not torch.isfinite(scores).all():
+        raise AssertionError(f"mmoe: evaluate gave {evaluation}, predict {tuple(scores.shape)}")
+    log(f"[mmoe] evaluate on {EVAL_BATCHES} held-out batches, both tasks: {evaluation}; "
+        f"predict {tuple(scores.shape)} {scores.dtype}; in a replayed step: "
+        + top_kernels(record["profile"]))
+    del trainer
+    release()
+    return {**record, "held_launches": total, "held": records, "eval": evaluation}
+
+
+def position_input(field: str):
+    """PAL's ``pos_inputs``: an input module giving the raw ``(B,)``
+    position ids of one field."""
+    from torecsys_tpu_torch.inputs import BaseInput
+
+    class _PositionInput(BaseInput):
+        def __init__(self):
+            super().__init__()
+            self.fields = (field,)
+
+        def forward(self, batch):
+            return batch[field]
+
+    return _PositionInput()
+
+
+def prm_batches(seed: int, n: int):
+    """``n`` batches of PRM_BATCH lists of PRM_LIST items (Zipf(1.2) over the
+    26,744 MovieLens-20M movies) with a per-position click label drawn at
+    PRM_CLICK_RATE, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {f"pos_{i}": (np.minimum(rng.zipf(1.2, size=PRM_BATCH), ML_ITEMS) - 1).astype(
+            np.int32) for i in range(PRM_LIST)}
+        b["label"] = (rng.uniform(size=(PRM_BATCH, PRM_LIST)) < PRM_CLICK_RATE).astype(
+            np.float32)
+        out.append(b)
+    return out
+
+
+def multitask_pipelines(capped):
+    """Phase 20's pipelines, each ``sparse`` route setting its own:
+    ``{name: (pipeline factory, route, batches' label kind)}``."""
+    from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding, SingleIndexEmbedding
+    from torecsys_tpu_torch.models import MODELS
+
+    cats = tuple(f"cat_{i}" for i in range(len(capped)))
+
+    def mcp():
+        user = MultiIndicesEmbedding(EMBED, capped[:10], cats[:10], device=DEVICE)
+        single = lambda fields: SingleIndexEmbedding(ROWS_CAP, EMBED, fields,  # noqa: E731
+                                                     device=DEVICE)
+        inputs = Inputs({"user_emb_inputs": user, "content_emb_inputs": single(cats[10:11]),
+                         "pos_emb_inputs": single(cats[11:12]),
+                         "neg_emb_inputs": single(cats[12:16])})
+        return (Pipeline(device=DEVICE).set_inputs(inputs).set_model("DeepMCP")
+                .set_criterion(mcp_criterion).set_optimizer("Adam", lr=1e-3)
+                .set_sparse_embeddings(False))
+
+    def pal():
+        pctr = Inputs({"feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
+                       "emb_inputs": MultiIndicesEmbedding(EMBED, capped, cats, device=DEVICE)})
+        pipe = Pipeline(device=DEVICE).set_inputs(
+            Inputs({"pctr_inputs": pctr, "pos_inputs": position_input("position")}))
+        model = MODELS["PAL"].from_inputs(pipe.inputs, "DeepFM", {"deep_layer_sizes": TOWER},
+                                          max_num_position=PAL_POSITIONS, device=DEVICE)
+        return (pipe.set_model(model).set_criterion("BCELoss").set_optimizer("Adam", lr=1e-3)
+                .set_sparse_embeddings(True))
+
+    def prm():
+        table = SingleIndexEmbedding(ML_ITEMS, PRM_EMBED,
+                                     tuple(f"pos_{i}" for i in range(PRM_LIST)), device=DEVICE)
+        return (Pipeline(device=DEVICE).set_inputs(Inputs({"feat_inputs": table}))
+                .set_model("PRM").set_criterion("BCELoss").set_optimizer("Adam", lr=1e-3)
+                .set_sparse_embeddings(False))
+
+    return {
+        "esmm": (lambda: ctr_pipeline("ESMM", ESMM, capped, sparse=True, embed=ESMM_EMBED,
+                                      criterion=esmm_criterion), "ondevice", ("nested", 2)),
+        "esm2": (lambda: ctr_pipeline("ESM2", {}, capped, sparse=True,
+                                      criterion=chain_criterion), "ondevice", ("nested", 3)),
+        "deepmoe": (lambda: ctr_pipeline("DeepMoE", DEEPMOE, capped, sparse=True), "ondevice",
+                    None),
+        "deepmcp": (mcp, "dense4", None),
+        "pal": (pal, "ondevice", "position"),
+        "prm": (prm, "dense", "prm"),
+    }
+
+
+def phase_multitask(seed: int, out_dir):
+    """Phase 20: ESMM at E = 18 (W = 72: the scalar instantiations and the
+    72-byte grad permute), ESM2, DeepMoE, DeepMCP (four tables, the dense
+    route), PAL around the bench DeepFM and PRM (the dense route), each at
+    its stated size (:data:`ESMM` ... above): one step from one state with
+    the kernels against their plain versions (the losses, the tables, every
+    parameter and its Adam moments, PRM's running statistics), ESMM's on
+    both dedup settings; a replay against 8 eager steps to the bit and one
+    under ``set_sync_debug_mode("error")`` for ESMM and PRM, and ESMM's
+    graphed steps traced, each kernel's in-graph time beside its bound."""
+    import torch
+
+    fns = kernels()
+    k = GRAPH_K
+    capped = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    per_route = {"ondevice": ONDEVICE_PER_STEP["0"], "dense": DENSE_PER_STEP,
+                 "dense4": {n: 4 * c for n, c in DENSE_PER_STEP.items()}}
+    total, records = {}, {}
+    for name, (make, route, labels) in multitask_pipelines(capped).items():
+        torch.cuda.reset_peak_memory_stats()
+        n = 2 + 2 * k
+        if labels == "prm":
+            batches = prm_batches(seed + 20, n)
+        else:
+            batches = make_batches(seed + 19, n, capped)
+            if labels == "position":
+                rng = np.random.default_rng(seed + 19)
+                for b in batches:
+                    b["position"] = rng.integers(0, PAL_POSITIONS, BATCH).astype(np.int32)
+            elif labels is not None:
+                task_labels(batches, seed + 19, labels[1], nested=True)
+        trainer = held_trainer(make(), seed)
+        if trainer.sparse != (route == "ondevice"):
+            raise AssertionError(f"{name}: route {'sparse' if trainer.sparse else 'dense'}, "
+                                 f"expected {route}")
+        scale_table(trainer, HELD_RMS)
+        flags = ("0", "1") if name == "esmm" else ("0",)
+        for i, flag in enumerate(flags):
+            path = f"{name}_held" + ("_fused" if flag == "1" else "")
+            want = ONDEVICE_PER_STEP[flag] if route == "ondevice" else per_route[route]
+            with fused_dedup(flag):
+                records[path] = step_vs_plain(trainer, batches[i], fns, path, expect(**want))
+            add_counts(total, records[path]["launches"])
+        if name == "esmm":
+            module = table_module(trainer)
+            if module.pack != 4 or module.embedding.shape[-1] != 72:
+                raise AssertionError(f"esmm: stored rows {tuple(module.embedding.shape)}, "
+                                     "expected pack 4 into W = 72")
+        if name in ("esmm", "prm"):
+            per_step = per_route[route]
+            trainer.steps_per_execution = k
+            counts, records[f"{name}_graph"] = replay_checks(
+                trainer, batches[2 + k:], fns, name, per_step, warm=batches[2:2 + k])
+            add_counts(total, counts)
+            if name == "esmm":
+                records["esmm_timed"] = timed_replays(
+                    trainer, batches[2 + k:], name, per_step,
+                    table_bounds(trainer, batches[2 + k], "adam"))
+                log(f"[esmm] in a replayed step: "
+                    + top_kernels(records["esmm_timed"]["profile"]))
+            add_counts(total, replays_ran(trainer, per_step))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[{name}] {type(trainer.pipeline.model).__name__} on the "
+            f"{'on-device sparse' if trainer.sparse else 'dense'} route; "
+            f"{sum(p.numel() for p in trainer.pipeline.sequential.parameters())} parameters; "
+            f"peak allocated {peak:.3f} GB with the comparisons' copies")
+        records[f"{name}_peak_memory_gb"] = peak
+        del trainer
+        release()
+    return {"launches": total, **records}
 
 
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
@@ -4046,20 +4420,24 @@ def main(argv=None):
     fat = timed("fat_deepffm", phase_fat, args.seed, args.out)
     fibinet = timed("fibinet", phase_fibinet, args.seed, args.out)
     optim = timed("optim_sweep", phase_optim_sweep, args.seed, args.out)
+    mmoe = timed("mmoe", phase_mmoe, args.seed, args.out)
+    multitask = timed("multitask", phase_multitask, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
              "ncf_bpr": ncf_bpr, "fat_deepffm_adagrad": fat,
              "fat_deepffm_adagrad_fused": fat["fused"], "fibinet": fibinet,
-             "fibinet_fused": fibinet["fused"], "optim_sweep": optim,
-             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+             "fibinet_fused": fibinet["fused"], "optim_sweep": optim, "mmoe": mmoe,
+             "mmoe_fused": mmoe["fused"], "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # launches_by_path: each path's own run (a fit: the wrappers' counts of
     # its warm-up and capture plus its replays x a traced replay's; the
     # _fused paths: the fused dedup's capture after it; optim_sweep: its
     # eager steps); check_launches: the held steps and replay checks of
-    # phases 16-18, apart from the paths' runs.
+    # phases 16-20, apart from the paths' runs (phase 20's models run no
+    # other path).
     checks = {"fat_held": fat_held["launches"], "fibinet_held": fibinet["held_launches"],
-              "optim_sweep_graphs": optim["graph_launches"]}
+              "optim_sweep_graphs": optim["graph_launches"], "mmoe_held": mmoe["held_launches"],
+              "multitask_held": multitask["launches"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -4082,17 +4460,23 @@ def main(argv=None):
             line["ltr_bound_ms"], line["ltr_bound_by"] = ncf_bpr["bounds"][name]
         # FAT-DeepFFM under Adagrad at FFM's shape; FiBiNET at E = 10, W = 80
         # (the scalar instantiations and the 4-byte gather)
-        for key, rec in (("fat_deepffm", fat), ("fibinet", fibinet)):
+        for key, rec in (("fat_deepffm", fat), ("fibinet", fibinet), ("mmoe", mmoe)):
             if name in rec["in_graph_us"]:
                 line[f"{key}_in_graph_us"] = rec["in_graph_us"][name]
                 line[f"{key}_bound_ms"], line[f"{key}_bound_by"] = rec["bounds"][name]
+        # ESMM at E = 18, W = 72 (its graphed steps, the on-device route)
+        esmm_us = multitask["esmm_timed"]["profile"]["kernel_us_per_step"]
+        if name in esmm_us:
+            line["esmm_in_graph_us"] = esmm_us[name]
+            line["esmm_bound_ms"], line["esmm_bound_by"] = multitask["esmm_timed"]["bounds"][name]
         if name in ("fused_rowwise_update", "fused_sorted_dedup_update"):
             # the row rules each path launched it under ("table_grad": the
             # dense route's table gradient, the sgd rule at lr -1)
             line["launches_by_rule"] = {"optim_sweep": optim["launches_by_rule"].get(name, {})}
             for path, rule in (("fat_deepffm_adagrad", "adagrad"),
                                ("fat_deepffm_adagrad_fused", "adagrad"), ("fibinet", "adam"),
-                               ("fibinet_fused", "adam"), ("headline", "adam")):
+                               ("fibinet_fused", "adam"), ("mmoe", "adam"),
+                               ("mmoe_fused", "adam"), ("headline", "adam")):
                 line["launches_by_rule"][path] = {rule: by_path[path]}
         kernel_lines.append(line)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -4100,7 +4484,7 @@ def main(argv=None):
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
                        "presort": presort, **paths, "ffm_held": ffm_held, "fat_held": fat_held,
-                       "file": file_fed}, f, indent=1)
+                       "multitask": multitask, "file": file_fed}, f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -129,7 +129,7 @@ def test_a_missing_file_is_a_usage_error(capsys):
                                    ["--lookup_strategy", "psum"], ["--capacity_factor", "4"],
                                    ["--min_rows_to_shard", "10"]])
 def test_mesh_options_beyond_one_device_are_refused(flags):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Parallelism"):
         run(["train", *COMMON, *flags])
 
 
@@ -140,26 +140,63 @@ def test_single_device_mesh_options_run():
 
 
 def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
-    """What is still not ported is refused, by name, with its ROADMAP item:
-    the sequence and image inputs, and PRM (the attention slice), as an
-    ``ltr`` model.  The objectives, the regularizer and the miner are ported
-    (``test_build_takes_the_ranking_objectives_miner_and_regularizer``)."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """What is still not ported is refused, by name, with its ROADMAP item's
+    title: the sequence and the image inputs.  The objectives, the
+    regularizer and the miner are ported
+    (``test_build_takes_the_ranking_objectives_miner_and_regularizer``), and
+    PRM (``test_prm_builds_as_the_jax_package_builds_it``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Sequence inputs and DSIN"):
         _build_inputs({"emb_inputs": {"method": "SequenceIndicesEmbedding", "embed_size": 4,
                                       "field_size": 9, "fields": ["a"]}}, "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
         _build_inputs({"image_inputs": {"method": "PretrainedImageInput", "embed_size": 4}},
                       "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Sequence inputs and DSIN"):
         _build_inputs({"seq_inputs": {"method": "ListIndicesEmbedding", "embed_size": 4,
                                       "field_size": 9, "fields": ["a"]}}, "cpu")
-    inputs = _build_inputs({"emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4,
-                                           "field_sizes": [10, 20], "fields": ["u", "i"]}},
-                           "cpu")
-    with pytest.raises(NotImplementedError, match="item 8: the attention slice"):
-        Pipeline.build(device="cpu", objective="ltr", inputs_config=inputs,
-                       model_config={"method": "PRM", "max_num_position": 5},
-                       miner_target_field="i")
+
+
+def _outcome(build):
+    """``("built", model class name)`` or ``("raised", error type name)``."""
+    try:
+        return "built", type(build().model).__name__
+    except Exception as e:  # noqa: BLE001 - the outcome is compared, whatever it is
+        return "raised", type(e).__name__
+
+
+@pytest.mark.parametrize("inputs,model", [
+    # no embed_size: the JAX PRM requires it, and the port's reads it only
+    # off a feat_inputs, which these inputs do not give
+    ({"emb_inputs": {"method": "MultiIndicesEmbedding", "embed_size": 4,
+                     "field_sizes": [10, 20], "fields": ["u", "i"]}},
+     {"method": "PRM", "max_num_position": 5}),
+    ({"feat_inputs": {"method": "SingleIndexEmbedding", "embed_size": 4, "field_size": 30,
+                      "fields": ["p0", "p1", "p2", "p3", "p4"]}},
+     {"method": "PRM", "embed_size": 4, "max_num_position": 5, "encoding_size": 8}),
+])
+def test_prm_builds_as_the_jax_package_builds_it(inputs, model):
+    """``Pipeline.build`` of an ``ltr`` PRM config: the port's outcome is the
+    JAX package's (a ``TypeError`` without ``embed_size``; else the model)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from torecsys_tpu import inputs as J
+    from torecsys_tpu.train import Pipeline as JaxPipeline
+
+    def jax_inputs():
+        schema = {}
+        for name, spec in inputs.items():
+            spec = {k: tuple(v) if isinstance(v, list) else v for k, v in spec.items()}
+            schema[name] = getattr(J, spec.pop("method"))(**spec)
+        return J.Inputs(schema=schema)
+
+    def config(port):
+        return dict(objective="ltr", model_config=model, miner_target_field="p0",
+                    inputs_config=_build_inputs(inputs, "cpu") if port else jax_inputs())
+
+    want = _outcome(lambda: JaxPipeline.build(**config(False)))
+    got = _outcome(lambda: Pipeline.build(device="cpu", **config(True)))
+    assert got == want, (got, want)
 
 
 def test_build_takes_the_ranking_objectives_miner_and_regularizer(capsys):

@@ -5,7 +5,10 @@ evaluation, prediction; each model of the registry built and applied, and
 xDeepFM, FFM over the field-aware table and NCF over two single-index
 tables trained on both routes and checkpointed; FiBiNET, DeepFFM and
 FAT-DeepFFM trained on both routes under AdamW, SGD and Adagrad, DeepFM
-under each of the twelve optimizers and under an opaque factory; the ``ltr`` objective (NCF
+under each of the twelve optimizers and under an opaque factory; MMoE on a
+two-task label and ESMM with a callable criterion trained on both routes
+in bf16, ESM², DeepMoE and DeepMCP applied, PRM trained, PAL around FM through nested
+inputs trained and predicting; the ``ltr`` objective (NCF
 with BPR and the miner, a regularizer) fit and evaluated, eager and at 2
 steps a dispatch, and StarSpace on ``emb``; and the CLI: streamed training
 from the bundled Criteo sample with a checkpoint, a resumed run and
@@ -87,8 +90,14 @@ for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
                          "StarSpaceModel", "LearningToRankWrapper",
                          "PersonalizedReRankingModel", "DeepFieldAwareFactorizationMachineModel",
                          "FieldAttentiveDeepFieldAwareFactorizationMachineModel",
-                         "FeatureImportanceAndBilinearFeatureInteractionNetwork"):
-        continue  # other inputs (above, or in the steps before and after), or not ported
+                         "FeatureImportanceAndBilinearFeatureInteractionNetwork",
+                         "MultiGateMixtureOfExpertsModel", "DeepMixtureOfExpertsModel",
+                         "EntireSpaceMultiTaskModel",
+                         "ElaboratedEntireSpaceSupervisedMultiTaskModel",
+                         "DeepMatchingCorrelationPredictionModel",
+                         "PositionBiasAwareLearningFrameworkModel",
+                         "DeepSessionInterestNetworkModel"):
+        continue  # other inputs or outputs (above, or in the steps after), or not ported
     if name.__name__ == "MatrixFactorizationModel":
         pipe = Pipeline(device="cpu").set_inputs(I.Inputs({"emb_inputs": schemas["DCN"][
             "emb_inputs"]})).set_model("MF")
@@ -97,6 +106,52 @@ for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
     pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schemas["xDeepFM"])).set_model(
         name.__name__, **({"attn_size": 4} if "Attentional" in name.__name__ else {}))
     assert pipe.sequential({k: torch.as_tensor(v) for k, v in batch.items()}).shape == (16, 1)
+# the multi-task models: MMoE on a (B, 2) label on both routes at 2 steps a
+# dispatch, ESMM with a callable criterion, ESM2 and DeepMCP applied
+two_task = {**batch, "label": np.stack([batch["label"], batch["label"] * 0], axis=1)}
+from torecsys_tpu_torch.losses import BCELoss
+bce = BCELoss()
+for name, kwargs, crit in (("MMoE", {"num_tasks": 2, "num_experts": 3}, "BCEWithLogitsLoss"),
+                           ("ESMM", {"deep_layer_sizes": (8,)},
+                            lambda p, y: bce(p[1], y[:, 0]) + bce(p[1] * p[0], y[:, 1]))):
+    for sparse in (True, False):
+        pipe = (Pipeline(device="cpu").set_inputs(I.Inputs(schemas["DCN"]))
+                .set_model(name, **kwargs).set_criterion(crit).set_sparse_embeddings(sparse)
+                .set_compute_dtype("bfloat16"))
+        t = Trainer(pipe, presort=False, steps_per_execution=2)
+        assert np.isfinite(float(t.train_steps([two_task, two_task])[-1]))
+pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schemas["DCN"])).set_model("ESM2")
+assert len(pipe.sequential({k: torch.as_tensor(v) for k, v in cats.items()})) == 3
+pipe = Pipeline(device="cpu").set_inputs(I.Inputs(schemas["DCN"])).set_model("DeepMoE",
+                                                                             num_moe_layers=2)
+assert pipe.sequential({k: torch.as_tensor(v) for k, v in cats.items()}).shape == (16, 1)
+items = I.SingleIndexEmbedding(9, 8, ("b",), device="cpu")
+pipe = Pipeline(device="cpu").set_inputs(I.Inputs({
+    "user_emb_inputs": I.SingleIndexEmbedding(50, 8, ("a",), device="cpu"),
+    "content_emb_inputs": items, "pos_emb_inputs": items, "neg_emb_inputs": items})).set_model(
+    "DeepMCP")
+assert len(pipe.sequential({k: torch.as_tensor(v) for k, v in cats.items()})) == 4
+# PRM on per-position labels, and PAL around FM through nested inputs
+lists = {f"p{i}": rng.integers(0, 50, 16) for i in range(5)}
+lists["label"] = (rng.uniform(size=(16, 5)) < 0.3).astype(np.float32)
+pipe = (Pipeline(device="cpu").set_inputs(I.Inputs({"feat_inputs": I.SingleIndexEmbedding(
+    50, 8, tuple(f"p{i}" for i in range(5)), device="cpu")})).set_model("PRM")
+        .set_criterion("BCELoss"))
+assert np.isfinite(float(Trainer(pipe, steps_per_execution=2).train_steps([lists, lists])[-1]))
+
+
+class PositionInput(I.BaseInput):
+    fields = ("b",)
+
+    def forward(self, batch):
+        return batch["b"]
+
+
+pipe = Pipeline(device="cpu").set_inputs(I.Inputs({"pctr_inputs": I.Inputs(schemas["xDeepFM"]),
+                                                   "pos_inputs": PositionInput()}))
+pipe.set_model(MODELS["PAL"].from_inputs(pipe.inputs, "FM", max_num_position=9, device="cpu"))
+t = Trainer(pipe)
+assert np.isfinite(float(t.train_steps([batch])[-1])) and t.predict(batch).shape == (16, 1)
 ranking = {"u": rng.integers(0, 50, 16), "i": rng.integers(0, 9, 16),
            "label": np.ones(16, np.float32)}
 for spe in (1, 2):

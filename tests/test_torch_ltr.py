@@ -317,12 +317,18 @@ def test_ltr_wrapper_and_predict_match_the_jax_wrapper():
 
 
 def test_the_registry_holds_the_emb_and_ltr_models_and_prm_waits():
-    for name in ("MF", "MatrixFactorization", "StarSpace", "LTRWrapper"):
+    """The emb and ltr models under the JAX package's names; PRM, which
+    waited for the attention layers, builds (``test_torch_attention`` holds
+    it to the JAX PRM)."""
+    for name in ("MF", "MatrixFactorization", "StarSpace", "LTRWrapper", "PRM",
+                 "PersonalizedReRanking"):
         assert name in MODELS
         assert MODELS[name].__name__ == JM.MODELS[name].__name__
     for name in ("PRM", "PersonalizedReRanking"):
-        with pytest.raises(NotImplementedError, match="attention slice"):
-            get_model(name, embed_size=E, max_num_position=5)
+        prm = get_model(name, embed_size=E, max_num_position=5, device="cpu")
+        scores = prm(torch.zeros(2, 5, E))
+        assert scores.shape == (2, 5)
+        np.testing.assert_allclose(scores.sum(dim=1).detach().numpy(), 1.0, rtol=1e-6)
 
 
 # ---- the miner -------------------------------------------------------------

@@ -36,8 +36,14 @@ import torecsys_tpu_torch
 
 Columns = Dict[str, np.ndarray]
 
-_MESH_TODO = ("meshes are not ported yet (ROADMAP queue 1 item 12: parallel/mesh.py, "
+_MESH_TODO = ("meshes are not ported yet (ROADMAP queue 1: Parallelism, parallel/mesh.py, "
               "sharding.py and lookup.py on torch.distributed)")
+
+
+# the ROADMAP item, by its title, of each input the port does not have yet
+_INPUT_ITEMS = {"ListIndicesEmbedding": "Sequence inputs and DSIN",
+                "SequenceIndicesEmbedding": "Sequence inputs and DSIN",
+                "ImageInput": "Image inputs", "PretrainedImageInput": "Image inputs"}
 
 
 class UsageError(Exception):
@@ -59,9 +65,10 @@ def _build_input(spec: dict, device=None):
     spec = dict(spec)
     method = spec.pop("method")
     if method not in known:
+        item = _INPUT_ITEMS.get(method, "Sequence inputs and DSIN; Image inputs")
         raise NotImplementedError(
-            f"input {method!r} is not ported yet (ROADMAP queue 1 item 8: the other "
-            f"inputs); the port has {sorted(known)}")
+            f"input {method!r} is not ported yet (ROADMAP queue 1: {item}); the port has "
+            f"{sorted(known)}")
     if method in ("ConcatInput", "StackedInput"):
         return known[method]([_build_input(child, device) for child in spec.pop("inputs")],
                              **spec)

@@ -7,10 +7,18 @@ The JAX package keeps its parameters as a nested dict (flax), the port in
   the packed ``(ceil(V/P), P*E)`` table (a field-aware table's
   ``(N, ceil(V/P), P*E)``), as it is (both sides store the same layout,
   float32 or bfloat16); a container's child ``inputs_<i>`` is
-  ``inputs.<i>``;
+  ``inputs.<i>``, and a nested ``Inputs``' entry ``schema_<name>`` is
+  ``schema.<name>`` (PAL's ``pctr_inputs``);
 * ``model/.../kernel`` → ``model.....weight``, transposed (its axes
   reversed: a Dense kernel ``(in, out)`` becomes ``(out, in)``, PNN's outer
-  kernel ``(E, P, E)`` its reverse); every other parameter as it is.
+  kernel ``(E, P, E)`` its reverse, the attention's ``query`` kernel ``(in,
+  H, D/H)`` ``(D/H, H, in)`` and its ``out`` kernel ``(H, D/H, out)``
+  ``(out, D/H, H)``: the port's ``DenseGeneral`` keeps that layout); every
+  other parameter as it is.  The other paths are the same on both sides:
+  the experts of an MoE layer are named as flax names them
+  (``_FlatMLPExpert_<i>/MultilayerPerceptionLayer_0``), PAL's wrapped
+  model is ``pctr_model``, PRM's batch norms ``attn_bn_<i>`` and
+  ``ff_bn_<i>``.
 
 With ``batch_stats`` it fills the model's running statistics (flax's
 ``batch_stats`` collection, a BatchNorm's ``mean`` and ``var``) into the
@@ -62,8 +70,11 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
 def torch_name(flax_path: str) -> str:
     """Flax parameter path → the port's parameter name."""
     parts = flax_path.split(SEP)
-    if len(parts) > 1 and parts[0] == "inputs" and parts[1].startswith(_SCHEMA):
-        parts = ["inputs", "schema", parts[1][len(_SCHEMA):], *parts[2:]]
+    if len(parts) > 1 and parts[0] == "inputs":
+        # an Inputs' schema entry, also of an Inputs nested in one (PAL's
+        # pctr_inputs): schema_<name> → schema.<name>
+        parts = ["inputs", *(f"schema.{p[len(_SCHEMA):]}" if p.startswith(_SCHEMA) else p
+                             for p in parts[1:])]
     parts = [f"inputs.{m.group(1)}" if (m := _CHILD.match(p)) else p for p in parts]
     if parts[-1] == "kernel":
         parts[-1] = "weight"
@@ -83,6 +94,10 @@ def flax_path(name: str) -> str:
     while i < len(parts):
         if parts[i] == "inputs" and i + 1 < len(parts) and parts[i + 1].isdigit():
             out.append(f"inputs_{parts[i + 1]}")
+            i += 2
+            continue
+        if out[:1] == ["inputs"] and parts[i] == "schema" and i + 2 < len(parts):
+            out.append(_SCHEMA + parts[i + 1])  # a nested Inputs' entry
             i += 2
             continue
         out.append(parts[i])

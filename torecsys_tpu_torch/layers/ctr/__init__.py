@@ -1,6 +1,13 @@
 """CTR layers (counterpart of ``torecsys_tpu/layers/ctr``)."""
 
-from torecsys_tpu_torch.layers.ctr.attention import ComposeExcitationNetworkLayer
+from torecsys_tpu_torch.layers.ctr.attention import (
+    BiasEncodingLayer,
+    ComposeExcitationNetworkLayer,
+    DenseGeneral,
+    MultiHeadDotProductAttention,
+    PositionBiasAwareLearningFrameworkLayer,
+    PositionEmbeddingLayer,
+)
 from torecsys_tpu_torch.layers.ctr.cin import BatchNorm, CompressInteractionNetworkLayer
 from torecsys_tpu_torch.layers.ctr.cross import (
     BilinearInteractionLayer,
@@ -16,21 +23,27 @@ from torecsys_tpu_torch.layers.ctr.factorization import (
     FactorizationMachineLayer,
     FieldAwareFactorizationMachineLayer,
 )
+from torecsys_tpu_torch.layers.ctr.moe import MixtureOfExpertsLayer
 from torecsys_tpu_torch.layers.ctr.product import (
     InnerProductNetworkLayer,
     OuterProductNetworkLayer,
 )
 
-# the JAX package's aliases of the excitation layer
+# the JAX package's aliases
 CENLayer = ComposeExcitationNetworkLayer
+MOELayer = MixtureOfExpertsLayer
+PALLayer = PositionBiasAwareLearningFrameworkLayer
 SENETLayer = ComposeExcitationNetworkLayer
 SqueezeAndExcitationNetworkLayer = ComposeExcitationNetworkLayer
 
-__all__ = ["AttentionalFactorizationMachineLayer", "BatchNorm", "BilinearInteractionLayer",
-           "BilinearNetworkLayer", "CENLayer", "ComposeExcitationNetworkLayer",
-           "CompressInteractionNetworkLayer", "CrossNetworkLayer", "Dense",
-           "FactorizationMachineLayer", "FieldAllTypeBilinear",
-           "FieldAwareFactorizationMachineLayer", "FieldEachTypeBilinear",
-           "FieldInteractionTypeBilinear", "InnerProductNetworkLayer",
-           "MultilayerPerceptionLayer", "OuterProductNetworkLayer", "SENETLayer",
-           "SqueezeAndExcitationNetworkLayer", "WideLayer"]
+__all__ = ["AttentionalFactorizationMachineLayer", "BatchNorm", "BiasEncodingLayer",
+           "BilinearInteractionLayer", "BilinearNetworkLayer", "CENLayer",
+           "ComposeExcitationNetworkLayer", "CompressInteractionNetworkLayer",
+           "CrossNetworkLayer", "Dense", "DenseGeneral", "FactorizationMachineLayer",
+           "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
+           "FieldEachTypeBilinear", "FieldInteractionTypeBilinear",
+           "InnerProductNetworkLayer", "MOELayer", "MixtureOfExpertsLayer",
+           "MultiHeadDotProductAttention", "MultilayerPerceptionLayer",
+           "OuterProductNetworkLayer", "PALLayer", "PositionBiasAwareLearningFrameworkLayer",
+           "PositionEmbeddingLayer", "SENETLayer", "SqueezeAndExcitationNetworkLayer",
+           "WideLayer"]

@@ -14,8 +14,11 @@ from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_devi
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(axis=-2, momentum=0.99, epsilon=1e-5)`` on a
-    ``(B, C, E)`` map: a channel ``c``'s statistics reduce over ``(B, E)``.
+    """flax ``nn.BatchNorm(axis=axis, momentum=0.99, epsilon=1e-5)``: a
+    feature's statistics reduce over every other axis.  ``axis=-2`` (the
+    default) is the CIN's, on a ``(B, C, E)`` map (a channel ``c``'s
+    statistics over ``(B, E)``); ``axis=-1`` is PRM's flax default, on a
+    ``(B, L, D)`` sequence (a feature's over ``(B, L)``).
 
     This is flax's arithmetic, not ``nn.BatchNorm1d``'s: in training the
     statistics are computed in float32 the "fast" way, ``mean = E[x]`` and
@@ -32,9 +35,12 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
-                 device: DeviceLike = None):
+                 axis: int = -2, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
+        if axis >= 0:
+            raise ValueError(f"axis counts from the end (-1, -2, ...), got {axis}")
+        self.axis = axis
         self.momentum = momentum
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(num_features, device=dev))
@@ -50,17 +56,22 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = x.dim() + self.axis
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2))
-            var = torch.clamp_min(torch.square(xf).mean(dim=(0, 2)) - torch.square(mean), 0.0)
+            dims = tuple(d for d in range(x.dim()) if d != axis)
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min(torch.square(xf).mean(dim=dims) - torch.square(mean), 0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        # each feature's vector broadcast along the axes after ``axis``
+        tail = (1,) * (-self.axis - 1)
+        return ((x - mean.reshape(-1, *tail)) * mul.reshape(-1, *tail)
+                + self.bias.reshape(-1, *tail))
 
 
 class CompressInteractionNetworkLayer(nn.Module):

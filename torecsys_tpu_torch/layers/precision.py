@@ -12,8 +12,13 @@ concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
   casts the input, weight and bias to bf16 (``torch.nn.functional.linear``,
   cuBLAS on the card), as flax ``Dense(dtype=bf16, param_dtype=f32)`` does;
   every other layer computes in float32, as in the JAX package; the
-  parameters stay float32 and ``Sequential`` casts a bf16 model output to
-  float32;
+  parameters stay float32 and ``Sequential`` casts each bf16 leaf of a
+  model's output (a tensor, or a tuple, list or dict of them) to float32;
+* ``compute_dtype`` on each
+  :class:`~torecsys_tpu_torch.layers.ctr.attention.MultiHeadDotProductAttention`
+  (the JAX package's ``mha_dtype()``, flax's ``dtype=``): under bf16 the
+  query, key, value and out projections, the scores and their softmax run
+  in bf16;
 * the table dtype of each table module (:class:`~torecsys_tpu_torch.inputs.embeddings.TableInput`):
   its table is stored in it, and its looked-up rows are cast to float32 at
   the module boundary.  A bf16 table is a dense-route feature, as in the JAX
@@ -45,6 +50,18 @@ def is_reduced(dtype: DtypeLike) -> bool:
     return resolve_dtype(dtype) is not None
 
 
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` as XLA computes it under ``jit``, in ``x``'s
+    dtype: ``e = exp(x - max)`` in float32, the numerator ``e`` rounded to
+    ``x``'s dtype, the denominator the float32 sum of the unrounded ``e``
+    rounded to it, and their quotient in it.  In float32 this is the plain
+    softmax; in bf16 ``torch.softmax`` (one rounding at the end) would take
+    other bits."""
+    shifted = x - x.amax(dim=dim, keepdim=True)
+    e = torch.exp(shifted.float())
+    return e.to(x.dtype) / e.sum(dim=dim, keepdim=True).to(x.dtype)
+
+
 def apply_compute_dtype(module: nn.Module, dtype: DtypeLike) -> None:
     """Set the compute dtype of every module under ``module`` that has one."""
     resolved = resolve_dtype(dtype)
@@ -61,4 +78,5 @@ def apply_table_dtype(module: nn.Module, dtype: DtypeLike) -> None:
             m.set_table_dtype(resolved)
 
 
-__all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype"]
+__all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype",
+           "softmax"]

@@ -54,7 +54,7 @@ slots), under optax's names (``mu``, ``nu``, ``sum_of_squares``,
 chain keeps a count.  A parameter without a gradient is updated with a zero
 gradient, as an optax leaf is.
 
-Not ported (ROADMAP queue 1 item 9): optax's other names, which the JAX
+Not ported (ROADMAP queue 1: The small API remainder): optax's other names, which the JAX
 package reaches by attribute; a schedule as ``learning_rate``; masks other
 than None or True; ``mu_dtype`` and ``accumulator_dtype``.  They raise
 ``NotImplementedError``; a keyword optax does not take raises ``TypeError``.
@@ -69,7 +69,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import torch
 
 Factory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
-_TODO = "ROADMAP queue 1 item 9 (the optimizer remainder)"
+_TODO = "ROADMAP queue 1: The small API remainder (the optimizer remainder)"
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:

@@ -482,8 +482,11 @@ class Trainer:
         return {key: float(self._ndcg.compute(state))}
 
     def predict(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """Probability scores ``(B, 1)`` float32 of one host batch, on the
-        device."""
+        """The eval step's scores of one host batch, on the device:
+        probabilities, ``(B, 1)`` float32, or ``(B, T)`` for a multi-task
+        model, or the tuple of a model with several probability outputs
+        (ESMM); as in the JAX package, a tuple of raw scores cannot take
+        the sigmoid and raises."""
         if self.state is None:
             raise RuntimeError("call fit() or init_state() before predict()")
         preds, _ = self._eval_step_fn(self.state, self._place_batch(batch))
