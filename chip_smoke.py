@@ -179,7 +179,7 @@ Phases (any failure raises and the exit code is not 0):
     the automatic choice, both on the dense route.  The kernels line gives
     the row rules each path launched the two row-update kernels under, and
     each path's launches (``launches_by_path``; the held steps' and replay
-    checks' of phases 16-20 in ``check_launches``).
+    checks' of phases 16-21 in ``check_launches``).
 
 19. (Phases 19-20 run after phase 18, before phase 11.)  MMoE on bench.py's
     workload (the MMoE paper's model, Ma et al., KDD 2018, at DeepCTR's
@@ -212,6 +212,25 @@ Phases (any failure raises and the exit code is not 0):
     ``set_sync_debug_mode("error")`` for ESMM and PRM; ESMM's graphed steps
     traced, each kernel's in-graph time beside its bound.  Phase 2's
     segment-sum and dedup sweeps also run their streams at E = 18.
+21. (Run after phase 20, before phase 11.)  DSIN (Feng et al., IJCAI 2019)
+    at DeepCTR's defaults (E = 8: 8 heads of depth 1, a BiLSTM of 8 units,
+    5 sessions) over sessions of 10 behaviours from the 846,811 ad groups of
+    the Taobao display-ad dataset, batch 4096, Adam 1e-3, float32, through
+    ``Pipeline(...).set_inputs(Inputs({...})).set_model("DSIN")`` and
+    ``Trainer(steps_per_execution=8)`` on the dense route (the list input's
+    lookup is ``row_gather``, its gradient ``table_grad``): one step from
+    one state with the kernels against their plain versions at float32 and
+    at bf16 compute; a replay against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; one epoch of ``fit`` over 48 batches,
+    graphed steps timed and traced (each kernel's in-graph time beside its
+    bound at DSIN's 32-byte rows), ``evaluate`` and ``predict``.  Then the
+    bench DeepFM with fields capped at 1M rows on the on-device route over a
+    ``StackedInput`` of its table, a 2-layer bidirectional
+    ``SequenceIndicesEmbedding`` and a ``ListIndicesEmbedding`` with
+    attention: one step each with LSTM, GRU and simple cells from one state
+    against the plain versions (the bench table on the row kernels, the
+    history tables on Adam through ``table_grad``), and a replay of the
+    LSTM's against 8 eager steps to the bit.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -2269,24 +2288,26 @@ def phase_graph(seed: int, out_dir):
     return records
 
 
-def graphed_fit(trainer, batches, fns, path: str, out_dir):
-    """Two epochs of ``fit`` over ``batches`` at the trainer's K steps a
-    dispatch, the second timed, then a traced replay; the route must be the
-    on-device one.  Launches: the wrappers' counts over both epochs (warm-up
-    and capture), and the replays' from the trace, replays x per replay;
-    each step must launch the on-device route's kernels."""
+def graphed_fit(trainer, batches, fns, path: str, out_dir, route: str = "ondevice",
+                epochs: int = 2):
+    """``epochs`` epochs of ``fit`` over ``batches`` at the trainer's K steps
+    a dispatch, the last timed, then a traced replay; the route must be
+    ``route`` (a :data:`GRAPH_ROUTES` key: the on-device one by default).
+    Launches: the wrappers' counts over the epochs (warm-up and capture),
+    and the replays' from the trace, replays x per replay; each step must
+    launch the route's kernels."""
     import torch
 
     k = trainer.steps_per_execution
     reset_counts(fns)
     first = trainer.fit(batches, max_epochs=1)
     trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
-    second = trainer.fit(batches, max_epochs=1)
+    second = trainer.fit(batches, max_epochs=1) if epochs == 2 else first
     counts = read_counts(fns)
-    if not (trainer.sparse and trainer._presorter is None):
-        raise AssertionError(f"{path}: the automatic choice did not take the on-device sparse "
-                             "route")
-    per_step = GRAPH_ROUTES["ondevice"][3]
+    sparse, presort = GRAPH_ROUTES[route][:2]
+    if trainer.sparse != sparse or (trainer._presorter is not None) != bool(presort):
+        raise AssertionError(f"{path}: the trainer did not take the {route} route")
+    per_step = GRAPH_ROUTES[route][3]
     check_counts(f"{path} warm-up + capture", counts,
                  expect(**{n: 2 * k * c for n, c in per_step.items()}))
     stats = dict(trainer.graph_stats)
@@ -2302,7 +2323,7 @@ def graphed_fit(trainer, batches, fns, path: str, out_dir):
     # the traced replay shows
     ran = stats["replays"] - stats["captures"]
     total = {n: counts[n] + ran * per_replay.get(n, 0) for n in counts}
-    steps = 2 * len(batches)
+    steps = epochs * len(batches)
     if total != expect(**{n: steps * c for n, c in per_step.items()}):
         raise AssertionError(f"{path}: launches {total} over {steps} steps, expected "
                              f"{per_step} a step")
@@ -2311,10 +2332,13 @@ def graphed_fit(trainer, batches, fns, path: str, out_dir):
             raise AssertionError(f"{path}: non-finite loss {epoch}")
     step_ms = BATCH / second["examples_per_sec"] * 1e3
     busy = traced["device_busy_ms_per_step"]
-    log(f"[{path}] {stats['captures']} capture, {stats['replays']} replays; first epoch "
-        f"{first['examples_per_sec']:.1f} examples/sec (warm-up and capture), second "
-        f"{second['examples_per_sec']:.1f}; train_loss {first['train_loss']:.6f} then "
-        f"{second['train_loss']:.6f}; host ms/step (second epoch): "
+    epoch_text = (f"first epoch {first['examples_per_sec']:.1f} examples/sec (warm-up and "
+                  f"capture), second {second['examples_per_sec']:.1f}; train_loss "
+                  f"{first['train_loss']:.6f} then {second['train_loss']:.6f}; host ms/step "
+                  "(second epoch): " if epochs == 2 else
+                  f"one epoch {first['examples_per_sec']:.1f} examples/sec (warm-up and capture "
+                  f"included); train_loss {first['train_loss']:.6f}; host ms/step: ")
+    log(f"[{path}] {stats['captures']} capture, {stats['replays']} replays; {epoch_text}"
         + " ".join(f"{n}={v:.3f}" for n, v in host.items())
         + f"; device busy {busy:.4f} of a {step_ms:.4f} ms step ({busy / step_ms:.3f}); peak "
         f"allocated {peak:.3f} GB, reserved {reserved:.3f} GB; launches: wrappers (warm-up and "
@@ -3029,17 +3053,31 @@ def replays_ran(trainer, per_step):
     return {n: ran * k * c for n, c in per_step.items()}
 
 
-def scale_table(trainer, rms: float) -> None:
-    """Scale each of the trainer's tables in place to root mean square
-    ``rms`` (the padding rows stay 0).  The held steps of phases 16-20
-    start there: at the initial magnitude one step moves a field-aware row
-    by about 1e-8 and Adagrad's accumulator not at all, so a kernel that
-    wrote nothing would pass."""
-    import torch
-
+def embedding_tables(trainer):
+    """``{table parameter name: module}`` of every embedding table of the
+    trainer's pipeline: the sparse route's table modules, and the list and
+    sequence inputs' tables, which are dense parameters on either route."""
+    from torecsys_tpu_torch import inputs
     from torecsys_tpu_torch.train.sparse import sparse_modules
 
-    for module in sparse_modules(trainer.pipeline.sequential).values():
+    # by name, where the tree has them: --phases also times a parent tree
+    history = tuple(getattr(inputs, n) for n in ("ListIndicesEmbedding",
+                                                 "SequenceIndicesEmbedding")
+                    if hasattr(inputs, n))
+    seq = trainer.pipeline.sequential
+    return {**sparse_modules(seq), **{f"{name}.embedding": m for name, m in seq.named_modules()
+                                      if isinstance(m, history)}}
+
+
+def scale_table(trainer, rms: float) -> None:
+    """Scale each of the trainer's tables (:func:`embedding_tables`) in place
+    to root mean square ``rms`` (the padding rows stay 0).  The held steps
+    of phases 16-21 start there: at the initial magnitude one step moves a
+    field-aware row by about 1e-8 and Adagrad's accumulator not at all, so
+    a kernel that wrote nothing would pass."""
+    import torch
+
+    for module in embedding_tables(trainer).values():
         table = module.embedding
         with torch.no_grad():
             table.mul_(rms * table.numel() ** 0.5
@@ -3085,14 +3123,13 @@ def step_vs_plain(trainer, batch, fns, path: str, want):
     versions: the losses within TRAIN_LOSS_RTOL, and each tensor the step
     keeps (:func:`kept_tensors`: parameters and tables, the dense
     optimizer's state, the row slots, running statistics) by its change
-    over the step (:func:`held_compare`), which for the table and its
-    optimizer state must reach HELD_MOVED_ULPS ulps.  The kernel step's
+    over the step (:func:`held_compare`), which for each table
+    (:func:`embedding_tables`) and its optimizer state must reach
+    HELD_MOVED_ULPS ulps.  The kernel step's
     launches must be ``want``.  Returns the record with its ``launches``."""
     import torch
 
-    from torecsys_tpu_torch.train.sparse import sparse_modules
-
-    tables = tuple(sparse_modules(trainer.pipeline.sequential))
+    tables = tuple(embedding_tables(trainer))
     snap = snapshot(trainer)
     start = dense_state(trainer)
     with plain_versions(fns):
@@ -3820,6 +3857,249 @@ def phase_multitask(seed: int, out_dir):
     return {"launches": total, **records}
 
 
+# ---- phase 21: DSIN and the sequence inputs ----------------------------------
+
+# DSIN (Feng et al., IJCAI 2019) at DeepCTR's DSIN defaults: att_head_num = 8
+# heads of att_embedding_size = 1, so E = 8 (the interest extractor's 8
+# heads of depth 1) and a BiLSTM of 8 units; sess_max_count = 5 sessions.
+# The behaviour vocabulary is the 846,811 ad groups of the Taobao display-ad
+# dataset the paper evaluates DSIN on (section 4).  Sessions of L = 10
+# behaviours are this script's choice (neither source fixes L here); ids are
+# Zipf(1.2) (bench.py's skew) with padding id 0 past a length drawn in
+# 1..10, the session index uniform in [0, 5), labels random, all from
+# --seed; batch 4096, Adam 1e-3, float32, 8 steps a dispatch, the dense
+# route (the list input's table is no sparse-route table): row_gather looks
+# the behaviours up and permutes the table gradient, fused_sorted_dedup_update
+# sums it (table_grad).
+DSIN_EMBED = 8
+DSIN_HEADS = 8
+DSIN_HIDDEN = 8
+DSIN_SESSIONS = 5
+DSIN_LENGTH = 10
+DSIN_VOCAB = 846_811
+DSIN_DISPATCHES = 6       # one epoch of 48 batches
+# The held mixed path: the bench DeepFM (E = 16, fields capped at 1M rows)
+# on the on-device sparse route, its emb_inputs a StackedInput of the bench
+# table, a SequenceIndicesEmbedding (2 bidirectional layers of LSTM cells,
+# average pooling over a lengths field) and a ListIndicesEmbedding with
+# 2-head attention, both over histories of DSIN's vocabulary and length:
+# the bench table on the row kernels, the history tables on the dense
+# optimizer through table_grad, in one step.
+SEQ_DEEPFM_PER_STEP = dict(widen_segment_sum=1, fused_rowwise_update=1, row_gather=6,
+                           fused_sorted_dedup_update=2)
+# Its held step follows 2 steps with the kernels.  From fresh Adam moments a
+# row's first update is lr * g / (|g| + eps): where a hot row's gradient
+# sum nearly cancels to |g| near eps, that step turns the last-bit
+# difference of two summation orders into a step difference of up to lr
+# (on the card one element of the bench table, g about 8e-10, came out 1.3
+# times the tolerance apart).  After warm steps the rows that gather many
+# terms divide by their accumulated second moment instead.
+SEQ_DEEPFM_WARM = 2
+
+
+def behaviour_batches(seed: int, n: int, fields=("behaviour",), batches=None):
+    """``n`` batches of DSIN's workload from ``seed``: for each of
+    ``fields`` a ``(B, L)`` id matrix (Zipf(1.2) ids in [1, 846,810], 0
+    past a length drawn in 1..L) and its ``(B,)`` lengths (``<field>_len``);
+    with ``batches`` added to those, else with the session index and a
+    random label."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        b = {} if batches is None else batches[i]
+        for field in fields:
+            lengths = rng.integers(1, DSIN_LENGTH + 1, BATCH).astype(np.int32)
+            ids = np.minimum(rng.zipf(1.2, size=(BATCH, DSIN_LENGTH)), DSIN_VOCAB - 1)
+            ids[np.arange(DSIN_LENGTH)[None, :] >= lengths[:, None]] = 0
+            b[field], b[f"{field}_len"] = ids.astype(np.int32), lengths
+        if batches is None:
+            b["session"] = rng.integers(0, DSIN_SESSIONS, BATCH).astype(np.int32)
+            b["label"] = (rng.uniform(size=BATCH) < 0.5).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def dsin_pipeline():
+    """DSIN through the entry points a user calls: ``Pipeline(...)
+    .set_inputs(Inputs({...})).set_model("DSIN")``."""
+    import warnings
+
+    from torecsys_tpu_torch import Inputs, Pipeline
+    from torecsys_tpu_torch.inputs import ListIndicesEmbedding
+
+    inputs = Inputs({"session_embed_inputs": ListIndicesEmbedding(
+        DSIN_VOCAB, DSIN_EMBED, ("behaviour",), output_method="none", device=DEVICE),
+        "session_index": position_input("session")})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # DSIN's in-development marker
+        return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
+                .set_model("DSIN", max_num_session=DSIN_SESSIONS, max_num_position=DSIN_LENGTH,
+                           extractor_num_heads=DSIN_HEADS, interacting_hidden_size=DSIN_HIDDEN)
+                .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=1e-3)
+                .set_target_fields("label"))
+
+
+def seq_deepfm_pipeline(rnn_method: str):
+    """The held mixed path's pipeline (:data:`SEQ_DEEPFM_PER_STEP`) with
+    ``rnn_method`` cells."""
+    from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
+    from torecsys_tpu_torch.inputs import (
+        ListIndicesEmbedding,
+        MultiIndicesEmbedding,
+        SequenceIndicesEmbedding,
+        StackedInput,
+    )
+
+    capped = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    stacked = StackedInput([
+        MultiIndicesEmbedding(EMBED, capped, tuple(f"cat_{i}" for i in range(len(capped))),
+                              device=DEVICE),
+        SequenceIndicesEmbedding(DSIN_VOCAB, EMBED, ("behaviour",),
+                                 lengths_field="behaviour_len", rnn_method=rnn_method,
+                                 bidirectional=True, num_layers=2, output_method="avg_pooling",
+                                 device=DEVICE),
+        ListIndicesEmbedding(DSIN_VOCAB, EMBED, ("clicks",), use_attn=True, num_heads=2,
+                             device=DEVICE)])
+    inputs = Inputs({"feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
+                     "emb_inputs": stacked})
+    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs)
+            .set_model("DeepFM", deep_layer_sizes=TOWER).set_criterion("BCEWithLogitsLoss")
+            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(True)
+            .set_target_fields("label"))
+
+
+def dsin_bounds(batch):
+    """(bound_ms, bound_by) of DSIN's dense step's kernels over its
+    behaviour table (E = 8, pack 1): ``row_gather`` twice (the lookup: int64
+    ids read, each distinct row read once, the rows written; the gradient's
+    permute: the cotangent read, the int64 order read, the rows written)
+    and ``fused_sorted_dedup_update`` as ``table_grad`` (int32 sorted ids
+    and the cotangent read, each distinct row read and written, the sgd
+    rule's 2 operations an element)."""
+    ids, e = batch["behaviour"], DSIN_EMBED
+    m, d = ids.size, np.unique(ids).size
+    lookup = bound(m * 8 + d * e * 4 + m * e * 4, 0)
+    permute = bound(m * e * 4 + m * 8 + m * e * 4, 0)
+    return {"row_gather": (lookup[0] + permute[0], "bytes"),
+            "fused_sorted_dedup_update": bound(m * 4 + m * e * 4 + d * 2 * e * 4,
+                                               d * e * RULE_OPS["sgd"])}
+
+
+def phase_dsin(seed: int, out_dir):
+    """Phase 21: DSIN at DeepCTR's defaults over the Taobao ad-group
+    vocabulary (:data:`DSIN_EMBED` ... above) on the dense route.  One step
+    from one state with the kernels against their plain versions at float32
+    and at bf16 compute, the table scaled first; a replay against 8 eager
+    steps to the bit and one under ``set_sync_debug_mode("error")``; one
+    epoch of ``fit`` over 48 batches at 8 steps a dispatch (launches from
+    the counters and a traced replay), graphed steps timed and traced
+    (examples/sec, step ms, busy share, each kernel's in-graph time beside
+    its bound, top kernels, peak GB); ``evaluate`` and ``predict``.  Then
+    the held mixed path (:func:`seq_deepfm_pipeline`): after 2 steps with
+    the kernels (:data:`SEQ_DEEPFM_WARM`), one step from one state with the
+    kernels against their plain versions for each cell, and a replay of the
+    LSTM's against 8 eager steps to the bit."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.layers.precision import apply_compute_dtype
+
+    fns = kernels()
+    k = GRAPH_K
+    n_train = DSIN_DISPATCHES * k
+    batches = behaviour_batches(seed + 21, n_train + EVAL_BATCHES)
+    train, held_out = batches[:n_train], batches[n_train:]
+    records, held = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = held_trainer(dsin_pipeline(), seed)
+    if trainer.sparse:
+        raise AssertionError("dsin: took the sparse route; its table is a dense parameter")
+    seq = trainer.pipeline.sequential
+    log(f"[dsin] E={DSIN_EMBED}, {DSIN_HEADS} heads, BiLSTM of {DSIN_HIDDEN}, "
+        f"{DSIN_SESSIONS} sessions, L={DSIN_LENGTH}, {DSIN_VOCAB} behaviours; "
+        f"{sum(p.numel() for n, p in seq.named_parameters() if 'inputs' not in n)} model "
+        f"parameters")
+    scale_table(trainer, HELD_RMS)
+    for compute in (None, "bfloat16"):
+        path = f"dsin_held_{compute or 'float32'}"
+        apply_compute_dtype(seq, compute)
+        records[path] = step_vs_plain(trainer, train[0], fns, path, expect(**DENSE_PER_STEP))
+        add_counts(held, records[path]["launches"])
+    apply_compute_dtype(seq, None)
+    trainer.steps_per_execution = k
+    counts, records["dsin_graph"] = replay_checks(trainer, train[k:2 * k], fns, "dsin",
+                                                  DENSE_PER_STEP, warm=train[:k])
+    add_counts(held, counts)
+    add_counts(held, replays_ran(trainer, DENSE_PER_STEP))
+    del trainer, seq
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(dsin_pipeline(), log_every=10**9, seed=seed, steps_per_execution=k)
+    trainer.init_state()
+    # no chrome trace: a DSIN replay's thousands of small kernels make one
+    # of about 26 MB
+    record = graphed_fit(trainer, train, fns, "dsin", None, route="dense", epochs=1)
+    bounds = dsin_bounds(train[0])
+    timed = timed_replays(trainer, train[:k], "dsin", DENSE_PER_STEP, bounds)
+    log("[dsin] in a replayed step: " + top_kernels(timed["profile"]))
+    reset_counts(fns)
+    evaluation = trainer.evaluate(held_out)
+    check_counts("dsin eval", read_counts(fns), expect(row_gather=EVAL_BATCHES))
+    scores = trainer.predict(held_out[0])
+    if not all(np.isfinite(v) for v in evaluation.values()) or tuple(scores.shape) != (
+            BATCH, 1) or not torch.isfinite(scores).all():
+        raise AssertionError(f"dsin: evaluate gave {evaluation}, predict {tuple(scores.shape)}")
+    log(f"[dsin] evaluate on {EVAL_BATCHES} held-out batches: {evaluation}; predict "
+        f"{tuple(scores.shape)} {scores.dtype}")
+    del trainer
+    release()
+    # the held mixed path
+    capped = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+    n_mixed = SEQ_DEEPFM_WARM + 1 + 2 * k
+    mixed = behaviour_batches(seed + 22, n_mixed, ("behaviour", "clicks"),
+                              make_batches(seed + 22, n_mixed, capped))
+    warm, step, (warm_k, group) = (mixed[:SEQ_DEEPFM_WARM], mixed[SEQ_DEEPFM_WARM],
+                                   (mixed[-2 * k:-k], mixed[-k:]))
+    seq_counts, mixed_held = {}, {}
+    for rnn_method in ("lstm", "gru", "rnn"):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = held_trainer(seq_deepfm_pipeline(rnn_method), seed)
+        tables = embedding_tables(trainer)
+        if not trainer.sparse or trainer._presorter is not None or len(
+                trainer.state.opt_state["sparse"]) != 1 or len(tables) != 3:
+            raise AssertionError(f"seq_deepfm: route sparse={trainer.sparse}, row-rule tables "
+                                 f"{list(trainer.state.opt_state.get('sparse', {}))}, tables "
+                                 f"{list(tables)}")
+        scale_table(trainer, HELD_RMS)
+        path = f"seq_deepfm_held_{rnn_method}"
+        with fused_dedup("0"):
+            reset_counts(fns)
+            trainer.train_steps(warm)
+            counts = read_counts(fns)
+            check_counts(f"{path} warm steps", counts, expect(**{
+                n: SEQ_DEEPFM_WARM * c for n, c in SEQ_DEEPFM_PER_STEP.items()}))
+            add_counts(mixed_held, counts)
+            records[path] = step_vs_plain(trainer, step, fns, path,
+                                          expect(**SEQ_DEEPFM_PER_STEP))
+            add_counts(mixed_held, records[path]["launches"])
+            if rnn_method == "lstm":
+                trainer.steps_per_execution = k
+                seq_counts, records["seq_deepfm_graph"] = replay_checks(
+                    trainer, group, fns, "seq_deepfm", SEQ_DEEPFM_PER_STEP, warm=warm_k)
+                add_counts(seq_counts, replays_ran(trainer, SEQ_DEEPFM_PER_STEP))
+        log(f"[{path}] peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB with the "
+            "comparisons' copies")
+        del trainer
+        release()
+    in_graph = timed["profile"]["kernel_us_per_step"]
+    log("[dsin] in-graph us a step against the bound at DSIN's shape: " + ", ".join(
+        f"{n} {in_graph.get(n, 0.0):.1f} (bound {bounds[n][0] * 1e3:.1f}, {bounds[n][1]})"
+        for n in DENSE_PER_STEP))
+    return {**record, "timed": timed, "bounds": bounds, "in_graph_us": in_graph,
+            "eval": evaluation, "held": records, "held_launches": held,
+            "seq_deepfm": {"launches": seq_counts, "held_launches": mixed_held}}
+
+
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
 
 # bench.py's file-fed configuration (bench.py:314-393): the Criteo DAC format
@@ -4347,6 +4627,10 @@ def packed_elements(rows: int) -> int:
     return vp * w
 
 
+# the phases --phases runs alone: the graphed throughput paths
+ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4357,6 +4641,10 @@ def main(argv=None):
     ap.add_argument("--auto-sweep", action="store_true",
                     help="only build and measure the automatic dense/sparse choice's "
                          "crossover (dense against both sparse routes, 62.5k-16M rows)")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone after the build, of "
+                         f"{sorted(ALONE_PHASES)}: a change's before-and-after timings; "
+                         "prints their throughput records, not the kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4397,6 +4685,19 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phases:
+        runs = {name: timed(name, ALONE_PHASES[name], args.seed, args.out)
+                for name in args.phases.split(",")}
+        summary = {name: {key: rec.get(key) for key in (
+            "examples_per_sec", "step_ms", "device_busy_share", "peak_memory_gb")}
+            for name, rec in runs.items()}
+        log(f"[phases] {summary}")
+        print(json.dumps({"phases": summary, "phase_s": phase_s}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     batch = make_batches(args.seed, 1)[0]
     records = timed("kernels", phase_kernels, batch, args.seed)
     presort = timed("presort", phase_presort, args.seed)
@@ -4422,22 +4723,25 @@ def main(argv=None):
     optim = timed("optim_sweep", phase_optim_sweep, args.seed, args.out)
     mmoe = timed("mmoe", phase_mmoe, args.seed, args.out)
     multitask = timed("multitask", phase_multitask, args.seed, args.out)
+    dsin = timed("dsin", phase_dsin, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
              "ncf_bpr": ncf_bpr, "fat_deepffm_adagrad": fat,
              "fat_deepffm_adagrad_fused": fat["fused"], "fibinet": fibinet,
              "fibinet_fused": fibinet["fused"], "optim_sweep": optim, "mmoe": mmoe,
-             "mmoe_fused": mmoe["fused"], "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+             "mmoe_fused": mmoe["fused"], "dsin": dsin, "seq_deepfm": dsin["seq_deepfm"],
+             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # launches_by_path: each path's own run (a fit: the wrappers' counts of
     # its warm-up and capture plus its replays x a traced replay's; the
     # _fused paths: the fused dedup's capture after it; optim_sweep: its
     # eager steps); check_launches: the held steps and replay checks of
-    # phases 16-20, apart from the paths' runs (phase 20's models run no
+    # phases 16-21, apart from the paths' runs (phase 20's models run no
     # other path).
     checks = {"fat_held": fat_held["launches"], "fibinet_held": fibinet["held_launches"],
               "optim_sweep_graphs": optim["graph_launches"], "mmoe_held": mmoe["held_launches"],
-              "multitask_held": multitask["launches"]}
+              "multitask_held": multitask["launches"], "dsin_held": dsin["held_launches"],
+              "seq_deepfm_held": dsin["seq_deepfm"]["held_launches"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -4469,6 +4773,11 @@ def main(argv=None):
         if name in esmm_us:
             line["esmm_in_graph_us"] = esmm_us[name]
             line["esmm_bound_ms"], line["esmm_bound_by"] = multitask["esmm_timed"]["bounds"][name]
+        # DSIN's graphed steps: the behaviour table's lookup and gradient
+        # (E = 8, 32-byte rows, pack 1) on the dense route
+        if name in DENSE_PER_STEP:
+            line["dsin_in_graph_us"] = dsin["in_graph_us"].get(name, 0.0)
+            line["dsin_bound_ms"], line["dsin_bound_by"] = dsin["bounds"][name]
         if name in ("fused_rowwise_update", "fused_sorted_dedup_update"):
             # the row rules each path launched it under ("table_grad": the
             # dense route's table gradient, the sgd rule at lr -1)
@@ -4476,8 +4785,13 @@ def main(argv=None):
             for path, rule in (("fat_deepffm_adagrad", "adagrad"),
                                ("fat_deepffm_adagrad_fused", "adagrad"), ("fibinet", "adam"),
                                ("fibinet_fused", "adam"), ("mmoe", "adam"),
-                               ("mmoe_fused", "adam"), ("headline", "adam")):
+                               ("mmoe_fused", "adam"), ("headline", "adam"),
+                               ("seq_deepfm", "adam")):
                 line["launches_by_rule"][path] = {rule: by_path[path]}
+            if name == "fused_sorted_dedup_update":
+                # the dense history tables' gradients: DSIN's, the mixed path's
+                for path in ("dsin", "seq_deepfm"):
+                    line["launches_by_rule"][path] = {"table_grad": by_path[path]}
         kernel_lines.append(line)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:

@@ -141,19 +141,21 @@ def test_single_device_mesh_options_run():
 
 def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
     """What is still not ported is refused, by name, with its ROADMAP item's
-    title: the sequence and the image inputs.  The objectives, the
-    regularizer and the miner are ported
+    title: the image inputs, also inside a container.  The sequence inputs
+    are ported (``test_torch_dsin.test_cli_builds_both_sequence_inputs_from_json``),
+    the objectives, the regularizer and the miner
     (``test_build_takes_the_ranking_objectives_miner_and_regularizer``), and
     PRM (``test_prm_builds_as_the_jax_package_builds_it``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Sequence inputs and DSIN"):
-        _build_inputs({"emb_inputs": {"method": "SequenceIndicesEmbedding", "embed_size": 4,
-                                      "field_size": 9, "fields": ["a"]}}, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
+        _build_inputs({"emb_inputs": {"method": "ImageInput", "embed_size": 4}}, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
         _build_inputs({"image_inputs": {"method": "PretrainedImageInput", "embed_size": 4}},
                       "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Sequence inputs and DSIN"):
-        _build_inputs({"seq_inputs": {"method": "ListIndicesEmbedding", "embed_size": 4,
-                                      "field_size": 9, "fields": ["a"]}}, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
+        _build_inputs({"emb_inputs": {"method": "StackedInput", "inputs": [
+            {"method": "SequenceIndicesEmbedding", "embed_size": 4, "field_size": 9,
+             "fields": ["a"]},
+            {"method": "ImageInput", "embed_size": 4}]}}, "cpu")
 
 
 def _outcome(build):

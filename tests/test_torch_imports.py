@@ -8,7 +8,9 @@ FAT-DeepFFM trained on both routes under AdamW, SGD and Adagrad, DeepFM
 under each of the twelve optimizers and under an opaque factory; MMoE on a
 two-task label and ESMM with a callable criterion trained on both routes
 in bf16, ESM², DeepMoE and DeepMCP applied, PRM trained, PAL around FM through nested
-inputs trained and predicting; the ``ltr`` objective (NCF
+inputs trained and predicting; DSIN over a behaviour list trained at 2 steps a
+dispatch and evaluated, and DeepFM over both sequence inputs stacked with a
+fused table trained on the sparse route and evaluated; the ``ltr`` objective (NCF
 with BPR and the miner, a regularizer) fit and evaluated, eager and at 2
 steps a dispatch, and StarSpace on ``emb``; and the CLI: streamed training
 from the bundled Criteo sample with a checkpoint, a resumed run and
@@ -95,9 +97,45 @@ for name in sorted(set(MODELS.values()), key=lambda c: c.__name__):
                          "EntireSpaceMultiTaskModel",
                          "ElaboratedEntireSpaceSupervisedMultiTaskModel",
                          "DeepMatchingCorrelationPredictionModel",
-                         "PositionBiasAwareLearningFrameworkModel",
-                         "DeepSessionInterestNetworkModel"):
-        continue  # other inputs or outputs (above, or in the steps after), or not ported
+                         "PositionBiasAwareLearningFrameworkModel"):
+        continue  # other inputs or outputs (above, or in the steps after)
+    if name.__name__ == "DeepSessionInterestNetworkModel":
+        # DSIN over a behaviour list and the session index, trained (K = 2)
+        # and evaluated; a DeepFM over both sequence inputs on the sparse route
+        hist = {"h": rng.integers(0, 9, (16, 5)), "h_len": rng.integers(0, 6, 16),
+                "s": rng.integers(0, 3, 16)}
+        seq_batch = {**batch, **hist}
+
+        class SessionIndex(I.BaseInput):
+            fields = ("s",)
+
+            def forward(self, batch):
+                return batch["s"]
+
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pipe = Pipeline(device="cpu").set_inputs(I.Inputs({
+                "session_embed_inputs": I.ListIndicesEmbedding(9, 8, ("h",), output_method="none",
+                                                               device="cpu"),
+                "session_index": SessionIndex()})).set_model(
+                "DSIN", max_num_session=3, max_num_position=5, extractor_num_heads=2,
+                interacting_hidden_size=4)
+        assert any(issubclass(w.category, FutureWarning) for w in caught)
+        t = Trainer(pipe, steps_per_execution=2)
+        assert np.isfinite(t.fit([seq_batch, seq_batch], val_loader=[seq_batch])["val_logloss"])
+        emb = I.StackedInput([
+            I.MultiIndicesEmbedding(8, (50, 9), ("a", "b"), device="cpu"),
+            I.SequenceIndicesEmbedding(9, 8, ("h",), lengths_field="h_len", bidirectional=True,
+                                       num_layers=2, device="cpu"),
+            I.ListIndicesEmbedding(9, 8, ("h",), use_attn=True, num_heads=2, device="cpu")])
+        pipe = (Pipeline(device="cpu").set_inputs(I.Inputs({"feat_inputs": I.ValueInput(("d",)),
+                                                            "emb_inputs": emb}))
+                .set_model("DeepFM", deep_layer_sizes=(8,)).set_sparse_embeddings(True))
+        t = Trainer(pipe)
+        assert np.isfinite(float(t.train_steps([seq_batch, seq_batch])[-1])) and t.sparse
+        assert np.isfinite(t.evaluate([seq_batch])["val_auc"])
+        continue
     if name.__name__ == "MatrixFactorizationModel":
         pipe = Pipeline(device="cpu").set_inputs(I.Inputs({"emb_inputs": schemas["DCN"][
             "emb_inputs"]})).set_model("MF")

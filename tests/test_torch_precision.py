@@ -67,6 +67,9 @@ def test_bf16_forward_matches_the_jax_package():
             want = np.asarray(ref._eval_step_fn(ref.state, jax.device_put(batch))[0])
         got = port.predict(batch)
         assert got.dtype == torch.float32
+        # not to the bit: after the bf16 tower the float32 FM part and the
+        # float32 sigmoid are XLA's on one side and torch's on the other, and
+        # part by a float32 ulp (about 1 probability in 256)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     f32 = _port(jax.device_get(ref.state.params))
     assert not torch.equal(f32.predict(batches[0]), port.predict(batches[0]))

@@ -8,13 +8,15 @@ device given and no CUDA present they raise.
 
 Ported so far: the CTR models LR, FM, FMNN, FFM, AFM, NFM, DeepFM, PNN,
 DCN, xDeepFM, NCF, Wide&Deep, FiBiNET, DeepFFM, FAT-DeepFFM, the
-multi-task models DeepMoE, MMoE, ESMM, ESM² and DeepMCP, and PAL, over the
-single-index, fused and field-aware embedding inputs (xDeepFM's and PRM's
-BatchNorm statistics as module buffers; a model with several outputs
-trains under a callable criterion), and PRM re-ranking with its
-multi-head attention, trained on the sparse embedding route
-(host-presorted, or sorted and deduped on the card with
-``Trainer(presort=False)``) or on the dense-table route, their evaluation
+multi-task models DeepMoE, MMoE, ESMM, ESM² and DeepMCP, PAL, and DSIN
+over flax's recurrent cells (``layers.rnn``), over the single-index, fused
+and field-aware embedding inputs and the list and sequence inputs
+(``inputs.sequence``) (xDeepFM's and PRM's BatchNorm statistics as module
+buffers; a model with several outputs trains under a callable criterion),
+PRM re-ranking with its multi-head attention, and MIND's dynamic-routing
+layer, trained on the sparse embedding route (host-presorted, or sorted
+and deduped on the card with ``Trainer(presort=False)``) or on the
+dense-table route, their evaluation
 (streaming AUC and logloss) and prediction; the ``ltr`` and ``emb``
 objectives (the ranking and embedding losses, the in-batch miner, MF,
 StarSpace and the LTR wrapper, NDCG evaluation) on the dense route and the

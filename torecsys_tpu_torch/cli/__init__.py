@@ -41,9 +41,7 @@ _MESH_TODO = ("meshes are not ported yet (ROADMAP queue 1: Parallelism, parallel
 
 
 # the ROADMAP item, by its title, of each input the port does not have yet
-_INPUT_ITEMS = {"ListIndicesEmbedding": "Sequence inputs and DSIN",
-                "SequenceIndicesEmbedding": "Sequence inputs and DSIN",
-                "ImageInput": "Image inputs", "PretrainedImageInput": "Image inputs"}
+_INPUT_ITEMS = {"ImageInput": "Image inputs", "PretrainedImageInput": "Image inputs"}
 
 
 class UsageError(Exception):
@@ -61,11 +59,12 @@ def _build_input(spec: dict, device=None):
 
     known = {name: getattr(inputs_mod, name) for name in (
         "ValueInput", "SingleIndexEmbedding", "MultiIndicesEmbedding",
-        "MultiIndicesFieldAwareEmbedding", "ConcatInput", "StackedInput")}
+        "MultiIndicesFieldAwareEmbedding", "ListIndicesEmbedding", "SequenceIndicesEmbedding",
+        "ConcatInput", "StackedInput")}
     spec = dict(spec)
     method = spec.pop("method")
     if method not in known:
-        item = _INPUT_ITEMS.get(method, "Sequence inputs and DSIN; Image inputs")
+        item = _INPUT_ITEMS.get(method, "Image inputs")
         raise NotImplementedError(
             f"input {method!r} is not ported yet (ROADMAP queue 1: {item}); the port has "
             f"{sorted(known)}")
@@ -85,9 +84,10 @@ def _build_input(spec: dict, device=None):
 def _build_inputs(cfg: dict, device=None):
     """JSON → ``Inputs``: ``{arg_name: {"method": <class>, ...kwargs}}``, the
     port's input classes: ``ValueInput``, ``SingleIndexEmbedding``,
-    ``MultiIndicesEmbedding``, ``MultiIndicesFieldAwareEmbedding``, and the
-    containers ``ConcatInput`` and ``StackedInput``, whose ``inputs`` is a
-    list of such specs."""
+    ``MultiIndicesEmbedding``, ``MultiIndicesFieldAwareEmbedding``, the
+    list and sequence inputs ``ListIndicesEmbedding`` and
+    ``SequenceIndicesEmbedding``, and the containers ``ConcatInput`` and
+    ``StackedInput``, whose ``inputs`` is a list of such specs."""
     from torecsys_tpu_torch import inputs as inputs_mod
 
     return inputs_mod.Inputs({arg_name: _build_input(spec, device)

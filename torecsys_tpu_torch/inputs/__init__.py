@@ -22,6 +22,7 @@ from torecsys_tpu_torch.inputs.embeddings import (
     TableInput,
     ValueInput,
 )
+from torecsys_tpu_torch.inputs.sequence import ListIndicesEmbedding, SequenceIndicesEmbedding
 
 
 class Inputs(nn.Module):
@@ -39,6 +40,7 @@ class Inputs(nn.Module):
             module.reset_parameters(generator)
 
 
-__all__ = ["BaseInput", "ConcatInput", "Inputs", "MultiIndicesEmbedding",
-           "MultiIndicesFieldAwareEmbedding", "SingleIndexEmbedding", "StackedInput",
-           "TableInput", "ValueInput"]
+__all__ = ["BaseInput", "ConcatInput", "Inputs", "ListIndicesEmbedding",
+           "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding",
+           "SequenceIndicesEmbedding", "SingleIndexEmbedding", "StackedInput", "TableInput",
+           "ValueInput"]

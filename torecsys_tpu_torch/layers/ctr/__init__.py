@@ -28,6 +28,7 @@ from torecsys_tpu_torch.layers.ctr.product import (
     InnerProductNetworkLayer,
     OuterProductNetworkLayer,
 )
+from torecsys_tpu_torch.layers.ctr.routing import DynamicRoutingLayer, resolve_num_capsules
 
 # the JAX package's aliases
 CENLayer = ComposeExcitationNetworkLayer
@@ -39,11 +40,11 @@ SqueezeAndExcitationNetworkLayer = ComposeExcitationNetworkLayer
 __all__ = ["AttentionalFactorizationMachineLayer", "BatchNorm", "BiasEncodingLayer",
            "BilinearInteractionLayer", "BilinearNetworkLayer", "CENLayer",
            "ComposeExcitationNetworkLayer", "CompressInteractionNetworkLayer",
-           "CrossNetworkLayer", "Dense", "DenseGeneral", "FactorizationMachineLayer",
-           "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
+           "CrossNetworkLayer", "Dense", "DenseGeneral", "DynamicRoutingLayer",
+           "FactorizationMachineLayer", "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
            "FieldEachTypeBilinear", "FieldInteractionTypeBilinear",
            "InnerProductNetworkLayer", "MOELayer", "MixtureOfExpertsLayer",
            "MultiHeadDotProductAttention", "MultilayerPerceptionLayer",
            "OuterProductNetworkLayer", "PALLayer", "PositionBiasAwareLearningFrameworkLayer",
            "PositionEmbeddingLayer", "SENETLayer", "SqueezeAndExcitationNetworkLayer",
-           "WideLayer"]
+           "WideLayer", "resolve_num_capsules"]

@@ -198,16 +198,24 @@ class MultiHeadDotProductAttention(nn.Module):
     the draws are torch's), weight the values, and ``out`` maps the heads
     back (flax kernel ``(H, D/H, out)``).
 
+    ``mask`` (optional, boolean, broadcast to ``(B, H, L, L)``): the
+    scores where it is False become ``finfo(dtype).min`` before the
+    softmax, as flax's; a query with every key masked gets a uniform
+    softmax, as in flax.
+
     ``compute_dtype`` (the JAX package's ``mha_dtype()``, set by the
     pipeline, ``layers.precision``): under bf16 every product, the scores
     and their softmax run in bf16 and the output is bf16; the parameters
-    stay float32.
+    stay float32.  ``follows_pipeline=False`` keeps it float32, a flax
+    attention built without ``dtype=``.
     """
 
     def __init__(self, in_features: int, num_heads: int, qkv_features: Optional[int] = None,
                  out_features: Optional[int] = None, dropout_rate: float = 0.0,
-                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+                 follows_pipeline: bool = True, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.follows_pipeline = follows_pipeline
         dev = resolve_device(device)
         qkv = in_features if qkv_features is None else qkv_features
         if qkv % num_heads:
@@ -229,7 +237,7 @@ class MultiHeadDotProductAttention(nn.Module):
         for proj in (self.query, self.key, self.value, self.out):
             proj.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.compute_dtype
         q = self.query(x, dtype)  # (B, L, H, D/H)
         k = self.key(x, dtype)
@@ -237,7 +245,10 @@ class MultiHeadDotProductAttention(nn.Module):
         # flax divides by sqrt(D/H) cast to the compute dtype: the divisor is
         # that value as a Python number (no copy to the card in a captured step)
         q = q / _in_dtype(math.sqrt(self.head_dim), q.dtype)
-        weights = softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+        weights = softmax(scores, dim=-1)
         if self.training and self.dropout_rate > 0.0:
             keep = 1.0 - self.dropout_rate
             mask = torch.rand(weights.shape[-2:], device=x.device) < keep

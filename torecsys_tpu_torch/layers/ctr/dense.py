@@ -34,16 +34,21 @@ class Dense(nn.Module):
     weight, zero bias); ``weight`` is the transpose of flax's ``kernel``.
 
     ``compute_dtype`` (None: float32; set by the pipeline,
-    ``layers.precision``): under bf16 the product casts its input, weight
-    and bias to bf16 and returns bf16, as the JAX package's precision
-    ``Dense`` (flax ``Dense(dtype=bf16, param_dtype=f32)``) does.
+    ``layers.precision``): under bf16 the product casts its input and
+    weight to bf16 and rounds to bf16, then the bf16 bias is added in bf16,
+    and the output is bf16, as the JAX package's precision ``Dense`` (flax
+    ``Dense(dtype=bf16, param_dtype=f32)``) does.  ``follows_pipeline=False``
+    keeps it out of the pipeline's compute dtype: a plain flax ``nn.Dense``
+    of the JAX package, which computes in float32 on float32 inputs.
     """
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
-                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+                 follows_pipeline: bool = True, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
         self.in_features = in_features
+        self.follows_pipeline = follows_pipeline
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=dev))
         self.bias = nn.Parameter(torch.empty(out_features, device=dev)) if use_bias else None
         self.compute_dtype: Optional[torch.dtype] = None
@@ -62,8 +67,10 @@ class Dense(nn.Module):
         dtype = self.compute_dtype
         if dtype is None:
             return F.linear(x, self.weight, self.bias)
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        # the product rounded to dtype, then the bias added in dtype: two
+        # roundings, as flax's Dense(dtype=bf16) takes them
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class MultilayerPerceptionLayer(nn.Module):

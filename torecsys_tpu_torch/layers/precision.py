@@ -9,8 +9,9 @@ concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
 * ``compute_dtype`` on each :class:`~torecsys_tpu_torch.layers.ctr.dense.Dense`
   (the JAX package's ``Dense`` sites: the MLP towers, the Wide layer, LR,
   AFM's attention, the CIN's and DCN's heads): under bf16 each product
-  casts the input, weight and bias to bf16 (``torch.nn.functional.linear``,
-  cuBLAS on the card), as flax ``Dense(dtype=bf16, param_dtype=f32)`` does;
+  casts the input and weight to bf16 and rounds to bf16
+  (``torch.nn.functional.linear``, cuBLAS on the card), then the bf16 bias
+  is added in bf16, as flax ``Dense(dtype=bf16, param_dtype=f32)`` does;
   every other layer computes in float32, as in the JAX package; the
   parameters stay float32 and ``Sequential`` casts each bf16 leaf of a
   model's output (a tensor, or a tuple, list or dict of them) to float32;
@@ -19,6 +20,12 @@ concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
   (the JAX package's ``mha_dtype()``, flax's ``dtype=``): under bf16 the
   query, key, value and out projections, the scores and their softmax run
   in bf16;
+* a module built with ``follows_pipeline=False`` keeps float32: the JAX
+  package's plain flax sites, built without ``dtype=`` (a
+  ``ListIndicesEmbedding``'s attention, a ``SequenceIndicesEmbedding``'s
+  ``bidir_proj``); the recurrent cells (``layers.rnn``) have no compute
+  dtype and compute in float32, as flax's cells promote to their float32
+  kernels;
 * the table dtype of each table module (:class:`~torecsys_tpu_torch.inputs.embeddings.TableInput`):
   its table is stored in it, and its looked-up rows are cast to float32 at
   the module boundary.  A bf16 table is a dense-route feature, as in the JAX
@@ -62,11 +69,22 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return e.to(x.dtype) / e.sum(dim=dim, keepdim=True).to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it under ``jit`` on the CPU, in
+    ``x``'s dtype: in float32 the plain sigmoid; in bf16 ``1 / (1 +
+    exp(-x))`` with each operation rounded to bf16 (``torch.sigmoid`` rounds
+    once at the end and differs by an ulp on about a third of the inputs)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def apply_compute_dtype(module: nn.Module, dtype: DtypeLike) -> None:
-    """Set the compute dtype of every module under ``module`` that has one."""
+    """Set the compute dtype of every module under ``module`` that has one
+    and follows the pipeline's."""
     resolved = resolve_dtype(dtype)
     for m in module.modules():
-        if hasattr(m, "compute_dtype"):
+        if hasattr(m, "compute_dtype") and getattr(m, "follows_pipeline", True):
             m.compute_dtype = resolved
 
 
@@ -79,4 +97,4 @@ def apply_table_dtype(module: nn.Module, dtype: DtypeLike) -> None:
 
 
 __all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype",
-           "softmax"]
+           "sigmoid", "softmax"]

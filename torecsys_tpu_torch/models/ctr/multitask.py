@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.layers.ctr import MixtureOfExpertsLayer, MultilayerPerceptionLayer
+from torecsys_tpu_torch.layers.precision import sigmoid
 from torecsys_tpu_torch.models.base import CtrBaseModel, input_shape, register_model
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
@@ -157,7 +158,8 @@ class _PooledHeads(CtrBaseModel):
 
     def _probabilities(self, emb_inputs: torch.Tensor):
         pooled = torch.mean(emb_inputs, dim=2)  # (B, N)
-        return [torch.sigmoid(getattr(self, name)(pooled)) for name in self.heads]
+        # a bf16 head's sigmoid rounds as the JAX package's does (layers.precision)
+        return [sigmoid(getattr(self, name)(pooled)) for name in self.heads]
 
 
 @register_model("ESMM", "EntireSpaceMultiTask")
