@@ -179,7 +179,11 @@ Phases (any failure raises and the exit code is not 0):
     the automatic choice, both on the dense route.  The kernels line gives
     the row rules each path launched the two row-update kernels under, and
     each path's launches (``launches_by_path``; the held steps' and replay
-    checks' of phases 16-21 in ``check_launches``).
+    checks' of phases 16-22 in ``check_launches``).  Then the same for
+    optax's other names that the JAX Trainer can train with (one held step
+    each; rprop's after its first step, whose update is 0) and for Adam
+    under ``warmup_cosine_decay_schedule``, whose 16 replayed steps each
+    take the schedule at its own count.
 
 19. (Phases 19-20 run after phase 18, before phase 11.)  MMoE on bench.py's
     workload (the MMoE paper's model, Ma et al., KDD 2018, at DeepCTR's
@@ -231,6 +235,25 @@ Phases (any failure raises and the exit code is not 0):
     against the plain versions (the bench table on the row kernels, the
     history tables on Adam through ``table_grad``), and a replay of the
     LSTM's against 8 eager steps to the bit.
+22. (Run after phase 21, before phase 11.)  The bench DeepFM whose
+    ``emb_inputs`` stacks its table and an ``ImageInput(16, 3)`` at the
+    JAX package's default tower, over 64x64 RGB uint8 thumbnails from a
+    pool of 8,192 made from ``--seed``, float32, the automatic sparse route,
+    ``Trainer(steps_per_execution=8)``: one step from fresh Adam moments
+    with the kernels against their plain versions; a replay against 8 eager
+    steps to the bit and one under ``set_sync_debug_mode("error")``; one
+    epoch of ``fit`` over 48 batches, graphed steps timed and traced (the
+    convolutions', unfold and fold's, GEMMs', max pool's and the port's
+    kernels' device time apart); the fitted tower saved with
+    ``save_tower_weights`` and a DeepFM over a ``PretrainedImageInput`` of
+    it held the same way, its tower unmoved; ``embedding_lookup`` and
+    ``fused_offset_lookup`` (one ``row_gather`` each, equal to
+    ``index_select``) and ``not_jittable`` under a real capture.
+
+The held steps (phases 15-22) hold each kept tensor's change over the step:
+2 ulps of the value and 1e-3 of the tensor's largest change, where a table
+element's rule is Adam's the larger of that and its update's sensitivity
+to the summation order of its gradient (``adam_sensitivity``).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  ``--profile`` traces 3 steps of each training route and
@@ -259,6 +282,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -2101,7 +2125,8 @@ def replay_profile(trainer, batches, out_dir, path: str):
     device busy time (union of kernel and copy intervals) per step.  Each
     window replays twice, with a short spin kernel between: the second
     replay is the one read (:func:`marked_events`), and a window without
-    its mark is taken again, up to ``REPLAY_WINDOWS`` windows."""
+    its mark, or with a port kernel's count that the steps do not divide,
+    is taken again, up to ``REPLAY_WINDOWS`` windows."""
     import torch
 
     n = len(batches)
@@ -2118,11 +2143,15 @@ def replay_profile(trainer, batches, out_dir, path: str):
         if trainer.graph_stats["replays"] != before + 2:
             raise AssertionError(f"{path}: the traced dispatches were not two replays")
         device = marked_events(prof)
-        if device is not None:
+        # every step launches each port kernel as often as the others: a
+        # count that the steps do not divide lost events after the mark
+        # (an image-tower replay of 1.1 s once held 15 row gathers of 16)
+        if device is not None and all(c % n == 0 for c in Counter(
+                k for k in map(port_kernel, (e.name for e in device)) if k).values()):
             break
     else:
-        raise AssertionError(f"{path}: torch.profiler lost the mark of {REPLAY_WINDOWS} "
-                             "traced windows in a row")
+        raise AssertionError(f"{path}: torch.profiler lost the mark or events after it in "
+                             f"{REPLAY_WINDOWS} traced windows in a row")
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -2300,9 +2329,10 @@ def graphed_fit(trainer, batches, fns, path: str, out_dir, route: str = "ondevic
 
     k = trainer.steps_per_execution
     reset_counts(fns)
-    first = trainer.fit(batches, max_epochs=1)
-    trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
-    second = trainer.fit(batches, max_epochs=1) if epochs == 2 else first
+    first = second = trainer.fit(batches, max_epochs=1)
+    if epochs == 2:
+        trainer.host_ms = dict.fromkeys(trainer.host_ms, 0.0)
+        second = trainer.fit(batches, max_epochs=1)
     counts = read_counts(fns)
     sparse, presort = GRAPH_ROUTES[route][:2]
     if trainer.sparse != sparse or (trainer._presorter is not None) != bool(presort):
@@ -3013,6 +3043,14 @@ FIBINET_DISPATCHES = 6    # two epochs of 48 batches
 # with each field capped at 100,000 rows.
 OPTIM_ROWS_CAP = 100_000
 OPTIM_LR = 1e-3
+# optax's rprop updates by the previous step's step sizes: its first update
+# is 0, so its held step follows one step
+OPTIM_STILL_FIRST = ("rprop",)
+# the scheduled dense Adam of phase 18: a warm-up over the first 4 steps to
+# the sweep's rate, then a cosine decay to 1e-5 at step 64 (every step the
+# phase takes has a rate of its own)
+OPTIM_SCHEDULE = dict(init_value=1e-5, peak_value=OPTIM_LR, warmup_steps=4, decay_steps=64,
+                      end_value=1e-5)
 ROW_TWINS = {"Adam": "adam", "AdamW": "adam", "Adagrad": "adagrad", "SGD": "sgd"}
 ONDEVICE_PER_STEP = {"0": GRAPH_ROUTES["ondevice"][3], "1": GRAPH_ROUTES["ondevice_fused"][3]}
 DENSE_PER_STEP = GRAPH_ROUTES["dense"][3]
@@ -3030,12 +3068,25 @@ DENSE_PER_STEP = GRAPH_ROUTES["dense"][3]
 # root mean square 0.3 for the field-aware tables (the FFM term sums 1,512
 # products at E = 4) and 0.1 for the others: there the first Adagrad step
 # moves its accumulator by thousands of ulps.
+# Where a table's rule is Adam's (the row rule adam, or torch.optim.Adam or
+# AdamW over a table on the dense route), its element's update lr * m_hat /
+# (sqrt(v_hat) + eps) turns a summed gradient that nearly cancels to near eps
+# into a step near lr, so there the second term is the larger of 1e-3 of the
+# largest change and the update's sensitivity (adam_sensitivity): how far
+# the update moves when the summed gradient g moves by the summation-order
+# bound 2 * (n - 1) * 2^-24 * sum |g_i| of its n terms, the larger of the
+# two sides, in float64 from the plain step's g, sum |g_i| and n (recorded by
+# abs_sums around the plain segment sums) and the moments before the step.
+# Where |g| is well above eps that sensitivity is far under 1e-3 of the
+# largest change, and the tolerance is the one above.  Adagrad, SGD and the
+# written-out dense optimizers keep the tolerance above.
 HELD_ROUND_ULPS = 2
 HELD_RTOL = 1e-3
 HELD_MOVED_ULPS = 32
 HELD_CHUNK = 1 << 24
 FFM_HELD_RMS = 0.3
 HELD_RMS = 0.1
+SUM_UNIT = 2.0 ** -24  # float32's unit roundoff
 
 
 def add_counts(total, counts) -> None:
@@ -3084,30 +3135,40 @@ def scale_table(trainer, rms: float) -> None:
                        / torch.linalg.vector_norm(table.float()).item())
 
 
-def held_compare(start, plain, kernel):
+def held_compare(start, plain, kernel, sens=None):
     """One kept tensor after a kernel step against it after a plain step,
     both from ``start``, element by element in chunks (a field-aware table
     and its slot are GBs): ``(worst |kernel - plain| over its tolerance,
     flat index of the worst, the plain step's largest change in ulps of the
-    tensor's largest value)``.  The tolerance is HELD_ROUND_ULPS ulps of the
-    element's value and HELD_RTOL of the tensor's largest change."""
+    tensor's largest value, the worst over the tolerance without ``sens``)``.
+    The tolerance is HELD_ROUND_ULPS ulps of the element's value and the
+    larger of HELD_RTOL of the tensor's largest change and the element's
+    ``sens`` (:func:`adam_sensitivity`; none: 0)."""
     import torch
 
     if not start.is_floating_point():
         same = torch.equal(plain, kernel)
-        return (0.0 if same else float("inf")), None, float((plain != start).any())
+        return (0.0 if same else float("inf")), None, float((plain != start).any()), (
+            0.0 if same else float("inf"))
     s, p, k = (t.reshape(-1) for t in (start, plain, kernel))
+    sens = None if sens is None else sens.reshape(-1)
     chunks = [slice(i, i + HELD_CHUNK) for i in range(0, s.numel(), HELD_CHUNK)]
     largest = top = 0.0
     for c in chunks:
         largest = max(largest, (p[c].float() - s[c].float()).abs().max().item())
         top = max(top, s[c].abs().max().item(), p[c].abs().max().item())
-    worst, at = 0.0, None
+    worst, at, worst_old = 0.0, None, 0.0
     for c in chunks:
         mag = torch.maximum(torch.maximum(s[c].abs(), p[c].abs()), k[c].abs())
         ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).float()
         err = (k[c].float() - p[c].float()).abs()
-        ratio = err / (HELD_ROUND_ULPS * ulp + HELD_RTOL * largest)
+        rel = torch.full_like(err, HELD_RTOL * largest)
+        ratio_old = torch.where(err == 0, torch.zeros_like(err),
+                                err / (HELD_ROUND_ULPS * ulp + rel))
+        worst_old = max(worst_old, torch.nan_to_num(ratio_old, nan=float("inf")).max().item())
+        if sens is not None:
+            rel = torch.maximum(rel, sens[c])
+        ratio = err / (HELD_ROUND_ULPS * ulp + rel)
         ratio = torch.where(err == 0, torch.zeros_like(err), ratio)
         r = ratio.max().item()
         if r != r or r > worst:
@@ -3115,7 +3176,136 @@ def held_compare(start, plain, kernel):
             if r != r:
                 break
     top = torch.tensor(top, dtype=start.dtype)
-    return worst, at, largest / (torch.nextafter(top, top + 1) - top).item()
+    return worst, at, largest / (torch.nextafter(top, top + 1) - top).item(), worst_old
+
+
+@contextlib.contextmanager
+def abs_sums():
+    """Around a plain step: each plain segment sum (``widen_segment_sum_plain``,
+    ``segment_sum_wide_plain``, also inside the plain fused dedup and
+    ``table_grad``) is taken again over ``|g|`` and over ones, and each plain
+    row update (``fused_rowwise_update_plain``) adds its rows' summed
+    gradient, ``sum |g_i|`` and term count into buffers of its table's
+    ``(R, W)`` stored rows.  Yields ``{table.data_ptr(): [g, abs, n]}``, one
+    entry for each real table: the row route's update writes the table
+    itself, and ``table_grad``'s, under a lookup's backward, a zero gradient
+    table, which is keyed by the table that lookup's forward read.  Enter
+    it before :func:`plain_versions`, which takes the plain update it
+    finds."""
+    import torch
+
+    from torecsys_tpu_torch.ops import embedding as E
+    from torecsys_tpu_torch.ops.kernels import sparse_update as K
+
+    names = ("widen_segment_sum_plain", "segment_sum_wide_plain", "fused_rowwise_update_plain")
+    orig = {n: getattr(K, n) for n in names}
+    lookup = (E._RowGather.forward, E._RowGather.backward)
+    sums, last = {}, {}
+
+    def forward(ctx, packed_table, ids, embed_size):
+        ctx.table_key = packed_table.data_ptr()
+        return lookup[0](ctx, packed_table, ids, embed_size)
+
+    def backward(ctx, grad):
+        last["table"] = ctx.table_key
+        try:
+            return lookup[1](ctx, grad)
+        finally:
+            del last["table"]
+
+    def widen(g_sorted, lo, seg, pack):
+        last["abs"] = orig["widen_segment_sum_plain"](g_sorted.abs(), lo, seg, pack)
+        last["n"] = orig["widen_segment_sum_plain"](torch.ones_like(g_sorted), lo, seg, pack)
+        return orig["widen_segment_sum_plain"](g_sorted, lo, seg, pack)
+
+    def wide(rows, seg):
+        last["abs"] = orig["segment_sum_wide_plain"](rows.abs(), seg)
+        last["n"] = orig["segment_sum_wide_plain"](torch.ones_like(rows), seg)
+        return orig["segment_sum_wide_plain"](rows, seg)
+
+    def update(uids, gsum, table, slots, hyper, rule, n_valid=None):
+        n = uids.shape[0] if n_valid is None else int(n_valid)
+        keep = (uids[:n] >= 0) & (uids[:n] < table.shape[0])
+        idx = uids[:n][keep].long()
+        bufs = sums.setdefault(last.get("table", table.data_ptr()), [
+            torch.zeros(table.shape, dtype=torch.float32, device=table.device) for _ in range(3)])
+        for buf, rows in zip(bufs, (gsum, last["abs"], last["n"])):
+            buf.index_add_(0, idx, rows[:n][keep].float())
+        return orig["fused_rowwise_update_plain"](uids, gsum, table, slots, hyper, rule, n_valid)
+
+    for n, fn in zip(names, (widen, wide, update)):
+        setattr(K, n, fn)
+    E._RowGather.forward, E._RowGather.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield sums
+    finally:
+        for n, fn in orig.items():
+            setattr(K, n, fn)
+        E._RowGather.forward, E._RowGather.backward = (staticmethod(f) for f in lookup)
+
+
+def adam_rule(trainer, table: str, start):
+    """``(lr, b1, b2, eps, t, m0, v0)`` where the table's update is Adam's
+    (the row rule adam, or torch.optim.Adam or AdamW over it on the dense
+    route), from the state ``start`` before the step; else None."""
+    import torch
+
+    from torecsys_tpu_torch.ops.sparse import RowAdam
+
+    dense_opt, slots = _optimizers(trainer)
+    if table in slots:
+        row = trainer.pipeline.row_optimizer()
+        if not isinstance(row, RowAdam):
+            return None
+        mv = start[f"{table}:mv"]
+        w = mv.shape[-1]
+        mv = mv.reshape(-1, 2, w)
+        return (row.learning_rate, row.b1, row.b2, row.eps, int(start["step"].item()) + 1,
+                mv[:, 0], mv[:, 1])
+    if type(dense_opt) not in (torch.optim.Adam, torch.optim.AdamW):
+        return None
+    group = dense_opt.param_groups[0]
+    zero = torch.zeros_like(start[table])
+    step = start.get(f"{table}:step")
+    return (group["lr"], *group["betas"], group["eps"],
+            (0 if step is None else int(step.item())) + 1,
+            start.get(f"{table}:exp_avg", zero), start.get(f"{table}:exp_avg_sq", zero))
+
+
+def adam_sensitivity(trainer, start, sums):
+    """``{table name: (R, W) float32}``: for each table whose update is
+    Adam's (:func:`adam_rule`), each touched element's update change when
+    its plain summed gradient g moves by ``d = 2 (n - 1) 2^-24 sum |g_i|``,
+    ``max |u(g +- d) - u(g)|`` with ``u(g) = lr m_hat / (sqrt(v_hat) + eps)``
+    from the moments before the step, in float64; 0 where untouched."""
+    import torch
+
+    out = {}
+    for table, module in embedding_tables(trainer).items():
+        rule = adam_rule(trainer, table, start)
+        stored = module.embedding
+        key = stored.data_ptr()
+        if rule is None or key not in sums:
+            continue
+        lr, b1, b2, eps, t, m0, v0 = rule
+        g, a, n = (b.reshape(-1) for b in sums[key])
+        touched = torch.nonzero(n > 0).reshape(-1)
+        gt = g[touched].double()
+        d = 2.0 * (n[touched].double() - 1).clamp_min(1.0) * SUM_UNIT * a[touched].double()
+        m0t, v0t = (x.reshape(-1)[touched].double() for x in (m0, v0))
+        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+
+        def update(x):
+            m_hat = (b1 * m0t + (1 - b1) * x) / bc1
+            v_hat = (b2 * v0t + (1 - b2) * x * x) / bc2
+            return lr * m_hat / (torch.sqrt(v_hat) + eps)
+
+        u = update(gt)
+        sens = torch.maximum((update(gt + d) - u).abs(), (update(gt - d) - u).abs())
+        flat = torch.zeros(stored.numel(), dtype=torch.float32, device=stored.device)
+        flat[touched] = sens.float()
+        out[table] = flat.reshape(stored.shape)
+    return out
 
 
 def step_vs_plain(trainer, batch, fns, path: str, want):
@@ -3124,41 +3314,50 @@ def step_vs_plain(trainer, batch, fns, path: str, want):
     keeps (:func:`kept_tensors`: parameters and tables, the dense
     optimizer's state, the row slots, running statistics) by its change
     over the step (:func:`held_compare`), which for each table
-    (:func:`embedding_tables`) and its optimizer state must reach
-    HELD_MOVED_ULPS ulps.  The kernel step's
-    launches must be ``want``.  Returns the record with its ``launches``."""
+    (:func:`embedding_tables`) and each floating tensor of its optimizer
+    state that the plain step writes must reach HELD_MOVED_ULPS ulps.  The
+    kernel step's launches must be ``want``.  Returns the record with its ``launches``."""
     import torch
 
     tables = tuple(embedding_tables(trainer))
     snap = snapshot(trainer)
     start = dense_state(trainer)
-    with plain_versions(fns):
+    with abs_sums() as sums, plain_versions(fns):
         loss_p = trainer.train_steps([batch])[0].item()
     plain = dense_state(trainer)
+    sensitivity = adam_sensitivity(trainer, start, sums)
+    del sums
     restore(trainer, snap)
     del snap
     reset_counts(fns)
     loss_k = trainer.train_steps([batch])[0].item()
     counts = read_counts(fns)
     check_counts(f"{path} kernel step", counts, want)
-    worst, where, moved = 0.0, "all equal", {}
+    worst, where, moved, worst_old = 0.0, "all equal", {}, 0.0
     for name, t in kept_tensors(trainer).items():
         # a torch optimizer builds its state at its first step, from 0
         s = start[name] if name in start else torch.zeros_like(t)
-        ratio, at, ulps = held_compare(s, plain[name], t)
-        if name.split(":")[0] in tables:
+        ratio, at, ulps, ratio_old = held_compare(s, plain[name], t, sensitivity.get(name))
+        worst_old = max(worst_old, ratio_old)
+        # the table and each floating tensor of its optimizer state that the
+        # plain step writes (a count, a flag or a placeholder the rule never
+        # writes, as adafactor's unfactored v of a factored table, is held
+        # to the bit instead)
+        if name.split(":")[0] in tables and s.is_floating_point() and (
+                ":" not in name or not torch.equal(s, plain[name])):
             moved[name] = ulps
         if not ratio <= worst:
             flat = (s.reshape(-1), plain[name].reshape(-1), t.reshape(-1))
             worst, where = ratio, (f"{name}[{at}]: start {flat[0][at].item():.9g}, plain "
                                    f"{flat[1][at].item():.9g}, kernels {flat[2][at].item():.9g}"
                                    if at is not None else name)
-    del start, plain
+    del start, plain, sensitivity
     rel = abs(loss_k - loss_p) / abs(loss_p)
     log(f"[{path}] kernels vs plain, one step from one state: loss {loss_k:.8f} vs "
         f"{loss_p:.8f} (rel diff {rel:.3g}, rtol {TRAIN_LOSS_RTOL}); every kept tensor's change "
         f"(parameters, tables, optimizer state, row slots): worst |kernels - plain| / tolerance "
-        f"{worst:.3g} ({where}); the table's largest change in ulps: "
+        f"{worst:.3g} ({where}), {worst_old:.3g} without Adam's sensitivity; the table's "
+        "largest change in ulps: "
         + ", ".join(f"{n.rsplit('.', 1)[-1]} {u:.4g}" for n, u in moved.items()))
     if not np.isfinite(loss_k) or not rel <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"{path}: losses with kernels and plain versions disagree")
@@ -3170,7 +3369,8 @@ def step_vs_plain(trainer, batch, fns, path: str, want):
         raise AssertionError(f"{path}: the step moved {still} ulps at most, under "
                              f"{HELD_MOVED_ULPS}: the comparison cannot see the kernels")
     return {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_over_tolerance": worst,
-            "worst": where, "table_moved_ulps": moved, "launches": counts}
+            "worst_over_old_tolerance": worst_old, "worst": where, "table_moved_ulps": moved,
+            "launches": counts}
 
 
 def replay_checks(trainer, group, fns, path: str, per_step, warm=None):
@@ -3412,11 +3612,34 @@ def phase_fibinet(seed: int, out_dir):
     return {**record, "held_launches": total, "route": route, "held": records}
 
 
-def optim_trainer(seed: int, name, sparse, field_sizes, spe: int = 1):
+def check_schedule_count(trainer, group, schedule):
+    """After the replay check: two replays (16 steps) move every parameter's
+    schedule count by 16, over steps whose rates differ from step to step
+    (a rate frozen into the graph could not follow them)."""
+    import torch
+
+    opt = trainer.state.opt_state
+    before = {int(s["lr_count"]) for s in opt.state.values()}
+    trainer.train_steps(group * 2)
+    after = {int(s["lr_count"]) for s in opt.state.values()}
+    (start,) = before
+    if after != {start + 2 * len(group)}:
+        raise AssertionError(f"schedule: the counts moved from {before} to {after}")
+    rates = [schedule(torch.tensor(c, dtype=torch.int32)).item()
+             for c in range(start, start + 2 * len(group))]
+    if len(set(rates)) != len(rates):
+        raise AssertionError(f"schedule: the replayed steps' rates repeat: {rates}")
+    log(f"[optim_schedule] {2 * len(group)} replayed steps moved the schedule count {start} -> "
+        f"{start + 2 * len(group)}; "
+        "their rates " + ", ".join(f"{r:.3g}" for r in rates))
+    return {"count_before": start, "count_after": start + 2 * len(group), "rates": rates}
+
+
+def optim_trainer(seed: int, name, sparse, field_sizes, spe: int = 1, lr=OPTIM_LR):
     from torecsys_tpu_torch import Trainer
 
     trainer = Trainer(ctr_pipeline("DeepFM", {"deep_layer_sizes": TOWER}, field_sizes,
-                                   sparse=sparse, optimizer=(name, OPTIM_LR)),
+                                   sparse=sparse, optimizer=(name, lr)),
                       log_every=10**9, seed=seed, presort=False, steps_per_execution=spe)
     trainer.init_state()
     return trainer
@@ -3431,7 +3654,13 @@ def phase_optim_sweep(seed: int, out_dir):
     versions (the table scaled first, :func:`scale_table`), the launches
     held; a replay of 8 steps against 8 eager steps to the bit and one under
     ``set_sync_debug_mode("error")``; graphed examples/sec and a traced
-    replay.  Then one step of the opaque form and of Lamb under the
+    replay.  optax's other names that the JAX Trainer can train with
+    (``OPTAX_OTHERS`` but ``lbfgs``) on the dense route the same way with one
+    held step each, and Adam under ``warmup_cosine_decay_schedule``
+    (:data:`OPTIM_SCHEDULE`): its replay equal to its eager steps to the bit
+    (each step at its own rate; a rate frozen at capture would part them),
+    then 16 replayed steps whose schedule count the optimizer holds at 16
+    more.  Then one step of the opaque form and of Lamb under the
     automatic choice, which must fall back to the dense route.  The path's
     ``launches`` are the wrappers' counts of these eager steps (held steps,
     Lamb's and the opaque one); ``graph_launches`` those of the replay
@@ -3440,7 +3669,8 @@ def phase_optim_sweep(seed: int, out_dir):
     import torch
 
     from torecsys_tpu_torch import Pipeline, Trainer
-    from torecsys_tpu_torch.train.optimizers import available_optimizers
+    from torecsys_tpu_torch.train import schedules
+    from torecsys_tpu_torch.train.optimizers import OPTAX_OTHERS, available_optimizers
 
     fns = kernels()
     k = GRAPH_K
@@ -3449,34 +3679,50 @@ def phase_optim_sweep(seed: int, out_dir):
     cmp, warm, group = batches[:COMPARE_STEPS], batches[COMPARE_STEPS:COMPARE_STEPS + k], \
         batches[COMPARE_STEPS + k:]
     held, graphs, by_rule, records = {}, {}, {}, {}
-    configs = [(name, False, "0") for name in sorted(available_optimizers())]
-    configs += [(name, True, flag) for name in ROW_TWINS for flag in ("0", "1")]
+    # (name, sparse, fused dedup flag, learning rate, held steps)
+    configs = [(name, False, "0", OPTIM_LR, COMPARE_STEPS)
+               for name in sorted(available_optimizers())]
+    configs += [(name, True, flag, OPTIM_LR, COMPARE_STEPS) for name in ROW_TWINS
+                for flag in ("0", "1")]
+    configs += [(name, False, "0", OPTIM_LR, 1) for name in sorted(OPTAX_OTHERS)
+                if name != "lbfgs"]
+    schedule = schedules.warmup_cosine_decay_schedule(**OPTIM_SCHEDULE)
+    configs.append(("Adam", False, "0", schedule, 1))
     torch.cuda.reset_peak_memory_stats()
-    for name, sparse, flag in configs:
-        path = (f"optim_{name.lower()}_" + ("dense" if not sparse else
-                                           "fused" if flag == "1" else "ondevice"))
+    for name, sparse, flag, lr, n_held in configs:
+        path = (f"optim_{name.lower()}_" + ("schedule_" if callable(lr) else "")
+                + ("dense" if not sparse else "fused" if flag == "1" else "ondevice"))
         per_step = ONDEVICE_PER_STEP[flag] if sparse else DENSE_PER_STEP
         rule = ROW_TWINS[name] if sparse else "table_grad"
         with fused_dedup(flag):
-            trainer = optim_trainer(seed, name, sparse, field_sizes)
+            trainer = optim_trainer(seed, name, sparse, field_sizes, lr=lr)
             dense = trainer.state.opt_state["dense"] if sparse else trainer.state.opt_state
             row = trainer.pipeline.row_optimizer() if sparse else None
             if trainer.sparse != sparse or (sparse and trainer._presorter is not None):
                 raise AssertionError(f"{path}: not on the expected route")
             scale_table(trainer, HELD_RMS)
             launched, replayed = {}, {}
+            if name in OPTIM_STILL_FIRST:
+                # its first update is 0 by design: the held step is the second
+                reset_counts(fns)
+                trainer.train_steps(cmp[-1:])
+                check_counts(f"{path} first step", read_counts(fns), expect(**per_step))
+                add_counts(launched, read_counts(fns))
             steps = [step_vs_plain(trainer, b, fns, f"{path} step {i}", expect(**per_step))
-                     for i, b in enumerate(cmp)]
+                     for i, b in enumerate(cmp[:n_held])]
             for st in steps:
                 add_counts(launched, st["launches"])
             trainer.steps_per_execution = k
             counts, graph = replay_checks(trainer, group, fns, path, per_step, warm=warm)
             add_counts(replayed, counts)
+            if callable(lr):
+                graph["schedule"] = check_schedule_count(trainer, group, lr)
             # the dense route's table gradient is the fused dedup's sgd rule
             # at lr -1 on a zero table: its bound is that rule's
             timed = timed_replays(trainer, group, path, per_step,
                                   table_bounds(trainer, group[0], ROW_TWINS.get(name, "sgd")
                                                if sparse else "sgd"))
+
         add_counts(replayed, replays_ran(trainer, per_step))
         add_counts(held, launched)
         add_counts(graphs, replayed)
@@ -3887,14 +4133,11 @@ DSIN_DISPATCHES = 6       # one epoch of 48 batches
 # optimizer through table_grad, in one step.
 SEQ_DEEPFM_PER_STEP = dict(widen_segment_sum=1, fused_rowwise_update=1, row_gather=6,
                            fused_sorted_dedup_update=2)
-# Its held step follows 2 steps with the kernels.  From fresh Adam moments a
-# row's first update is lr * g / (|g| + eps): where a hot row's gradient
-# sum nearly cancels to |g| near eps, that step turns the last-bit
-# difference of two summation orders into a step difference of up to lr
-# (on the card one element of the bench table, g about 8e-10, came out 1.3
-# times the tolerance apart).  After warm steps the rows that gather many
-# terms divide by their accumulated second moment instead.
-SEQ_DEEPFM_WARM = 2
+# Its held step is taken from fresh Adam moments, as every other held step:
+# held_compare bounds the bench table's elements by Adam's sensitivity
+# (adam_sensitivity), where a hot row's gradient sum that nearly cancels to
+# near eps once failed a correct kernel (g about 8e-10, 1.3 times the older
+# tolerance, on the card).
 
 
 def behaviour_batches(seed: int, n: int, fields=("behaviour",), batches=None):
@@ -3995,9 +4238,8 @@ def phase_dsin(seed: int, out_dir):
     the counters and a traced replay), graphed steps timed and traced
     (examples/sec, step ms, busy share, each kernel's in-graph time beside
     its bound, top kernels, peak GB); ``evaluate`` and ``predict``.  Then
-    the held mixed path (:func:`seq_deepfm_pipeline`): after 2 steps with
-    the kernels (:data:`SEQ_DEEPFM_WARM`), one step from one state with the
-    kernels against their plain versions for each cell, and a replay of the
+    the held mixed path (:func:`seq_deepfm_pipeline`): one step from fresh
+    Adam moments with the kernels against their plain versions for each cell, and a replay of the
     LSTM's against 8 eager steps to the bit."""
     import torch
 
@@ -4055,11 +4297,10 @@ def phase_dsin(seed: int, out_dir):
     release()
     # the held mixed path
     capped = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
-    n_mixed = SEQ_DEEPFM_WARM + 1 + 2 * k
+    n_mixed = 1 + 2 * k
     mixed = behaviour_batches(seed + 22, n_mixed, ("behaviour", "clicks"),
                               make_batches(seed + 22, n_mixed, capped))
-    warm, step, (warm_k, group) = (mixed[:SEQ_DEEPFM_WARM], mixed[SEQ_DEEPFM_WARM],
-                                   (mixed[-2 * k:-k], mixed[-k:]))
+    step, warm_k, group = mixed[0], mixed[-2 * k:-k], mixed[-k:]
     seq_counts, mixed_held = {}, {}
     for rnn_method in ("lstm", "gru", "rnn"):
         torch.cuda.reset_peak_memory_stats()
@@ -4073,12 +4314,6 @@ def phase_dsin(seed: int, out_dir):
         scale_table(trainer, HELD_RMS)
         path = f"seq_deepfm_held_{rnn_method}"
         with fused_dedup("0"):
-            reset_counts(fns)
-            trainer.train_steps(warm)
-            counts = read_counts(fns)
-            check_counts(f"{path} warm steps", counts, expect(**{
-                n: SEQ_DEEPFM_WARM * c for n, c in SEQ_DEEPFM_PER_STEP.items()}))
-            add_counts(mixed_held, counts)
             records[path] = step_vs_plain(trainer, step, fns, path,
                                           expect(**SEQ_DEEPFM_PER_STEP))
             add_counts(mixed_held, records[path]["launches"])
@@ -4098,6 +4333,287 @@ def phase_dsin(seed: int, out_dir):
     return {**record, "timed": timed, "bounds": bounds, "in_graph_us": in_graph,
             "eval": evaluation, "held": records, "held_launches": held,
             "seq_deepfm": {"launches": seq_counts, "held_launches": mixed_held}}
+
+
+# ---- phase 22: image inputs, the pretrained tower, the API remainder --------
+
+# The bench DeepFM (28 Zipf(1.2) fields over 32,884,400 rows, 13 dense
+# fields, E = 16, tower 400-400-400, batch 4096, Adam 1e-3, float32) with its
+# emb_inputs a StackedInput of the fused table and an ImageInput(16, 3) at
+# the JAX package's default tower (convolutions 32 and 64, 3x3, stride 1,
+# max pool 2, BatchNorm): 29 fields of width 16.  The images are 64x64 RGB
+# uint8 thumbnails (a stated choice: the JAX package fixes the tower, the
+# data the size), each taken from a pool of IMAGE_POOL item images made from
+# --seed, indexed by the example's first field (its Zipf item id) modulo the
+# pool.  The automatic sparse route at 8 steps a dispatch, one epoch of 48
+# batches.
+IMAGE_SIZE = 64
+IMAGE_CHANNELS = 3
+IMAGE_POOL = 8192          # 8192 x 12,288 bytes = 96 MiB of thumbnails
+IMAGE_DISPATCHES = 6       # one epoch of 48 batches
+CONV_MARKS = ("conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop")
+
+
+def image_batches(seed: int, n: int):
+    """:func:`make_batches` with an ``image`` field: ``(B, 64, 64, 3)`` uint8
+    thumbnails from a pool made from ``seed``, indexed by each example's
+    ``cat_0`` id."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (IMAGE_POOL, IMAGE_SIZE, IMAGE_SIZE, IMAGE_CHANNELS),
+                        dtype=np.uint8)
+    batches = make_batches(seed, n)
+    for b in batches:
+        b["image"] = pool[b["cat_0"] % IMAGE_POOL]
+    return batches
+
+
+def image_pipeline(sparse=None, weights_path=None):
+    """The image-tower DeepFM; with ``weights_path`` its image input is a
+    ``PretrainedImageInput`` over that frozen tower (``head`` 16 → 16)."""
+    from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
+    from torecsys_tpu_torch.inputs import (ImageInput, MultiIndicesEmbedding,
+                                           PretrainedImageInput, StackedInput)
+
+    table = MultiIndicesEmbedding(EMBED, FIELD_SIZES,
+                                  tuple(f"cat_{i}" for i in range(len(FIELD_SIZES))),
+                                  device=DEVICE)
+    image = (ImageInput(EMBED, IMAGE_CHANNELS, device=DEVICE) if weights_path is None else
+             PretrainedImageInput(EMBED, weights_path=weights_path, backbone_embed_size=EMBED,
+                                  device=DEVICE))
+    schema = {"feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
+              "emb_inputs": StackedInput([table, image])}
+    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(Inputs(schema))
+            .set_model("DeepFM", deep_layer_sizes=TOWER).set_criterion("BCEWithLogitsLoss")
+            .set_optimizer("Adam", lr=1e-3).set_sparse_embeddings(sparse)
+            .set_target_fields("label"))
+
+
+def image_module(trainer):
+    return trainer.pipeline.sequential.inputs.schema["emb_inputs"].inputs[1]
+
+
+def image_work():
+    """The tower's multiply-adds an image (forward) and the bytes of its
+    BatchNorm, ReLU and pool passes a step (float32 activations each read
+    and written once a pass forward, twice backward; max-pool's int64
+    indices), at the JAX default tower on 64x64x3."""
+    h = w = IMAGE_SIZE
+    macs, traffic, c_in = 0, 0, IMAGE_CHANNELS
+    for c in (32, 64):
+        macs += h * w * 9 * c_in * c
+        act = h * w * c * 4
+        traffic += 3 * (2 * act) + (act + act // 4 + (act // 4) * 2)  # BN, ReLU x3 passes; pool
+        h, w, c_in = h // 2, w // 2, c
+    return macs, traffic
+
+
+def image_split(profile):
+    """A traced replay's device µs a step: cuDNN's convolutions (the
+    forward), the backward's unfold and fold, GEMMs (the backward's and the
+    tower's), max pool, the port's kernels, and the rest (BatchNorm, ReLU,
+    reductions, elementwise)."""
+    split = dict.fromkeys(("cudnn_convolutions", "unfold_fold", "gemms", "max_pool",
+                           "port_kernels", "other"), 0.0)
+    for name, us in profile["device_us_per_step_by_name"].items():
+        low = name.lower()
+        if port_kernel(name):
+            split["port_kernels"] += us
+        elif "max_pool" in low:
+            split["max_pool"] += us
+        elif "im2col" in low or "col2im" in low:
+            split["unfold_fold"] += us
+        elif any(m in low for m in CONV_MARKS):
+            split["cudnn_convolutions"] += us
+        elif any(m in low for m in GEMM_MARKS):
+            split["gemms"] += us
+        else:
+            split["other"] += us
+    return split
+
+
+def check_lookups(fns):
+    """``embedding_lookup`` and ``fused_offset_lookup`` on the card: each one
+    ``row_gather`` launch, each equal to ``index_select`` to the bit (ids at
+    the bench's batch and fields)."""
+    import torch
+
+    from torecsys_tpu_torch.ops.embedding import (embedding_lookup, field_offsets,
+                                                  fused_offset_lookup)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    sizes = tuple(min(v, 100_000) for v in FIELD_SIZES)
+    table = torch.randn(sum(sizes), EMBED, device=DEVICE, generator=gen)
+    raw = torch.stack([torch.randint(0, v, (BATCH,), device=DEVICE, generator=gen)
+                       for v in sizes], dim=1)
+    offs = field_offsets(sizes)
+    fused_ids = raw + torch.as_tensor(offs, device=DEVICE)[None, :]
+    counts = {}
+    for name, call, ids in (("embedding_lookup", lambda: embedding_lookup(table, fused_ids),
+                             fused_ids),
+                            ("fused_offset_lookup", lambda: fused_offset_lookup(table, raw, offs),
+                             fused_ids)):
+        reset_counts(fns)
+        out = call()
+        got = read_counts(fns)
+        check_counts(f"api {name}", got, expect(row_gather=1))
+        add_counts(counts, got)
+        want = table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, EMBED)
+        if not same_bits(out, want):
+            raise AssertionError(f"{name}: differs from index_select")
+        log(f"[api] {name} over {tuple(ids.shape)} ids of a ({table.shape[0]}, {EMBED}) table: "
+            "one row_gather launch, bit-identical to index_select")
+    return counts
+
+
+def check_not_jittable():
+    """``not_jittable`` under a real CUDA graph capture: it raises before the
+    wrapped function runs (so it enqueues nothing into the capture), and the
+    captured graph replays what was captured around it."""
+    import torch
+
+    from torecsys_tpu_torch.utils.decorator import not_jittable
+
+    ran = []
+
+    @not_jittable
+    def grow(x):
+        ran.append(1)
+        return x + 1
+
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE)
+    if not torch.equal(grow(x), x + 1) or ran != [1]:
+        raise AssertionError("not_jittable: the eager call did not pass through")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    graph, refused = torch.cuda.CUDAGraph(), None
+    with torch.cuda.graph(graph):
+        y = x * 2
+        try:
+            grow(x)
+        except RuntimeError as e:
+            refused = str(e)
+    graph.replay()
+    torch.cuda.synchronize()
+    if refused is None or ran != [1] or not torch.equal(y, x * 2):
+        raise AssertionError(f"not_jittable: refused={refused!r}, body ran {len(ran)} times")
+    log(f"[api] not_jittable under a capture: refused ({refused}); the body did not run")
+    return refused
+
+
+def phase_image(seed: int, out_dir):
+    """Phase 22: the image-tower DeepFM at the bench's widths.  One step from
+    fresh Adam moments with the kernels against their plain versions on the
+    on-device route (the table scaled first, Adam's sensitivity bound), a
+    replay against 8 eager steps to the bit and one under
+    ``set_sync_debug_mode("error")``; one epoch of ``fit`` over 48 batches at
+    8 steps a dispatch on the route the automatic choice takes (launches
+    from the counters and a traced replay; examples/sec, step ms, host ms by
+    stage, device busy, the device time split: convolutions, GEMMs, max
+    pool, the port's kernels, the rest); the fitted tower saved with
+    ``save_tower_weights`` and a DeepFM over a ``PretrainedImageInput`` of
+    it held the same way (its head and table move, the frozen tower's
+    weights and statistics do not); the two lookups and ``not_jittable``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.inputs import save_tower_weights
+
+    fns = kernels()
+    k = GRAPH_K
+    per_step = ONDEVICE_PER_STEP["0"]
+    n_train = IMAGE_DISPATCHES * k
+    t0 = time.perf_counter()
+    batches = image_batches(seed + 23, n_train + 1 + 2 * k)
+    train, step = batches[:n_train], batches[n_train]
+    warm, group = batches[n_train + 1:n_train + 1 + k], batches[n_train + 1 + k:]
+    macs, traffic = image_work()
+    log(f"[image] {len(batches)} batches with (B, {IMAGE_SIZE}, {IMAGE_SIZE}, "
+        f"{IMAGE_CHANNELS}) uint8 images from a pool of {IMAGE_POOL} in "
+        f"{time.perf_counter() - t0:.1f} s; the tower: {macs / 1e6:.2f}M multiply-adds an "
+        f"image, {2 * macs * BATCH / 1e12:.3f} TFLOP forward a batch and about "
+        f"{6 * macs * BATCH / 1e12:.3f} a step; BatchNorm, ReLU and pool traffic about "
+        f"{traffic * BATCH / 1e9:.1f} GB a step; {step['image'].nbytes / 2**20:.1f} MiB of "
+        "pixels a batch to the card")
+    records, held = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = held_trainer(image_pipeline(sparse=True), seed)
+    if not trainer.sparse or trainer._presorter is not None:
+        raise AssertionError("image: the held trainer is not on the on-device route")
+    scale_table(trainer, HELD_RMS)
+    with fused_dedup("0"):
+        records["image_held"] = step_vs_plain(trainer, step, fns, "image_held",
+                                              expect(**per_step))
+        add_counts(held, records["image_held"]["launches"])
+        trainer.steps_per_execution = k
+        counts, records["image_graph"] = replay_checks(trainer, group, fns, "image_deepfm",
+                                                       per_step, warm=warm)
+    add_counts(held, counts)
+    add_counts(held, replays_ran(trainer, per_step))
+    del trainer
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(image_pipeline(sparse=None), log_every=10**9, seed=seed,
+                      steps_per_execution=k)
+    trainer.init_state()
+    record = graphed_fit(trainer, train, fns, "image_deepfm", None, epochs=1)
+    bounds = table_bounds(trainer, train[0])
+    # graphed steps after the epoch: examples/sec, host ms by stage, a trace
+    timed = timed_replays(trainer, train[:k], "image_deepfm", per_step, bounds)
+    in_graph = timed["profile"]["kernel_us_per_step"]
+    split = image_split(timed["profile"])
+    log(f"[image_deepfm] {timed['examples_per_sec']:.1f} examples/sec, step "
+        f"{timed['step_ms']:.4f} ms, device busy {timed['device_busy_ms_per_step']:.4f} ms; host "
+        "ms a step: " + ", ".join(f"{n} {v:.3f}" for n, v in timed["host_ms_per_step"].items())
+        + "; device us a step: "
+        + ", ".join(f"{n} {v:.1f}" for n, v in split.items())
+        + "; the port's kernels in the graph against the bound: "
+        + ", ".join(f"{n} {v:.1f} (bound {bounds[n][0] * 1e3:.1f}, {bounds[n][1]})"
+                    for n, v in sorted(in_graph.items()))
+        + f"; peak {timed['peak_memory_gb']:.3f} GB; " + top_kernels(timed["profile"]))
+    work = tempfile.mkdtemp()
+    try:
+        weights = save_tower_weights(os.path.join(work, "tower.npz"), image_module(trainer))
+        del trainer
+        release()
+        trainer = held_trainer(image_pipeline(sparse=True, weights_path=weights), seed)
+        pretrained = image_module(trainer)
+        frozen = [t.clone() for t in (*pretrained._tower.parameters(),
+                                      *pretrained._tower.buffers())]
+        scale_table(trainer, HELD_RMS)
+        head = pretrained.head.weight.detach().clone()
+        with fused_dedup("0"):
+            records["pretrained_held"] = step_vs_plain(trainer, step, fns, "pretrained_held",
+                                                       expect(**per_step))
+            add_counts(held, records["pretrained_held"]["launches"])
+            if torch.equal(head, pretrained.head.weight):
+                raise AssertionError("pretrained: the held step did not move the head")
+            trainer.steps_per_execution = k
+            counts, records["pretrained_graph"] = replay_checks(
+                trainer, group, fns, "image_pretrained", per_step, warm=warm)
+        add_counts(held, counts)
+        add_counts(held, replays_ran(trainer, per_step))
+        still = [t for t in (*pretrained._tower.parameters(), *pretrained._tower.buffers())]
+        if len(still) != len(frozen) or not all(same_bits(a, b) for a, b in zip(frozen, still)):
+            raise AssertionError("pretrained: the frozen tower moved")
+        log(f"[image_pretrained] a PretrainedImageInput over the saved tower: the head and "
+            f"the table moved, the tower's {len(frozen)} tensors (weights and running "
+            "statistics) did not; trained parameters: "
+            + ", ".join(n for n, _ in pretrained.named_parameters()))
+        del trainer, pretrained, frozen
+        release()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    add_counts(held, check_lookups(fns))
+    refused = check_not_jittable()
+    return {**record, "timed": timed, "device_us_split": split, "held": records,
+            "held_launches": held, "in_graph_us": in_graph, "bounds": dict(bounds),
+            "tower_macs_per_image": macs, "not_jittable": refused}
 
 
 # ---- phase 11: file-fed training, the parser, the CLI and checkpoints --------
@@ -4628,7 +5144,8 @@ def packed_elements(rows: int) -> int:
 
 
 # the phases --phases runs alone: the graphed throughput paths
-ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin}
+ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
+                "image": phase_image, "optim": phase_optim_sweep}
 
 
 def main(argv=None):
@@ -4724,6 +5241,7 @@ def main(argv=None):
     mmoe = timed("mmoe", phase_mmoe, args.seed, args.out)
     multitask = timed("multitask", phase_multitask, args.seed, args.out)
     dsin = timed("dsin", phase_dsin, args.seed, args.out)
+    image = timed("image", phase_image, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
@@ -4731,17 +5249,19 @@ def main(argv=None):
              "fat_deepffm_adagrad_fused": fat["fused"], "fibinet": fibinet,
              "fibinet_fused": fibinet["fused"], "optim_sweep": optim, "mmoe": mmoe,
              "mmoe_fused": mmoe["fused"], "dsin": dsin, "seq_deepfm": dsin["seq_deepfm"],
+             "image_deepfm": image,
              "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # launches_by_path: each path's own run (a fit: the wrappers' counts of
     # its warm-up and capture plus its replays x a traced replay's; the
     # _fused paths: the fused dedup's capture after it; optim_sweep: its
     # eager steps); check_launches: the held steps and replay checks of
-    # phases 16-21, apart from the paths' runs (phase 20's models run no
+    # phases 16-22, apart from the paths' runs (phase 20's models run no
     # other path).
     checks = {"fat_held": fat_held["launches"], "fibinet_held": fibinet["held_launches"],
               "optim_sweep_graphs": optim["graph_launches"], "mmoe_held": mmoe["held_launches"],
               "multitask_held": multitask["launches"], "dsin_held": dsin["held_launches"],
-              "seq_deepfm_held": dsin["seq_deepfm"]["held_launches"]}
+              "seq_deepfm_held": dsin["seq_deepfm"]["held_launches"],
+              "image_held": image["held_launches"]}
     # Each kernel's launches are those of the path that carries it: the
     # headline configuration (phase 10: the wrappers' counts of its warm-up
     # and capture, plus its replays x the launches of a traced replay), the
@@ -4764,7 +5284,8 @@ def main(argv=None):
             line["ltr_bound_ms"], line["ltr_bound_by"] = ncf_bpr["bounds"][name]
         # FAT-DeepFFM under Adagrad at FFM's shape; FiBiNET at E = 10, W = 80
         # (the scalar instantiations and the 4-byte gather)
-        for key, rec in (("fat_deepffm", fat), ("fibinet", fibinet), ("mmoe", mmoe)):
+        for key, rec in (("fat_deepffm", fat), ("fibinet", fibinet), ("mmoe", mmoe),
+                         ("image", image)):
             if name in rec["in_graph_us"]:
                 line[f"{key}_in_graph_us"] = rec["in_graph_us"][name]
                 line[f"{key}_bound_ms"], line[f"{key}_bound_by"] = rec["bounds"][name]
@@ -4786,7 +5307,7 @@ def main(argv=None):
                                ("fat_deepffm_adagrad_fused", "adagrad"), ("fibinet", "adam"),
                                ("fibinet_fused", "adam"), ("mmoe", "adam"),
                                ("mmoe_fused", "adam"), ("headline", "adam"),
-                               ("seq_deepfm", "adam")):
+                               ("seq_deepfm", "adam"), ("image_deepfm", "adam")):
                 line["launches_by_rule"][path] = {rule: by_path[path]}
             if name == "fused_sorted_dedup_update":
                 # the dense history tables' gradients: DSIN's, the mixed path's

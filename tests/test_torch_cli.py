@@ -140,22 +140,30 @@ def test_single_device_mesh_options_run():
 
 
 def test_unported_inputs_objectives_regularizers_and_miners_are_refused():
-    """What is still not ported is refused, by name, with its ROADMAP item's
-    title: the image inputs, also inside a container.  The sequence inputs
-    are ported (``test_torch_dsin.test_cli_builds_both_sequence_inputs_from_json``),
+    """Every input of the JAX package is ported: the image inputs build from
+    JSON as the JAX CLI builds them, also inside a container
+    (``test_torch_image.test_cli_builds_the_image_inputs`` holds them against
+    the JAX CLI's), and a name that is no input class raises
+    ``AttributeError`` in both CLIs.  The sequence inputs are ported
+    (``test_torch_dsin.test_cli_builds_both_sequence_inputs_from_json``),
     the objectives, the regularizer and the miner
     (``test_build_takes_the_ranking_objectives_miner_and_regularizer``), and
     PRM (``test_prm_builds_as_the_jax_package_builds_it``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
-        _build_inputs({"emb_inputs": {"method": "ImageInput", "embed_size": 4}}, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
-        _build_inputs({"image_inputs": {"method": "PretrainedImageInput", "embed_size": 4}},
-                      "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Image inputs"):
-        _build_inputs({"emb_inputs": {"method": "StackedInput", "inputs": [
-            {"method": "SequenceIndicesEmbedding", "embed_size": 4, "field_size": 9,
-             "fields": ["a"]},
-            {"method": "ImageInput", "embed_size": 4}]}}, "cpu")
+    from torecsys_tpu.cli import _build_inputs as jax_build_inputs
+    from torecsys_tpu_torch.inputs import ImageInput, StackedInput
+
+    image = _build_inputs({"emb_inputs": {"method": "ImageInput", "embed_size": 4,
+                                          "in_channels": 3, "layers_size": [2, 3]}}, "cpu")
+    assert isinstance(image.schema["emb_inputs"], ImageInput)
+    stacked = _build_inputs({"emb_inputs": {"method": "StackedInput", "inputs": [
+        {"method": "SequenceIndicesEmbedding", "embed_size": 4, "field_size": 9,
+         "fields": ["a"]},
+        {"method": "ImageInput", "embed_size": 4, "in_channels": 3}]}}, "cpu")
+    assert isinstance(stacked.schema["emb_inputs"], StackedInput)
+    for build in (_build_inputs, jax_build_inputs):
+        with pytest.raises(AttributeError):
+            build({"emb_inputs": {"method": "NoSuchInput", "embed_size": 4}},
+                  *(("cpu",) if build is _build_inputs else ()))
 
 
 def _outcome(build):

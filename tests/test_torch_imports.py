@@ -15,7 +15,10 @@ with BPR and the miner, a regularizer) fit and evaluated, eager and at 2
 steps a dispatch, and StarSpace on ``emb``; and the CLI: streamed training
 from the bundled Criteo sample with a checkpoint, a resumed run and
 evaluation, which also parse, collate and load data, and ``build
---objective ltr``), loads neither JAX (nor flax, optax) nor anything of the
+--objective ltr``; DeepFM over a fused table stacked with an image tower
+under a schedule and optax's other names at 2 steps a dispatch, the two
+lookups, ``strip_aux``, ``not_jittable``, ``TqdmHandler``,
+``use_torch_linear_init`` and both examples), loads neither JAX (nor flax, optax) nor anything of the
 JAX package, nor click or pandas."""
 
 import os
@@ -229,6 +232,33 @@ assert len(load_criteo_data(sample, nrows=5)["C1"]) == 5
 loader = DataLoader(NdarrayToDataset(np.arange(12).reshape(6, 2), ["a", "b"]), 3,
                     CollateFunction({"a": FieldSpec("values"), "b": FieldSpec("indices")}))
 assert len(list(loader)) == 2
+from torecsys_tpu_torch.train import schedules
+from torecsys_tpu_torch.ops.embedding import embedding_lookup, fused_offset_lookup
+from torecsys_tpu_torch.data.presort import strip_aux
+from torecsys_tpu_torch.utils.decorator import not_jittable
+from torecsys_tpu_torch.utils.logging import TqdmHandler
+from torecsys_tpu_torch.layers.precision import use_torch_linear_init
+image_batch = dict(batch, img=rng.integers(0, 256, (16, 8, 8, 3)).astype(np.uint8))
+for name, lr in (("Adam", schedules.warmup_cosine_decay_schedule(0.0, 1e-2, 2, 8)),
+                 ("adabelief", 1e-3), ("noisy_sgd", schedules.exponential_decay(1e-2, 2, 0.5))):
+    with use_torch_linear_init():
+        pipe = (Pipeline(device="cpu").set_inputs(I.Inputs({
+            "feat_inputs": I.ValueInput(("d",)),
+            "emb_inputs": I.StackedInput([
+                I.MultiIndicesEmbedding(4, (50, 9), ("a", "b"), device="cpu"),
+                I.ImageInput(4, 3, layers_size=(2, 3), fields=("img",), device="cpu")])}))
+            .set_model("DeepFM", deep_layer_sizes=(8,)).set_optimizer(name, lr=lr)
+            .set_sparse_embeddings(False))
+        t = Trainer(pipe, steps_per_execution=2)
+        assert np.isfinite(float(t.train_steps([image_batch] * 2)[-1]))
+table = torch.randn(9, 4)
+assert embedding_lookup(table, torch.tensor([[1, -1]])).shape == (1, 2, 4)
+assert fused_offset_lookup(table, torch.tensor([[1, 2]]), np.array([0, 5])).shape == (1, 2, 4)
+assert strip_aux({"__presort__x": 1, "a": 2}) == {"a": 2}
+assert not_jittable(lambda: 3)() == 3
+from torecsys_tpu_torch.examples import ltr_with_miner, train_fm_sample
+assert 0.0 < train_fm_sample.cli(["--device", "cpu", "--epochs", "1"]) <= 1.0
+assert 0.0 < ltr_with_miner.cli(["--device", "cpu", "--epochs", "1"]) <= 1.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu", "click",
                                     "pandas"))

@@ -15,6 +15,8 @@ The optax update is jitted, as the JAX Trainer's step is: un-jitted, XLA
 takes ``b2**count`` by another route, one ulp off, and RAdam's threshold
 branch moves with it.  And the registry: names, aliases, refusals."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from torecsys_tpu_torch.train.optimizers import (
     available_optimizers,
     get_optimizer,
 )
+from torecsys_tpu_torch.train.schedules import constant_schedule
 from torecsys_tpu_torch.train.state import TrainState
 
 LR = 1e-2
@@ -178,17 +181,17 @@ def test_registry_names_aliases_and_refusals():
     assert get_optimizer("AdamW")([p]).defaults["weight_decay"] == 1e-4  # optax's, not torch's
     assert get_optimizer("Lion")([p]).defaults["b2"] == 0.99
     with pytest.raises(KeyError, match="available"):
-        get_optimizer("Adafactor")
+        get_optimizer("chain")
     with pytest.raises(TypeError):
         get_optimizer("SGD", betas=(0.9, 0.99))
     with pytest.raises(TypeError):
         get_optimizer("Adagrad", momentum=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: The small API remainder"):
-        get_optimizer("Adam", lr=optax.constant_schedule(1e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: The small API remainder"):
-        get_optimizer("AdamW", mask=lambda params: params)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: The small API remainder"):
-        get_optimizer("Lion", mu_dtype=jnp.bfloat16)
+    # ported since: optax's other names, a schedule, a mask, mu_dtype
+    assert isinstance(get_optimizer("Adafactor")([p]), OptaxOptimizer)
+    assert isinstance(get_optimizer("Adam", lr=constant_schedule(1e-3))([p]), OptaxOptimizer)
+    assert callable(get_optimizer("AdamW", mask=lambda params: params))
+    assert get_optimizer("Lion", mu_dtype=torch.bfloat16)([p]).state[p]["mu"].dtype == (
+        torch.bfloat16)
     assert isinstance(get_optimizer("AdamW", mask=None)([p]), OptaxOptimizer)
 
 
@@ -224,3 +227,171 @@ def test_a_parameter_without_a_gradient_takes_a_zero_one():
     p.grad = None
     opt.step()
     np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+# optax's other names, which the JAX get_optimizer reaches by attribute
+# (torecsys_tpu/train/optimizers.py:38-43), at optax's defaults and at one
+# other setting; noisy_sgd is held apart (its noise is replayed below)
+OTHERS = [("adabelief", {}), ("adabelief", {"nesterov": True}), ("adafactor", {}),
+          ("adafactor", {"min_dim_size_to_factor": 4, "momentum": 0.9,
+                         "weight_decay_rate": 0.01, "clipping_threshold": 0.5}),
+          ("adamaxw", {}), ("adamaxw", {"weight_decay": 0.1}), ("adan", {}),
+          ("adan", {"weight_decay": 0.1}), ("amsgrad", {}), ("amsgrad", {"eps_root": 1e-8}),
+          ("fromage", {}), ("fromage", {"min_norm": 10.0}), ("novograd", {}),
+          ("novograd", {"weight_decay": 0.01}), ("optimistic_adam", {}),
+          ("optimistic_adam", {"optimism": 0.05}), ("optimistic_adam_v2", {}),
+          ("optimistic_adam_v2", {"alpha": 0.5, "beta": 2.0, "nesterov": False}),
+          ("optimistic_gradient_descent", {}),
+          ("optimistic_gradient_descent", {"alpha": 0.3, "beta": 0.7}), ("rprop", {}),
+          ("rprop", {"eta_minus": 0.3, "max_step_size": 0.02}), ("sign_sgd", {}), ("sm3", {}),
+          ("sm3", {"momentum": 0.5}), ("yogi", {}), ("yogi", {"b1": 0.5})]
+
+
+def free_steps(name, kwargs, n=5):
+    """``n`` steps of jitted optax (the JAX Trainer's ``tx.update(grads,
+    opt_state, params)``) and of the port from the same leaves."""
+    tx = getattr(optax, name)(learning_rate=LR, **kwargs)
+    want, _ = jax_steps(tx, jax.tree.map(jnp.asarray, leaves(1)), n, seed=20)
+    module, port = port_state(name, {k: _port_value(v) for k, v in kwargs.items()},
+                              leaves(1), None)
+    for i in range(n):
+        set_grads(module, grads(20 + i))
+        port.opt_state.step()
+    return jax.device_get(want), dict(module.named_parameters()), port.opt_state
+
+
+def _port_value(v):
+    """A JAX dtype keyword as the port's (``mu_dtype=jnp.bfloat16``)."""
+    return torch.bfloat16 if v is jnp.bfloat16 else v
+
+
+def assert_leaves(want, named, rtol=1e-5, atol=1e-7):
+    for path, ref in flatten(want).items():
+        np.testing.assert_allclose(named[torch_name(path)].detach().float().numpy(),
+                                   as_port(path, np.asarray(ref, np.float32)), rtol=rtol,
+                                   atol=atol, err_msg=path)
+
+
+@pytest.mark.parametrize("name,kwargs", OTHERS, ids=[f"{n}-{kw}" for n, kw in OTHERS])
+def test_optax_others_five_free_steps(name, kwargs):
+    with (pytest.warns(DeprecationWarning) if name == "optimistic_adam"
+          else contextlib.nullcontext()):
+        want, named, _ = free_steps(name, kwargs)
+    assert_leaves(want, named)
+
+
+def test_noisy_sgd_against_optax_replaying_the_ports_noise():
+    """optax's ``noisy_sgd`` draws from a JAX key, whose bits cannot be had:
+    the JAX side replays the port's noise (``gaussian_noise`` of the key, the
+    count and the parameter's position) through optax's own formula, ``g +
+    sqrt(eta / count**gamma) * noise``, then ``* -lr``; and the noise is
+    standard normal."""
+    from torecsys_tpu_torch.train.optimizers import gaussian_noise
+
+    eta, gamma, key = 0.3, 0.55, 7
+    module, port = port_state("noisy_sgd", {"eta": eta, "gamma": gamma, "key": key},
+                              leaves(1), None)
+    order = [torch_name(p) for p in flatten(leaves(1))]
+    index = {n: i for i, n in enumerate(dict(module.named_parameters()))}
+    params = jax.tree.map(jnp.asarray, leaves(1))
+    for i in range(5):
+        count = torch.tensor(float(i + 1))
+        g = grads(20 + i)
+        noise = {p: gaussian_noise(key, count, index[torch_name(p)],
+                                   as_port(p, v).shape, "cpu").numpy()
+                 for p, v in flatten(g).items()}
+        std = jnp.sqrt(eta / jnp.int32(i + 1) ** gamma)
+        flat_p = flatten(jax.device_get(params))
+        params = {}
+        for p, v in flatten(g).items():
+            noisy = jnp.asarray(v) + std * jnp.asarray(as_port(p, noise[p]))
+            params[p] = flat_p[p] + (-LR) * noisy
+        from torecsys_tpu_torch.convert import unflatten
+        params = unflatten(params)
+        set_grads(module, g)
+        port.opt_state.step()
+    assert_leaves(jax.device_get(params), dict(module.named_parameters()), atol=1e-6)
+    assert len(order) == 3
+    z = gaussian_noise(1, torch.tensor(3.0), 0, (100_000,), "cpu")
+    assert abs(z.mean().item()) < 0.01 and abs(z.std().item() - 1) < 0.01
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("adamw", {"mask": {"dense": {"kernel": True, "bias": False}, "embedding": False}}),
+    ("adamw", {"mask": lambda p: {"dense": {"kernel": True, "bias": False}, "embedding": True}}),
+    ("lamb", {"weight_decay": 0.1, "mask": {"dense": True, "embedding": False}}),
+    ("lion", {"mask": lambda p: jax.tree.map(lambda x: x.ndim > 1, p)}),
+    ("adamaxw", {"mask": {"dense": False, "embedding": True}}),
+    ("adan", {"weight_decay": 0.1, "mask": {"dense": {"kernel": False, "bias": True},
+                                            "embedding": True}}),
+    ("adadelta", {"weight_decay": 0.1, "weight_decay_mask": {"dense": True,
+                                                             "embedding": False}}),
+    ("lars", {"weight_decay": 0.1, "weight_decay_mask": {"dense": False, "embedding": True},
+              "trust_ratio_mask": lambda p: {"dense": {"kernel": True, "bias": False},
+                                             "embedding": True}}),
+    ("adafactor", {"weight_decay_rate": 0.1, "weight_decay_mask": {"dense": True,
+                                                                   "embedding": False}}),
+    ("adamw", {"mask": False}),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_masks_against_optax(name, kwargs):
+    """A mask (a pytree of bools, a prefix of one, or a callable over the
+    parameters' tree; the port's callable sees its parameters as the nested
+    dict of their flax paths) skips the masked-out leaves' weight decay or
+    trust ratio, as ``optax.masked`` does."""
+    tx = getattr(optax, name)(learning_rate=LR, **kwargs)
+    want, _ = jax_steps(tx, jax.tree.map(jnp.asarray, leaves(1)), 5, seed=20)
+    port_kwargs = {k: (_torch_mask(v) if callable(v) else v) for k, v in kwargs.items()}
+    module, port = port_state(name, port_kwargs, leaves(1), None)
+    for i in range(5):
+        set_grads(module, grads(20 + i))
+        port.opt_state.step()
+    assert_leaves(jax.device_get(want), dict(module.named_parameters()))
+
+
+def _torch_mask(fn):
+    """The JAX test's callable over the port's tensors (``x.ndim`` is
+    ``x.dim()`` there; jax.tree.map walks the nested dict)."""
+    return lambda tree: fn(jax.tree.map(lambda t: np.empty(tuple(t.shape)), tree))
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("adam", {"mu_dtype": jnp.bfloat16}), ("adamw", {"mu_dtype": jnp.bfloat16}),
+    ("nadam", {"mu_dtype": jnp.bfloat16}), ("lion", {"mu_dtype": jnp.bfloat16}),
+    ("amsgrad", {"mu_dtype": jnp.bfloat16}), ("optimistic_adam_v2", {"mu_dtype": jnp.bfloat16}),
+    ("sgd", {"momentum": 0.9, "accumulator_dtype": jnp.bfloat16}),
+    ("adafactor", {"momentum": 0.9, "dtype_momentum": jnp.bfloat16}),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_moment_dtypes_against_optax(name, kwargs):
+    """``mu_dtype`` and ``accumulator_dtype``: the moment is stored in that
+    dtype after its unrounded value made the update, as optax does."""
+    want, named, opt = free_steps(name, kwargs)
+    assert_leaves(want, named, rtol=1e-4, atol=1e-6)
+    slot = {"sgd": "trace", "adafactor": "ema"}.get(name, "mu")
+    assert all(s[slot].dtype == torch.bfloat16 for s in opt.state.values())
+
+
+def test_names_the_jax_trainer_cannot_train_with_raise_as_there():
+    """``polyak_sgd`` takes no ``learning_rate``: both registries raise
+    ``TypeError`` at once.  ``lbfgs`` builds, and the first update raises
+    ``TypeError`` on both sides (the Trainer's update passes no ``value``,
+    ``grad`` or ``value_fn``).  Other optax attributes raise ``KeyError`` in
+    the port, naming what it has."""
+    from torecsys_tpu.train.optimizers import get_optimizer as jax_get_optimizer
+
+    for get in (jax_get_optimizer, get_optimizer):
+        with pytest.raises(TypeError, match="learning_rate"):
+            get("polyak_sgd", lr=LR)
+    tx = jax_get_optimizer("lbfgs", lr=LR)
+    params = jax.tree.map(jnp.asarray, leaves(1))
+    with pytest.raises(TypeError, match="value_fn"):
+        jax.jit(tx.update)(jax.tree.map(jnp.asarray, grads(1)), tx.init(params), params)
+    module, port = port_state("lbfgs", {}, leaves(1), None)
+    set_grads(module, grads(1))
+    with pytest.raises(TypeError, match="value_fn"):
+        port.opt_state.step()
+    with pytest.raises(KeyError, match="adabelief"):
+        get_optimizer("scale_by_adam")
+    with pytest.raises(TypeError):
+        get_optimizer("yogi", nesterov=True)
+    with pytest.raises(ValueError, match="schedules"):
+        get_optimizer("optimistic_adam", lr=lambda c: c)([nn.Parameter(torch.ones(2))])

@@ -40,10 +40,6 @@ _MESH_TODO = ("meshes are not ported yet (ROADMAP queue 1: Parallelism, parallel
               "sharding.py and lookup.py on torch.distributed)")
 
 
-# the ROADMAP item, by its title, of each input the port does not have yet
-_INPUT_ITEMS = {"ImageInput": "Image inputs", "PretrainedImageInput": "Image inputs"}
-
-
 class UsageError(Exception):
     """A command-line mistake: ``main`` prints it and returns 2."""
 
@@ -53,32 +49,26 @@ def _parse(cfg: Optional[str]):
 
 
 def _build_input(spec: dict, device=None):
-    """One ``{"method": <class>, ...kwargs}`` input spec → an input module; a
-    container's ``inputs`` is a list of such specs."""
+    """One ``{"method": <class>, ...kwargs}`` input spec → an input module,
+    the class looked up by name in the port's ``inputs`` as the JAX CLI looks
+    it up in its own (an unknown name raises ``AttributeError`` there and
+    here); a container's ``inputs`` is a list of such specs."""
     from torecsys_tpu_torch import inputs as inputs_mod
 
-    known = {name: getattr(inputs_mod, name) for name in (
-        "ValueInput", "SingleIndexEmbedding", "MultiIndicesEmbedding",
-        "MultiIndicesFieldAwareEmbedding", "ListIndicesEmbedding", "SequenceIndicesEmbedding",
-        "ConcatInput", "StackedInput")}
     spec = dict(spec)
     method = spec.pop("method")
-    if method not in known:
-        item = _INPUT_ITEMS.get(method, "Image inputs")
-        raise NotImplementedError(
-            f"input {method!r} is not ported yet (ROADMAP queue 1: {item}); the port has "
-            f"{sorted(known)}")
+    cls = getattr(inputs_mod, method)
     if method in ("ConcatInput", "StackedInput"):
-        return known[method]([_build_input(child, device) for child in spec.pop("inputs")],
-                             **spec)
-    for key in ("fields", "field_sizes"):
+        return cls([_build_input(child, device) for child in spec.pop("inputs")], **spec)
+    for key in ("fields", "field_sizes", "layers_size", "kernel_sizes", "strides",
+                "pooling_sizes"):
         if key in spec and isinstance(spec[key], list):
             spec[key] = tuple(spec[key])
     if spec.get("pretrained") is not None:
         spec["pretrained"] = np.asarray(spec["pretrained"], dtype=np.float32)
     if method != "ValueInput":
         spec.setdefault("device", device)
-    return known[method](**spec)
+    return cls(**spec)
 
 
 def _build_inputs(cfg: dict, device=None):
@@ -86,8 +76,10 @@ def _build_inputs(cfg: dict, device=None):
     port's input classes: ``ValueInput``, ``SingleIndexEmbedding``,
     ``MultiIndicesEmbedding``, ``MultiIndicesFieldAwareEmbedding``, the
     list and sequence inputs ``ListIndicesEmbedding`` and
-    ``SequenceIndicesEmbedding``, and the containers ``ConcatInput`` and
-    ``StackedInput``, whose ``inputs`` is a list of such specs."""
+    ``SequenceIndicesEmbedding``, the image inputs ``ImageInput`` and
+    ``PretrainedImageInput`` (with ``weights_path``), and the containers
+    ``ConcatInput`` and ``StackedInput``, whose ``inputs`` is a list of such
+    specs."""
     from torecsys_tpu_torch import inputs as inputs_mod
 
     return inputs_mod.Inputs({arg_name: _build_input(spec, device)

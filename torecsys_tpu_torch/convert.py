@@ -13,7 +13,9 @@ The JAX package keeps its parameters as a nested dict (flax), the port in
   reversed: a Dense kernel ``(in, out)`` becomes ``(out, in)``, PNN's outer
   kernel ``(E, P, E)`` its reverse, the attention's ``query`` kernel ``(in,
   H, D/H)`` ``(D/H, H, in)`` and its ``out`` kernel ``(H, D/H, out)``
-  ``(out, D/H, H)``: the port's ``DenseGeneral`` keeps that layout); every
+  ``(out, D/H, H)``: the port's ``DenseGeneral`` keeps that layout), but a
+  4-D kernel, a convolution's ``(kh, kw, in, out)``, becomes torch's
+  ``(out, in, kh, kw)`` (:func:`flax_array` is the inverse); every
   other parameter as it is.  The other paths are the same on both sides:
   the experts of an MoE layer are named as flax names them
   (``_FlatMLPExpert_<i>/MultilayerPerceptionLayer_0``), PAL's wrapped
@@ -64,6 +66,18 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
             out.update(flatten(v, path))
         else:
             out[path] = v
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` → nested dict: the inverse of :func:`flatten`."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *heads, last = path.split(SEP)
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
     return out
 
 
@@ -136,12 +150,25 @@ def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
 def _as_torch(flax_path: str, value, like: torch.Tensor) -> torch.Tensor:
     arr = np.asarray(value)
     if flax_path.split(SEP)[-1] == "kernel":
-        arr = arr.T
+        # a convolution's (kh, kw, in, out) → (out, in, kh, kw); else reversed
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
     t = _numpy_to_torch(arr).to(dtype=like.dtype, device=like.device)
     if t.shape != like.shape:
         raise ValueError(f"{flax_path}: shape {tuple(t.shape)} does not fit "
                          f"{torch_name(flax_path)} {tuple(like.shape)}")
     return t
+
+
+def flax_array(flax_path: str, value: torch.Tensor) -> np.ndarray:
+    """A port parameter as the JAX package's array at ``flax_path``: the
+    inverse of the layout rule of :func:`from_flax_params` (a ``kernel``'s
+    axes reversed, a 4-D one from ``(out, in, kh, kw)`` to ``(kh, kw, in,
+    out)``)."""
+    arr = value.detach().cpu()
+    if flax_path.split(SEP)[-1] == "kernel":
+        arr = arr.permute(2, 3, 1, 0) if arr.dim() == 4 else arr.permute(
+            *range(arr.dim() - 1, -1, -1))
+    return arr.contiguous().numpy()
 
 
 def from_flax_params(seq: nn.Module, params_np: Mapping,
@@ -297,5 +324,5 @@ def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> No
             port_slots[k].copy_(_numpy_to_torch(arr))
 
 
-__all__ = ["copy_row_slots", "flatten", "flax_path", "flax_paths", "from_flax_params",
-           "optax_fields", "torch_name"]
+__all__ = ["copy_row_slots", "flatten", "flax_array", "flax_path", "flax_paths",
+           "from_flax_params", "optax_fields", "torch_name", "unflatten"]

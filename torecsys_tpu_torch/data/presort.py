@@ -219,5 +219,10 @@ class Presorter:
         return order, lo, seg, uids, int(n_unique)
 
 
+def strip_aux(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Remove presort aux entries (e.g. before a dense-route step)."""
+    return {k: v for k, v in batch.items() if not k.startswith(AUX_PREFIX)}
+
+
 __all__ = ["AUX_NAMES", "AUX_PREFIX", "PresortSpec", "Presorter",
-           "build_presort_specs", "iter_embedding_specs", "spec_for_module"]
+           "build_presort_specs", "iter_embedding_specs", "spec_for_module", "strip_aux"]

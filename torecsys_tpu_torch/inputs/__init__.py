@@ -22,6 +22,7 @@ from torecsys_tpu_torch.inputs.embeddings import (
     TableInput,
     ValueInput,
 )
+from torecsys_tpu_torch.inputs.image import ImageInput, PretrainedImageInput, save_tower_weights
 from torecsys_tpu_torch.inputs.sequence import ListIndicesEmbedding, SequenceIndicesEmbedding
 
 
@@ -40,7 +41,7 @@ class Inputs(nn.Module):
             module.reset_parameters(generator)
 
 
-__all__ = ["BaseInput", "ConcatInput", "Inputs", "ListIndicesEmbedding",
-           "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding",
+__all__ = ["BaseInput", "ConcatInput", "ImageInput", "Inputs", "ListIndicesEmbedding",
+           "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding", "PretrainedImageInput",
            "SequenceIndicesEmbedding", "SingleIndexEmbedding", "StackedInput", "TableInput",
-           "ValueInput"]
+           "ValueInput", "save_tower_weights"]

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torecsys_tpu_torch.layers.precision import torch_linear_init
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -55,7 +56,17 @@ class Dense(nn.Module):
         self.reset_parameters(default_generator(dev, generator=generator))
 
     def reset_parameters(self, generator=None) -> None:
-        """flax ``nn.Dense``'s initialization: lecun-normal weight, zero bias."""
+        """flax ``nn.Dense``'s initialization: lecun-normal weight, zero bias;
+        ``torch.nn.Linear``'s, ``U(+-1/sqrt(fan_in))`` for both, inside
+        ``layers.precision.use_torch_linear_init`` where the layer follows
+        the pipeline."""
+        if self.follows_pipeline and torch_linear_init():
+            bound = self.in_features ** -0.5
+            with torch.no_grad():
+                for t in (self.weight, self.bias):
+                    if t is not None:
+                        t.uniform_(-bound, bound, generator=generator)
+            return
         std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
         with torch.no_grad():
             nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,

@@ -30,10 +30,16 @@ concerns, set by the pipeline (``Pipeline.set_compute_dtype`` and
   its table is stored in it, and its looked-up rows are cast to float32 at
   the module boundary.  A bf16 table is a dense-route feature, as in the JAX
   package.
+
+:func:`use_torch_linear_init` is the JAX package's context of the same name:
+inside it each pipeline-following ``Dense`` (the JAX package's precision
+``Dense`` sites) draws its parameters as ``torch.nn.Linear`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -96,5 +102,31 @@ def apply_table_dtype(module: nn.Module, dtype: DtypeLike) -> None:
             m.set_table_dtype(resolved)
 
 
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def use_torch_linear_init():
+    """Init-time context: each :class:`~torecsys_tpu_torch.layers.ctr.dense.Dense`
+    that follows the pipeline's compute dtype and draws its parameters inside
+    it (at construction or ``reset_parameters``, which the Trainer calls
+    when it seeds the model) draws them as ``torch.nn.Linear`` does, weight
+    and bias ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, instead of flax's
+    lecun-normal weight and zero bias.  Names and shapes stay the same, so
+    ``convert`` and checkpoints interoperate; the bits differ from the JAX
+    package's (another generator)."""
+    prev = getattr(_state, "torch_init", False)
+    _state.torch_init = True
+    try:
+        yield
+    finally:
+        _state.torch_init = prev
+
+
+def torch_linear_init() -> bool:
+    """True inside :func:`use_torch_linear_init`."""
+    return getattr(_state, "torch_init", False)
+
+
 __all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype",
-           "sigmoid", "softmax"]
+           "sigmoid", "softmax", "torch_linear_init", "use_torch_linear_init"]

@@ -141,5 +141,35 @@ def packed_lookup(packed_table: torch.Tensor, ids: torch.Tensor,
     return out.reshape(*ids.shape, embed_size)
 
 
-__all__ = ["field_offsets", "pack_factor", "pack_table", "packed_lookup",
-           "packed_shape", "table_grad", "unpack_table"]
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain table gather ``table[ids]``, as ``jnp.take(table, ids, axis=0)``:
+    ``table`` ``(V, E)`` float32 or bfloat16, ``ids`` any integer shape, the
+    result ``(..., E)``.  It is the ``row_gather`` kernel on the card and its
+    plain twin on the CPU, with :func:`table_grad` as the backward.  Ids
+    follow ``jnp.take``'s default mode: an id in ``[-V, 0)`` reads row
+    ``V + id``, the row of an id outside ``[-V, V)`` is NaN, and its
+    gradient is dropped."""
+    out = _RowGather.apply(table, ids.reshape(-1), table.shape[-1])
+    return out.reshape(*ids.shape, table.shape[-1])
+
+
+def fused_offset_lookup(table: torch.Tensor, ids: torch.Tensor,
+                        offsets: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Gather with per-field offsets applied: ``table[ids + offsets]``.
+
+    Args:
+        table: ``(V, E)`` fused table (V = sum of field vocab sizes).
+        ids: ``(B, N)`` raw per-field ids.
+        offsets: ``(N,)`` int offsets (:func:`field_offsets`), added in
+            ``ids``' dtype; None = zeros.
+
+    Returns:
+        ``(B, N, E)``, ids out of range as :func:`embedding_lookup` takes them.
+    """
+    if offsets is not None:
+        ids = ids + torch.as_tensor(np.asarray(offsets), device=ids.device).to(ids.dtype)[None, :]
+    return embedding_lookup(table, ids)
+
+
+__all__ = ["embedding_lookup", "field_offsets", "fused_offset_lookup", "pack_factor",
+           "pack_table", "packed_lookup", "packed_shape", "table_grad", "unpack_table"]

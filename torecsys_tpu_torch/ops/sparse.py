@@ -161,7 +161,12 @@ def _sorted_gsum(g_sorted: torch.Tensor, lo: torch.Tensor, seg: torch.Tensor,
 
 def _hyper(step: torch.Tensor, *values) -> torch.Tensor:
     """The ``(7,)`` float32 hyperparameter vector on ``step``'s device, from
-    floats or 0-d tensors; nothing is read back."""
+    floats or 0-d tensors; nothing is read back.  A schedule as the learning
+    rate raises ``TypeError``, as the JAX package's row optimizers take
+    ``jnp.float32(learning_rate)`` at the first sparse step."""
+    if callable(values[0]):
+        raise TypeError(f"a schedule {values[0]!r} as learning_rate has no row-wise form: the "
+                        "row optimizers take a float (use the dense route)")
     return torch.stack([v if isinstance(v, torch.Tensor)
                         else torch.full((), v, dtype=torch.float32, device=step.device)
                         for v in values])

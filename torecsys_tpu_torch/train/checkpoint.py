@@ -73,6 +73,16 @@ def _cpu(value):
     return value
 
 
+def _saveable(state_dict: Dict) -> Dict:
+    """An optimizer's ``state_dict()`` with a schedule as a hyperparameter
+    (a callable, which ``torch.save`` cannot keep) written as its ``repr``:
+    the schedule's count is state and is saved; a restore keeps the live
+    hyperparameters."""
+    groups = [{k: repr(v) if callable(v) else v for k, v in g.items()}
+              for g in state_dict["param_groups"]]
+    return {**state_dict, "param_groups": groups}
+
+
 def _checkpoint_dict(seq: nn.Module, state: TrainState) -> Dict:
     """The checkpoint's content: the live state copied to the CPU."""
     hybrid = is_hybrid_opt_state(state.opt_state)
@@ -81,7 +91,7 @@ def _checkpoint_dict(seq: nn.Module, state: TrainState) -> Dict:
         "sparse": hybrid,
         "params": {name: _cpu(p) for name, p in seq.named_parameters()},
         "buffers": {name: _cpu(b) for name, b in batch_stats(seq).items()},
-        "dense_opt": _cpu(_dense_optimizer(state).state_dict()),
+        "dense_opt": _cpu(_saveable(_dense_optimizer(state).state_dict())),
         "row_slots": ({path: _cpu(slots) for path, slots in state.opt_state["sparse"].items()}
                       if hybrid else {}),
         "step": int(state.step),

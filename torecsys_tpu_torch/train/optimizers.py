@@ -54,22 +54,44 @@ slots), under optax's names (``mu``, ``nu``, ``sum_of_squares``,
 chain keeps a count.  A parameter without a gradient is updated with a zero
 gradient, as an optax leaf is.
 
-Not ported (ROADMAP queue 1: The small API remainder): optax's other names, which the JAX
-package reaches by attribute; a schedule as ``learning_rate``; masks other
-than None or True; ``mu_dtype`` and ``accumulator_dtype``.  They raise
-``NotImplementedError``; a keyword optax does not take raises ``TypeError``.
+The JAX ``get_optimizer`` also reaches optax's other names by attribute.
+Those its Trainer can train with (``tx.update(grads, opt_state, params)``)
+are written out here the same way: adabelief, adafactor, adamaxw, adan,
+amsgrad, fromage, noisy_sgd, novograd, optimistic_adam, optimistic_adam_v2,
+optimistic_gradient_descent, rprop, sign_sgd, sm3 and yogi.  ``noisy_sgd``
+draws its noise from a counter-based hash of its ``key``, the step count
+and the position (:func:`gaussian_noise`), not from a JAX key.  ``lbfgs``
+builds, and its step raises optax's ``TypeError`` (its line search needs
+``value``, ``grad`` and ``value_fn``, which the Trainer's update does not
+pass); ``polyak_sgd`` takes no ``learning_rate`` and raises ``TypeError``
+here as there.  Any other name raises ``KeyError``.
+
+``learning_rate`` may be a schedule (:mod:`torecsys_tpu_torch.train.schedules`),
+evaluated at each update on a count the optimizer keeps on the parameters'
+device (``lr_count``, optax's schedule count), so each replayed step of a
+captured graph takes its own rate.  ``mask``, ``weight_decay_mask`` and
+``trust_ratio_mask`` take a bool, a nested dict of bools over the flax
+paths of the optimizer's parameters (a prefix holds for what is below it),
+or a callable from the nested dict of those parameters to one; a
+masked-out parameter skips the weight decay (or the trust ratio), as
+``optax.masked`` passes its update through.  ``mu_dtype`` (and sgd's
+``accumulator_dtype``, adafactor's ``dtype_momentum``) store the moment in
+that dtype after the update used it unrounded, as optax does.  A keyword
+optax does not take raises ``TypeError``.
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
-from typing import Any, Callable, Dict, Iterable, Optional
+import math
+import warnings
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
+import numpy as np
 import torch
 
 Factory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
-_TODO = "ROADMAP queue 1: The small API remainder (the optimizer remainder)"
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -83,15 +105,30 @@ def _bias_correction(decay: float, count: torch.Tensor, like: torch.Tensor) -> t
     return (1 - torch.pow(decay, count)).to(like.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _scaled(t: torch.Tensor, decay: float, g: torch.Tensor) -> torch.Tensor:
+    """``decay * t``.  A moment stored narrower than ``g`` (``mu_dtype``) is
+    scaled as jitted XLA scales it: by ``decay`` rounded to its dtype (JAX's
+    weak type), the product not rounded before its wider consumer."""
+    wide = torch.promote_types(t.dtype, g.dtype)
+    if wide == t.dtype:
+        return decay * t
+    return t.to(wide) * _rounded(decay, t.dtype)
+
+
 def _moment(g: torch.Tensor, t: torch.Tensor, decay: float, order: int) -> torch.Tensor:
     """optax's ``update_moment``: ``(1 - decay) * g**order + decay * t``."""
-    return (1 - decay) * (g * g if order == 2 else g) + decay * t
+    return (1 - decay) * (g * g if order == 2 else g) + _scaled(t, decay, g)
 
 
 def _trace(u: torch.Tensor, state: Dict, decay: float, nesterov: bool) -> torch.Tensor:
     """optax's ``trace``: ``t = u + decay * t``; the update ``t``, or
     ``u + decay * t`` with Nesterov momentum."""
-    t = u + decay * state["trace"]
+    t = u + _scaled(state["trace"], decay, u)
     state["trace"].copy_(t)
     return u + decay * t if nesterov else t
 
@@ -108,20 +145,48 @@ class OptaxOptimizer(torch.optim.Optimizer):
     (:meth:`_after_lr`) and ``p + u``.
     """
 
-    def __init__(self, params, lr: Optional[float], **hyper: Any):
+    _scales_lr = True  # the base multiplies the direction by -lr
+
+    def __init__(self, params, lr, **hyper: Any):
         # "capturable": the step count lives on the parameter's device, and
-        # load_state_dict keeps it there, as for a capturable torch optimizer
-        super().__init__(params, dict(lr=lr, capturable=True, **hyper))
+        # load_state_dict keeps it there, as for a capturable torch optimizer;
+        # "decay_on" and "trust_on": a mask's groups (_MaskedFactory)
+        defaults = dict(lr=lr, capturable=True, decay_on=True, trust_on=True)
+        defaults.update(hyper)
+        super().__init__(params, defaults)
         for group in self.param_groups:
+            dtypes = self._slot_dtypes(group)
             for p in group["params"]:
-                state = {name: torch.full_like(p, value, memory_format=torch.preserve_format)
+                state = {name: torch.full_like(p, value, dtype=dtypes.get(name, p.dtype),
+                                               memory_format=torch.preserve_format)
                          for name, value in self._slot_inits(group).items()}
+                state.update(self._extra_state(p, group))
                 if self._has_count(group):
                     state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                if callable(group["lr"]):
+                    state["lr_count"] = torch.zeros((), dtype=torch.int32, device=p.device)
                 self.state[p] = state
 
     def _slot_inits(self, group) -> Dict[str, float]:
         return {}
+
+    def _slot_dtypes(self, group) -> Dict[str, torch.dtype]:
+        """Slots stored in another dtype than the parameter's (``mu_dtype``)."""
+        return {}
+
+    def _extra_state(self, p: torch.Tensor, group) -> Dict[str, torch.Tensor]:
+        """State tensors of other shapes than the parameter's."""
+        return {}
+
+    def _lr(self, group, state, like: torch.Tensor):
+        """The learning rate of this update: ``lr``, or a schedule at the
+        count, in ``like``'s dtype (the count then moves on)."""
+        lr = group["lr"]
+        if not callable(lr):
+            return lr
+        value = lr(state["lr_count"]).to(like.dtype)
+        state["lr_count"] += 1
+        return value
 
     def _has_count(self, group) -> bool:
         return False
@@ -145,10 +210,34 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 if "step" in state:
                     state["step"] += 1
                 u = self._direction(p, g, state, group)
-                if group["lr"] is not None:
-                    u = u * -group["lr"]
+                if self._scales_lr and group["lr"] is not None:
+                    u = u * -self._lr(group, state, u)
                 p.add_(self._after_lr(u, state, group))
         return loss
+
+
+def _dtype(dtype) -> Optional[torch.dtype]:
+    """A ``mu_dtype``-style argument as a torch dtype (None: the parameter's):
+    a torch dtype, or a name such as ``"bfloat16"`` (also a numpy or JAX
+    dtype's name)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None) or str(dtype)
+    resolved = getattr(torch, name, None)
+    if not isinstance(resolved, torch.dtype):
+        raise TypeError(f"not a dtype: {dtype!r}")
+    return resolved
+
+
+def _mask_flag(name: str, mask) -> bool:
+    """A mask given to an optimizer class itself: None or True (every
+    parameter) or False (none).  A tree or a callable over the parameters
+    needs their flax paths: ``get_optimizer``'s factory resolves it into
+    parameter groups."""
+    if mask is None or mask is True or mask is False:
+        return mask is not False
+    raise TypeError(f"{name}={mask!r}: a mask over the parameters is resolved by "
+                    "get_optimizer's factory, which knows their flax paths")
 
 
 class _AdamFamily(OptaxOptimizer):
@@ -158,12 +247,16 @@ class _AdamFamily(OptaxOptimizer):
     def _slot_inits(self, group):
         return {"mu": 0.0, "nu": 0.0}
 
+    def _slot_dtypes(self, group):
+        return {"mu": group["mu_dtype"]} if group.get("mu_dtype") is not None else {}
+
     def _has_count(self, group):
         return True
 
     def _moments_hat(self, g, state, group):
         """``mu`` and ``nu`` moved by ``g`` and bias-corrected: ``(mu_hat,
-        nu_hat)``, Nesterov's ``mu_hat`` with ``nesterov``."""
+        nu_hat)``, Nesterov's ``mu_hat`` with ``nesterov``.  ``mu`` is stored
+        in ``mu_dtype`` after its unrounded value made ``mu_hat``."""
         b1, b2 = group["b1"], group["b2"]
         mu = _moment(g, state["mu"], b1, 1)
         nu = _moment(g, state["nu"], b2, 2)
@@ -180,32 +273,36 @@ class _AdamFamily(OptaxOptimizer):
     def _direction(self, p, g, state, group):
         mu_hat, nu_hat = self._moments_hat(g, state, group)
         u = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
-        wd = group.get("weight_decay", 0.0)
-        return u + wd * p if wd else u
+        return _decay(u, p, group)
+
+
+def _decay(u: torch.Tensor, p: torch.Tensor, group, rate=None) -> torch.Tensor:
+    """optax's ``add_decayed_weights``: ``u + weight_decay * p`` where the
+    group is not masked out."""
+    wd = group.get("weight_decay", 0.0) if rate is None else rate
+    return u + wd * p if wd and group["decay_on"] else u
 
 
 class Adam(_AdamFamily):
-    """optax ``adam`` (the written-out form: for ``nesterov`` or
-    ``eps_root``; plain Adam is ``torch.optim.Adam``)."""
+    """optax ``adam`` (the written-out form: for ``nesterov``, ``eps_root``,
+    ``mu_dtype`` or a schedule; plain Adam is ``torch.optim.Adam``)."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
                  mu_dtype=None, *, nesterov=False):
-        _no_dtype("mu_dtype", mu_dtype)
         super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
-                         nesterov=nesterov)
+                         mu_dtype=_dtype(mu_dtype), nesterov=nesterov)
 
 
 class AdamW(_AdamFamily):
     """optax ``adamw``: ``scale_by_adam``, ``+ weight_decay * p``, ``* -lr``
-    (the written-out form: for ``nesterov``, ``eps_root`` or a mask; plain
-    AdamW is ``torch.optim.AdamW``)."""
+    (the written-out form: for ``nesterov``, ``eps_root``, ``mu_dtype``, a
+    mask or a schedule; plain AdamW is ``torch.optim.AdamW``)."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
                  mu_dtype=None, weight_decay=1e-4, mask=None, *, nesterov=False):
-        _no_dtype("mu_dtype", mu_dtype)
-        _no_mask("mask", mask)
         super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
-                         weight_decay=weight_decay, nesterov=nesterov)
+                         mu_dtype=_dtype(mu_dtype), weight_decay=weight_decay,
+                         nesterov=nesterov, decay_on=_mask_flag("mask", mask))
 
 
 class NAdam(Adam):
@@ -256,7 +353,16 @@ class Adamax(OptaxOptimizer):
         nu = torch.maximum(torch.abs(g) + group["eps"], group["b2"] * state["nu"])
         state["mu"].copy_(mu)
         state["nu"].copy_(nu)
-        return mu / _bias_correction(group["b1"], state["step"], mu) / nu
+        return _decay(mu / _bias_correction(group["b1"], state["step"], mu) / nu, p, group)
+
+
+class AdamaxW(Adamax):
+    """optax ``adamaxw``: ``scale_by_adamax``, ``+ weight_decay * p``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
+                 mask=None):
+        OptaxOptimizer.__init__(self, params, lr, b1=b1, b2=b2, eps=eps,
+                                weight_decay=weight_decay, decay_on=_mask_flag("mask", mask))
 
 
 class Lamb(_AdamFamily):
@@ -267,21 +373,27 @@ class Lamb(_AdamFamily):
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
                  weight_decay=0.0, mask=None):
-        _no_mask("mask", mask)
         super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
-                         weight_decay=weight_decay, nesterov=False)
+                         weight_decay=weight_decay, nesterov=False,
+                         decay_on=_mask_flag("mask", mask))
 
     def _direction(self, p, g, state, group):
         return _trust_ratio(super()._direction(p, g, state, group), p, 1.0, 0.0)
 
 
 def _trust_ratio(u: torch.Tensor, p: torch.Tensor, coefficient: float,
-                 eps: float) -> torch.Tensor:
-    """optax's ``scale_by_trust_ratio`` (``min_norm`` 0)."""
-    param_norm, update_norm = _norm(p), _norm(u)
+                 eps: float, min_norm: float = 0.0) -> torch.Tensor:
+    """optax's ``scale_by_trust_ratio``."""
+    param_norm, update_norm = _safe_norm(p, min_norm), _safe_norm(u, min_norm)
     ratio = coefficient * param_norm / (update_norm + eps)
     zero = torch.logical_or(param_norm == 0.0, update_norm == 0.0)
     return u * torch.where(zero, torch.ones((), dtype=p.dtype, device=p.device), ratio)
+
+
+def _safe_norm(x: torch.Tensor, min_norm: float) -> torch.Tensor:
+    """optax's ``safe_norm``: ``||x||``, ``min_norm`` where it is at most that."""
+    norm = _norm(x)
+    return norm if min_norm == 0.0 else torch.where(norm <= min_norm, min_norm, norm)
 
 
 class Lars(OptaxOptimizer):
@@ -292,17 +404,19 @@ class Lars(OptaxOptimizer):
     def __init__(self, params, lr=1e-3, weight_decay=0.0, weight_decay_mask=True,
                  trust_coefficient=0.001, eps=0.0, trust_ratio_mask=True, momentum=0.9,
                  nesterov=False):
-        _no_mask("weight_decay_mask", weight_decay_mask)
-        _no_mask("trust_ratio_mask", trust_ratio_mask)
         super().__init__(params, lr, weight_decay=weight_decay,
                          trust_coefficient=trust_coefficient, eps=eps, momentum=momentum,
-                         nesterov=nesterov)
+                         nesterov=nesterov,
+                         decay_on=_mask_flag("weight_decay_mask", weight_decay_mask),
+                         trust_on=_mask_flag("trust_ratio_mask", trust_ratio_mask))
 
     def _slot_inits(self, group):
         return {"trace": 0.0}
 
     def _direction(self, p, g, state, group):
-        u = g + group["weight_decay"] * p
+        u = _decay(g, p, group)
+        if not group["trust_on"]:
+            return u
         return _trust_ratio(u, p, group["trust_coefficient"], group["eps"])
 
     def _after_lr(self, u, state, group):
@@ -315,20 +429,22 @@ class Lion(OptaxOptimizer):
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.99, mu_dtype=None, weight_decay=1e-3,
                  mask=None):
-        _no_dtype("mu_dtype", mu_dtype)
-        _no_mask("mask", mask)
-        super().__init__(params, lr, b1=b1, b2=b2, weight_decay=weight_decay)
+        super().__init__(params, lr, b1=b1, b2=b2, weight_decay=weight_decay,
+                         mu_dtype=_dtype(mu_dtype), decay_on=_mask_flag("mask", mask))
 
     def _slot_inits(self, group):
         return {"mu": 0.0}
+
+    def _slot_dtypes(self, group):
+        return {"mu": group["mu_dtype"]} if group["mu_dtype"] is not None else {}
 
     def _has_count(self, group):
         return True
 
     def _direction(self, p, g, state, group):
-        u = torch.sign((1.0 - group["b1"]) * g + group["b1"] * state["mu"])
+        u = torch.sign((1.0 - group["b1"]) * g + _scaled(state["mu"], group["b1"], g))
         state["mu"].copy_(_moment(g, state["mu"], group["b2"], 1))
-        return u + group["weight_decay"] * p
+        return _decay(u, p, group)
 
 
 class Adagrad(OptaxOptimizer):
@@ -398,14 +514,18 @@ class RMSprop(OptaxOptimizer):
 
 class SGD(OptaxOptimizer):
     """optax ``sgd``: the momentum ``trace`` of the gradient when
-    ``momentum`` is set, then ``* -lr``."""
+    ``momentum`` is set (stored in ``accumulator_dtype``), then ``* -lr``."""
 
     def __init__(self, params, lr=1e-3, momentum=None, nesterov=False, accumulator_dtype=None):
-        _no_dtype("accumulator_dtype", accumulator_dtype)
-        super().__init__(params, lr, momentum=momentum, nesterov=nesterov)
+        super().__init__(params, lr, momentum=momentum, nesterov=nesterov,
+                         accumulator_dtype=_dtype(accumulator_dtype))
 
     def _slot_inits(self, group):
         return {} if group["momentum"] is None else {"trace": 0.0}
+
+    def _slot_dtypes(self, group):
+        dtype = group["accumulator_dtype"]
+        return {"trace": dtype} if dtype is not None else {}
 
     def _direction(self, p, g, state, group):
         if group["momentum"] is None:
@@ -420,15 +540,15 @@ class Adadelta(OptaxOptimizer):
 
     def __init__(self, params, lr=None, rho=0.9, eps=1e-6, weight_decay=0.0,
                  weight_decay_mask=None):
-        _no_mask("weight_decay_mask", weight_decay_mask)
-        super().__init__(params, lr, rho=rho, eps=eps, weight_decay=weight_decay)
+        super().__init__(params, lr, rho=rho, eps=eps, weight_decay=weight_decay,
+                         decay_on=_mask_flag("weight_decay_mask", weight_decay_mask))
 
     def _slot_inits(self, group):
         return {"e_g": 0.0, "e_x": 0.0}
 
     def _direction(self, p, g, state, group):
         rho, eps = group["rho"], group["eps"]
-        u = g + group["weight_decay"] * p
+        u = _decay(g, p, group)
         e_g = _moment(u, state["e_g"], rho, 2)
         u = torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps) * u
         state["e_g"].copy_(e_g)
@@ -436,16 +556,519 @@ class Adadelta(OptaxOptimizer):
         return u
 
 
-def _no_mask(name: str, mask) -> None:
-    if mask is not None and mask is not True:
-        raise NotImplementedError(f"{name}={mask!r}: only None or True (every parameter) is "
-                                  f"ported; a mask is {_TODO}")
+# ---- optax's other names, reached by attribute in the JAX package ----------
+
+class AdaBelief(OptaxOptimizer):
+    """optax ``adabelief``: ``mu`` moved by ``g``, ``nu`` by the squared
+    prediction error ``(g - mu)**2`` plus ``eps_root``, bias-corrected
+    (Nesterov's ``mu_hat`` with ``nesterov``), ``mu_hat / (sqrt(nu_hat) +
+    eps)``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-16, eps_root=1e-16, *,
+                 nesterov=False):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                         nesterov=nesterov)
+
+    def _slot_inits(self, group):
+        return {"mu": 0.0, "nu": 0.0}
+
+    def _has_count(self, group):
+        return True
+
+    def _direction(self, p, g, state, group):
+        b1, b2, count = group["b1"], group["b2"], state["step"]
+        mu = _moment(g, state["mu"], b1, 1)
+        nu = _moment(g - mu, state["nu"], b2, 2) + group["eps_root"]
+        state["mu"].copy_(mu)
+        state["nu"].copy_(nu)
+        if group["nesterov"]:
+            mu_hat = (b1 * (mu / _bias_correction(b1, count + 1, mu))
+                      + (1 - b1) * (g / _bias_correction(b1, count, g)))
+        else:
+            mu_hat = mu / _bias_correction(b1, count, mu)
+        return mu_hat / (torch.sqrt(nu / _bias_correction(b2, count, nu)) + group["eps"])
 
 
-def _no_dtype(name: str, dtype) -> None:
-    if dtype is not None:
-        raise NotImplementedError(f"{name}={dtype!r} is not ported ({_TODO}); the state "
-                                  "takes each parameter's dtype")
+class AMSGrad(_AdamFamily):
+    """optax ``amsgrad``: Adam's moments, ``nu_max = max(nu_max, nu_hat)``,
+    ``mu_hat / (sqrt(nu_max + eps_root) + eps)``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+                 mu_dtype=None):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                         mu_dtype=_dtype(mu_dtype), nesterov=False)
+
+    def _slot_inits(self, group):
+        return {"mu": 0.0, "nu": 0.0, "nu_max": 0.0}
+
+    def _direction(self, p, g, state, group):
+        mu_hat, nu_hat = self._moments_hat(g, state, group)
+        nu_max = torch.maximum(state["nu_max"], nu_hat)
+        state["nu_max"].copy_(nu_max)
+        return mu_hat / (torch.sqrt(nu_max + group["eps_root"]) + group["eps"])
+
+
+class Adan(OptaxOptimizer):
+    """optax ``adan`` (Xie et al., Algorithm 1): ``m``, ``v`` (of the
+    gradient's difference, 0 at the first step), ``n`` (of ``g + (1 - b2)
+    diff`` squared), the last gradient ``g``, each bias-corrected; ``(m_hat +
+    (1 - b2) v_hat) / (sqrt(n_hat + eps_root) + eps)``, ``+ weight_decay *
+    p``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.98, b2=0.92, b3=0.99, eps=1e-8, eps_root=1e-8,
+                 weight_decay=0.0, mask=None):
+        super().__init__(params, lr, b1=b1, b2=b2, b3=b3, eps=eps, eps_root=eps_root,
+                         weight_decay=weight_decay, decay_on=_mask_flag("mask", mask))
+
+    def _slot_inits(self, group):
+        return {"m": 0.0, "v": 0.0, "n": 0.0, "g": 0.0}
+
+    def _has_count(self, group):
+        return True
+
+    def _direction(self, p, g, state, group):
+        b1, b2, b3, t = group["b1"], group["b2"], group["b3"], state["step"]
+        diff = torch.where(t == 1, torch.zeros_like(g), g - state["g"])
+        m = _moment(g, state["m"], b1, 1)
+        v = _moment(diff, state["v"], b2, 1)
+        n = _moment(g + (1 - b2) * diff, state["n"], b3, 2)
+        for name, value in (("m", m), ("v", v), ("n", n), ("g", g)):
+            state[name].copy_(value)
+        u = m / _bias_correction(b1, t, m) + (1 - b2) * (v / _bias_correction(b2, t, v))
+        u = u / (torch.sqrt(n / _bias_correction(b3, t, n) + group["eps_root"]) + group["eps"])
+        return _decay(u, p, group)
+
+
+class Fromage(OptaxOptimizer):
+    """optax ``fromage``: the trust ratio (``min_norm``), ``* -lr * mult``,
+    then ``+ (mult - 1) * p`` with ``mult = 1 / sqrt(1 + lr**2)`` in
+    float32 (of the scheduled rate under a schedule, where optax's decay
+    keeps the rate at count 0)."""
+
+    _scales_lr = False
+
+    def __init__(self, params, lr=1e-3, min_norm=1e-6):
+        super().__init__(params, lr, min_norm=min_norm)
+
+    def _direction(self, p, g, state, group):
+        u = _trust_ratio(g, p, 1.0, 0.0, group["min_norm"])
+        lr = group["lr"]
+        if callable(lr):
+            rate = self._lr(group, state, torch.empty((), dtype=torch.float32))
+            mult = 1 / torch.sqrt(1 + rate ** 2)
+            # optax's add_decayed_weights never moves its schedule's count:
+            # the decay takes the schedule at count 0 at every update
+            rate0 = lr(torch.zeros_like(state["lr_count"]))
+            return u * (-(mult * rate)).to(u.dtype) + (1 / torch.sqrt(1 + rate0 ** 2) - 1) * p
+        mult = np.float32(1) / np.sqrt(np.float32(1 + lr ** 2))
+        return u * float(-(np.float32(lr) * mult)) + float(mult - np.float32(1)) * p
+
+
+def gaussian_noise(key: int, count: torch.Tensor, index: int, shape, device) -> torch.Tensor:
+    """Standard normal float32 noise of ``shape`` for parameter ``index`` at
+    update ``count`` (a 0-d device tensor): Box-Muller over two uniforms from
+    the miners' counter-based hash (``miners.fold_in``) of ``key``, ``count``,
+    ``index`` and the position; the same on the CPU, the card and in graph
+    replays, and a function of those alone."""
+    from torecsys_tpu_torch.miners import fold_in, seed_key
+
+    n = math.prod(shape)
+    k = fold_in(fold_in(seed_key(key), count.to(torch.int64)), index)
+    bits = fold_in(k, torch.arange(2 * n, dtype=torch.int64, device=device))
+    u1 = (bits[:n].double() + 0.5) / 2.0 ** 32
+    u2 = bits[n:].double() / 2.0 ** 32
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return z.float().reshape(shape)
+
+
+class NoisySGD(OptaxOptimizer):
+    """optax ``noisy_sgd``: ``g + sqrt(eta / count**gamma) * noise``, ``*
+    -lr``.  The noise is :func:`gaussian_noise` of ``key`` (an int; None is
+    0, with optax's warning), not a JAX key's draws."""
+
+    def __init__(self, params, lr=1e-3, eta=0.01, gamma=0.55, key=None, *, seed=None):
+        if seed is not None:
+            warnings.warn('"seed" is deprecated and will be removed in optax 0.2.7, use "key".',
+                          DeprecationWarning)
+            if key is not None:
+                raise ValueError("Only one of seed or key can be specified.")
+            key = seed
+        if key is None:
+            warnings.warn("Specifying a key will be required in optax 0.2.7.")
+            key = 0
+        super().__init__(params, lr, eta=eta, gamma=gamma, key=int(key))
+        self._index = {p: i for i, p in enumerate(
+            p for group in self.param_groups for p in group["params"])}
+
+    def _has_count(self, group):
+        return True
+
+    def _direction(self, p, g, state, group):
+        count = state["step"]
+        std = torch.sqrt(group["eta"] / count ** group["gamma"])
+        noise = gaussian_noise(group["key"], count, self._index[p], tuple(g.shape), g.device)
+        return g + std.to(g.dtype) * noise.to(g.dtype)
+
+
+class NovoGrad(OptaxOptimizer):
+    """optax ``novograd``: a per-parameter scalar ``nu`` of ``||g||**2`` (its
+    first value, then moved by ``b2``), ``mu = g / (sqrt(nu + eps_root) +
+    eps) + weight_decay * p`` (then ``b1 * mu +`` that), ``* -lr``; the first
+    step's branch is a ``torch.where``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.25, eps=1e-6, eps_root=0.0,
+                 weight_decay=0.0):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                         weight_decay=weight_decay)
+
+    def _slot_inits(self, group):
+        return {"mu": 0.0}
+
+    def _extra_state(self, p, group):
+        return {"nu": torch.zeros((), dtype=p.dtype, device=p.device)}
+
+    def _has_count(self, group):
+        return True
+
+    def _direction(self, p, g, state, group):
+        first = state["step"] == 1
+        sq = torch.square(_norm(g))
+        nu = torch.where(first, sq.to(state["nu"].dtype), _moment(sq, state["nu"], group["b2"], 1))
+        u = g / (torch.sqrt(nu + group["eps_root"]) + group["eps"]) + group["weight_decay"] * p
+        mu = torch.where(first, u, group["b1"] * state["mu"] + u)
+        state["nu"].copy_(nu)
+        state["mu"].copy_(mu)
+        return mu
+
+
+class _Optimistic:
+    """optax's ``scale_by_optimistic_gradient``: ``(alpha + beta) * u - beta
+    * previous`` (``previous = u`` at the first update); ``previous`` keeps
+    the incoming ``u``."""
+
+    @staticmethod
+    def apply(u, state, alpha, beta):
+        prev = torch.where(state["is_initial_step"], u, state["previous_gradient"])
+        state["previous_gradient"].copy_(u)
+        state["is_initial_step"].fill_(False)
+        return (alpha + beta) * u - beta * prev
+
+    @staticmethod
+    def state(p):
+        return {"previous_gradient": torch.zeros_like(p),
+                "is_initial_step": torch.ones((), dtype=torch.bool, device=p.device)}
+
+
+class OptimisticGradientDescent(OptaxOptimizer):
+    """optax ``optimistic_gradient_descent``: the optimistic step, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, alpha=1.0, beta=1.0):
+        super().__init__(params, lr, alpha=alpha, beta=beta)
+
+    def _extra_state(self, p, group):
+        return _Optimistic.state(p)
+
+    def _direction(self, p, g, state, group):
+        return _Optimistic.apply(g, state, group["alpha"], group["beta"])
+
+
+class OptimisticAdamV2(_AdamFamily):
+    """optax ``optimistic_adam_v2``: ``scale_by_adam`` (Nesterov by default),
+    the optimistic step of it, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, *, alpha=1.0, beta=1.0, b1=0.9, b2=0.999, eps=1e-8,
+                 eps_root=0.0, mu_dtype=None, nesterov=True):
+        super().__init__(params, lr, alpha=alpha, beta=beta, b1=b1, b2=b2, eps=eps,
+                         eps_root=eps_root, mu_dtype=_dtype(mu_dtype), nesterov=nesterov)
+
+    def _extra_state(self, p, group):
+        return _Optimistic.state(p)
+
+    def _direction(self, p, g, state, group):
+        return _Optimistic.apply(super()._direction(p, g, state, group), state,
+                                 group["alpha"], group["beta"])
+
+
+class OptimisticAdam(OptimisticAdamV2):
+    """optax ``optimistic_adam`` (deprecated there): ``scale_by_adam``, the
+    optimistic step with ``alpha = lr`` and ``beta = optimism`` (default
+    lr), then ``* -1``."""
+
+    def __init__(self, params, lr=1e-3, optimism=None, b1=0.9, b2=0.999, eps=1e-8,
+                 eps_root=0.0, mu_dtype=None, *, nesterov=True):
+        warnings.warn("`optimistic_adam` is deprecated, please use `optimistic_adam_v2` "
+                      "instead.", category=DeprecationWarning)
+        if callable(lr):
+            raise ValueError("This version of `optimistic_adam` does not support learning "
+                             "rate schedules but `optimistic_adam_v2` does.")
+        super().__init__(params, 1.0, alpha=lr, beta=lr if optimism is None else optimism,
+                         b1=b1, b2=b2, eps=eps, eps_root=eps_root, mu_dtype=mu_dtype,
+                         nesterov=nesterov)
+
+
+class Rprop(OptaxOptimizer):
+    """optax ``rprop``: per-element step sizes grown by ``eta_plus`` where the
+    gradient kept its sign and shrunk by ``eta_minus`` where it flipped,
+    clipped to ``[min_step_size, max_step_size]``; optax's update is the
+    previous ``step_size * sign(g)`` (0 where the sign flipped), ``* -1``."""
+
+    _scales_lr = False
+
+    def __init__(self, params, lr=1e-3, eta_minus=0.5, eta_plus=1.2, min_step_size=1e-6,
+                 max_step_size=50.0):
+        if callable(lr):
+            raise TypeError("rprop takes a float learning_rate (its first step size), as "
+                            "optax's does")
+        super().__init__(params, lr, eta_minus=eta_minus, eta_plus=eta_plus,
+                         min_step_size=min_step_size, max_step_size=max_step_size)
+
+    def _extra_state(self, p, group):
+        return {"step_sizes": torch.full_like(p, group["lr"]),
+                "prev_updates": torch.zeros_like(p)}
+
+    def _direction(self, p, g, state, group):
+        prev = state["prev_updates"]
+        sign = g * prev
+        sizes = torch.where(sign == 0, state["step_sizes"], torch.clamp(
+            state["step_sizes"] * torch.where(sign > 0, group["eta_plus"], group["eta_minus"]),
+            group["min_step_size"], group["max_step_size"]))
+        update = torch.where(sign < 0, torch.zeros_like(prev), prev)
+        state["prev_updates"].copy_(torch.where(sign < 0, torch.zeros_like(g),
+                                                sizes * torch.sign(g)))
+        state["step_sizes"].copy_(sizes)
+        return -update
+
+
+class SignSGD(OptaxOptimizer):
+    """optax ``sign_sgd``: ``sign(g)``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3):
+        super().__init__(params, lr)
+
+    def _direction(self, p, g, state, group):
+        return torch.sign(g)
+
+
+class SM3(OptaxOptimizer):
+    """optax ``sm3`` (``scale_by_sm3`` with ``b1 = momentum``, ``b2 = 1``,
+    eps 1e-8): one accumulator vector per axis (``mu_<axis>``); the
+    element's accumulator ``g**2 + min`` over its axes' entries (a vector's
+    own entry), ``g * rsqrt(accum + eps)`` (0 where it is 0) into the
+    momentum ``nu``; each axis' vector keeps the max of ``accum`` over the
+    other axes; ``nu * -lr``."""
+
+    def __init__(self, params, lr=1e-3, momentum=0.9):
+        if callable(lr):
+            raise TypeError("sm3 takes a float learning_rate, as optax's does")
+        super().__init__(params, lr, momentum=momentum)
+
+    def _extra_state(self, p, group):
+        state = {f"mu_{i}": torch.zeros(s, dtype=p.dtype, device=p.device)
+                 for i, s in enumerate(p.shape)}
+        state["nu"] = torch.zeros_like(p)
+        return state
+
+    def _direction(self, p, g, state, group):
+        nd = g.dim()
+        vs = [state[f"mu_{i}"].reshape([1] * i + [-1] + [1] * (nd - i - 1)) for i in range(nd)]
+        if nd < 2:
+            accum = g * g + vs[0]
+        else:
+            accum = g * g + functools.reduce(torch.minimum, vs)
+        up = g * torch.where(accum > 0, torch.rsqrt(accum + 1e-8), torch.zeros_like(accum))
+        nu = _moment(up, state["nu"], group["momentum"], 1)
+        state["nu"].copy_(nu)
+        for i in range(nd):
+            other = [d for d in range(nd) if d != i]
+            state[f"mu_{i}"].copy_(accum.amax(dim=other) if other else accum)
+        return nu
+
+
+class Yogi(OptaxOptimizer):
+    """optax ``yogi`` (``scale_by_yogi``: moments from 1e-6, ``nu - (1 - b2)
+    * sign(nu - g**2) * g**2``, eps_root 0), ``mu_hat / (sqrt(nu_hat) +
+    eps)``, ``* -lr``."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-3):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps)
+
+    def _slot_inits(self, group):
+        return {"mu": 1e-6, "nu": 1e-6}
+
+    def _has_count(self, group):
+        return True
+
+    def _direction(self, p, g, state, group):
+        b1, b2, count = group["b1"], group["b2"], state["step"]
+        mu = _moment(g, state["mu"], b1, 1)
+        sq = g * g
+        nu = state["nu"] - (1 - b2) * torch.sign(state["nu"] - sq) * sq
+        state["mu"].copy_(mu)
+        state["nu"].copy_(nu)
+        return (mu / _bias_correction(b1, count, mu)) / (
+            torch.sqrt(nu / _bias_correction(b2, count, nu) + 0.0) + group["eps"])
+
+
+class Adafactor(OptaxOptimizer):
+    """optax ``adafactor``: ``scale_by_factored_rms`` (a factored second
+    moment ``v_row``/``v_col`` over the two largest axes where the second
+    largest reaches ``min_dim_size_to_factor``, else ``v``; decay ``1 -
+    (count + 1 - decay_offset)**-decay_rate``), ``clip_by_block_rms``,
+    ``* lr``, ``* rms(p)`` (at least 1e-3), the momentum ``ema`` (stored in
+    ``dtype_momentum``), ``+ weight_decay_rate * p``, ``* -1``."""
+
+    _scales_lr = False
+
+    def __init__(self, params, lr=None, min_dim_size_to_factor=128, decay_rate=0.8,
+                 decay_offset=0, multiply_by_parameter_scale=True, clipping_threshold=1.0,
+                 momentum=None, dtype_momentum=torch.float32, weight_decay_rate=None,
+                 eps=1e-30, factored=True, weight_decay_mask=None):
+        super().__init__(params, lr, min_dim_size_to_factor=min_dim_size_to_factor,
+                         decay_rate=decay_rate, decay_offset=decay_offset,
+                         multiply_by_parameter_scale=multiply_by_parameter_scale,
+                         clipping_threshold=clipping_threshold, momentum=momentum,
+                         dtype_momentum=_dtype(dtype_momentum),
+                         weight_decay_rate=weight_decay_rate, eps=eps, factored=factored,
+                         decay_on=_mask_flag("weight_decay_mask", weight_decay_mask))
+
+    @staticmethod
+    def _factored_dims(shape, group):
+        if not group["factored"] or len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < group["min_dim_size_to_factor"]:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def _has_count(self, group):
+        return True
+
+    def _extra_state(self, p, group):
+        dims = self._factored_dims(tuple(p.shape), group)
+        one = torch.zeros(1, dtype=p.dtype, device=p.device)
+        if dims is None:
+            state = {"v_row": one, "v_col": one.clone(), "v": torch.zeros_like(p)}
+        else:
+            d1, d0 = dims
+            shape = list(p.shape)
+            state = {"v_row": torch.zeros(shape[:d0] + shape[d0 + 1:], dtype=p.dtype,
+                                          device=p.device),
+                     "v_col": torch.zeros(shape[:d1] + shape[d1 + 1:], dtype=p.dtype,
+                                          device=p.device),
+                     "v": one}
+        if group["momentum"] is not None:
+            state["ema"] = torch.zeros_like(p, dtype=group["dtype_momentum"] or p.dtype)
+        return state
+
+    def _direction(self, p, g, state, group):
+        count = state["step"] - 1  # optax's count before this update
+        t = count - group["decay_offset"] + 1
+        rate = 1.0 - torch.pow(t, -group["decay_rate"])
+        dims = self._factored_dims(tuple(p.shape), group)
+        sq = g * g + group["eps"]
+        if dims is None:
+            v = rate * state["v"] + (1.0 - rate) * sq
+            state["v"].copy_(v)
+            u = g * torch.pow(state["v"], -0.5)
+        else:
+            d1, d0 = dims
+            v_row = rate * state["v_row"] + (1.0 - rate) * sq.mean(dim=d0)
+            v_col = rate * state["v_col"] + (1.0 - rate) * sq.mean(dim=d1)
+            state["v_row"].copy_(v_row)
+            state["v_col"].copy_(v_col)
+            v_row, v_col = state["v_row"], state["v_col"]
+            reduced = d1 - 1 if d1 > d0 else d1
+            row_factor = torch.pow(v_row / v_row.mean(dim=reduced, keepdim=True), -0.5)
+            u = g * row_factor.unsqueeze(d0) * torch.pow(v_col, -0.5).unsqueeze(d1)
+        threshold = group["clipping_threshold"]
+        if threshold is not None:
+            u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)) / threshold, 1.0)
+        if group["lr"] is not None:
+            u = u * self._lr(group, state, u)
+        if group["multiply_by_parameter_scale"]:
+            rms = torch.sqrt(torch.mean(p * p))
+            u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+        if group["momentum"] is not None:
+            ema = _moment(u, state["ema"], group["momentum"], 1)
+            state["ema"].copy_(ema)
+            u = ema
+        if group["weight_decay_rate"] is not None:
+            u = _decay(u, p, group, group["weight_decay_rate"])
+        return -u
+
+
+class LBFGS(OptaxOptimizer):
+    """optax ``lbfgs`` as the JAX Trainer meets it: it builds, and its first
+    update raises optax's ``TypeError``, as the Trainer's ``tx.update(grads,
+    opt_state, params)`` gives its zoom line search no ``value``, ``grad``
+    or ``value_fn``."""
+
+    def __init__(self, params, lr=None, memory_size=10, scale_init_precond=True,
+                 linesearch="zoom"):
+        super().__init__(params, lr, memory_size=memory_size,
+                         scale_init_precond=scale_init_precond, linesearch=linesearch)
+
+    def step(self, closure=None):
+        raise TypeError("scale_by_zoom_linesearch.<locals>.update_fn() missing 3 required "
+                        "keyword-only arguments: 'value', 'grad', and 'value_fn'")
+
+
+def _bool_at(flat: Dict[str, Any], path: str) -> bool:
+    """The mask's value at ``path``: its own leaf or the nearest prefix's."""
+    parts = path.split("/")
+    for i in range(len(parts), 0, -1):
+        key = "/".join(parts[:i])
+        if key in flat:
+            return bool(flat[key])
+    raise KeyError(f"the mask has no entry for parameter {path!r}")
+
+
+def resolve_mask(mask, named: Mapping[str, torch.Tensor]) -> Dict[str, bool]:
+    """``{flax path: bool}`` of an optax-style mask over ``named`` (``{flax
+    path: parameter}``): a bool, a nested dict of bools (a prefix holds for
+    what is below it), or a callable from the nested dict of the parameters
+    to either."""
+    from torecsys_tpu_torch.convert import flatten, unflatten
+
+    if callable(mask):
+        mask = mask(unflatten(dict(named)))
+    if isinstance(mask, Mapping):
+        flat = flatten(mask)
+        return {path: _bool_at(flat, path) for path in named}
+    return {path: bool(mask) for path in named}
+
+
+# a mask keyword → the group flag it sets
+_MASK_FLAGS = {"mask": "decay_on", "weight_decay_mask": "decay_on",
+               "trust_ratio_mask": "trust_on"}
+
+
+class _MaskedFactory:
+    """A factory over ``{flax path: parameter}`` (``build_optimizer``) that
+    resolves the masks into parameter groups (``decay_on``, ``trust_on``)."""
+
+    takes_paths = True
+
+    def __init__(self, cls, lr, kwargs, masks):
+        self.cls, self.lr, self.kwargs, self.masks = cls, lr, kwargs, masks
+
+    def __call__(self, named: Mapping[str, torch.nn.Parameter]) -> torch.optim.Optimizer:
+        flags = {_MASK_FLAGS[k]: resolve_mask(m, named) for k, m in self.masks.items()}
+        groups: Dict[tuple, list] = {}
+        for path, p in named.items():
+            groups.setdefault(tuple(f[path] for f in flags.values()), []).append(p)
+        param_groups = [{"params": ps, **dict(zip(flags, key))} for key, ps in groups.items()]
+        return self.cls(param_groups, lr=self.lr, **self.kwargs)
+
+
+def build_optimizer(factory, named: Mapping[str, torch.nn.Parameter],
+                    paths: Mapping[str, str]) -> torch.optim.Optimizer:
+    """``factory`` over the parameters ``named`` (``{port name: parameter}``);
+    a factory that resolves masks gets ``{flax path: parameter}`` (``paths``:
+    ``convert.flax_paths``)."""
+    if getattr(factory, "takes_paths", False):
+        return factory({paths[n]: p for n, p in named.items()})
+    return factory(list(named.values()))
 
 
 _OPTIMIZERS = {
@@ -462,31 +1085,53 @@ _OPTIMIZERS = {
     "rmsprop": RMSprop,
     "sgd": SGD,
 }
+# optax's other names that the JAX get_optimizer reaches by attribute
+OPTAX_OTHERS = {
+    "adabelief": AdaBelief,
+    "adafactor": Adafactor,
+    "adamaxw": AdamaxW,
+    "adan": Adan,
+    "amsgrad": AMSGrad,
+    "fromage": Fromage,
+    "lbfgs": LBFGS,
+    "noisy_sgd": NoisySGD,
+    "novograd": NovoGrad,
+    "optimistic_adam": OptimisticAdam,
+    "optimistic_adam_v2": OptimisticAdamV2,
+    "optimistic_gradient_descent": OptimisticGradientDescent,
+    "rprop": Rprop,
+    "sign_sgd": SignSGD,
+    "sm3": SM3,
+    "yogi": Yogi,
+}
 _TORCH_ADAM_KEYS = {"b1", "b2", "eps"}
 _TORCH_KEYS = {"adam": _TORCH_ADAM_KEYS, "adamw": _TORCH_ADAM_KEYS | {"weight_decay"}}
 
 
-def get_optimizer(name: str = "Adam", lr: Optional[float] = 1e-3, **kwargs: Any) -> Factory:
+def get_optimizer(name: str = "Adam", lr=1e-3, **kwargs: Any) -> Factory:
     """A dense optimizer factory ``params -> torch.optim.Optimizer`` from a
-    (torch-style or optax) name: one of the twelve names, with optax's
-    keyword names and defaults; ``lr`` may also be passed as
-    ``learning_rate``.  Unknown names raise ``KeyError``, keywords optax
-    does not take ``TypeError``, what is not ported ``NotImplementedError``."""
+    (torch-style or optax) name: one of the twelve names or of optax's others
+    (:data:`OPTAX_OTHERS`), with optax's keyword names and defaults; ``lr``
+    (a float or a schedule) may also be passed as ``learning_rate``.
+    Unknown names raise ``KeyError``, keywords optax does not take
+    ``TypeError`` (``polyak_sgd`` takes no ``learning_rate``: ``TypeError``,
+    as the JAX package's ``factory(learning_rate=lr)`` raises)."""
     lr = kwargs.pop("learning_rate", lr)
     key = name.lower()
-    if key not in _OPTIMIZERS:
-        raise KeyError(f"unknown optimizer {name!r}; available: {sorted(_OPTIMIZERS)} (optax's "
-                       f"other names are {_TODO})")
-    if callable(lr):
-        raise NotImplementedError(f"a schedule as learning_rate is {_TODO}")
-    cls = _OPTIMIZERS[key]
+    if key == "polyak_sgd":
+        raise TypeError("polyak_sgd() got an unexpected keyword argument 'learning_rate'")
+    cls = _OPTIMIZERS.get(key) or OPTAX_OTHERS.get(key)
+    if cls is None:
+        raise KeyError(f"unknown optimizer {name!r}; available: "
+                       f"{sorted(_OPTIMIZERS) + sorted(OPTAX_OTHERS)}")
     inspect.signature(cls).bind(None, lr, **kwargs)  # TypeError for what optax does not take
-    for k in ("mask", "weight_decay_mask", "trust_ratio_mask"):
-        if k in kwargs:
-            _no_mask(k, kwargs[k])
-    for k in ("mu_dtype", "accumulator_dtype"):
-        _no_dtype(k, kwargs.get(k))
-    if key in _TORCH_KEYS and lr is not None and set(kwargs) <= _TORCH_KEYS[key]:
+    masks = {k: kwargs[k] for k in _MASK_FLAGS
+             if k in kwargs and not isinstance(kwargs[k], (bool, type(None)))}
+    if masks:
+        rest = {k: v for k, v in kwargs.items() if k not in masks}
+        return _MaskedFactory(cls, lr, rest, masks)
+    if (key in _TORCH_KEYS and lr is not None and not callable(lr)
+            and set(kwargs) <= _TORCH_KEYS[key]):
         torch_cls, extra = ((torch.optim.Adam, {}) if key == "adam" else
                             (torch.optim.AdamW, {"weight_decay": kwargs.get("weight_decay", 1e-4)}))
         return functools.partial(_torch_adam, torch_cls, lr=lr,
@@ -512,12 +1157,16 @@ def _torch_adam(torch_cls, params: Iterable[torch.nn.Parameter],
 
 
 def available_optimizers() -> Dict[str, Any]:
-    """``{name: optimizer class}`` of the twelve names (``adam``'s and
-    ``adamw``'s are the written-out forms; ``get_optimizer`` builds
-    ``torch.optim.Adam`` and ``torch.optim.AdamW`` for the plain ones)."""
+    """``{name: optimizer class}`` of the twelve names of the JAX package's
+    registry (``adam``'s and ``adamw``'s are the written-out forms;
+    ``get_optimizer`` builds ``torch.optim.Adam`` and ``torch.optim.AdamW``
+    for the plain ones); optax's others are :data:`OPTAX_OTHERS`."""
     return dict(_OPTIMIZERS)
 
 
-__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax", "Lamb", "Lars", "Lion", "NAdam",
-           "OptaxOptimizer", "RAdam", "RMSprop", "SGD", "available_optimizers",
-           "get_optimizer"]
+__all__ = ["AMSGrad", "AdaBelief", "Adadelta", "Adafactor", "Adagrad", "Adam", "AdamW",
+           "Adamax", "AdamaxW", "Adan", "Fromage", "LBFGS", "Lamb", "Lars", "Lion", "NAdam",
+           "NoisySGD", "NovoGrad", "OPTAX_OTHERS", "OptaxOptimizer", "OptimisticAdam",
+           "OptimisticAdamV2", "OptimisticGradientDescent", "RAdam", "RMSprop", "Rprop", "SGD",
+           "SM3", "SignSGD", "Yogi", "available_optimizers", "build_optimizer",
+           "gaussian_noise", "get_optimizer", "resolve_mask"]

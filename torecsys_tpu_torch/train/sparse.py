@@ -60,9 +60,12 @@ def is_hybrid_opt_state(opt_state) -> bool:
 def init_hybrid_opt_state(optimizer_factory, row_tx, seq: nn.Module, table_paths) -> Dict:
     """Build the hybrid optimizer state over ``seq``'s partitioned
     parameters: row slots of each table's ``(R, W)`` stored rows."""
+    from torecsys_tpu_torch.convert import flax_paths
+    from torecsys_tpu_torch.train.optimizers import build_optimizer
+
     dense, tables = split_params(seq, table_paths)
     return {
-        "dense": optimizer_factory(list(dense.values())),
+        "dense": build_optimizer(optimizer_factory, dense, flax_paths(seq)),
         "sparse": {p: row_tx.init(t.detach().reshape(-1, t.shape[-1]))
                    for p, t in tables.items()},
     }

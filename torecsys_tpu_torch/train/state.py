@@ -45,12 +45,15 @@ class TrainState:
         one ``optimizer_factory`` optimizer over every parameter, the tables
         included (the dense route).
         """
+        from torecsys_tpu_torch.convert import flax_paths
+        from torecsys_tpu_torch.train.optimizers import build_optimizer
         from torecsys_tpu_torch.train.sparse import init_hybrid_opt_state
 
         if row_tx is not None and table_paths:
             opt_state = init_hybrid_opt_state(optimizer_factory, row_tx, seq, table_paths)
         else:
-            opt_state = optimizer_factory(list(seq.parameters()))
+            opt_state = build_optimizer(optimizer_factory, dict(seq.named_parameters()),
+                                        flax_paths(seq))
         return cls(
             opt_state=opt_state,
             step=torch.zeros((), dtype=torch.int32, device=device),
