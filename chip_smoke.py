@@ -249,8 +249,23 @@ Phases (any failure raises and the exit code is not 0):
     it held the same way, its tower unmoved; ``embedding_lookup`` and
     ``fused_offset_lookup`` (one ``row_gather`` each, equal to
     ``index_select``) and ``not_jittable`` under a real capture.
+23. (Run after phase 22, before phase 11.)  Parallelism: four ranks of
+    this script (``--parallel-rank``, spawned after the build) share the
+    card over gloo (collectives staged through the host), each the bench
+    DeepFM at full width on a ``(data, table)`` mesh: (2, 2) under psum,
+    alltoall and auto (the table row-sharded) and (1, 4) under psum (the
+    table replicated by the rule, its lookups still collective); each run
+    two steps held on rank 0 against the single-device Trainer's plain step
+    from one state (the touched rows, their moments, the dense parameters
+    and their Adam state), then a ``fit`` of 6 batches, every rank's
+    launches counted; then a planted all-to-all overflow (NaN, the error,
+    the recovery to a capacity factor of 4).  With two cards or more the
+    runs again one rank a card over NCCL, timed (examples/sec, step ms,
+    busy share, NCCL ms by kind, MB a step against ``modeled_comm_mb``),
+    and a graphed ``fit`` at 4 steps a dispatch with a replay held to its
+    eager steps to the bit.
 
-The held steps (phases 15-22) hold each kept tensor's change over the step:
+The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
 element's rule is Adam's the larger of that and its update's sensitivity
 to the summation order of its gradient (``adam_sensitivity``).
@@ -5143,9 +5158,511 @@ def packed_elements(rows: int) -> int:
     return vp * w
 
 
+# ---- phase 23: parallel ---------------------------------------------------------
+
+# (mesh, strategy) of the parallel phase's runs: (2, 2) row-shards the bench
+# table (4,110,550 stored rows divide 2); at (1, 4) the rule replicates it
+# (they do not divide 4) and its lookups still route through the collective
+PARALLEL_RUNS = (((2, 2), "psum"), ((2, 2), "alltoall"), ((2, 2), "auto"), ((1, 4), "psum"))
+PARALLEL_RANKS = 4
+PARALLEL_HELD = 2         # held steps a run, each from one state
+PARALLEL_FIT = 6          # batches of each run's fit
+PARALLEL_TIMED = 8        # timed eager steps a run over NCCL
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_GRAPH_K = 4      # steps a dispatch of the NCCL graph check
+# the sharded step's launches: the lookup's gather and the grad permute,
+# the wide segment sum, the row update (a replicated table's too)
+PARALLEL_PER_STEP = dict(row_gather=2, widen_segment_sum=1, fused_rowwise_update=1)
+# the planted overflow: one field of 2^20 rows (131,072 stored rows, sharded
+# at 4), every id in its first eighth, table rank 0's rows; at (1, 4) and
+# capacity factor 1 the exchange overflows until the factor reaches 4
+OVERFLOW_FIELD = 1 << 20
+OVERFLOW_MESH = (1, 4)
+OVERFLOW_OPTIONS = {"strategy": "alltoall", "capacity_factor": 1.0}
+COLLECTIVE_KINDS = (("all_reduce", "AllReduce"), ("all_gather", "AllGather"),
+                    ("all_to_all", "SendRecv"), ("all_to_all", "AllToAll"))
+
+
+def parallel_table(trainer):
+    from torecsys_tpu_torch.train.sparse import sparse_modules
+
+    (module,) = sparse_modules(trainer.pipeline.sequential).values()
+    return module
+
+
+def touched_rows(trainer, batch):
+    """The global stored rows a host batch's ids touch, ascending, on the card."""
+    import torch
+
+    module = parallel_table(trainer)
+    ids = np.stack([batch[f] for f in module.fields], axis=1).astype(np.int64)
+    ids = ids + module.offsets.cpu().numpy()[None, :]
+    rows = np.unique(ids // module.pack)
+    return torch.as_tensor(rows, device=module.embedding.device)
+
+
+def gather_rows(trainer, mesh, rows):
+    """(table rows, Adam moments) of global stored ``rows`` from a sharded
+    trainer: each table rank fills the rows it owns, and a sum over the
+    table group gives every rank all of them."""
+    import torch
+
+    module = parallel_table(trainer)
+    table, (path, slots) = module.table_view(), next(iter(trainer.state.opt_state["sparse"]
+                                                          .items()))
+    mv = slots["mv"]
+    layout = module.row_layout
+    if layout is None:
+        return table[rows].clone(), mv[rows].clone()
+    mine = layout.served(rows)
+    local = layout.local(rows)[mine]
+    t_rows = torch.zeros((rows.shape[0], table.shape[1]), device=table.device)
+    m_rows = torch.zeros((rows.shape[0], *mv.shape[1:]), device=table.device)
+    t_rows[mine] = table[local]
+    m_rows[mine] = mv[local]
+    mesh.all_reduce(t_rows, "table")
+    mesh.all_reduce(m_rows, "table")
+    return t_rows, m_rows
+
+
+def dense_view(trainer):
+    """``{name: tensor}`` of the dense parameters and their Adam state."""
+    seq = trainer.pipeline.sequential
+    table = {name for name, _ in seq.named_parameters() if name.endswith("embedding")}
+    opt = trainer.state.opt_state["dense"]
+    named = {n: p for n, p in seq.named_parameters() if n not in table}
+    out = dict(named)
+    for n, p in named.items():
+        for k, v in opt.state.get(p, {}).items():
+            if k != "step":
+                out[f"{n}:{k}"] = v
+    return out
+
+
+def sync_reference(ref, trainer, rows, t_rows, m_rows):
+    """Put the sharded trainer's state into the single-device reference: the
+    touched rows of the table and its moments, the dense parameters and
+    their Adam state, the step."""
+    import torch
+
+    with torch.no_grad():
+        module = parallel_table(ref)
+        module.table_view()[rows] = t_rows
+        next(iter(ref.state.opt_state["sparse"].values()))["mv"][rows] = m_rows
+        mine = dict(trainer.pipeline.sequential.named_parameters())
+        for n, p in ref.pipeline.sequential.named_parameters():
+            if not n.endswith("embedding"):
+                p.copy_(mine[n])
+        opt_s, opt_r = trainer.state.opt_state["dense"], ref.state.opt_state["dense"]
+        for ps, pr in zip((p for g in opt_s.param_groups for p in g["params"]),
+                          (p for g in opt_r.param_groups for p in g["params"])):
+            state = opt_s.state.get(ps)
+            if state:
+                opt_r.state[pr] = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                   for k, v in state.items()}
+            else:
+                opt_r.state.pop(pr, None)
+        ref.state.step.copy_(trainer.state.step)
+
+
+def row_sensitivity(ref, sums, rows, m_rows, step: int):
+    """Adam's sensitivity (:func:`adam_sensitivity`) of the touched rows."""
+    import torch
+
+    module = parallel_table(ref)
+    row = ref.pipeline.row_optimizer()
+    g, a, n = (b[rows].double() for b in sums[module.embedding.data_ptr()])
+    t = step + 1
+    d = 2.0 * (n - 1).clamp_min(1.0) * SUM_UNIT * a
+    m0, v0 = m_rows[:, 0].double(), m_rows[:, 1].double()
+    bc1, bc2 = 1.0 - row.b1 ** t, 1.0 - row.b2 ** t
+
+    def update(x):
+        m_hat = (row.b1 * m0 + (1 - row.b1) * x) / bc1
+        v_hat = (row.b2 * v0 + (1 - row.b2) * x * x) / bc2
+        return row.learning_rate * m_hat / (torch.sqrt(v_hat) + row.eps)
+
+    u = update(g)
+    sens = torch.maximum((update(g + d) - u).abs(), (update(g - d) - u).abs())
+    return torch.where(n > 0, sens, torch.zeros_like(sens)).float()
+
+
+def parallel_held_step(trainer, ref, mesh, batch, fns, path: str):
+    """One step from one state: the single-device reference (rank 0) with
+    the plain versions, the sharded trainer with the kernels on every rank;
+    rank 0 holds every tensor the step changes (the touched rows of the
+    table and its moments, the dense parameters and their Adam state) by
+    :func:`held_compare`.  Returns rank 0's record (None elsewhere)."""
+    import torch
+
+    rows = touched_rows(trainer, batch)
+    t0, m0 = gather_rows(trainer, mesh, rows)
+    record = None
+    if ref is not None:
+        sync_reference(ref, trainer, rows, t0, m0)
+        start = {"table": t0, "mv": m0, **{k: v.clone() for k, v in dense_view(ref).items()}}
+        step = int(ref.state.step)
+        with abs_sums() as sums, plain_versions(fns):
+            loss_p = ref.train_steps([batch])[0].item()
+        sens = row_sensitivity(ref, sums, rows, m0, step)
+        del sums
+        module = parallel_table(ref)
+        plain = {"table": module.table_view()[rows].clone(),
+                 "mv": next(iter(ref.state.opt_state["sparse"].values()))["mv"][rows].clone(),
+                 **{k: v.clone() for k, v in dense_view(ref).items()}}
+    loss_k = trainer.train_steps([batch])[0].item()
+    t1, m1 = gather_rows(trainer, mesh, rows)
+    if ref is None:
+        return None
+    kernel = {"table": t1, "mv": m1, **dense_view(trainer)}
+    worst, where, moved = 0.0, "all equal", None
+    for name, k in kernel.items():
+        s = start.get(name)
+        if s is None:  # Adam's state, built at this step from 0
+            s = torch.zeros_like(k)
+        ratio, at, ulps, _ = held_compare(s, plain[name], k, sens if name == "table" else None)
+        if name == "table":
+            moved = ulps
+        if not ratio <= worst:
+            worst, where = ratio, f"{name}[{at}]"
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[{path}] sharded kernels vs the single-device plain step, one step from one state: "
+        f"loss {loss_k:.8f} vs {loss_p:.8f} (rel diff {rel:.3g}, rtol {TRAIN_LOSS_RTOL}); "
+        f"{rows.shape[0]} touched stored rows, their moments, the dense parameters and their "
+        f"Adam state: worst |sharded - plain| / tolerance {worst:.3g} ({where}); the table's "
+        f"largest change {moved:.4g} ulps")
+    if not np.isfinite(loss_k) or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{path}: the sharded and the single-device losses disagree")
+    if not worst <= 1.0:
+        raise AssertionError(f"{path}: the sharded step and the single-device one differ "
+                             f"beyond the tolerance at {where}, {worst:.3g} times it")
+    if not moved >= HELD_MOVED_ULPS:
+        raise AssertionError(f"{path}: the table moved {moved} ulps, under {HELD_MOVED_ULPS}")
+    return {"loss_sharded": loss_k, "loss_plain": loss_p, "worst_over_tolerance": worst,
+            "worst": where, "touched_rows": int(rows.shape[0]), "table_moved_ulps": moved}
+
+
+def collective_profile(trainer, batches, mesh):
+    """A traced window of eager steps on this rank: the card's busy share
+    (the union of its kernel and copy intervals over the window's device
+    span) and the device ms of NCCL's kernels by kind, a step."""
+    import torch
+
+    with card_profile() as prof:
+        trainer.train_steps(batches)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = spans[-1][1] - spans[0][0]
+    by_kind = {}
+    for e in events:
+        if "nccl" not in e.name.lower():
+            continue
+        kind = next((k for k, mark in COLLECTIVE_KINDS if mark in e.name), e.name[:40])
+        by_kind[kind] = by_kind.get(kind, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    n = len(batches)
+    return {"device_busy_share": busy / window, "device_busy_ms_per_step": busy / 1e3 / n,
+            "collective_ms_per_step": {k: v / n for k, v in by_kind.items()}}
+
+
+def parallel_run(mesh, strategy: str, batches, fns, reference: bool, timed: bool):
+    """One configuration on this rank: the held steps, a short ``fit``, and
+    over NCCL the timings.  The wrappers count from the first sharded step
+    to the end of the fit."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.parallel.lookup import (LookupContext, modeled_comm_mb,
+                                                    resolve_strategy)
+
+    path = f"parallel_{mesh.shape['data']}x{mesh.shape['table']}_{strategy}"
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(bench_pipeline(sparse=True), mesh=mesh, presort=False, log_every=10**9,
+                      lookup_options={"strategy": strategy})
+    trainer.init_state()
+    ref = None
+    if reference:
+        ref = Trainer(bench_pipeline(sparse=True), presort=False, log_every=10**9)
+        ref.init_state()
+    module = parallel_table(trainer)
+    layout = module.row_layout
+    reset_counts(fns)
+    held = [parallel_held_step(trainer, ref, mesh, b, fns, path)
+            for b in batches[:PARALLEL_HELD]]
+    del ref
+    release()
+    fit_batches = batches[PARALLEL_HELD:PARALLEL_HELD + PARALLEL_FIT]
+    metrics = trainer.fit(lambda: iter(fit_batches), max_epochs=1)
+    steps = PARALLEL_HELD + len(fit_batches)
+    counts = read_counts(fns)
+    want = expect(**{n: steps * c for n, c in PARALLEL_PER_STEP.items()})
+    if counts != want:
+        raise AssertionError(f"{path} rank {mesh.rank}: kernel launches {counts}, expected {want}")
+    m = BATCH * len(FIELD_SIZES)
+    ts, dp = mesh.shape["table"], mesh.shape["data"]
+    ctx_strategy = resolve_strategy(LookupContext(mesh=mesh, strategy=strategy), m, EMBED)
+    rec = {"path": path, "strategy": strategy, "resolved": ctx_strategy,
+           "table": {"sharded": layout is not None,
+                     "local_shape": list(module.embedding.shape)},
+           "held": held, "fit_loss": metrics["train_loss"],
+           "fit_examples_per_sec": metrics["examples_per_sec"], "launches": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "modeled_comm_mb": modeled_comm_mb(ctx_strategy, m, EMBED, 2.0, ts, dp)}
+    if timed:
+        mesh.sent.clear()
+        timed_batches = batches[:PARALLEL_TIMED]
+        trainer.train_steps(timed_batches[:2])
+        torch.cuda.synchronize()
+        sent0 = dict(mesh.sent)
+        t0 = time.perf_counter()
+        trainer.train_steps(timed_batches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(timed_batches)
+        sent = {k: (v - sent0.get(k, 0)) / len(timed_batches) / 1e6 for k, v in mesh.sent.items()}
+        rec.update({"step_ms": wall * 1e3, "examples_per_sec": BATCH / wall,
+                    "collective_mb_per_step": sent,
+                    **collective_profile(trainer, batches[:3], mesh)})
+    if mesh.rank == 0:
+        log(f"[{path}] rank 0: table {'row-sharded' if layout else 'replicated'} "
+            f"{tuple(module.embedding.shape)}, strategy {strategy} -> {ctx_strategy}, fit loss "
+            f"{metrics['train_loss']:.6f}, launches {counts}, peak "
+            f"{rec['peak_memory_gb']:.3f} GB"
+            + (f", step {rec['step_ms']:.3f} ms, {rec['examples_per_sec']:.0f} examples/sec, busy "
+               f"{rec['device_busy_share']:.3f}, collective ms/step {rec['collective_ms_per_step']}"
+               f", MB/step sent {rec['collective_mb_per_step']} (modeled "
+               f"{rec['modeled_comm_mb']:.3f})" if timed else ""))
+    del trainer
+    release()
+    return rec
+
+
+def overflow_batch(seed: int):
+    rng = np.random.default_rng(seed)
+    return {"cat_0": rng.integers(0, OVERFLOW_FIELD // 8, BATCH).astype(np.int32),
+            "dense_0": rng.normal(size=BATCH).astype(np.float32),
+            "label": (rng.uniform(size=BATCH) < 0.5).astype(np.float32)}
+
+
+def parallel_overflow(mesh, seed: int):
+    """The planted stream (every id in table rank 0's rows) under the
+    all-to-all at capacity factor 1: one step's loss is NaN; ``fit``
+    without recovery raises ``LookupOverflowSuspected``; with it, ``fit``
+    raises the factor to the table axis' size and completes."""
+    from torecsys_tpu_torch import Inputs, Pipeline, Trainer, ValueInput
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding
+    from torecsys_tpu_torch.train.trainer import LookupOverflowSuspected
+
+    def pipeline():
+        inputs = Inputs({"feat_inputs": ValueInput(("dense_0",)),
+                         "emb_inputs": MultiIndicesEmbedding(EMBED, (OVERFLOW_FIELD,),
+                                                             ("cat_0",), device=DEVICE)})
+        return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(inputs).set_model("FM")
+                .set_criterion("BCEWithLogitsLoss").set_optimizer("Adam", lr=1e-3)
+                .set_sparse_embeddings(True).set_target_fields("label"))
+
+    batch = overflow_batch(seed)
+    poisoned = Trainer(pipeline(), mesh=mesh, presort=False, log_every=1,
+                       lookup_options=dict(OVERFLOW_OPTIONS), lookup_recovery=False)
+    loss = poisoned.train_steps([batch])[0].item()
+    if not np.isnan(loss):
+        raise AssertionError(f"the planted overflow gave a finite loss {loss}")
+    try:
+        Trainer(pipeline(), mesh=mesh, presort=False, log_every=1,
+                lookup_options=dict(OVERFLOW_OPTIONS), lookup_recovery=False).fit([batch])
+        raise AssertionError("fit without recovery did not raise on the planted overflow")
+    except LookupOverflowSuspected as e:
+        error = str(e)
+    recovering = Trainer(pipeline(), mesh=mesh, presort=False, log_every=1,
+                         lookup_options=dict(OVERFLOW_OPTIONS))
+    metrics = recovering.fit([batch])
+    ts = mesh.shape["table"]
+    if not np.isfinite(metrics["train_loss"]) or (
+            recovering.lookup_options["capacity_factor"] != ts):
+        raise AssertionError(f"the recovery ended at {recovering.lookup_options} with "
+                             f"{metrics}")
+    return {"poisoned_loss": float(loss), "error": error[:160],
+            "recoveries": recovering.recoveries, "loss": metrics["train_loss"],
+            "capacity_factor": recovering.lookup_options["capacity_factor"]}
+
+
+def parallel_graph(mesh, batches):
+    """Over NCCL, whose collectives a CUDA graph captures: ``fit`` at
+    PARALLEL_GRAPH_K steps a dispatch (the first dispatch warms up and
+    captures, the next replays), then one replay against its steps taken
+    eagerly from one state, the losses to the bit."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    k = PARALLEL_GRAPH_K
+    trainer = Trainer(bench_pipeline(sparse=True), mesh=mesh, presort=False, log_every=10**9,
+                      steps_per_execution=k)
+    metrics = trainer.fit(lambda: iter(batches[:2 * k]), max_epochs=1)
+    stats = trainer.graph_stats
+    if stats != {"captures": 1, "replays": 1} or not np.isfinite(metrics["train_loss"]):
+        raise AssertionError(f"graphed fit under {mesh}: {stats}, {metrics}")
+    start = snapshot(trainer)
+    graphed = [x.item() for x in trainer.train_steps(batches[:k])]
+    restore(trainer, start)
+    trainer.steps_per_execution = 1
+    eager = [x.item() for x in trainer.train_steps(batches[:k])]
+    torch.cuda.synchronize()
+    if graphed != eager:
+        raise AssertionError(f"a replay under {mesh} is not its eager steps: {graphed} {eager}")
+    if mesh.rank == 0:
+        log(f"[parallel-nccl] {mesh.shape} at {k} steps a dispatch: captured once, a replay "
+            f"equals its {k} eager steps to the bit ({graphed[-1]:.8f})")
+    del trainer, start
+    release()
+    return {"graph_stats": stats, "losses": graphed}
+
+
+def parallel_rank(job_path: str, rank: int) -> None:
+    """One rank of the parallel phase (``--parallel-rank``): bring the group
+    up, run each configuration, write the rank's record."""
+    import torch
+    import torch.distributed as dist
+
+    from torecsys_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.cuda.set_device(job["devices"][rank])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(init_method=job["init"], world_size=job["world"], rank=rank,
+                           backend=job["backend"], timeout=PARALLEL_TIMEOUT_S)
+    fns = kernels()
+    batches = make_batches(job["seed"], max(PARALLEL_HELD + PARALLEL_FIT, PARALLEL_TIMED))
+    out = {"rank": rank, "backend": job["backend"], "runs": []}
+    for shape, strategy in job["runs"]:
+        mesh = make_mesh(*shape)
+        out["runs"].append(parallel_run(mesh, strategy, batches, fns, rank == 0,
+                                        job["timed"]))
+    if job["overflow"]:
+        out["overflow"] = parallel_overflow(make_mesh(*OVERFLOW_MESH), job["seed"])
+    if job["graph"]:
+        out["graph"] = parallel_graph(make_mesh(*job["graph"]), batches)
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def spawn_parallel(world: int, devices, backend: str, runs, timed: bool, overflow: bool,
+                   seed: int, graph=None):
+    """Start ``world`` ranks of this script (``--parallel-rank``) and wait;
+    every rank is ended before this returns.  Returns their records."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"world": world, "devices": devices, "backend": backend,
+                   "init": f"file://{os.path.join(work, 'init')}", "runs": runs,
+                   "timed": timed, "overflow": overflow, "graph": graph, "seed": seed,
+                   "out": work}, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "RANK", "WORLD_SIZE",
+                        "LOCAL_WORLD_SIZE", "TORCHELASTIC_RUN_ID")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               job, str(r)], env=env) for r in range(world)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the parallel ranks ran past {PARALLEL_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"the parallel ranks exited with {codes}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    return recs
+
+
+def phase_parallel(seed: int, out_dir):
+    """Phase 23: the parallel layer on the card.  Four ranks share the card
+    over gloo (NCCL refuses two ranks on one device; gloo's collectives run
+    on the host, each card tensor copied there and back, so every kernel
+    stays on the card), each a full-width bench DeepFM (28 fields, 32.9M
+    rows, E = 16, batch 4096, Adam 1e-3, on-device sparse route): at (2, 2)
+    under psum, alltoall and auto (the table row-sharded) and at (1, 4)
+    under psum (the table replicated, its lookups collective).  Each run
+    takes held steps, each from one state against the single-device
+    Trainer on rank 0 with the plain versions (:func:`parallel_held_step`),
+    then a short ``fit``; every rank's ``row_gather`` and
+    ``fused_rowwise_update`` must launch, as many times as its steps ask.
+    Then the planted overflow (:func:`parallel_overflow`).  With two cards
+    or more, the runs again one rank a card over NCCL, timed."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = [[list(shape), strategy] for shape, strategy in PARALLEL_RUNS]
+    recs = spawn_parallel(PARALLEL_RANKS, [0] * PARALLEL_RANKS, "gloo", runs, False, True, seed)
+    launches = {}
+    by_rank = []
+    for rec in recs:
+        counts = {}
+        for run in rec["runs"]:
+            add_counts(counts, run["launches"])
+        by_rank.append(counts)
+        add_counts(launches, counts)
+        for name in ("row_gather", "fused_rowwise_update"):
+            if not counts[name] > 0:
+                raise AssertionError(f"rank {rec['rank']} launched {name} {counts[name]} times")
+    log(f"[parallel] 4 ranks on one card over gloo: launches by rank {by_rank}; peak GB by "
+        f"rank and run {[[round(r['peak_memory_gb'], 3) for r in rec['runs']] for rec in recs]}")
+    overflow = recs[0]["overflow"]
+    log(f"[parallel] the planted overflow at {OVERFLOW_MESH}: loss {overflow['poisoned_loss']}, "
+        f"without recovery: {overflow['error'][:90]}...; recovery {overflow['recoveries']}, "
+        f"final loss {overflow['loss']:.6f}")
+    out = {"launches": launches, "launches_by_rank": by_rank, "runs": recs[0]["runs"],
+           "overflow": overflow, "gloo_s": time.perf_counter() - t0}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        world = 4 if n >= 4 else 2
+        nccl_runs = [[[world // 2, 2], "psum"], [[world // 2, 2], "alltoall"],
+                     [[1, world], "psum"], [[1, world], "alltoall"]]
+        t1 = time.perf_counter()
+        nccl = spawn_parallel(world, list(range(world)), "nccl", nccl_runs, True, False, seed,
+                              graph=[world // 2, 2])
+        out["nccl"] = {"world": world, "runs": nccl[0]["runs"], "graph": nccl[0]["graph"],
+                       "peak_gb_by_rank": [[r["peak_memory_gb"] for r in rec["runs"]]
+                                           for rec in nccl],
+                       "s": time.perf_counter() - t1}
+        for r in nccl[0]["runs"]:
+            log(f"[parallel-nccl] {r['path']}: {r['examples_per_sec']:.0f} examples/sec, step "
+                f"{r['step_ms']:.3f} ms, busy {r['device_busy_share']:.3f}, collective ms/step "
+                f"{r['collective_ms_per_step']}, MB/step {r['collective_mb_per_step']} against "
+                f"modeled {r['modeled_comm_mb']:.3f}")
+        first = nccl[0]["runs"][0]
+        out.update({k: first[k] for k in ("examples_per_sec", "step_ms", "device_busy_share")})
+    out["peak_memory_gb"] = max(r["peak_memory_gb"] for rec in recs for r in rec["runs"])
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_parallel.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
 # the phases --phases runs alone: the graphed throughput paths
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
-                "image": phase_image, "optim": phase_optim_sweep}
+                "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel}
 
 
 def main(argv=None):
@@ -5162,10 +5679,15 @@ def main(argv=None):
                     help="comma-separated phases to run alone after the build, of "
                          f"{sorted(ALONE_PHASES)}: a change's before-and-after timings; "
                          "prints their throughput records, not the kernels line")
+    ap.add_argument("--parallel-rank", nargs=2, metavar=("JOB", "RANK"), default=None,
+                    help="internal: run one rank of phase 23 (the parallel phase)")
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.parallel_rank:
+        parallel_rank(args.parallel_rank[0], int(args.parallel_rank[1]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
               file=sys.stderr)
@@ -5242,6 +5764,7 @@ def main(argv=None):
     multitask = timed("multitask", phase_multitask, args.seed, args.out)
     dsin = timed("dsin", phase_dsin, args.seed, args.out)
     image = timed("image", phase_image, args.seed, args.out)
+    parallel = timed("parallel", phase_parallel, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
@@ -5249,7 +5772,7 @@ def main(argv=None):
              "fat_deepffm_adagrad_fused": fat["fused"], "fibinet": fibinet,
              "fibinet_fused": fibinet["fused"], "optim_sweep": optim, "mmoe": mmoe,
              "mmoe_fused": mmoe["fused"], "dsin": dsin, "seq_deepfm": dsin["seq_deepfm"],
-             "image_deepfm": image,
+             "image_deepfm": image, "parallel": parallel,
              "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
     # launches_by_path: each path's own run (a fit: the wrappers' counts of
     # its warm-up and capture plus its replays x a traced replay's; the

@@ -129,8 +129,21 @@ def test_a_missing_file_is_a_usage_error(capsys):
                                    ["--lookup_strategy", "psum"], ["--capacity_factor", "4"],
                                    ["--min_rows_to_shard", "10"]])
 def test_mesh_options_beyond_one_device_are_refused(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Parallelism"):
-        run(["train", *COMMON, *flags])
+    """Meshes are ported (``test_torch_parallel_ckpt`` runs the CLI's in a
+    gloo world): in one process, with no process group, a mesh of more than
+    one rank is refused as ``make_mesh`` refuses it (the JAX CLI's
+    ``ValueError`` when the devices are short), and the lookup options
+    alone are taken, as the JAX CLI takes them, and kept for a mesh."""
+    if flags[0] in ("--data_parallel", "--table_parallel"):
+        with pytest.raises(ValueError, match=f"needs {flags[1]} devices, have 1"):
+            run(["train", *COMMON, *flags])
+        return
+    trainer = run(["train", *COMMON, *flags])
+    key, kind = {"--lookup_strategy": ("strategy", str),
+                 "--capacity_factor": ("capacity_factor", float),
+                 "--min_rows_to_shard": ("min_rows_to_shard", int)}[flags[0]]
+    assert trainer.lookup_options[key] == kind(flags[1])
+    assert trainer.mesh is None and int(trainer.state.step) == 4
 
 
 def test_single_device_mesh_options_run():

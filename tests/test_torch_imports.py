@@ -273,3 +273,44 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "LOADED []" in proc.stdout
+
+
+PARALLEL_SCRIPT = r"""
+import os, sys, tempfile
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import numpy as np
+import torch
+import test_torch_parallel_ranks
+from torecsys_tpu_torch import parallel
+from torecsys_tpu_torch.parallel import lookup, mesh, sharding
+from torecsys_tpu_torch.examples import sharded_lookup
+from torecsys_tpu_torch.ops.sparse import sharded_row_update
+from torecsys_tpu_torch.train.trainer import LookupOverflowSuspected
+from torecsys_tpu_torch.parallel.mesh import initialize_distributed
+tmp = tempfile.mkdtemp()
+initialize_distributed(init_method=f"file://{tmp}/init", world_size=1, rank=0, backend="gloo",
+                       device_type="cpu")
+m = parallel.make_mesh(1, 1, device_type="cpu")
+t = torch.randn(100, 16)
+ids = torch.randint(0, 100, (4, 3))
+for strategy in ("psum", "alltoall"):
+    with parallel.use_sharded_lookup(m, strategy=strategy, min_rows_to_shard=0):
+        assert torch.equal(parallel.maybe_sharded_lookup(t, ids), t[ids])
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu", "click",
+                                    "pandas"))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_parallel_modules_and_rank_code_import_no_jax():
+    """The parallel package, the sharded update, the example twin and the
+    parallel tests' rank code (``tests/test_torch_parallel_ranks.py``), in
+    a fresh process that also looks a table up in a one-rank gloo world,
+    load neither JAX nor anything of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "LOADED []" in proc.stdout

@@ -1,8 +1,10 @@
 """Probe cuDNN's convolutions at the image tower's shapes, and the image-tower
 DeepFM's step with cuDNN's convolution backward in place of the port's.
 
-The port's ``ImageInput`` runs cuDNN's forward and its own backward
-(``inputs/image.py`` ``_Conv2d``).  This script asks two questions on the
+It measured the fault that made the port's ``ImageInput`` convolutions its
+own (``inputs/image.py`` ``_Conv2d``, the backward first, the forward
+since); it still runs cuDNN under the flags the tower once ran it with
+(:func:`_conv_flags`).  This script asks two questions on the
 card, each in one run:
 
 1. Does cuDNN, with deterministic algorithms asked for, give the same bits
@@ -44,6 +46,15 @@ SLACK = 64 << 20  # left free beyond the outputs and the headroom
 MIB = 1 << 20
 CHUNK = 1 << 26
 
+
+
+def _conv_flags():
+    """cuDNN's flags of the tower's convolutions when they were cuDNN's:
+    float32 (TF32 off), deterministic algorithms, no benchmarking."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
 
 def checksum(t) -> str:
     """Two int64 sums of the tensor's 32-bit words (plain and weighted by
@@ -112,7 +123,6 @@ def run_convs(inputs, headroom):
     import torch
     import torch.nn.functional as F
 
-    from torecsys_tpu_torch.inputs.image import _conv_flags
 
     out, seen = {}, {}
     for name, (x, w, b, dy) in inputs.items():
@@ -215,7 +225,6 @@ def cudnn_backward(ctx, grad):
     under the port's flags."""
     import torch
 
-    from torecsys_tpu_torch.inputs.image import _conv_flags
 
     x, weight = ctx.saved_tensors
     with _conv_flags():

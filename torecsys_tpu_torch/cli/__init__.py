@@ -12,13 +12,25 @@
 
 The options are the JAX package's, with its names and defaults, and one
 more: ``--device`` (default: the card; ``cpu`` runs on the CPU), since the
-port's entry points take a device.  The mesh options are accepted at their
-single-device values (``--data_parallel 1 --table_parallel 1``, the default
-``--lookup_strategy``, ``--capacity_factor`` and ``--min_rows_to_shard``);
-any other value raises ``NotImplementedError``, since meshes are not ported.
+port's entry points take a device.
+
+The mesh options, as the JAX CLI's: ``--data_parallel`` and
+``--table_parallel`` size a ``(data, table)`` mesh of ranks
+(``parallel.make_mesh``; both 1, the default, is one device);
+``--lookup_strategy`` picks the sharded lookup's collective (``auto``: the
+calibrated byte model of ``parallel.lookup``), ``--capacity_factor`` sizes
+the all-to-all's buckets (worst-case-safe is ``--table_parallel``), and
+``--min_rows_to_shard`` is the stored rows under which a table replicates
+instead of row-sharding (default ``parallel.sharding``'s 65536).  A mesh
+runs one process a rank, under ``torchrun`` (which sets the process group's
+environment; NCCL on the cards, gloo with ``--device cpu``); every rank
+reads the same data and keeps its slice, and only rank 0 prints the
+pipeline and the JSON metrics lines.
 
 Run: ``python -m torecsys_tpu_torch.cli train --model_config '{"method": "FM"}'
---train_file data.tsv`` (or the ``torecsys-tpu-torch`` console script).
+--train_file data.tsv`` (or the ``torecsys-tpu-torch`` console script);
+on four cards ``torchrun --nproc_per_node 4 -m torecsys_tpu_torch.cli train
+--data_parallel 2 --table_parallel 2 ...``.
 """
 
 from __future__ import annotations
@@ -35,10 +47,6 @@ import numpy as np
 import torecsys_tpu_torch
 
 Columns = Dict[str, np.ndarray]
-
-_MESH_TODO = ("meshes are not ported yet (ROADMAP queue 1: Parallelism, parallel/mesh.py, "
-              "sharding.py and lookup.py on torch.distributed)")
-
 
 class UsageError(Exception):
     """A command-line mistake: ``main`` prints it and returns 2."""
@@ -207,15 +215,31 @@ def _criteo_schema_inputs(criteo_hash_size: int, embed_size: int, device=None):
     })
 
 
-def _check_mesh(args) -> None:
-    if args.data_parallel != 1 or args.table_parallel != 1:
-        raise NotImplementedError(f"--data_parallel {args.data_parallel} --table_parallel "
-                                  f"{args.table_parallel}: {_MESH_TODO}")
-    for flag, value, default in (("--lookup_strategy", args.lookup_strategy, "auto"),
-                                 ("--capacity_factor", args.capacity_factor, 2.0),
-                                 ("--min_rows_to_shard", args.min_rows_to_shard, None)):
-        if value != default:
-            raise NotImplementedError(f"{flag} {value}: {_MESH_TODO}")
+def _make_mesh(args):
+    """The ``(data, table)`` mesh of ``--data_parallel``/``--table_parallel``
+    (None for one device), with the process group brought up from the
+    launcher's environment first."""
+    if args.data_parallel <= 1 and args.table_parallel <= 1:
+        return None
+    from torecsys_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    device_type = "cpu" if args.device == "cpu" else "cuda"
+    initialize_distributed(device_type=device_type)
+    return make_mesh(data=args.data_parallel, table=args.table_parallel, device_type=device_type)
+
+
+def _lookup_options(args) -> Dict:
+    options = {"strategy": args.lookup_strategy, "capacity_factor": args.capacity_factor}
+    if args.min_rows_to_shard is not None:
+        options["min_rows_to_shard"] = args.min_rows_to_shard
+    return options
+
+
+def _prints() -> bool:
+    """Whether this process prints: rank 0 of a process group, or the only one."""
+    from torecsys_tpu_torch.parallel.mesh import world
+
+    return world()[0] == 0
 
 
 def _inputs(args, streaming: bool, data: Optional[Columns]):
@@ -271,7 +295,7 @@ def cmd_train(args):
     from torecsys_tpu_torch.train import Pipeline, Trainer
 
     _setup_logging()
-    _check_mesh(args)
+    mesh = _make_mesh(args)
     streaming = bool(args.train_file) and _should_stream(
         args.train_file, args.data_format, args.stream, args.stream_threshold_mb)
     data = None
@@ -293,7 +317,8 @@ def cmd_train(args):
         regularizer_config=_parse(args.regularizer_config),
         target_fields=args.target_fields, load_from=args.load_from,
     )
-    print(pipeline.summary())
+    if _prints():
+        print(pipeline.summary())
 
     if streaming:
         train_loader = _streaming_loader(args.train_file, args.criteo_hash_size,
@@ -319,10 +344,11 @@ def cmd_train(args):
 
     trainer = Trainer(pipeline, checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                       steps_per_execution=args.steps_per_execution, presort=args.presort,
-                      prefetch=args.prefetch)
+                      prefetch=args.prefetch, mesh=mesh, lookup_options=_lookup_options(args))
     metrics = trainer.fit(train_loader, val_loader=val_loader,
                           max_epochs=args.max_num_epochs, max_steps=args.max_num_iterations)
-    print(json.dumps(metrics))
+    if _prints():
+        print(json.dumps(metrics))
     return trainer
 
 
@@ -441,11 +467,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--table_parallel", default=1, type=int, help="mesh table axis size")
     p.add_argument("--steps_per_execution", default=1, type=int)
     p.add_argument("--lookup_strategy", default="auto", choices=["auto", "psum", "alltoall"],
-                   help="sharded-lookup collective (meshes only)")
+                   help="sharded-lookup collective: auto picks from the calibrated comm-byte "
+                        "model (parallel.lookup)")
     p.add_argument("--capacity_factor", default=2.0, type=float,
-                   help="all-to-all bucket capacity factor (meshes only)")
+                   help="all-to-all per-destination bucket capacity factor; worst-case-safe "
+                        "is --table_parallel")
     p.add_argument("--min_rows_to_shard", default=None, type=int,
-                   help="smallest table that is row-sharded (meshes only)")
+                   help="tables with fewer stored rows replicate instead of row-sharding "
+                        "(default: parallel.sharding's 65536)")
     p.add_argument("--presort", dest="presort", action="store_const", const=True, default=None,
                    help="host presort of the id streams (default: the Trainer's choice)")
     p.add_argument("--no_presort", dest="presort", action="store_const", const=False)

@@ -39,6 +39,11 @@ sparse route each table's row-wise slots as they are (``RowAdam``'s ``mv``,
 ``(N, Vp, ...)`` slots into the port's ``(N*Vp, ...)``), so that both sides
 take their next step from the same state.
 
+Into a trainer under a mesh (``parallel``) whose tables are row-sharded,
+each rank takes its own rows of the global arrays (a JAX sharded state
+gathered with ``jax.device_get``): the table, its row slots and, on the
+dense route, its optimizer state.
+
 Arrays come in as numpy (``jax.device_get`` of the JAX side); this module
 needs neither JAX nor the JAX package.
 """
@@ -147,8 +152,20 @@ def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def _as_torch(flax_path: str, value, like: torch.Tensor) -> torch.Tensor:
+def _layouts(seq: nn.Module) -> Dict[str, Any]:
+    """``{parameter name: RowLayout}`` of ``seq``'s row-sharded tables."""
+    from torecsys_tpu_torch.parallel.sharding import _table_owners
+
+    return {name: m.row_layout for name, m in _table_owners(seq).items()
+            if m.row_layout is not None}
+
+
+def _as_torch(flax_path: str, value, like: torch.Tensor, layout=None) -> torch.Tensor:
     arr = np.asarray(value)
+    if layout is not None:  # a row-sharded table: this rank's rows of the global array
+        from torecsys_tpu_torch.parallel.sharding import local_shard
+
+        arr = local_shard(arr, layout)
     if flax_path.split(SEP)[-1] == "kernel":
         # a convolution's (kh, kw, in, out) → (out, in, kh, kw); else reversed
         arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
@@ -196,6 +213,7 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
         ``seq``.  Every parameter of ``seq`` must be filled.
     """
     named = dict(seq.named_parameters())
+    layouts = _layouts(seq)
     flat = flatten(params_np)
     missing = set(named) - {torch_name(p) for p in flat}
     if missing:
@@ -205,7 +223,7 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
             name = torch_name(path)
             if name not in named:
                 raise KeyError(f"flax parameter {path!r} has no counterpart {name!r}")
-            named[name].copy_(_as_torch(path, value, named[name]))
+            named[name].copy_(_as_torch(path, value, named[name], layouts.get(name)))
     if batch_stats is not None:
         buffers = dict(seq.named_buffers())
         with torch.no_grad():
@@ -217,7 +235,7 @@ def from_flax_params(seq: nn.Module, params_np: Mapping,
     if opt_state_np is not None:
         if state is None:
             raise ValueError("opt_state_np needs the port's TrainState to fill")
-        _carry_opt_state(named, opt_state_np, state, step)
+        _carry_opt_state(named, opt_state_np, state, step, layouts)
     return seq
 
 
@@ -260,7 +278,7 @@ _TORCH_ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
 
 
 def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, state,
-                     step: Optional[int]) -> None:
+                     step: Optional[int], layouts: Optional[Dict] = None) -> None:
     """Fill the port's optimizer state from the JAX package's: each optax
     field's tree into the per-parameter state key of the same name
     (``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` for ``mu``/``nu``),
@@ -278,7 +296,8 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
     with torch.no_grad():
         for path in paths:
             p = named[torch_name(path)]
-            values = {k: _as_torch(path, tree[path], p) for k, tree in trees.items()}
+            layout = (layouts or {}).get(torch_name(path))
+            values = {k: _as_torch(path, tree[path], p, layout) for k, tree in trees.items()}
             live = opt.state.get(p)
             if not live:  # torch's lazily built state: Adam's before its first step
                 if count is None:
@@ -299,22 +318,30 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
                                      f"{path!r} has no count")
                 live["step"].fill_(count)
         for path, slots in (opt_state_np["sparse"].items() if hybrid else ()):
-            copy_row_slots(slots, state.opt_state["sparse"][torch_name(path)])
+            copy_row_slots(slots, state.opt_state["sparse"][torch_name(path)],
+                           (layouts or {}).get(torch_name(path)))
         if step is not None or count is not None:
             state.step.fill_(count if step is None else step)
 
 
-def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor]) -> None:
+def copy_row_slots(slots_np: Mapping, port_slots: Dict[str, torch.Tensor],
+                   layout=None) -> None:
     """Copy one table's row-wise optimizer slots from the JAX package (numpy;
     ``{"mv": (R, 2, W)}`` of ``RowAdam``, ``{"v": (R, W)}`` of ``RowAdagrad``,
     ``{}`` of ``RowSGD``) into the port's, in place; the names must match,
     and the shapes but for the leading stored-row axes, which the port
-    flattens (a field-aware table's ``(N, Vp, 2, W)`` fills ``(N*Vp, 2, W)``)."""
+    flattens (a field-aware table's ``(N, Vp, 2, W)`` fills ``(N*Vp, 2, W)``).
+    With ``layout`` (a row-sharded table) the global slots give this rank's
+    rows."""
     if set(slots_np) != set(port_slots):
         raise KeyError(f"row slots {sorted(slots_np)} do not match {sorted(port_slots)}")
     with torch.no_grad():
         for k, v in slots_np.items():
             arr = np.asarray(v)
+            if layout is not None:
+                from torecsys_tpu_torch.parallel.sharding import local_shard
+
+                arr = local_shard(arr, layout)
             shape = tuple(port_slots[k].shape)
             if arr.ndim > len(shape) and arr.shape[arr.ndim - len(shape) + 1:] == shape[1:]:
                 arr = arr.reshape(shape)

@@ -6,9 +6,12 @@ Criteo parser (``data.native``), optionally shuffled (the chunk is the
 shuffle buffer) and cut into batches of exactly ``batch_size`` rows, so peak
 host memory is O(chunk), not O(file).
 
-Several processes: ``shard_index``/``num_shards`` (by default the
-``torch.distributed`` rank and world size when a process group is
-initialised, else 0 and 1) give each process every ``num_shards``-th chunk.
+Several nodes: ``shard_index``/``num_shards`` (by default the node's
+index and the number of nodes of the ``torch.distributed`` world, from
+``LOCAL_WORLD_SIZE``, as ``torchrun`` sets it; 0 and 1 on one node or
+without a process group) give each node every ``num_shards``-th chunk.  A
+node is the JAX package's process: on one node every rank reads the whole
+file, and the Trainer keeps each rank's slice of each batch.
 """
 
 from __future__ import annotations
@@ -22,13 +25,13 @@ from torecsys_tpu_torch.data.native import NUM_CATS, parse_criteo_tsv
 
 
 def _process_shard() -> Tuple[int, int]:
-    """(rank, world size) of the ``torch.distributed`` process group when one
-    is initialised, else (0, 1)."""
-    import torch.distributed as dist
+    """(node index, nodes) of the ``torch.distributed`` world, (0, 1) on one
+    node or without a process group."""
+    from torecsys_tpu_torch.parallel.mesh import local_world_size, world
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    rank, size = world()
+    local = local_world_size()
+    return rank // local, max(1, size // local)
 
 
 def _columns(parsed: Dict[str, np.ndarray], target_fields: str) -> Dict[str, np.ndarray]:

@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
-from torecsys_tpu_torch.ops.embedding import field_offsets, packed_lookup, packed_shape
+from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
+from torecsys_tpu_torch.parallel.lookup import maybe_sharded_packed_lookup
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
 
@@ -86,6 +87,8 @@ class TableInput(BaseInput):
         self.embedding = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
         self.sparse_grads = False
         self._lookup: Optional[SparseLookup] = None
+        # this rank's rows when the table is row-sharded (parallel.sharding)
+        self.row_layout = None
 
     def _draw(self, table: torch.Tensor, generator) -> None:
         """Draw the float32 table in place (the subclass's initializer)."""
@@ -117,8 +120,15 @@ class TableInput(BaseInput):
 
     def table_view(self) -> torch.Tensor:
         """The table as the ``(rows, W)`` stored rows the row-wise optimizer
-        and the update kernels work on (a view, detached)."""
+        and the update kernels work on (a view, detached; this rank's rows of
+        a row-sharded table)."""
         return self.embedding.detach().reshape(-1, self.embedding.shape[-1])
+
+    def logical_rows(self) -> int:
+        """Logical rows of the whole table, ``(stored rows) * P``."""
+        stored = (self.row_layout.rows if self.row_layout is not None
+                  else self.embedding.numel() // self.embedding.shape[-1])
+        return stored * self.pack
 
     def _lookup_rows(self, ids: torch.Tensor, batch: Optional[Batch]) -> torch.Tensor:
         """``logical_table[ids]``, float32: through autograd into the table,
@@ -126,13 +136,15 @@ class TableInput(BaseInput):
         if not (self.sparse_grads and torch.is_grad_enabled()):
             # rows of a bf16 table are cast to float32 here, at the module
             # boundary: the model and the loss see float32
-            return packed_lookup(self.embedding, ids, self.embed_size).float()
+            return maybe_sharded_packed_lookup(self.embedding, ids, self.embed_size,
+                                               self.row_layout).float()
         if self._lookup is not None:
             raise RuntimeError(
                 f"{type(self).__name__} applied twice in one step: sparse embedding "
                 "gradients need exactly one lookup per module per step"
             )
-        rows = packed_lookup(self.embedding.detach(), ids, self.embed_size)
+        rows = maybe_sharded_packed_lookup(self.embedding.detach(), ids, self.embed_size,
+                                           self.row_layout)
         rows.requires_grad_(True)
         self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch))
         return rows

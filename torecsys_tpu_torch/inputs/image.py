@@ -12,23 +12,20 @@ Images are NHWC ``(B, H, W, C)`` of any dtype (uint8 pixels included), cast
 to float32.  The tower computes in float32 whatever the pipeline's compute
 dtype, as the JAX package builds it without ``dtype=``.
 
-The convolutions are the JAX package's ``nn.Conv``: outside any Pallas
-kernel there, so here cuDNN's (``F.conv2d``), on the NHWC batch viewed as an
-NCHW tensor in the ``channels_last`` memory format, with no copy.  flax pads
-``'SAME'`` with ``total // 2`` on the low side and the rest on the high side
-(asymmetric for a stride above 1 or an even kernel); an asymmetric padding
-is applied explicitly.  flax's kernel ``(kh, kw, in, out)`` is the port's
-``weight`` ``(out, in, kh, kw)`` (``convert``).
+The convolutions are the JAX package's ``nn.Conv`` (outside any Pallas
+kernel there), on the NHWC batch viewed as an NCHW tensor in the
+``channels_last`` memory format, with no copy.  flax pads ``'SAME'`` with
+``total // 2`` on the low side and the rest on the high side (asymmetric for
+a stride above 1 or an even kernel); an asymmetric padding is applied
+explicitly.  flax's kernel ``(kh, kw, in, out)`` is the port's ``weight``
+``(out, in, kh, kw)`` (``convert``).
 
-Precision on the card: each convolution's forward runs inside
-``torch.backends.cudnn.flags(allow_tf32=False, deterministic=True,
-benchmark=False)`` (:class:`_Conv2d`): float32 arithmetic, as the JAX
-package's float32 ``nn.Conv``, and deterministic algorithms.  The flags are
-cuDNN's process-wide settings; they are set for the call and restored after
-it, so the caller's settings are what they were.  The backward is not
-cuDNN's but the port's own, of GEMMs and ordered reductions
-(:class:`_Conv2d`), so that a replayed step equals its eager steps to the
-bit.
+Both directions are the port's own (:class:`_Conv2d`), not cuDNN's: the
+input unfolded into columns and batched float32 GEMMs (TF32 off, as the
+JAX package's float32 ``nn.Conv``), each reduction of a fixed order.  cuDNN
+picks its engine, and with it its bits, from the memory free when a plan is
+made, so its convolutions could not give a replayed step the bits of its
+eager steps; these do.
 """
 
 from __future__ import annotations
@@ -57,12 +54,7 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _conv_flags():
-    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                      allow_tf32=False)
-
-
-# the unfolded input of one batch chunk of the backward, at most (bytes)
+# the unfolded input of one batch chunk of either direction, at most (bytes)
 COLS_BYTES = 256 << 20
 
 
@@ -77,30 +69,44 @@ def columns(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Te
     return win.permute(0, 1, 4, 5, 2, 3).reshape(n, c * kernel * kernel, ho * wo)
 
 
+def _chunk(x: torch.Tensor, cols_per: int, positions: int) -> int:
+    """Examples a batch chunk of :func:`columns` holds (:data:`COLS_BYTES`)."""
+    return max(1, COLS_BYTES // (cols_per * positions * x.element_size()))
+
+
 class _Conv2d(torch.autograd.Function):
-    """``F.conv2d`` (cuDNN, under :func:`_conv_flags`) with a backward of its
-    own.  cuDNN's deterministic algorithms are each reproducible, but which
-    one runs depends on the memory free when its plan is made: PyTorch tries
-    cuDNN's engines in the heuristic's order, takes the first whose
-    workspace it can allocate, and keeps that plan for later calls.  At the
+    """A convolution of the port's own, both directions, in batch chunks of
+    the input unfolded (:func:`columns`, at most :data:`COLS_BYTES` a
+    chunk).  cuDNN's deterministic algorithms are each reproducible, but
+    which one runs depends on the memory free when its plan is made: at the
     image tower's second convolution (batch 4096, 32 to 64 channels at
-    32x32) the weight gradient already takes another engine, with other
-    bits, when 8 GiB are free beyond its outputs than when the card is
-    free, so a replay could not equal its eager steps.  The backward takes
-    batch chunks of the input unfolded (:func:`columns`, at most
-    :data:`COLS_BYTES` a chunk): the weight gradient is each chunk's batched
-    product of the output gradient with the columns, summed chunk by chunk
-    in order; the input gradient the weight's product with the output
-    gradient, folded back (``F.fold``, which gathers); the bias gradient a
-    sum.  Every part is a GEMM or a reduction of a fixed order: the same bits
-    in every run, eager or replayed."""
+    32x32) its forward and input gradient took other bits with 1 GiB free
+    beyond their outputs, its weight gradient with 8 GiB, than with the
+    card free (``tools/torch_conv_probe.py``).  The forward is each chunk's
+    batched product of the columns with the weight, written as
+    ``channels_last`` output, plus the bias; the backward's weight gradient
+    each chunk's batched product of the output gradient with the columns,
+    summed chunk by chunk in order; its input gradient the weight's product
+    with the output gradient, folded back (``F.fold``, which gathers); the
+    bias gradient a sum.  Every part is a GEMM or a reduction of a fixed
+    order: the same bits in every run, eager or replayed."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, stride: int, padding: int):
         ctx.save_for_backward(x, weight)
         ctx.stride, ctx.padding = stride, padding
-        with _conv_flags():
-            return F.conv2d(x, weight, bias, stride, padding)
+        out_ch, k = weight.shape[0], weight.shape[-1]
+        w2t = weight.contiguous().reshape(out_ch, -1).t()
+        b, _, h, w = x.shape
+        ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+        out = x.new_empty((b, ho, wo, out_ch))  # NHWC: the NCHW result channels_last
+        chunk = _chunk(x, w2t.shape[0], ho * wo)
+        for i in range(0, b, chunk):
+            cols = columns(x[i:i + chunk], k, stride, padding)
+            dst = out[i:i + chunk].view(-1, ho * wo, out_ch)
+            torch.matmul(cols.transpose(1, 2), w2t, out=dst)
+            dst.add_(bias)
+        return out.permute(0, 3, 1, 2)
 
     @staticmethod
     def backward(ctx, grad):
@@ -110,7 +116,7 @@ class _Conv2d(torch.autograd.Function):
         w2 = weight.contiguous().reshape(out_ch, -1)
         grad = grad.contiguous()
         b, cols_per, positions = x.shape[0], w2.shape[1], grad.shape[2] * grad.shape[3]
-        chunk = max(1, COLS_BYTES // (cols_per * positions * x.element_size()))
+        chunk = _chunk(x, cols_per, positions)
         gw = torch.zeros_like(w2)
         gx = torch.empty_like(x) if ctx.needs_input_grad[0] else None
         for i in range(0, b, chunk):

@@ -31,7 +31,7 @@ from torecsys_tpu_torch.inputs.base import BaseInput, Batch
 from torecsys_tpu_torch.layers.ctr.attention import MultiHeadDotProductAttention
 from torecsys_tpu_torch.layers.ctr.dense import Dense
 from torecsys_tpu_torch.layers.rnn import CELLS, RNN, Bidirectional
-from torecsys_tpu_torch.ops.embedding import packed_lookup
+from torecsys_tpu_torch.parallel.lookup import maybe_sharded_packed_lookup
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
 OUTPUT_METHODS = ("avg_pooling", "mean", "max_pooling", "sum", "none")
@@ -81,6 +81,7 @@ class _SequenceTable(BaseInput):
         self.output_method = output_method
         self.embedding = nn.Parameter(torch.empty(self.field_size, self.embed_size,
                                                   device=device))
+        self.row_layout = None  # this rank's rows when the table is row-sharded
 
     def reset_parameters(self, generator=None) -> None:
         with torch.no_grad():
@@ -97,7 +98,8 @@ class _SequenceTable(BaseInput):
         return ids[:, None] if ids.dim() == 1 else ids
 
     def _lookup(self, ids: torch.Tensor) -> torch.Tensor:
-        return packed_lookup(self.embedding, ids.to(torch.int64), self.embed_size)
+        return maybe_sharded_packed_lookup(self.embedding, ids.to(torch.int64), self.embed_size,
+                                           self.row_layout)
 
 
 class ListIndicesEmbedding(_SequenceTable):

@@ -24,7 +24,10 @@ class BatchNorm(nn.Module):
     statistics are computed in float32 the "fast" way, ``mean = E[x]`` and
     ``var = max(E[x²] − E[x]², 0)``, biased; the running statistics move as
     ``ra = momentum·ra + (1 − momentum)·batch``, where torch's running
-    variance is unbiased and its momentum is the other weight.  In
+    variance is unbiased and its momentum is the other weight.  Under a
+    mesh whose data axis is split the batch's statistics are the global
+    batch's (``parallel.lookup.data_mean``), as the JAX package's SPMD step
+    takes them.  In
     ``eval()`` the running statistics normalize.  The output is
     ``(x − mean)·(rsqrt(var + eps)·scale) + bias``.
 
@@ -58,10 +61,14 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axis = x.dim() + self.axis
         if self.training:
+            from torecsys_tpu_torch.parallel.lookup import data_mean
+
             xf = x.float()
             dims = tuple(d for d in range(x.dim()) if d != axis)
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min(torch.square(xf).mean(dim=dims) - torch.square(mean), 0.0)
+            # E[x] and E[x²] of the global batch under a split data axis
+            moments = data_mean(torch.stack([xf.mean(dim=dims), torch.square(xf).mean(dim=dims)]))
+            mean = moments[0]
+            var = torch.clamp_min(moments[1] - torch.square(mean), 0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)

@@ -24,8 +24,15 @@ applies its rule to just the stored rows the batch touched.  Two routes:
   ``fused_sorted_dedup_update`` kernel.
 
 :func:`dedup_sum`, :func:`dedup_sum_stored` and :func:`dedup_sum_fields` are
-the reference contracts of the dedup, as in the JAX package.  The sharded
-update (``sharded_row_update``) is not ported.
+the reference contracts of the dedup, as in the JAX package.
+
+A row-sharded table (``parallel.sharding``) takes both routes up to the
+unique rows, on the global id stream, then :func:`sharded_row_update`: each
+table rank keeps the rows it owns and updates them in its shard with the
+same ``fused_rowwise_update``.  Under a mesh whose table axis is split the
+on-device route does not take the one-pass ``fused_sorted_dedup_update``
+even when ``TORECSYS_TPU_FUSED_DEDUP=1`` asks for it: it combines and
+updates as by default, as the JAX package's kernel gate yields there.
 
 Semantics are those of the JAX package: lazy optimizers (rows absent from a
 batch keep their slots), Adam's global-step bias correction, decoupled
@@ -159,6 +166,42 @@ def _sorted_gsum(g_sorted: torch.Tensor, lo: torch.Tensor, seg: torch.Tensor,
     return K.widen_segment_sum(g_sorted, lo, seg, pack)
 
 
+def _table_axis_split() -> bool:
+    """Whether a sharded lookup context whose table axis is split is
+    active (the JAX package's ``_sharded_update_ctx() is not None``)."""
+    from torecsys_tpu_torch.parallel import lookup as _lookup
+
+    ctx = _lookup._context()
+    return ctx is not None and ctx.mesh.shape.get(ctx.table_axis, 1) > 1
+
+
+def sharded_row_update(row_tx, table: torch.Tensor, slots: Dict[str, torch.Tensor],
+                       uids: torch.Tensor, gsum: torch.Tensor, step: torch.Tensor, layout):
+    """Apply a row-wise optimizer to this table rank's shard of a
+    row-sharded table, in place.
+
+    ``uids``/``gsum`` are the global ascending unique stored rows (the
+    sentinel ``layout.rows`` past the last) and their summed gradients, the
+    same on every rank.  The rank keeps the rows it owns, moved to the
+    valid prefix in their order with their shard-local ids (the sentinel
+    ``local_rows`` after them), and runs ``row_tx.update`` (the
+    ``fused_rowwise_update`` kernel) on its local table and slots with that
+    count: the same state as the update of the whole table, row by row.
+    """
+    r = uids.to(torch.int64)
+    mine = layout.served(r)
+    m = uids.shape[0]
+    pos = torch.cumsum(mine.to(torch.int64), 0) - 1
+    dest = torch.where(mine, pos, torch.full_like(pos, m))
+    local_u = torch.full((m + 1,), layout.local_rows, dtype=torch.int32, device=uids.device)
+    local_u.scatter_(0, dest, layout.local(r).to(torch.int32))
+    local_g = gsum.new_zeros(m + 1, gsum.shape[1])
+    local_g.index_copy_(0, dest, gsum)  # the slot m collects what is not mine; dropped
+    n_mine = mine.sum(dtype=torch.int32)
+    return row_tx.update(table, slots, local_u[:m], local_g[:m].contiguous(), step,
+                         n_valid=n_mine)
+
+
 def _hyper(step: torch.Tensor, *values) -> torch.Tensor:
     """The ``(7,)`` float32 hyperparameter vector on ``step``'s device, from
     floats or 0-d tensors; nothing is read back.  A schedule as the learning
@@ -199,30 +242,37 @@ class _RowOptimizerBase:
         return table, slots
 
     def update_sorted(self, table: torch.Tensor, slots: Dict[str, torch.Tensor],
-                      sorted_ids: torch.Tensor, g_sorted: torch.Tensor, step: torch.Tensor):
+                      sorted_ids: torch.Tensor, g_sorted: torch.Tensor, step: torch.Tensor,
+                      layout=None):
         """On-device route, in place: an ascending ``(M,)`` logical id stream
         and its ``(M, E)`` grads (:func:`sort_slot_grads`).
 
         The JAX package's switch selects the kernels: with
-        ``TORECSYS_TPU_FUSED_DEDUP=1`` one ``fused_sorted_dedup_update``;
-        otherwise the combine (``widen_segment_sum`` or
-        ``segment_sum_wide``) and ``fused_rowwise_update``, whose unique
-        count stays on the device.
+        ``TORECSYS_TPU_FUSED_DEDUP=1`` one ``fused_sorted_dedup_update``
+        (not under a split table axis); otherwise the combine
+        (``widen_segment_sum`` or ``segment_sum_wide``) and
+        ``fused_rowwise_update``, whose unique count stays on the device.
+        With ``layout`` the table is this rank's shard of a row-sharded
+        table and the stream the global one (:func:`sharded_row_update`).
         """
         e = g_sorted.shape[-1]
         w = table.shape[-1]
         pack = w // e
         tbl = table.reshape(-1, w)
-        if fused_dedup_enabled():
+        if fused_dedup_enabled() and layout is None and not _table_axis_split():
             hyper, rule = self.hyper_and_rule(step)
             K.fused_sorted_dedup_update(sorted_ids, g_sorted, tbl, self._slot_tuple(slots, w),
                                         hyper, pack, rule)
             return table, slots
-        uids, gsum, n_unique = _combine_sorted_stored(sorted_ids, g_sorted, pack, tbl.shape[0])
+        rows = tbl.shape[0] if layout is None else layout.rows
+        uids, gsum, n_unique = _combine_sorted_stored(sorted_ids, g_sorted, pack, rows)
+        if layout is not None:
+            return sharded_row_update(self, table, slots, uids, gsum, step, layout)
         return self.update(table, slots, uids, gsum, step, n_valid=n_unique)
 
     def update_from_host_aux(self, table: torch.Tensor, slots: Dict[str, torch.Tensor],
-                             flat_g: torch.Tensor, aux: Dict, step: torch.Tensor):
+                             flat_g: torch.Tensor, aux: Dict, step: torch.Tensor,
+                             layout=None):
         """Trusted PRESORTED route, in place.
 
         Args:
@@ -238,11 +288,16 @@ class _RowOptimizerBase:
                 update kernel reads there: nothing is read back, so the step
                 can be captured in a CUDA graph.
             step: 0-d int tensor of completed steps.
+            layout: with a row-sharded table, its ``RowLayout``: ``table``
+                and ``slots`` are this rank's shard, the aux the global
+                batch's (:func:`sharded_row_update`).
         """
         e = flat_g.shape[-1]
         pack = table.shape[-1] // e
         g_sorted = KE.row_gather(flat_g.contiguous(), aux["order"])
         gsum = _sorted_gsum(g_sorted, aux["lo"], aux["seg"], pack)
+        if layout is not None:
+            return sharded_row_update(self, table, slots, aux["uids"], gsum, step, layout)
         n_unique = aux["n_unique"]
         if isinstance(n_unique, torch.Tensor):
             n_unique = n_unique.reshape(())
@@ -337,4 +392,4 @@ def get_row_optimizer(method: str = "Adam", lr: float = 1e-3, **kwargs) -> Optio
 
 __all__ = ["RowAdagrad", "RowAdam", "RowSGD", "dedup_sum", "dedup_sum_fields",
            "dedup_sum_stored", "fused_dedup_enabled", "get_row_optimizer", "prefix_sum",
-           "sort_slot_grads"]
+           "sharded_row_update", "sort_slot_grads"]

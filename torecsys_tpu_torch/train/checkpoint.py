@@ -28,18 +28,31 @@ state's tensor in place: device memory does not grow by a second copy of the
 table and its slots, and a CUDA graph captured over the state
 (``train.steps.make_train_scan``) stays valid.
 
-One process: the whole state lives in this process.  When a
-``torch.distributed`` process group is initialised, only rank 0 writes (the
-state is replicated; sharded tables are not ported).
+Under a mesh (``parallel``) whose tables are row-sharded the checkpoint is
+format 2: each rank of the first data slice (``d = 0``; the other slices
+hold the same rows) writes its shards of every sharded tensor (the table,
+its row slots, a dense-route table's optimizer state) to
+``path + ".shard<t>"``, and then rank 0 writes ``path`` itself, the manifest:
+the format-1 content with each sharded tensor recorded by its global shape
+and layout instead.  Every rank waits for the whole checkpoint before it
+goes on.  Without sharded tables (one device, or a mesh that replicates
+everything) rank 0 writes format 1, the whole state.
+
+A restore re-places every tensor by the live state's own layout, whatever
+wrote it: a format-1 checkpoint or a format-2 one, of the same mesh, of
+another, or restored on one device (each rank reads, memory-mapped, the
+global rows it holds).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import math
 import os
 import re
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -51,6 +64,7 @@ from torecsys_tpu_torch.train.state import TrainState, batch_stats
 logger = logging.getLogger(__name__)
 
 FORMAT = 1
+SHARDED_FORMAT = 2
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
@@ -106,19 +120,147 @@ def _is_writer() -> bool:
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
-def save_checkpoint(path: str, seq: nn.Module, state: TrainState) -> str:
+def _sharded_tensors(seq: nn.Module, state: TrainState) -> Dict[str, tuple]:
+    """``{key: (live tensor, RowLayout)}`` of every tensor of a row-sharded
+    table: ``params/<name>``, ``row_slots/<name>/<slot>`` and the dense
+    optimizer's per-parameter state ``dense_opt/<index>/<key>``."""
+    from torecsys_tpu_torch.parallel.sharding import _table_owners
+
+    out = {}
+    opt = _dense_optimizer(state)
+    index = _dense_index(opt)
+    hybrid = is_hybrid_opt_state(state.opt_state)
+    for name, module in _table_owners(seq).items():
+        layout = module.row_layout
+        if layout is None:
+            continue
+        p = module.embedding
+        out[f"params/{name}"] = (p, layout)
+        if hybrid and name in state.opt_state["sparse"]:
+            for k, v in state.opt_state["sparse"][name].items():
+                out[f"row_slots/{name}/{k}"] = (v, layout)
+        if id(p) in index:
+            for k, v in opt.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    out[f"dense_opt/{index[id(p)]}/{k}"] = (v, layout)
+    return out
+
+
+def _dense_index(opt) -> Dict[int, int]:
+    """``{id(parameter): its index in the optimizer's state_dict}``."""
+    return {id(p): i for i, p in enumerate(p for g in opt.param_groups for p in g["params"])}
+
+
+def _entry(ckpt: Dict, key: str):
+    """The (container, last key) of ``key`` in a checkpoint dict."""
+    kind, rest = key.split("/", 1)
+    if kind == "params":
+        return ckpt["params"], rest
+    if kind == "row_slots":
+        table, slot = rest.rsplit("/", 1)
+        return ckpt["row_slots"][table], slot
+    i, k = rest.split("/", 1)
+    return ckpt["dense_opt"]["state"][int(i)], k
+
+
+def _barrier(mesh) -> None:
+    mesh.world_all_reduce(torch.zeros(1, device=mesh.device))
+
+
+def save_checkpoint(path: str, seq: nn.Module, state: TrainState, mesh=None) -> str:
     """Write ``seq``'s parameters and ``state`` to ``path`` (through
-    ``path + ".tmp"`` and a rename).  Returns the path."""
-    if not _is_writer():
+    ``path + ".tmp"`` and a rename); under a ``mesh`` with row-sharded
+    tables, each rank's shards beside it (format 2).  Returns the path."""
+    sharded = _sharded_tensors(seq, state) if mesh is not None else {}
+    if not sharded:
+        if _is_writer():
+            _write(path, _checkpoint_dict(seq, state))
+        if mesh is not None:
+            _barrier(mesh)
         return path
+    from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t = mesh.index(TABLE_AXIS)
+    if mesh.index(DATA_AXIS) == 0:
+        _write(f"{path}.shard{t}", {key: _cpu(v) for key, (v, _) in sharded.items()})
+    _barrier(mesh)  # every shard is on disk before the manifest names it
+    if _is_writer():
+        ckpt = _checkpoint_dict(seq, state)
+        meta = {}
+        for key, (v, layout) in sharded.items():
+            container, k = _entry(ckpt, key)
+            container[k] = torch.empty(0)
+            meta[key] = {"rows": layout.rows, "blocks": layout.blocks,
+                         "shards": layout.shards,
+                         "shape": [layout.rows] + list(v.shape[_lead_dims(v, layout.local_rows):])}
+        ckpt.update(format=SHARDED_FORMAT, sharded=meta,
+                    shard_files=[f"{os.path.basename(path)}.shard{i}"
+                                 for i in range(mesh.shape[TABLE_AXIS])])
+        _write(path, ckpt)
+    _barrier(mesh)
+    return path
+
+
+def _write(path: str, content: Dict) -> None:
     t0 = time.perf_counter()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(_checkpoint_dict(seq, state), tmp)
+    torch.save(content, tmp)
     os.replace(tmp, path)
     logger.info("saved checkpoint %s (%.3f GB) in %.2f s", path,
                 os.path.getsize(path) / 1e9, time.perf_counter() - t0)
-    return path
+
+
+def _lead_dims(t: torch.Tensor, rows: int) -> int:
+    """How many leading axes of a table tensor count its ``rows`` stored
+    rows (2 for a field-aware table's ``(N, Vl, W)``, 1 for its flat slots)."""
+    for k in range(1, t.dim() + 1):
+        if math.prod(t.shape[:k]) == rows:
+            return k
+    raise ValueError(f"no leading axes of {tuple(t.shape)} count {rows} rows")
+
+
+def _rows_view(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` as ``(rows, ...)``: its leading axes merged into ``rows``."""
+    return t.reshape(rows, *t.shape[_lead_dims(t, rows):])
+
+
+class _Source:
+    """Where a restore reads each saved tensor: the checkpoint dict, and for
+    format 2 the shard files (memory-mapped), re-placed by the live
+    layouts."""
+
+    def __init__(self, path: str, saved: Dict):
+        self.saved = saved
+        self.meta = saved.get("sharded", {})
+        base = os.path.dirname(path)
+        self.shards = [torch.load(os.path.join(base, name), map_location="cpu",
+                                  weights_only=True, mmap=True)
+                       for name in saved.get("shard_files", [])]
+
+    def fetch(self, key: str, value: torch.Tensor, live: torch.Tensor, layout) -> torch.Tensor:
+        """The saved tensor of ``key`` as the live one holds it: this rank's
+        rows under ``layout`` (None: the whole tensor)."""
+        from torecsys_tpu_torch.parallel.sharding import RowLayout
+
+        meta = self.meta.get(key)
+        if meta is None:
+            if layout is None:
+                return value
+            return _rows_view(value, layout.rows)[layout.global_rows()].reshape(live.shape)
+        rows = (layout.global_rows() if layout is not None
+                else torch.arange(meta["rows"], dtype=torch.int64))
+        saved_layout = RowLayout(rows=meta["rows"], shards=meta["shards"], index=0,
+                                 blocks=meta["blocks"])
+        owner = saved_layout.owner(rows)
+        out = torch.empty((rows.shape[0], *meta["shape"][1:]),
+                          dtype=self.shards[0][key].dtype)
+        for s, shard in enumerate(self.shards):
+            lay = dataclasses.replace(saved_layout, index=s)
+            sel = (owner == s).nonzero().squeeze(1)
+            out[sel] = _rows_view(shard[key], lay.local_rows)[lay.local(rows[sel])]
+        return out.reshape(live.shape)
 
 
 def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
@@ -129,10 +271,12 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
     dst.copy_(src)
 
 
-def _restore_dense_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
+def _restore_dense_optimizer(opt: torch.optim.Optimizer, saved: Dict,
+                             fetch: Callable = lambda i, k, v, live: v) -> None:
     """Copy a saved ``state_dict()`` into ``opt``'s per-parameter state, in
     place where the live state already has the tensor; the live
-    hyperparameters stay."""
+    hyperparameters stay.  ``fetch(i, key, saved value, live tensor)``
+    re-places a saved tensor for the live one."""
     params = [p for group in opt.param_groups for p in group["params"]]
     sizes = [len(g["params"]) for g in saved["param_groups"]]
     if sizes != [len(g["params"]) for g in opt.param_groups]:
@@ -154,7 +298,8 @@ def _restore_dense_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
             continue
         live = opt.state.get(p)
         if not live:  # torch's lazily built state (Adam's before its first step)
-            opt.state[p] = {k: v.to(p.device if k != "step" or step_on_device else "cpu")
+            opt.state[p] = {k: fetch(i, k, v, p).to(p.device if k != "step" or step_on_device
+                                                    else "cpu")
                             for k, v in saved["state"][i].items()}
             continue
         if set(live) != set(saved["state"][i]):
@@ -162,7 +307,8 @@ def _restore_dense_optimizer(opt: torch.optim.Optimizer, saved: Dict) -> None:
                              f"parameter {i} does not match the live {sorted(live)} (another "
                              "optimizer or setting?)")
         for k, v in saved["state"][i].items():
-            _copy_into(live[k], v, f"dense optimizer state {k!r} of parameter {i}")
+            _copy_into(live[k], fetch(i, k, v, live[k]),
+                       f"dense optimizer state {k!r} of parameter {i}")
 
 
 def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainState:
@@ -172,13 +318,34 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
     The pipeline must be built as for the saved run (same model, inputs and
     optimizer).  A checkpoint of the sparse route cannot restore onto the
     dense route, nor the reverse: their optimizer states differ in layout,
-    and this raises ``ValueError`` naming ``set_sparse_embeddings``.
+    and this raises ``ValueError`` naming ``set_sparse_embeddings``.  Each
+    tensor is re-placed by the live state's layout (``_Source``).
     """
     t0 = time.perf_counter()
     saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    if saved.get("format") != FORMAT:
+    if saved.get("format") not in (FORMAT, SHARDED_FORMAT):
         raise ValueError(f"{path!r} is not a checkpoint of this format (format "
-                         f"{saved.get('format')!r}, expected {FORMAT})")
+                         f"{saved.get('format')!r}, expected {FORMAT} or {SHARDED_FORMAT})")
+    source = _Source(path, saved)
+    layouts = {key: layout for key, (_, layout) in _sharded_tensors(seq, state).items()}
+    # a sharded parameter's dense optimizer state may not be built yet
+    # (torch's Adam builds it at the first step): its row tensors take the
+    # parameter's layout
+    index, named = _dense_index(_dense_optimizer(state)), dict(seq.named_parameters())
+    for key, layout in list(layouts.items()):
+        if key.startswith("params/") and id(named[key[7:]]) in index:
+            layouts[f"dense_opt/{index[id(named[key[7:]])]}"] = layout
+
+    def fetch(key, value, live):
+        layout = layouts.get(key)
+        if layout is None and key.startswith("dense_opt/"):
+            layout = layouts.get(key.rsplit("/", 1)[0])
+            rows = layout.rows if layout is not None else None
+            if layout is not None and key not in source.meta and (
+                    value.dim() == 0 or math.prod(value.shape[:-1]) != rows):
+                layout = None  # a scalar of the state (its step), not rows
+        return source.fetch(key, value, live, layout)
+
     hybrid = is_hybrid_opt_state(state.opt_state)
     if bool(saved["sparse"]) != hybrid:
         raise ValueError(
@@ -186,7 +353,6 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
             f"embedding route but this trainer runs the {'sparse' if hybrid else 'dense'} one; "
             "the optimizer-state layouts are incompatible: set "
             "Pipeline.set_sparse_embeddings to match the checkpoint (or retrain)")
-    named = dict(seq.named_parameters())
     if set(saved["params"]) != set(named):
         raise ValueError(f"checkpoint {path!r} holds parameters "
                          f"{sorted(set(saved['params']) ^ set(named))} that the model does "
@@ -199,10 +365,12 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
                          "have, or lacks some it has")
     with torch.no_grad():
         for name, value in saved["params"].items():
-            _copy_into(named[name], value, f"parameter {name!r}")
+            _copy_into(named[name], fetch(f"params/{name}", value, named[name]),
+                       f"parameter {name!r}")
         for name, value in saved_buffers.items():
             _copy_into(buffers[name], value, f"buffer {name!r}")
-        _restore_dense_optimizer(_dense_optimizer(state), saved["dense_opt"])
+        _restore_dense_optimizer(_dense_optimizer(state), saved["dense_opt"],
+                                 lambda i, k, v, live: fetch(f"dense_opt/{i}/{k}", v, live))
         if hybrid:
             live_slots = state.opt_state["sparse"]
             if set(saved["row_slots"]) != set(live_slots):
@@ -214,7 +382,9 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
                     raise ValueError(f"checkpoint row slots {sorted(slots)} of {table!r} do "
                                      f"not match {sorted(live_slots[table])}")
                 for k, v in slots.items():
-                    _copy_into(live_slots[table][k], v, f"row slot {k!r} of {table!r}")
+                    live = live_slots[table][k]
+                    _copy_into(live, fetch(f"row_slots/{table}/{k}", v, live),
+                               f"row slot {k!r} of {table!r}")
         state.step.fill_(saved["step"])
         _copy_into(state.loss_sum, saved["loss_sum"], "loss_sum")
     state.loss_count = int(saved["loss_count"])

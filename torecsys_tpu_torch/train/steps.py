@@ -35,6 +35,21 @@ the dense route only; the sparse step refuses them, and a regularizer whose
 filter matches a sparse table (its penalty's gradient cannot reach the
 table there).
 
+Under a mesh (``parallel``; the Trainer enters ``use_sharded_lookup``
+around each step, so the tables' lookups take the collectives) a rank steps
+on its data slice: its loss is the slice's mean over ``dp``, the data axis'
+size, so that summed over the data group it is the global batch's mean; the
+gradients of the replicated parameters (every parameter's on the dense
+route, a sharded table's included, whose lookup backward fills only the
+rank's rows) are summed over the data group, and the step's loss is the
+data group's sum.  On the sparse route each table's ids and per-slot
+gradients are gathered over the data group in global batch order, so every
+rank takes the global stream's unique rows and sums, as the JAX package's
+step does; a row-sharded table's rank then updates its own rows
+(``ops.sparse.sharded_row_update``).  Each table rank of a data slice runs
+the same tower on the same slice, so the ranks stay equal without a
+reduction over the table group.
+
 Both steps run the model in ``train`` mode, where a BatchNorm normalizes
 with the batch's statistics and moves its running statistics (the JAX
 package's ``batch_stats``, here module buffers) in place, in eager steps
@@ -60,6 +75,7 @@ from torecsys_tpu_torch.convert import flax_path
 from torecsys_tpu_torch.data.packed import BatchLayout
 from torecsys_tpu_torch.miners import fold_in, seed_key
 from torecsys_tpu_torch.ops.sparse import sort_slot_grads
+from torecsys_tpu_torch.parallel.mesh import DATA_AXIS
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
@@ -124,11 +140,30 @@ def _account(state: TrainState, loss: torch.Tensor) -> Tuple[TrainState, Dict]:
     return state, {"loss": loss.detach()}
 
 
-def make_train_step(pipeline: Pipeline,
-                    seed: int = 0) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
+def reduce_gradients(mesh, params) -> None:
+    """Sum the gradients of ``params`` over the data group, in place, one
+    collective per dtype."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        mesh.all_reduce(flat, DATA_AXIS)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def make_train_step(pipeline: Pipeline, seed: int = 0,
+                    mesh=None) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """Build the train step ``(state, device batch) → (state, logs)``; the
     step updates the modules and ``state`` in place.  ``seed`` keys the
-    miner of the ``ltr`` and ``emb`` objectives (:func:`miner_key`)."""
+    miner of the ``ltr`` and ``emb`` objectives (:func:`miner_key`);
+    ``mesh`` is the Trainer's (``parallel.mesh.Mesh``), None on one
+    device."""
+    dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
     seq = pipeline.sequential
     criterion = pipeline.criterion
     regularizer = pipeline.regularizer
@@ -160,14 +195,28 @@ def make_train_step(pipeline: Pipeline,
             loss = loss + regularizer(seq)
         return loss
 
+    def rank_loss(state: TrainState, batch: Batch) -> torch.Tensor:
+        """The loss this rank differentiates: its slice's over ``dp``."""
+        loss = objective_loss(state, batch)
+        return loss / dp if dp > 1 else loss
+
+    def step_loss(loss: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss: the data group's sum of the ranks'."""
+        loss = loss.detach()
+        if dp > 1:
+            loss = mesh.all_reduce(loss.clone(), DATA_AXIS)
+        return loss
+
     def dense_train_step(state: TrainState, batch: Batch):
         seq.train()
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = objective_loss(state, batch)
+        loss = rank_loss(state, batch)
         loss.backward()
+        if dp > 1:
+            reduce_gradients(mesh, seq.parameters())
         opt.step()
-        return _account(state, loss)
+        return _account(state, step_loss(loss))
 
     def check_sparse() -> None:
         if objective != "ctr":
@@ -191,8 +240,10 @@ def make_train_step(pipeline: Pipeline,
         seq.train()
         dense_opt = state.opt_state["dense"]
         dense_opt.zero_grad(set_to_none=True)
-        loss = objective_loss(state, batch)
+        loss = rank_loss(state, batch)
         loss.backward()
+        if dp > 1:
+            reduce_gradients(mesh, seq.parameters())
         dense_opt.step()
         with torch.no_grad():
             for path, module in modules.items():
@@ -203,19 +254,25 @@ def make_train_step(pipeline: Pipeline,
                 g = lookup.rows.grad
                 if g is None:
                     g = torch.zeros_like(lookup.rows)
+                ids = lookup.ids
+                if dp > 1:  # the global stream, in global batch order
+                    ids = mesh.all_gather(ids, DATA_AXIS).reshape(-1, *ids.shape[1:])
+                    g = mesh.all_gather(g, DATA_AXIS).reshape(-1, *g.shape[1:])
                 table, slots = module.table_view(), state.opt_state["sparse"][path]
+                layout = module.row_layout
                 if lookup.aux is not None:
                     row_tx.update_from_host_aux(table, slots, g.reshape(-1, e), lookup.aux,
-                                                state.step)
+                                                state.step, layout=layout)
                     continue
                 # A negative id in [-rows, 0) was read from row rows + id of
                 # the logical view (jnp.take's rule): its update goes there too.
-                ids, rows = lookup.ids, table.numel() // e
+                rows = module.logical_rows()
                 b = ids.shape[0]
                 ids = torch.where(ids < 0, ids + rows, ids)
                 sorted_ids, g_sorted = sort_slot_grads(ids.reshape(b, -1), g.reshape(b, -1, e))
-                row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step)
-        return _account(state, loss)
+                row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
+                                     layout=layout)
+        return _account(state, step_loss(loss))
 
     def train_step(state: TrainState, batch: Batch):
         if is_hybrid_opt_state(state.opt_state):
@@ -259,11 +316,13 @@ class TrainScan:
     the graph once.  The graph holds the parameters and the optimizer state
     by address: a dispatch that finds one of them moved (a state replaced
     rather than copied into) captures again.  A failed capture raises.  On
-    the CPU the K steps run eagerly in place of the graph.
+    the CPU the K steps run eagerly in place of the graph, and so they do on
+    the card with ``capture=False``: under a gloo mesh, whose collectives run
+    on the host and cannot be captured (NCCL's can).
     """
 
     def __init__(self, train_step, seq: torch.nn.Module, k: int, layout: BatchLayout,
-                 device: torch.device):
+                 device: torch.device, capture: bool = True):
         self.train_step = train_step
         self.seq = seq
         self.k = k
@@ -272,7 +331,8 @@ class TrainScan:
         self.static = torch.empty((k, layout.nbytes), dtype=torch.uint8, device=device)
         self.losses = torch.zeros(k, dtype=torch.float32, device=device)
         self._batches = [layout.unpack(self.static[i]) for i in range(k)]
-        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        capture = capture and device.type == "cuda"
+        self._stream = torch.cuda.Stream(device) if capture else None
         self.graph = None
         self._held: Optional[List[int]] = None
         self.captures = 0
@@ -323,10 +383,10 @@ class TrainScan:
 
 
 def make_train_scan(train_step, seq: torch.nn.Module, k: int, layout: BatchLayout,
-                    device: torch.device) -> TrainScan:
+                    device: torch.device, capture: bool = True) -> TrainScan:
     """K steps of ``train_step`` per dispatch over packed groups of
     ``layout`` (:class:`TrainScan`)."""
-    return TrainScan(train_step, seq, k, layout, device)
+    return TrainScan(train_step, seq, k, layout, device, capture)
 
 
 def make_eval_step(pipeline: Pipeline):
@@ -387,4 +447,4 @@ def make_eval_metrics_step(pipeline: Pipeline, auc, logloss):
 
 __all__ = ["TrainScan", "eval_miner_key", "interleave_pos_neg", "make_eval_metrics_step",
            "make_eval_ranking_step", "make_eval_step", "make_train_scan", "make_train_step",
-           "miner_key", "ranking_lists"]
+           "miner_key", "ranking_lists", "reduce_gradients"]

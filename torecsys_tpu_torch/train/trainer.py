@@ -33,11 +33,28 @@ writes ``ckpt_<step>.pt`` after each epoch, and :meth:`init_state`
 restores ``load_from``, or else (``resume``) the newest checkpoint in
 ``checkpoint_dir``, in place into the fresh state.
 
-Not ported yet: meshes.
+Meshes (``parallel``): with ``mesh`` the trainer runs one rank of a
+``(data, table)`` mesh of ranks, one device each.  The parameters are drawn
+from ``seed`` on every rank alike, then the large embedding tables are
+row-sharded over ``table`` (``parallel.sharding``; ``lookup_options``'
+``min_rows_to_shard`` feeds placement and lookup routing alike), every other
+parameter replicated; each rank keeps its data slice of every batch; the
+steps, evaluation and prediction run inside ``use_sharded_lookup``, so the
+lookups take the table group's collectives (``lookup_options``'
+``strategy``: ``psum``, ``alltoall`` or ``auto``).  Evaluation and
+prediction give the global batch's metrics and scores on every rank.  The
+loss is checked for finiteness summed over every rank, so every rank takes
+the same decision: under an all-to-all strategy a non-finite loss is taken
+for a bucket overflow (:class:`LookupOverflowSuspected`) and, with
+``lookup_recovery``, ``fit`` doubles the capacity factor up to the table
+axis' size, then falls back to ``psum``, restarting the epoch from a fresh
+state each time.  Checkpoints write each rank's shards beside one manifest
+(``train.checkpoint``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -51,6 +68,10 @@ from torecsys_tpu_torch.data.packed import BatchLayout, group_batches
 from torecsys_tpu_torch.data.prefetch import prefetch_map
 from torecsys_tpu_torch.data.presort import AUX_PREFIX, Presorter, build_presort_specs
 from torecsys_tpu_torch.metrics import StreamingAUC, StreamingLogLoss, StreamingNDCG
+from torecsys_tpu_torch.parallel.lookup import use_sharded_lookup
+from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS, host_local_batch_to_global
+from torecsys_tpu_torch.parallel.mesh import multi_node
+from torecsys_tpu_torch.parallel.sharding import shard_batch, shard_module, unshard_module
 from torecsys_tpu_torch.train.checkpoint import (
     checkpoint_name,
     latest_checkpoint,
@@ -88,6 +109,14 @@ logger = logging.getLogger(__name__)
 # the TPU v5e (the JAX package's) it lowers it.
 SPARSE_AUTO_MIN_ELEMENTS = 4_000_000
 SPARSE_AUTO_MIN_ELEMENTS_PRESORTED = 128_000_000
+
+
+class LookupOverflowSuspected(RuntimeError):
+    """A non-finite loss under an overflow-capable lookup strategy
+    (``alltoall`` or ``auto``): the likely cause is a bucket of the
+    all-to-all exchange over its static capacity, which poisons the lookup
+    with NaN.  ``Trainer.fit`` recovers from it (:meth:`Trainer._recover_lookup`);
+    it propagates only when recovery is off or out of moves."""
 
 
 class _Group:
@@ -148,14 +177,41 @@ class Trainer:
             ``checkpoint_dir`` if there is one (``load_from`` wins over it).
         ndcg_k: the cut-off of the ``ltr``/``emb`` evaluation's NDCG
             (None: the whole list).
+        mesh: a ``parallel.make_mesh`` mesh; None = one device.  Every rank
+            of the mesh runs its own Trainer over the same loaders: on one
+            node each loader yields the global batch and the rank keeps its
+            data slice (the batch must split evenly over ``data``); on
+            several nodes each node's loader yields the node's share
+            (``parallel.mesh.host_local_batch_to_global``).  The pipeline's
+            device must be the mesh's.  Under a gloo mesh the K-step dispatch
+            takes eager steps (gloo's collectives run on the host and cannot
+            be captured in a CUDA graph); under NCCL it is captured.  The
+            host presort does not run with a data axis above 1 or on several
+            nodes (its aux describes the global batch).
+        lookup_options: ``parallel.lookup.LookupContext`` keywords
+            (``strategy``, ``capacity_factor``, ``min_rows_to_shard``); the
+            same ``min_rows_to_shard`` places the tables.
+        lookup_recovery: on a suspected all-to-all overflow, recover in
+            ``fit`` (raise the capacity factor, then fall back to ``psum``)
+            instead of raising :class:`LookupOverflowSuspected`.
     """
 
     def __init__(self, pipeline: Pipeline, log_every: int = 100, seed: int = 0,
                  presort: Optional[bool] = None, steps_per_execution: int = 1,
                  prefetch: int = 4, profile_dir: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None, load_from: Optional[str] = None,
-                 resume: bool = True, ndcg_k: Optional[int] = 10):
+                 resume: bool = True, ndcg_k: Optional[int] = 10, mesh=None,
+                 lookup_options: Optional[Dict] = None, lookup_recovery: bool = True):
         self.pipeline = pipeline.finalize()
+        self.mesh = mesh
+        self.lookup_options = dict(lookup_options or {})
+        self.lookup_recovery = lookup_recovery
+        if mesh is not None:
+            if mesh.coordinate is None:
+                raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh.shape}")
+            if mesh.device != pipeline.device:
+                raise ValueError(f"the pipeline's device {pipeline.device} is not the mesh's "
+                                 f"{mesh.device}")
         self.checkpoint_dir = checkpoint_dir
         self.load_from = load_from or self.pipeline.load_from
         self.resume = resume
@@ -187,12 +243,13 @@ class Trainer:
         # or the graph's copy and replay (step); the steps run on after their
         # enqueue returns.
         self.host_ms = {"presort": 0.0, "pack": 0.0, "wait": 0.0, "place": 0.0, "step": 0.0}
+        self.recoveries: List[str] = []  # the lookup recovery's actions, in order
         self._host_lock = threading.Lock()
 
     # ---- setup ----------------------------------------------------------
 
     def _build_steps(self) -> None:
-        self._train_step_fn = make_train_step(self.pipeline, self.seed)
+        self._train_step_fn = make_train_step(self.pipeline, self.seed, self.mesh)
         self._train_scan = None
         self._eval_step_fn = make_eval_step(self.pipeline)
         self._eval_metrics_fn = make_eval_metrics_step(self.pipeline, self._auc,
@@ -203,6 +260,8 @@ class Trainer:
     def _presort_applicable(self) -> bool:
         """Would the host presort run on the sparse route?  It also picks
         the automatic choice's threshold."""
+        if self.mesh is not None and (self.mesh.shape[DATA_AXIS] > 1 or multi_node()):
+            return False
         if self.presort is None:
             return self.device.type != "cuda"
         return bool(self.presort)
@@ -228,12 +287,17 @@ class Trainer:
         shapes without one."""
         del example_batch
         seq = self.pipeline.sequential
+        unshard_module(seq)
         seq.reset_parameters(torch.Generator(device=self.device).manual_seed(self.seed))
         row_tx = self.pipeline.row_optimizer()
         modules = sparse_modules(seq)
         self.sparse = self._choose_sparse(row_tx, modules)
         for module in modules.values():
             module.sparse_grads = self.sparse
+        if self.mesh is not None:
+            min_rows = self.lookup_options.get("min_rows_to_shard")
+            shard_module(seq, self.mesh, **({} if min_rows is None
+                                           else {"min_rows_to_shard": min_rows}))
         self.state = TrainState.create(seq, self.pipeline.optimizer,
                                        row_tx if self.sparse else None,
                                        set(modules) if self.sparse else None, self.device)
@@ -262,10 +326,28 @@ class Trainer:
             if not self.checkpoint_dir:
                 raise ValueError("save_checkpoint needs a path or the trainer's checkpoint_dir")
             path = os.path.join(self.checkpoint_dir, checkpoint_name(int(self.state.step)))
-        return save_checkpoint(path, self.pipeline.sequential, self.state)
+        return save_checkpoint(path, self.pipeline.sequential, self.state, mesh=self.mesh)
+
+    def _lookup_scope(self):
+        """The sharded lookups' context under the mesh (entered around every
+        step, evaluation and prediction), else nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_sharded_lookup(self.mesh, **self.lookup_options)
+
+    def _local_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's part of a loader's batch (the batch itself without a
+        mesh)."""
+        if self.mesh is None:
+            return batch
+        if multi_node():
+            return host_local_batch_to_global(batch, self.mesh)
+        return shard_batch(batch, self.mesh)
 
     def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Host batch → device tensors (the evaluation's path)."""
+        """Host batch → this rank's part on the device (the evaluation's
+        path)."""
+        batch = self._local_batch(batch)
         placed = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -286,6 +368,9 @@ class Trainer:
         presort each batch (where the presort runs), then pack the group into
         one buffer, pinned where the card reads it."""
         clock = time.perf_counter
+        n_examples = sum(next(np.shape(v)[0] for k, v in b.items()
+                              if not k.startswith(AUX_PREFIX)) for b in group)
+        group = [self._local_batch(b) for b in group]
         if self._presorter is not None:
             t0 = clock()
             group = [self._presorter(b) for b in group]
@@ -294,8 +379,6 @@ class Trainer:
         layout = BatchLayout.of(group[0])
         packed = layout.pack(group, pin=self.device.type == "cuda")
         self._add_host_ms(pack=(clock() - t1) * 1e3)
-        n_examples = sum(next(np.shape(v)[0] for k, v in b.items()
-                              if not k.startswith(AUX_PREFIX)) for b in group)
         return _Group(packed, layout, n_examples)
 
     def _prepared(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[_Group]:
@@ -306,13 +389,18 @@ class Trainer:
     def _dispatch(self, group: _Group) -> List[torch.Tensor]:
         """Take the steps of one packed group; returns their losses as 0-d
         device tensors."""
+        with self._lookup_scope():
+            return self._dispatch_steps(group)
+
+    def _dispatch_steps(self, group: _Group) -> List[torch.Tensor]:
         clock = time.perf_counter
         k = self.steps_per_execution
         if k > 1 and len(group) == k:
             if self._train_scan is None:
+                capture = self.mesh is None or self.mesh.backend != "gloo"
                 self._train_scan = make_train_scan(self._train_step_fn,
                                                    self.pipeline.sequential, k, group.layout,
-                                                   self.device)
+                                                   self.device, capture)
             if self._train_scan.layout == group.layout:
                 t0 = clock()
                 self.state, losses = self._train_scan(self.state, group.packed)
@@ -364,10 +452,48 @@ class Trainer:
         scan = self._train_scan
         return {"captures": scan.captures if scan else 0, "replays": scan.replays if scan else 0}
 
+    def _mean_loss(self) -> float:
+        """The mean training loss; under a mesh NaN when any rank's is not
+        finite (the check sums it over every rank, so that every rank takes
+        the same decision)."""
+        mean = self.state.mean_loss()
+        if self.mesh is not None and not torch.isfinite(
+                self.mesh.world_all_reduce(mean.reshape(1).clone())).all():
+            return float("nan")
+        return float(mean)
+
     def _check_finite_loss(self, loss_sum: float, step: int) -> None:
-        if not np.isfinite(loss_sum):
-            raise RuntimeError(f"non-finite training loss at step {step} "
-                               "(diverged training or bad input data)")
+        """Raise on a non-finite loss: :class:`LookupOverflowSuspected`,
+        naming the capacity factor, under a mesh whose lookup strategy can
+        overflow; else ``RuntimeError``."""
+        if np.isfinite(loss_sum):
+            return
+        msg = f"non-finite training loss at step {step}"
+        strategy = self.lookup_options.get("strategy", "psum")
+        if self.mesh is not None and strategy in ("alltoall", "auto"):
+            cf = self.lookup_options.get("capacity_factor", 2.0)
+            raise LookupOverflowSuspected(
+                f"{msg} — the lookup strategy is {strategy!r}: a likely cause is an all-to-all "
+                "bucket-capacity overflow (ids concentrated on one table shard); raise "
+                f"lookup_options['capacity_factor'] (currently {cf}, worst-case-safe is the "
+                "table-axis size) or set lookup_options['strategy']='psum'")
+        raise RuntimeError(f"{msg} (diverged training or bad input data)")
+
+    def _recover_lookup(self) -> Optional[str]:
+        """Adjust the lookup options after a suspected bucket overflow:
+        double ``capacity_factor`` up to the table axis' size, then fall back
+        to ``psum`` (which cannot overflow).  Returns the action taken, or
+        None when out of moves."""
+        ts = self.mesh.shape.get(TABLE_AXIS, 1) if self.mesh is not None else 1
+        cf = float(self.lookup_options.get("capacity_factor", 2.0))
+        if self.lookup_options.get("strategy") == "psum":
+            return None
+        if cf < ts:
+            new_cf = min(cf * 2.0, float(ts))
+            self.lookup_options["capacity_factor"] = new_cf
+            return f"capacity_factor {cf} -> {new_cf}"
+        self.lookup_options["strategy"] = "psum"
+        return f"strategy -> 'psum' (capacity_factor {cf} already >= table axis {ts})"
 
     def fit(self, train_loader: Iterable[Dict[str, np.ndarray]],
             val_loader: Optional[Iterable[Dict[str, np.ndarray]]] = None,
@@ -385,44 +511,73 @@ class Trainer:
             self.init_state()
         metrics: Dict[str, float] = {}
         step = 0
-        profiler = None
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            n_examples = 0
-            self.state.reset_metrics()
-            dispatches = self._dispatches(self._epoch_iter(train_loader))
+        epoch = 0
+        while epoch < max_epochs:
+            epoch_start_step = step
             try:
-                for examples, losses in dispatches:
-                    n_examples += examples
-                    step += len(losses)
-                    if profiler is not None and step >= 8:
-                        profiler = self._stop_profile(profiler)
-                    if step % self.log_every == 0:
-                        mean = float(self.state.mean_loss())
-                        self._check_finite_loss(mean, step)
-                        logger.info("epoch %d step %d loss %.5f", epoch, step, mean)
-                    if max_steps is not None and step >= max_steps:
-                        break
-                    if self.profile_dir and profiler is None and step >= 4:
-                        profiler = self._start_profile()
-            finally:
-                dispatches.close()
-                if profiler is not None:
-                    profiler = self._stop_profile(profiler)
-            mean = float(self.state.mean_loss())  # waits for the device
-            self._check_finite_loss(mean, step)
-            elapsed = max(time.perf_counter() - t0, 1e-9)
-            metrics = {"epoch": epoch, "train_loss": mean,
-                       "examples_per_sec": n_examples / elapsed}
-            if val_loader is not None:
-                metrics.update(self.evaluate(val_loader))
-            logger.info("epoch %d done: %s", epoch, metrics)
-            self.history.append(metrics)
-            if self.checkpoint_dir:
-                self.save_checkpoint()
+                metrics, step = self._fit_epoch(epoch, step, train_loader, val_loader,
+                                                max_steps)
+            except LookupOverflowSuspected as e:
+                # The NaN poisoned the state: adjust the lookup options, start
+                # from a fresh state (which resumes from the newest checkpoint
+                # when there is one), rebuild the steps and graphs, and rerun
+                # this epoch.  The escalation ends (capacity up to the table
+                # axis, then psum, then None).
+                action = self._recover_lookup() if self.lookup_recovery else None
+                if action is None:
+                    raise
+                logger.warning("suspected all-to-all overflow (%s); recovering: %s; "
+                               "restarting epoch %d", e, action, epoch)
+                self.recoveries.append(action)
+                self.state = None
+                self._presorter = None
+                self._train_scan = None
+                self.init_state()
+                step = epoch_start_step
+                continue
+            epoch += 1
             if max_steps is not None and step >= max_steps:
                 break
         return metrics
+
+    def _fit_epoch(self, epoch: int, step: int, train_loader, val_loader,
+                   max_steps: Optional[int]):
+        """One epoch of :meth:`fit`; returns its metrics and the step count."""
+        profiler = None
+        t0 = time.perf_counter()
+        n_examples = 0
+        self.state.reset_metrics()
+        dispatches = self._dispatches(self._epoch_iter(train_loader))
+        try:
+            for examples, losses in dispatches:
+                n_examples += examples
+                step += len(losses)
+                if profiler is not None and step >= 8:
+                    profiler = self._stop_profile(profiler)
+                if step % self.log_every == 0:
+                    mean = self._mean_loss()
+                    self._check_finite_loss(mean, step)
+                    logger.info("epoch %d step %d loss %.5f", epoch, step, mean)
+                if max_steps is not None and step >= max_steps:
+                    break
+                if self.profile_dir and profiler is None and step >= 4:
+                    profiler = self._start_profile()
+        finally:
+            dispatches.close()
+            if profiler is not None:
+                profiler = self._stop_profile(profiler)
+        mean = self._mean_loss()  # waits for the device
+        self._check_finite_loss(mean, step)
+        elapsed = max(time.perf_counter() - t0, 1e-9)
+        metrics = {"epoch": epoch, "train_loss": mean,
+                   "examples_per_sec": n_examples / elapsed}
+        if val_loader is not None:
+            metrics.update(self.evaluate(val_loader))
+        logger.info("epoch %d done: %s", epoch, metrics)
+        self.history.append(metrics)
+        if self.checkpoint_dir:
+            self.save_checkpoint()
+        return metrics, step
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -461,12 +616,14 @@ class Trainer:
         target = self.pipeline.target_fields
         auc_state = self._auc.init(self.device)
         ll_state = self._logloss.init(self.device)
-        for batch in self._epoch_iter(loader):
-            if target not in batch:
-                raise ValueError(f"evaluation batch is missing the target field {target!r} "
-                                 f"(fields: {sorted(batch)})")
-            auc_state, ll_state = self._eval_metrics_fn(
-                self.state, self._place_batch(batch), auc_state, ll_state)
+        with self._lookup_scope():
+            for batch in self._epoch_iter(loader):
+                if target not in batch:
+                    raise ValueError(f"evaluation batch is missing the target field "
+                                     f"{target!r} (fields: {sorted(batch)})")
+                auc_state, ll_state = self._eval_metrics_fn(
+                    self.state, self._place_batch(batch), auc_state, ll_state)
+        auc_state, ll_state = self._merged(auc_state), self._merged(ll_state)
         return {"val_auc": float(self._auc.compute(auc_state)),
                 "val_logloss": float(self._logloss.compute(ll_state))}
 
@@ -476,10 +633,19 @@ class Trainer:
         (``train.steps.eval_miner_key``), so every evaluation of one loader
         draws the same lists."""
         state = self._ndcg.init(self.device)
-        for i, batch in enumerate(self._epoch_iter(loader)):
-            state = self._eval_ranking_fn(self.state, self._place_batch(batch), i, state)
+        with self._lookup_scope():
+            for i, batch in enumerate(self._epoch_iter(loader)):
+                state = self._eval_ranking_fn(self.state, self._place_batch(batch), i, state)
         key = f"val_ndcg@{self.ndcg_k}" if self.ndcg_k else "val_ndcg"
-        return {key: float(self._ndcg.compute(state))}
+        return {key: float(self._ndcg.compute(self._merged(state)))}
+
+    def _merged(self, metric_state):
+        """A streaming metric's state summed over the data group (its merge),
+        so that every rank computes the global metric."""
+        if self.mesh is None or self.mesh.shape[DATA_AXIS] == 1:
+            return metric_state
+        return type(metric_state)(*(self.mesh.all_reduce(t.clone(), DATA_AXIS)
+                                    for t in metric_state))
 
     def predict(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """The eval step's scores of one host batch, on the device:
@@ -489,8 +655,16 @@ class Trainer:
         the sigmoid and raises."""
         if self.state is None:
             raise RuntimeError("call fit() or init_state() before predict()")
-        preds, _ = self._eval_step_fn(self.state, self._place_batch(batch))
-        return preds
+        with self._lookup_scope():
+            preds, _ = self._eval_step_fn(self.state, self._place_batch(batch))
+        if self.mesh is None or self.mesh.shape[DATA_AXIS] == 1:
+            return preds
+
+        def gathered(t):  # the data group's slices, in global batch order
+            return self.mesh.all_gather(t, DATA_AXIS).reshape(-1, *t.shape[1:])
+
+        return tuple(map(gathered, preds)) if isinstance(preds, tuple) else gathered(preds)
 
 
-__all__ = ["SPARSE_AUTO_MIN_ELEMENTS", "SPARSE_AUTO_MIN_ELEMENTS_PRESORTED", "Trainer"]
+__all__ = ["LookupOverflowSuspected", "SPARSE_AUTO_MIN_ELEMENTS",
+           "SPARSE_AUTO_MIN_ELEMENTS_PRESORTED", "Trainer"]
