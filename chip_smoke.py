@@ -5181,6 +5181,24 @@ OVERFLOW_MESH = (1, 4)
 OVERFLOW_OPTIONS = {"strategy": "alltoall", "capacity_factor": 1.0}
 COLLECTIVE_KINDS = (("all_reduce", "AllReduce"), ("all_gather", "AllGather"),
                     ("all_to_all", "SendRecv"), ("all_to_all", "AllToAll"))
+# The dense-route runs: the bench DeepFM (28 fields, E = 16, tower 400-400-400,
+# batch 4096) with sparse_embeddings=False under the dense optimizers that
+# reduce over a whole parameter, LAMB and Adafactor, at (2, 2), the table
+# row-sharded.  Each field is capped at ROWS_CAP rows (12,884,400 rows,
+# 1,610,550 stored rows of 128; the cap is the only cut): each held step
+# gathers the table and its optimizer state over the table group twice, to
+# hold the logical state against the single-device step, and at the full
+# 32.9M rows four ranks sharing one card would stage 2.5x the bytes through
+# the host for gloo.  The checkpoint round trip runs Adafactor and SM3 on
+# the same table; the ltr step is phase 15's NCF + BPR.
+PARALLEL_DENSE_FIELDS = tuple(min(v, ROWS_CAP) for v in FIELD_SIZES)
+PARALLEL_DENSE_RUNS = (((2, 2), "lamb"), ((2, 2), "adafactor"))
+PARALLEL_DENSE_LR = 1e-3
+PARALLEL_DENSE_FIT = 2    # batches of each dense run's fit
+PARALLEL_CKPT_OPTIMIZERS = ("adafactor", "sm3")
+# a dense step's launches on every rank: the lookup's gather and the table
+# gradient's permute, the table gradient's sum (as on one device)
+PARALLEL_DENSE_PER_STEP = DENSE_PER_STEP
 
 
 def parallel_table(trainer):
@@ -5414,19 +5432,7 @@ def parallel_run(mesh, strategy: str, batches, fns, reference: bool, timed: bool
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "modeled_comm_mb": modeled_comm_mb(ctx_strategy, m, EMBED, 2.0, ts, dp)}
     if timed:
-        mesh.sent.clear()
-        timed_batches = batches[:PARALLEL_TIMED]
-        trainer.train_steps(timed_batches[:2])
-        torch.cuda.synchronize()
-        sent0 = dict(mesh.sent)
-        t0 = time.perf_counter()
-        trainer.train_steps(timed_batches)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / len(timed_batches)
-        sent = {k: (v - sent0.get(k, 0)) / len(timed_batches) / 1e6 for k, v in mesh.sent.items()}
-        rec.update({"step_ms": wall * 1e3, "examples_per_sec": BATCH / wall,
-                    "collective_mb_per_step": sent,
-                    **collective_profile(trainer, batches[:3], mesh)})
+        rec.update(timed_mesh_steps(trainer, mesh, batches[:PARALLEL_TIMED]))
     if mesh.rank == 0:
         log(f"[{path}] rank 0: table {'row-sharded' if layout else 'replicated'} "
             f"{tuple(module.embedding.shape)}, strategy {strategy} -> {ctx_strategy}, fit loss "
@@ -5490,17 +5496,19 @@ def parallel_overflow(mesh, seed: int):
             "capacity_factor": recovering.lookup_options["capacity_factor"]}
 
 
-def parallel_graph(mesh, batches):
+def parallel_graph(mesh, batches, pipeline=None, label: str = "sparse"):
     """Over NCCL, whose collectives a CUDA graph captures: ``fit`` at
     PARALLEL_GRAPH_K steps a dispatch (the first dispatch warms up and
     captures, the next replays), then one replay against its steps taken
-    eagerly from one state, the losses to the bit."""
+    eagerly from one state, the losses to the bit.  ``pipeline``: the bench
+    DeepFM on the sparse route by default."""
     import torch
 
     from torecsys_tpu_torch import Trainer
 
     k = PARALLEL_GRAPH_K
-    trainer = Trainer(bench_pipeline(sparse=True), mesh=mesh, presort=False, log_every=10**9,
+    pipeline = bench_pipeline(sparse=True) if pipeline is None else pipeline
+    trainer = Trainer(pipeline, mesh=mesh, presort=False, log_every=10**9,
                       steps_per_execution=k)
     metrics = trainer.fit(lambda: iter(batches[:2 * k]), max_epochs=1)
     stats = trainer.graph_stats
@@ -5515,11 +5523,318 @@ def parallel_graph(mesh, batches):
     if graphed != eager:
         raise AssertionError(f"a replay under {mesh} is not its eager steps: {graphed} {eager}")
     if mesh.rank == 0:
-        log(f"[parallel-nccl] {mesh.shape} at {k} steps a dispatch: captured once, a replay "
-            f"equals its {k} eager steps to the bit ({graphed[-1]:.8f})")
+        log(f"[parallel-nccl] {label} {mesh.shape} at {k} steps a dispatch: captured once, a "
+            f"replay equals its {k} eager steps to the bit ({graphed[-1]:.8f})")
     del trainer, start
     release()
     return {"graph_stats": stats, "losses": graphed}
+
+
+def dense_parallel_pipeline(optimizer: str):
+    """The bench DeepFM on the dense route over the capped fields, under the
+    named dense optimizer at PARALLEL_DENSE_LR."""
+    return ctr_pipeline("DeepFM", {"deep_layer_sizes": TOWER}, PARALLEL_DENSE_FIELDS,
+                        sparse=False, optimizer=(optimizer, PARALLEL_DENSE_LR))
+
+
+def mesh_kept(trainer, mesh, keep: bool):
+    """:func:`kept_tensors` of a mesh trainer as the logical state, cloned:
+    each tensor that holds a row-sharded table's rows (the table, and each
+    optimizer state tensor that ``state_row_axis`` places on the rows)
+    gathered over the table group in row order; the others as they are.
+    Every rank takes part in the gathers; only with ``keep`` is the result
+    kept (None elsewhere)."""
+    from torecsys_tpu_torch.parallel.sharding import _table_owners, axis_layout
+    from torecsys_tpu_torch.train.optimizers import state_row_axis
+
+    seq = trainer.pipeline.sequential
+    dense_opt, _ = _optimizers(trainer)
+    layouts = {n: m.row_layout for n, m in _table_owners(seq).items()
+               if m.row_layout is not None and m.row_layout.sharded}
+    params = dict(seq.named_parameters())
+    out = {}
+    for name, t in kept_tensors(trainer).items():
+        base, _, key = name.partition(":")
+        layout = layouts.get(base)
+        if layout is not None and key:
+            layout = axis_layout(layout, state_row_axis(dense_opt, params[base], key, t))
+        if layout is None:
+            logical = t.clone() if keep else None
+        else:
+            parts = mesh.all_gather(t, "table")
+            logical = (parts.reshape(-1, *t.shape[1:]) if layout.blocks == 1 else
+                       parts.movedim(0, 1).reshape(t.shape[0], -1, *t.shape[2:]))
+            del parts
+            if not keep:
+                logical = None
+        out[name] = logical
+    return out if keep else None
+
+
+def sync_logical(ref, start) -> None:
+    """Put a logical state (:func:`mesh_kept`) into the single-device
+    reference trainer: parameters, running statistics, the dense optimizer's
+    state (built for a parameter that has none yet) and the step."""
+    import torch
+
+    from torecsys_tpu_torch.train.state import batch_stats
+
+    seq = ref.pipeline.sequential
+    opt, _ = _optimizers(ref)
+    with torch.no_grad():
+        for n, p in seq.named_parameters():
+            p.copy_(start[n])
+            keys = {name.split(":", 1)[1] for name in start if name.startswith(n + ":")}
+            live = opt.state.get(p) or {}
+            if not keys:
+                opt.state.pop(p, None)
+            elif set(live) != keys:
+                opt.state[p] = {k: start[f"{n}:{k}"].clone() for k in keys}
+            else:
+                for k in keys:
+                    live[k].copy_(start[f"{n}:{k}"])
+        for n, b in batch_stats(seq).items():
+            b.copy_(start[f"{n} (buffer)"])
+        ref.state.step.copy_(start["step"])
+
+
+def parallel_dense_held_step(trainer, ref, mesh, batch, fns, path: str, dead=()):
+    """One step from one state on the dense route: the single-device
+    reference (rank 0) with the plain versions, the mesh trainer with the
+    kernels on every rank; rank 0 holds every kept tensor of the logical
+    state (the table and its optimizer state gathered from the shards, the
+    replicated parameters and their state) by :func:`held_compare`, with
+    Adam's sensitivity where the table's rule is torch's Adam
+    (:func:`adam_sensitivity`); the table and each floating state tensor of
+    it that the plain step writes must move by HELD_MOVED_ULPS ulps.  The
+    parameters ``dead`` (and their state) have gradient 0 in exact
+    arithmetic: each side's rounding noise, summed over other slices, which
+    Adam scales to steps near lr; they are not compared.  Returns rank 0's
+    record (None elsewhere)."""
+    import torch
+
+    keep = ref is not None
+    start = mesh_kept(trainer, mesh, keep)
+    if keep:
+        sync_logical(ref, start)
+        with abs_sums() as sums, plain_versions(fns):
+            loss_p = ref.train_steps([batch])[0].item()
+        plain = dense_state(ref)
+        sens = adam_sensitivity(ref, start, sums)
+        del sums
+    loss_k = trainer.train_steps([batch])[0].item()
+    after = mesh_kept(trainer, mesh, keep)
+    if not keep:
+        return None
+    tables = tuple(embedding_tables(ref))
+    worst, where, moved = 0.0, "all equal", {}
+    for name, k in after.items():
+        if name.split(":")[0] in dead:
+            continue
+        s = start.get(name)
+        if s is None:  # torch's Adam builds its state at its first step, from 0
+            s = torch.zeros_like(k)
+        ratio, at, ulps, _ = held_compare(s, plain[name], k, sens.get(name))
+        if name.split(":")[0] in tables and s.is_floating_point() and (
+                ":" not in name or not torch.equal(s, plain[name])):
+            moved[name] = ulps
+        if not ratio <= worst:
+            flat = (s.reshape(-1), plain[name].reshape(-1), k.reshape(-1))
+            worst, where = ratio, (f"{name}[{at}]: start {flat[0][at].item():.9g}, plain "
+                                   f"{flat[1][at].item():.9g}, mesh {flat[2][at].item():.9g}"
+                                   if at is not None else name)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[{path}] the mesh's kernels vs the single-device plain step, one step from one "
+        f"state: loss {loss_k:.8f} vs {loss_p:.8f} (rel diff {rel:.3g}, rtol "
+        f"{TRAIN_LOSS_RTOL}); the logical state ({len(after)} tensors): worst |mesh - plain| / "
+        f"tolerance {worst:.3g} ({where}); largest change in ulps: "
+        + ", ".join(f"{n.rsplit('.', 1)[-1]} {u:.4g}" for n, u in moved.items()))
+    if not np.isfinite(loss_k) or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{path}: the mesh and the single-device losses disagree")
+    if not worst <= 1.0:
+        raise AssertionError(f"{path}: the mesh step and the single-device one differ beyond "
+                             f"the tolerance at {where}, {worst:.3g} times it")
+    still = {n: u for n, u in moved.items() if not u >= HELD_MOVED_ULPS}
+    if still:
+        raise AssertionError(f"{path}: the step moved {still} ulps at most, under "
+                             f"{HELD_MOVED_ULPS}: the comparison cannot see the kernels")
+    return {"loss_mesh": loss_k, "loss_plain": loss_p, "worst_over_tolerance": worst,
+            "worst": where, "moved_ulps": moved}
+
+
+def timed_mesh_steps(trainer, mesh, batches):
+    """Eager steps over NCCL: examples/sec, step ms, MB a step handed to
+    each kind of collective, then a traced window (:func:`collective_profile`)."""
+    import torch
+
+    mesh.sent.clear()
+    trainer.train_steps(batches[:2])
+    torch.cuda.synchronize()
+    sent0 = dict(mesh.sent)
+    t0 = time.perf_counter()
+    trainer.train_steps(batches)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(batches)
+    sent = {k: (v - sent0.get(k, 0)) / len(batches) / 1e6 for k, v in mesh.sent.items()}
+    return {"step_ms": wall * 1e3, "examples_per_sec": BATCH / wall,
+            "collective_mb_per_step": sent, **collective_profile(trainer, batches[:3], mesh)}
+
+
+def parallel_dense_run(mesh, optimizer: str, batches, fns, reference: bool, timed: bool):
+    """The bench DeepFM on the dense route under ``optimizer`` on this rank:
+    PARALLEL_HELD held steps (:func:`parallel_dense_held_step`, the table
+    scaled first, :func:`scale_table`), a fit of PARALLEL_DENSE_FIT, and over
+    NCCL the timings.  Every rank's launches are counted exactly."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    shape = f"{mesh.shape['data']}x{mesh.shape['table']}"
+    path = f"parallel_dense_{optimizer}_{shape}"
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(dense_parallel_pipeline(optimizer), mesh=mesh, presort=False,
+                      log_every=10**9)
+    trainer.init_state()
+    ref = None
+    if reference:
+        ref = Trainer(dense_parallel_pipeline(optimizer), presort=False, log_every=10**9)
+        ref.init_state()
+    module = parallel_table(trainer)
+    opt = trainer.state.opt_state
+    if trainer.sparse or module.row_layout is None or module.embedding not in opt._tables:
+        raise AssertionError(f"{path}: the table is not row-sharded on the dense route with "
+                             f"its optimizer reducing over the table group")
+    scale_table(trainer, HELD_RMS)
+    reset_counts(fns)
+    held = [parallel_dense_held_step(trainer, ref, mesh, b, fns, f"{path} step {i}")
+            for i, b in enumerate(batches[:PARALLEL_HELD])]
+    del ref
+    release()
+    fit_batches = batches[PARALLEL_HELD:PARALLEL_HELD + PARALLEL_DENSE_FIT]
+    metrics = trainer.fit(lambda: iter(fit_batches), max_epochs=1)
+    steps = PARALLEL_HELD + len(fit_batches)
+    counts = read_counts(fns)
+    want = expect(**{n: steps * c for n, c in PARALLEL_DENSE_PER_STEP.items()})
+    if counts != want:
+        raise AssertionError(f"{path} rank {mesh.rank}: kernel launches {counts}, expected {want}")
+    state = opt.state[module.embedding]
+    rec = {"path": path, "optimizer": type(opt).__name__,
+           "table": {"local_shape": list(module.embedding.shape),
+                     "state": {k: list(v.shape) for k, v in state.items()}},
+           "held": held, "fit_loss": metrics["train_loss"], "launches": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if timed:
+        rec.update(timed_mesh_steps(trainer, mesh, batches[:PARALLEL_TIMED]))
+    if mesh.rank == 0:
+        log(f"[{path}] rank 0: {type(opt).__name__} over the row-sharded table "
+            f"{tuple(module.embedding.shape)} (state {rec['table']['state']}), fit loss "
+            f"{metrics['train_loss']:.6f}, launches {counts}, peak {rec['peak_memory_gb']:.3f} GB"
+            + (f", step {rec['step_ms']:.3f} ms, {rec['examples_per_sec']:.0f} examples/sec, "
+               f"busy {rec['device_busy_share']:.3f}, collective ms/step "
+               f"{rec['collective_ms_per_step']}, MB/step sent {rec['collective_mb_per_step']}"
+               if timed else ""))
+    del trainer, opt, module, state
+    release()
+    return rec
+
+
+def parallel_checkpoint(optimizer: str, batches, work: str, fns):
+    """Under ``optimizer`` on the dense route: one step at (2, 2), a
+    checkpoint there, restored at (1, 4) and on one device (rank 0): the
+    logical state (:func:`mesh_kept`) equal to the bit in both.  Returns
+    the launches of the step and rank 0's record."""
+    import torch
+    import torch.distributed as dist
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.parallel.mesh import make_mesh
+
+    rank = dist.get_rank()
+    path = os.path.join(work, f"ckpt_{optimizer}", "ckpt_1.pt")
+    mesh = make_mesh(2, 2)
+    trainer = Trainer(dense_parallel_pipeline(optimizer), mesh=mesh, presort=False,
+                      log_every=10**9)
+    trainer.init_state()
+    reset_counts(fns)
+    trainer.train_steps(batches[:1])
+    counts = read_counts(fns)
+    want = expect(**PARALLEL_DENSE_PER_STEP)
+    if counts != want:
+        raise AssertionError(f"checkpoint {optimizer} rank {rank}: launches {counts}, "
+                             f"expected {want}")
+    trainer.save_checkpoint(path)
+    saved = mesh_kept(trainer, mesh, rank == 0)
+    sharded = {k: list(v.shape) for k, v in trainer.state.opt_state.state[
+        parallel_table(trainer).embedding].items()}
+    del trainer
+    release()
+    other_mesh = make_mesh(1, 4)
+    other = Trainer(dense_parallel_pipeline(optimizer), mesh=other_mesh, presort=False,
+                    log_every=10**9, load_from=path)
+    other.init_state()
+    restored = {"(1, 4)": mesh_kept(other, other_mesh, rank == 0)}
+    del other
+    release()
+    if rank == 0:
+        single = Trainer(dense_parallel_pipeline(optimizer), presort=False, log_every=10**9,
+                         load_from=path)
+        single.init_state()
+        restored["one device"] = dense_state(single)
+        del single
+        release()
+    dist.barrier()
+    if rank != 0:
+        return counts, None
+    differ = {where: sorted(n for n in saved if n not in got or not torch.equal(
+        bits(saved[n]), bits(got[n]))) for where, got in restored.items()}
+    log(f"[parallel-checkpoint] {optimizer}: saved at (2, 2) (table state "
+        f"{sharded}), restored at (1, 4) and on one device: "
+        + ", ".join(f"{w}: {'every tensor equal to the bit' if not d else d}"
+                    for w, d in differ.items()))
+    if any(differ.values()):
+        raise AssertionError(f"checkpoint {optimizer}: restored state differs: {differ}")
+    return counts, {"optimizer": optimizer, "tensors": len(saved), "table_state": sharded,
+                    "differ": differ}
+
+
+def parallel_ltr(mesh, seed: int, fns, reference: bool):
+    """Phase 15's NCF + BPR at (2, 2): a step, then one held step against
+    the single-device port (its negatives drawn over the global batch, as
+    the mesh draws them), twice the launches of LTR_PER_STEP.  The held
+    step follows a step so that Adam's moments are not 0: at Adam's first
+    step a tower weight's update is near ``g / (|g| + eps)``, and where
+    ``|g|`` is near eps the two data slices' sum of the tower's gradient
+    (against the whole batch's GEMM) moves it by more than the held
+    tolerance, which bounds that sensitivity for the tables only
+    (:func:`adam_sensitivity`)."""
+    from torecsys_tpu_torch import Trainer
+
+    train, _ = interaction_batches(seed + 13)
+
+    def pipeline():
+        return ranking_pipeline("ltr", "NCF", {"deep_layer_sizes": NCF_LTR_TOWER},
+                                "BayesianPersonalizedRankingLoss", NCF_LTR_EMBED)
+
+    trainer = Trainer(pipeline(), mesh=mesh, log_every=10**9, seed=seed)
+    trainer.init_state()
+    ref = None
+    if reference:
+        ref = Trainer(pipeline(), log_every=10**9, seed=seed)
+        ref.init_state()
+    layout = table_module(trainer).row_layout
+    reset_counts(fns)
+    trainer.train_steps(train[:1])
+    # the score shift's bias: a ranking loss reads differences of scores
+    held = parallel_dense_held_step(trainer, ref, mesh, train[1], fns, "parallel_ltr_2x2",
+                                    dead=("model.deep.output.bias",))
+    counts = read_counts(fns)
+    want = expect(**{n: 2 * c for n, c in LTR_PER_STEP.items()})
+    if counts != want:
+        raise AssertionError(f"parallel_ltr rank {mesh.rank}: launches {counts}, expected "
+                             f"{want}")
+    del trainer, ref
+    release()
+    return {"held": held, "launches": counts, "table_sharded": layout is not None}
 
 
 def parallel_rank(job_path: str, rank: int) -> None:
@@ -5538,23 +5853,43 @@ def parallel_rank(job_path: str, rank: int) -> None:
     initialize_distributed(init_method=job["init"], world_size=job["world"], rank=rank,
                            backend=job["backend"], timeout=PARALLEL_TIMEOUT_S)
     fns = kernels()
-    batches = make_batches(job["seed"], max(PARALLEL_HELD + PARALLEL_FIT, PARALLEL_TIMED))
-    out = {"rank": rank, "backend": job["backend"], "runs": []}
-    for shape, strategy in job["runs"]:
-        mesh = make_mesh(*shape)
-        out["runs"].append(parallel_run(mesh, strategy, batches, fns, rank == 0,
-                                        job["timed"]))
+    n_batches = max(PARALLEL_HELD + PARALLEL_FIT, PARALLEL_TIMED)
+    out = {"rank": rank, "backend": job["backend"], "runs": [], "dense_runs": []}
+    batches = None
+    if job["runs"] or job["graph"]:
+        batches = make_batches(job["seed"], n_batches)
+        for shape, strategy in job["runs"]:
+            mesh = make_mesh(*shape)
+            out["runs"].append(parallel_run(mesh, strategy, batches, fns, rank == 0,
+                                            job["timed"]))
     if job["overflow"]:
         out["overflow"] = parallel_overflow(make_mesh(*OVERFLOW_MESH), job["seed"])
     if job["graph"]:
         out["graph"] = parallel_graph(make_mesh(*job["graph"]), batches)
+    del batches
+    dense = make_batches(job["seed"] + 23, n_batches, PARALLEL_DENSE_FIELDS)
+    for shape, optimizer in job["dense_runs"]:
+        out["dense_runs"].append(parallel_dense_run(make_mesh(*shape), optimizer, dense, fns,
+                                                    rank == 0, job["timed"]))
+    if job["dense_graph"]:
+        shape, optimizer = job["dense_graph"]
+        out["dense_graph"] = parallel_graph(make_mesh(*shape), dense,
+                                            dense_parallel_pipeline(optimizer),
+                                            f"dense {optimizer}")
+    out["checkpoints"] = []
+    for optimizer in job["checkpoints"]:
+        counts, rec = parallel_checkpoint(optimizer, dense, job["out"], fns)
+        out["checkpoints"].append({"launches": counts, "record": rec})
+    if job["ltr"]:
+        out["ltr"] = parallel_ltr(make_mesh(2, 2), job["seed"], fns, rank == 0)
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
 
 
 def spawn_parallel(world: int, devices, backend: str, runs, timed: bool, overflow: bool,
-                   seed: int, graph=None):
+                   seed: int, graph=None, dense_runs=(), dense_graph=None, checkpoints=(),
+                   ltr: bool = False):
     """Start ``world`` ranks of this script (``--parallel-rank``) and wait;
     every rank is ended before this returns.  Returns their records."""
     import shutil
@@ -5566,7 +5901,8 @@ def spawn_parallel(world: int, devices, backend: str, runs, timed: bool, overflo
         json.dump({"world": world, "devices": devices, "backend": backend,
                    "init": f"file://{os.path.join(work, 'init')}", "runs": runs,
                    "timed": timed, "overflow": overflow, "graph": graph, "seed": seed,
-                   "out": work}, f)
+                   "dense_runs": [list(r) for r in dense_runs], "dense_graph": dense_graph,
+                   "checkpoints": list(checkpoints), "ltr": ltr, "out": work}, f)
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "RANK", "WORLD_SIZE",
                         "LOCAL_WORLD_SIZE", "TORCHELASTIC_RUN_ID")}
@@ -5608,32 +5944,53 @@ def phase_parallel(seed: int, out_dir):
     Trainer on rank 0 with the plain versions (:func:`parallel_held_step`),
     then a short ``fit``; every rank's ``row_gather`` and
     ``fused_rowwise_update`` must launch, as many times as its steps ask.
-    Then the planted overflow (:func:`parallel_overflow`).  With two cards
-    or more, the runs again one rank a card over NCCL, timed."""
+    Then the planted overflow (:func:`parallel_overflow`).  A second gloo
+    world takes the reductions over the logical table and batch: the bench
+    DeepFM on the dense route under LAMB and Adafactor at (2, 2)
+    (:func:`parallel_dense_run`: held steps against the single-device
+    Trainer's plain step, the logical state gathered from the shards, and
+    a short fit; ``row_gather`` and ``fused_sorted_dedup_update`` counted
+    exactly on every rank), a checkpoint round trip under Adafactor and SM3
+    (:func:`parallel_checkpoint`) and one held ``ltr`` step of phase 15's
+    NCF + BPR (:func:`parallel_ltr`).  With two cards or more, the runs
+    again one rank a card over NCCL, timed, the LAMB run among them, and
+    graphed fits of the sparse route and of LAMB's dense route."""
     import torch
 
     t0 = time.perf_counter()
     runs = [[list(shape), strategy] for shape, strategy in PARALLEL_RUNS]
     recs = spawn_parallel(PARALLEL_RANKS, [0] * PARALLEL_RANKS, "gloo", runs, False, True, seed)
+    t_dense = time.perf_counter()
+    dense = spawn_parallel(PARALLEL_RANKS, [0] * PARALLEL_RANKS, "gloo", [], False, False, seed,
+                           dense_runs=PARALLEL_DENSE_RUNS, checkpoints=PARALLEL_CKPT_OPTIMIZERS,
+                           ltr=True)
+    dense_s = time.perf_counter() - t_dense
     launches = {}
     by_rank = []
-    for rec in recs:
+    for rec, drec in zip(recs, dense):
         counts = {}
-        for run in rec["runs"]:
+        for run in rec["runs"] + drec["dense_runs"] + drec["checkpoints"] + [drec["ltr"]]:
             add_counts(counts, run["launches"])
         by_rank.append(counts)
         add_counts(launches, counts)
-        for name in ("row_gather", "fused_rowwise_update"):
+        for name in ("row_gather", "fused_rowwise_update", "fused_sorted_dedup_update"):
             if not counts[name] > 0:
                 raise AssertionError(f"rank {rec['rank']} launched {name} {counts[name]} times")
+    peaks = [[round(r["peak_memory_gb"], 3) for r in rec["runs"] + d["dense_runs"]]
+             for rec, d in zip(recs, dense)]
     log(f"[parallel] 4 ranks on one card over gloo: launches by rank {by_rank}; peak GB by "
-        f"rank and run {[[round(r['peak_memory_gb'], 3) for r in rec['runs']] for rec in recs]}")
+        f"rank and run {peaks}")
     overflow = recs[0]["overflow"]
     log(f"[parallel] the planted overflow at {OVERFLOW_MESH}: loss {overflow['poisoned_loss']}, "
         f"without recovery: {overflow['error'][:90]}...; recovery {overflow['recoveries']}, "
         f"final loss {overflow['loss']:.6f}")
+    log(f"[parallel] the dense-route world (LAMB and Adafactor at (2, 2), the checkpoints, the "
+        f"ltr step): {dense_s:.1f} s")
     out = {"launches": launches, "launches_by_rank": by_rank, "runs": recs[0]["runs"],
-           "overflow": overflow, "gloo_s": time.perf_counter() - t0}
+           "dense_runs": dense[0]["dense_runs"],
+           "checkpoints": [c["record"] for c in dense[0]["checkpoints"]],
+           "ltr": dense[0]["ltr"], "overflow": overflow, "gloo_s": time.perf_counter() - t0,
+           "dense_gloo_s": dense_s}
     n = torch.cuda.device_count()
     if n >= 2:
         world = 4 if n >= 4 else 2
@@ -5641,19 +5998,25 @@ def phase_parallel(seed: int, out_dir):
                      [[1, world], "psum"], [[1, world], "alltoall"]]
         t1 = time.perf_counter()
         nccl = spawn_parallel(world, list(range(world)), "nccl", nccl_runs, True, False, seed,
-                              graph=[world // 2, 2])
+                              graph=[world // 2, 2], dense_runs=[[[world // 2, 2], "lamb"]],
+                              dense_graph=[[world // 2, 2], "lamb"])
         out["nccl"] = {"world": world, "runs": nccl[0]["runs"], "graph": nccl[0]["graph"],
-                       "peak_gb_by_rank": [[r["peak_memory_gb"] for r in rec["runs"]]
+                       "dense_runs": nccl[0]["dense_runs"],
+                       "dense_graph": nccl[0]["dense_graph"],
+                       "peak_gb_by_rank": [[r["peak_memory_gb"]
+                                            for r in rec["runs"] + rec["dense_runs"]]
                                            for rec in nccl],
                        "s": time.perf_counter() - t1}
-        for r in nccl[0]["runs"]:
+        for r in nccl[0]["runs"] + nccl[0]["dense_runs"]:
             log(f"[parallel-nccl] {r['path']}: {r['examples_per_sec']:.0f} examples/sec, step "
                 f"{r['step_ms']:.3f} ms, busy {r['device_busy_share']:.3f}, collective ms/step "
-                f"{r['collective_ms_per_step']}, MB/step {r['collective_mb_per_step']} against "
-                f"modeled {r['modeled_comm_mb']:.3f}")
+                f"{r['collective_ms_per_step']}, MB/step {r['collective_mb_per_step']}"
+                + (f" against modeled {r['modeled_comm_mb']:.3f}" if "modeled_comm_mb" in r
+                   else ""))
         first = nccl[0]["runs"][0]
         out.update({k: first[k] for k in ("examples_per_sec", "step_ms", "device_busy_share")})
-    out["peak_memory_gb"] = max(r["peak_memory_gb"] for rec in recs for r in rec["runs"])
+    out["peak_memory_gb"] = max(r["peak_memory_gb"] for rec in recs + dense
+                                for r in rec["runs"] + rec["dense_runs"])
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke_parallel.json"), "w") as f:
             json.dump(out, f, indent=1)

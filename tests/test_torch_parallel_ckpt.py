@@ -3,9 +3,16 @@ options and the example (``tests/test_multihost.py``'s twins and the rest
 of the parallel slice).
 
 * A checkpoint saved at (2, 2) (each rank's shards and a manifest) restores
-  the same logical state at (2, 2), at (1, 4) and on one device, and a
-  single-device checkpoint restores into (2, 2); a resumed run continues
-  as an unbroken one does, on the sparse and the dense route.
+  the same logical state (parameters, row slots, the dense optimizer's
+  state) at (2, 2), at (1, 4) and on one device, and a single-device
+  checkpoint restores into (2, 2); a resumed run continues as an unbroken
+  one does, on the sparse and the dense route, and on the dense route under
+  Adafactor and SM3, whose state holds tensors of other shapes than the
+  table's: the factor along the rows and SM3's row vector are sharded with
+  the table, the factor across the rows and SM3's column vector are
+  reduced, the same on every rank, and written once.
+* A JAX mesh Trainer's Adafactor and SM3 state carries into the shards of
+  (2, 2) and (1, 4) (``convert.from_flax_params``) to the bit.
 * ``initialize_distributed`` does nothing without a cluster environment and
   propagates a bad address; a world of one rank a node, each loading only
   its own slice, trains the same model on both ranks.
@@ -28,7 +35,13 @@ from torecsys_tpu_torch.parallel.mesh import initialize_distributed
 FIELDS = (1000, 500, 200, 100, 64, 24)  # 236 stored rows: shards at 2 and 4
 SPEC = {"fields": FIELDS, "embed": 16, "num_dense": 4, "model": "DeepFM",
         "kwargs": {"deep_layer_sizes": (16,)}, "optimizer": ("Adam", 1e-3), "sparse": True}
-ROUTES = {"sparse": SPEC, "dense": {**SPEC, "sparse": False}}
+ROUTES = {"sparse": SPEC, "dense": {**SPEC, "sparse": False},
+          # 236 stored rows of 128: factored (v_row (128,), v_col (236,)) as
+          # the logical table is; 118 rows a shard at (2, 2), 59 at (1, 4)
+          "adafactor": {**SPEC, "sparse": False, "optimizer": ("adafactor", 1e-2)},
+          "sm3": {**SPEC, "sparse": False, "optimizer": ("sm3", 1e-2)}}
+CARRIED = ("adafactor", "sm3")
+CARRY_SHAPES = ((2, 2), (1, 4))
 SAMPLE = os.path.join(REPO, "torecsys_tpu", "data", "sample", "criteo_sample.tsv")
 
 
@@ -38,22 +51,40 @@ def _batches(n=4, rows=256):
 
 
 @pytest.fixture(scope="module")
-def checkpoints(tmp_path_factory):
+def jax_states():
+    """The JAX mesh Trainer's state at (2, 2) after two steps, under each
+    optimizer of :data:`CARRIED`."""
+    from test_torch_parallel_optim import jax_steps
+
+    return {name: jax_steps(ROUTES[name], (2, 2), _batches(n=3))[1][-1] for name in CARRIED}
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory, jax_states):
     tasks = []
     for route, spec in ROUTES.items():
         directory = tmp_path_factory.mktemp(f"ckpt_{route}")
         tasks.append((route, "checkpoint_task", dict(spec=spec, batches=_batches(),
                                                      directory=str(directory))))
+    for name in CARRIED:
+        for shape in CARRY_SHAPES:
+            tasks.append(((name, shape), "carry_task", dict(
+                mesh_shape=shape, spec=ROUTES[name], state=jax_states[name],
+                lookup_options={"min_rows_to_shard": 0})))
     return spawn(tmp_path_factory.mktemp("ckpt_world"), 4, tasks)
 
 
 def _logical(states):
-    """Every parameter and row slot of the ranks' states, assembled."""
+    """Every parameter, row slot and dense optimizer state tensor of the
+    ranks' states, assembled."""
     s0 = states[0]
     out = {n: assemble(states, n) for n in s0["params"]}
     for table, slots in s0["slots"].items():
         for k in slots:
             out[f"{table}/{k}"] = assemble(states, table, k)
+    for name, state in s0["opt"].items():
+        for k in state:
+            out[f"{name}:{k}"] = assemble(states, name, opt=k)
     return out
 
 
@@ -84,6 +115,32 @@ def test_a_resumed_mesh_run_continues_as_an_unbroken_one(checkpoints, route):
     assert {r["resumed_from"] for r in results} == {4}
     _assert_same(_logical([r["resumed"] for r in results]),
                  _logical([r["straight"] for r in results]))
+
+
+@pytest.mark.parametrize("shape", CARRY_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", CARRIED)
+def test_a_jax_mesh_state_carries_into_the_shards(checkpoints, jax_states, name, shape):
+    """Each rank takes its rows of the JAX state's row-indexed tensors and
+    the reduced ones whole: put back together, the port's state is the JAX
+    state to the bit, the parameters and every optimizer state tensor."""
+    from test_torch_parallel_optim import jax_opt_tensors
+    from torecsys_tpu_torch.convert import flatten, torch_name
+
+    states = [r[(name, shape)] for r in checkpoints]
+    assert states[0]["layouts"]  # the table is row-sharded
+    want = jax_states[name]
+    for path, ref in flatten(want["params"]).items():
+        ref = np.asarray(ref)
+        ref = ref.T if path.endswith("kernel") else ref
+        np.testing.assert_array_equal(assemble(states, torch_name(path)).reshape(ref.shape), ref)
+    port_keys = {n: set(s) for n, s in states[0]["opt"].items()}
+    tensors, count = jax_opt_tensors(want["opt_state"], port_keys)
+    assert {(n, k) for n, keys in port_keys.items() for k in keys if k != "step"} == set(tensors)
+    table = "inputs.schema.emb_inputs.embedding"
+    assert any(states[0]["opt_layouts"][table][k] is None for k in port_keys[table])
+    for (n, k), ref in tensors.items():
+        np.testing.assert_array_equal(assemble(states, n, opt=k).reshape(ref.shape), ref,
+                                      err_msg=f"{n} {k}")
 
 
 def test_initialize_distributed_is_a_no_op_without_a_cluster(monkeypatch):

@@ -63,11 +63,14 @@ def _mesh(shape):
 
 def build_pipeline(spec):
     """A CPU pipeline from a spec: ``fields``, ``embed``, ``num_dense``,
-    ``model``, ``kwargs``, ``optimizer`` (name, lr), ``sparse`` and
-    ``table`` (``fused`` or ``field_aware``)."""
+    ``model``, ``kwargs``, ``optimizer`` (name, lr[, keywords]), ``sparse``,
+    ``table`` (``fused`` or ``field_aware``) and ``regularizer`` (its
+    keywords); ``objective`` ``ltr`` builds :func:`ranking_pipeline`."""
     from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
     from torecsys_tpu_torch.inputs import MultiIndicesEmbedding, MultiIndicesFieldAwareEmbedding
 
+    if spec.get("objective", "ctr") != "ctr":
+        return ranking_pipeline(spec)
     fields = tuple(spec["fields"])
     cats = tuple(f"cat_{i}" for i in range(len(fields)))
     schema = {}
@@ -78,31 +81,70 @@ def build_pipeline(spec):
                                                                      device="cpu")
     else:
         schema["emb_inputs"] = MultiIndicesEmbedding(spec["embed"], fields, cats, device="cpu")
-    name, lr = spec["optimizer"]
-    return (Pipeline(device="cpu").set_objective("ctr").set_inputs(Inputs(schema))
+    name, lr, *kw = spec["optimizer"]
+    pipe = (Pipeline(device="cpu").set_objective("ctr").set_inputs(Inputs(schema))
             .set_model(spec["model"], **spec.get("kwargs", {}))
-            .set_criterion("BCEWithLogitsLoss").set_optimizer(name, lr=lr)
+            .set_criterion("BCEWithLogitsLoss").set_optimizer(name, lr=lr, **(kw[0] if kw else {}))
             .set_sparse_embeddings(spec.get("sparse")).set_target_fields("label"))
+    if spec.get("regularizer") is not None:
+        pipe.set_regularizer(**spec["regularizer"])
+    return pipe
+
+
+def ranking_pipeline(spec):
+    """The ``ltr`` pipeline of a spec: ``fields`` (users, items) of one
+    fused table at ``embed``, ``model`` and ``kwargs``, ``criterion``,
+    ``num_negs`` negatives of the ``item`` field, ``optimizer`` (name,
+    lr)."""
+    from torecsys_tpu_torch import Inputs, Pipeline
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding
+
+    name, lr = spec["optimizer"]
+    table = MultiIndicesEmbedding(spec["embed"], tuple(spec["fields"]), ("user", "item"),
+                                  device="cpu")
+    return (Pipeline(device="cpu").set_objective("ltr").set_inputs(Inputs({"emb_inputs": table}))
+            .set_model(spec["model"], **spec.get("kwargs", {}))
+            .set_criterion(spec["criterion"]).set_optimizer(name, lr=lr)
+            .set_miner("UniformBatchMiner", num_negs=spec["num_negs"])
+            .set_miner_target_field("item").set_target_fields("label"))
+
+
+def _layout_tuple(lay):
+    return None if lay is None else (lay.rows, lay.shards, lay.index, lay.blocks)
 
 
 def local_state(trainer):
-    """This rank's parameters and row slots as numpy, with the layout of
-    each row-sharded table (``(rows, shards, index, blocks)``)."""
-    from torecsys_tpu_torch.parallel.sharding import _table_owners
+    """This rank's parameters, row slots and dense optimizer state (``opt``:
+    by parameter name and state key) as numpy, with the layout of each
+    row-sharded table (``(rows, shards, index, blocks)``) and of each of its
+    optimizer state tensors that holds its rows (``opt_layouts``; None for
+    a reduced one)."""
+    from torecsys_tpu_torch.parallel.sharding import _table_owners, axis_layout
+    from torecsys_tpu_torch.train.optimizers import state_row_axis
     from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state
     from torecsys_tpu_torch.train.state import batch_stats
 
     seq = trainer.pipeline.sequential
     out = {"params": {n: p.detach().numpy().copy() for n, p in seq.named_parameters()},
            "buffers": {n: b.numpy().copy() for n, b in batch_stats(seq).items()},
-           "slots": {}, "layouts": {}}
-    if is_hybrid_opt_state(trainer.state.opt_state):
+           "slots": {}, "layouts": {}, "opt": {}, "opt_layouts": {}}
+    opt = trainer.state.opt_state
+    if is_hybrid_opt_state(opt):
         out["slots"] = {t: {k: v.numpy().copy() for k, v in s.items()}
-                        for t, s in trainer.state.opt_state["sparse"].items()}
+                        for t, s in opt["sparse"].items()}
+        opt = opt["dense"]
+    layouts = {}
     for name, m in _table_owners(seq).items():
         lay = m.row_layout
         if lay is not None:
-            out["layouts"][name] = (lay.rows, lay.shards, lay.index, lay.blocks)
+            out["layouts"][name] = _layout_tuple(lay)
+            layouts[name] = lay
+    for name, p in seq.named_parameters():
+        state = {k: v for k, v in opt.state.get(p, {}).items() if hasattr(v, "numpy")}
+        out["opt"][name] = {k: v.detach().float().numpy().copy() for k, v in state.items()}
+        out["opt_layouts"][name] = {
+            k: _layout_tuple(axis_layout(layouts[name], state_row_axis(opt, p, k, v))
+                             if name in layouts else None) for k, v in state.items()}
     return out
 
 
@@ -187,14 +229,17 @@ def row_update_task(mesh_shape, rule, table, slots, uids, gsum, step):
 
 
 def trainer_task(mesh_shape, spec, batches, states=None, lookup_options=None, presort=None,
-                 lookup_recovery=True, fit_batches=None, final_state=None):
+                 lookup_recovery=True, fit_batches=None, final_state=None, free_from=None,
+                 eval_batches=None):
     """The Trainer under the mesh.  With ``states`` (the JAX mesh Trainer's
     state before each batch: params, optimizer state, running statistics):
     each step from the JAX state, its loss and this rank's state after it.
+    With ``free_from`` (a params tree) instead: from those parameters and a
+    fresh optimizer state, a step a batch, each loss and state after it.
     With ``final_state``: from it, ``predict`` of the first batch and
-    ``evaluate`` over the batches (the global scores and metrics).  With
-    ``fit_batches``: ``fit`` over them, its metrics, the recovery actions
-    and the state after it."""
+    ``evaluate`` over the batches, or ``eval_batches`` (the global scores
+    and metrics).  With ``fit_batches``: ``fit`` over them, its metrics, the
+    recovery actions and the state after it."""
     from torecsys_tpu_torch import Trainer
     from torecsys_tpu_torch.convert import from_flax_params
 
@@ -204,6 +249,11 @@ def trainer_task(mesh_shape, spec, batches, states=None, lookup_options=None, pr
     trainer.init_state()
     out = {"losses": [], "states": [], "coordinate": mesh.coordinate,
            "presorted": trainer._presorter is not None}
+    if free_from is not None:
+        from_flax_params(trainer.pipeline.sequential, free_from)
+    for i, batch in enumerate(batches if free_from is not None else ()):
+        out["losses"].append(float(trainer.train_steps([batch])[0]))
+        out["states"].append(local_state(trainer))
     for batch, st in zip(batches, states or ()):
         from_flax_params(trainer.pipeline.sequential, st["params"], st["opt_state"],
                          trainer.state, batch_stats=st.get("batch_stats") or None)
@@ -213,7 +263,7 @@ def trainer_task(mesh_shape, spec, batches, states=None, lookup_options=None, pr
         from_flax_params(trainer.pipeline.sequential, final_state["params"],
                          batch_stats=final_state.get("batch_stats") or None)
         out["predict"] = trainer.predict(batches[0]).numpy()
-        out["evaluate"] = trainer.evaluate(batches)
+        out["evaluate"] = trainer.evaluate(eval_batches or batches)
     if fit_batches is not None:
         try:
             out["metrics"] = trainer.fit(lambda: iter(fit_batches), max_epochs=1)
@@ -222,6 +272,54 @@ def trainer_task(mesh_shape, spec, batches, states=None, lookup_options=None, pr
         out["recoveries"] = list(trainer.recoveries)
         out["capacity_factor"] = trainer.lookup_options.get("capacity_factor")
         out["state"] = local_state(trainer)
+    return out
+
+
+def carry_task(mesh_shape, spec, state, lookup_options=None):
+    """This rank's state right after ``convert.from_flax_params`` carried
+    the JAX state (params and optimizer state) into the mesh Trainer."""
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.convert import from_flax_params
+
+    trainer = Trainer(build_pipeline(spec), mesh=_mesh(mesh_shape), log_every=10**9,
+                      lookup_options=lookup_options)
+    trainer.init_state()
+    from_flax_params(trainer.pipeline.sequential, state["params"], state["opt_state"],
+                     trainer.state)
+    return local_state(trainer)
+
+
+def reductions_task(mesh_shape, spec, lookup_options=None):
+    """The mesh's maximum over the table group and its byte count; which
+    sharded tables a named written-out optimizer reduces over; and the
+    warning an opaque factory's optimizer gets on a sharded table."""
+    import logging
+
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    mesh = _mesh(mesh_shape)
+    t = torch.tensor([float(mesh.rank), -float(mesh.rank)])
+    out = {"max": mesh.all_reduce(t, "table", op="max").tolist(), "sent": dict(mesh.sent)}
+    named = Trainer(build_pipeline(spec), mesh=mesh, lookup_options=lookup_options)
+    named.init_state()
+    out["reduced"] = sorted(n for n, p in named.pipeline.sequential.named_parameters()
+                            if p in named.state.opt_state._tables)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger = logging.getLogger("torecsys_tpu_torch.train.trainer")
+    logger.addHandler(handler)
+    try:
+        pipe = build_pipeline(spec).set_optimizer(
+            lambda params: torch.optim.SGD(params, lr=0.1, momentum=0.9))
+        opaque = Trainer(pipe, mesh=mesh, lookup_options=lookup_options)
+        opaque.init_state()
+    finally:
+        logger.removeHandler(handler)
+    out["warnings"] = records
+    out["opaque"] = type(opaque.state.opt_state).__name__
     return out
 
 
@@ -363,16 +461,27 @@ def main(job_path: str, rank: int) -> None:
     dist.destroy_process_group()
 
 
-def assemble(states, name, slot=None):
+def assemble(states, name, slot=None, opt=None):
     """A global array from the ranks' :func:`local_state` records: parameter
-    ``name``, or with ``slot`` that row slot of table ``name``.  A
-    row-sharded table's shards are put back at their rows (each table rank
-    once; the ranks of other data slices must hold the same), as
-    ``(blocks, rows per block, ...)`` for the caller to reshape; anything
-    else is rank 0's copy."""
-    pick = (lambda s: s["params"][name]) if slot is None else (lambda s: s["slots"][name][slot])
-    layout = states[0]["layouts"].get(name)
+    ``name``, or with ``slot`` that row slot of table ``name``, or with
+    ``opt`` that key of its dense optimizer state.  A row-sharded tensor's
+    shards are put back at their rows (each table rank once; the ranks of
+    other data slices must hold the same), as ``(blocks, rows per block,
+    ...)`` for the caller to reshape; anything else is rank 0's copy (a
+    reduced optimizer state tensor, which is written once, must be every
+    rank's to the bit)."""
+    if opt is not None:
+        pick = lambda s: s["opt"][name][opt]  # noqa: E731
+        layout = states[0]["opt_layouts"][name][opt]
+        layout_of = lambda s: s["opt_layouts"][name][opt]  # noqa: E731
+    else:
+        pick = ((lambda s: s["params"][name]) if slot is None
+                else (lambda s: s["slots"][name][slot]))
+        layout = states[0]["layouts"].get(name)
+        layout_of = lambda s: s["layouts"][name]  # noqa: E731
     if layout is None:
+        for s in states[1:] if opt is not None else ():
+            np.testing.assert_array_equal(pick(s), pick(states[0]), err_msg=f"{name} {opt}")
         return pick(states[0])
     rows, shards, _, blocks = layout
     per = rows // blocks // shards
@@ -382,7 +491,7 @@ def assemble(states, name, slot=None):
         k = next(k for k in range(1, local.ndim + 1)
                  if int(np.prod(local.shape[:k])) == blocks * per)
         local = local.reshape(blocks, per, *local.shape[k:])
-        t = s["layouts"][name][2]
+        t = layout_of(s)[2]
         if t in parts:
             np.testing.assert_array_equal(parts[t], local)
         parts[t] = local

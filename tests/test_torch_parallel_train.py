@@ -74,8 +74,19 @@ def batches(spec, n=STEPS, rows=B):
     return [{k: v[i * rows:(i + 1) * rows] for k, v in data.items()} for i in range(n)]
 
 
-def jax_pipeline(spec):
+def jax_pipeline(spec, miner=None):
+    """The JAX pipeline of a ``test_torch_parallel_ranks.build_pipeline``
+    spec; an ``ltr`` spec mines with ``miner``."""
     fields = spec["fields"]
+    if spec.get("objective", "ctr") != "ctr":
+        table = jax_inputs.MultiIndicesEmbedding(embed_size=spec["embed"], field_sizes=fields,
+                                                 fields=("user", "item"))
+        name, lr = spec["optimizer"]
+        return (JaxPipeline().set_objective(spec["objective"])
+                .set_inputs(jax_inputs.Inputs(schema={"emb_inputs": table}))
+                .set_model(spec["model"], **spec.get("kwargs", {}))
+                .set_criterion(spec["criterion"]).set_optimizer(name, lr=lr)
+                .set_miner(miner).set_miner_target_field("item").set_target_fields("label"))
     cats = tuple(f"cat_{i}" for i in range(len(fields)))
     schema = {}
     if spec["num_dense"]:
@@ -87,20 +98,23 @@ def jax_pipeline(spec):
     else:
         schema["emb_inputs"] = jax_inputs.MultiIndicesEmbedding(
             embed_size=spec["embed"], field_sizes=fields, fields=cats)
-    name, lr = spec["optimizer"]
-    return (JaxPipeline().set_objective("ctr").set_inputs(jax_inputs.Inputs(schema=schema))
+    name, lr, *kw = spec["optimizer"]
+    pipe = (JaxPipeline().set_objective("ctr").set_inputs(jax_inputs.Inputs(schema=schema))
             .set_model(spec["model"], **spec.get("kwargs", {}))
-            .set_criterion("BCEWithLogitsLoss").set_optimizer(name, lr=lr)
+            .set_criterion("BCEWithLogitsLoss").set_optimizer(name, lr=lr, **(kw[0] if kw else {}))
             .set_sparse_embeddings(spec.get("sparse")).set_target_fields("label"))
+    if spec.get("regularizer"):
+        pipe.set_regularizer(**spec["regularizer"])
+    return pipe
 
 
 class JaxMeshRun:
     """The JAX Trainer under a mesh, one batch a step (presorted where its
     rule presorts: a sparse route on an unsplit data axis)."""
 
-    def __init__(self, spec, shape, feed, options):
-        self.t = JaxTrainer(jax_pipeline(spec), mesh=jax_mesh(shape), prefetch=0, seed=0,
-                            lookup_options=dict(options), log_every=10**9)
+    def __init__(self, spec, shape, feed, options, miner=None, ndcg_k=10):
+        self.t = JaxTrainer(jax_pipeline(spec, miner), mesh=jax_mesh(shape), prefetch=0, seed=0,
+                            lookup_options=dict(options), log_every=10**9, ndcg_k=ndcg_k)
         self.t.init_state(feed[0])
         self.t._setup_presorter()
         self.t._build_steps()

@@ -42,7 +42,9 @@ take their next step from the same state.
 Into a trainer under a mesh (``parallel``) whose tables are row-sharded,
 each rank takes its own rows of the global arrays (a JAX sharded state
 gathered with ``jax.device_get``): the table, its row slots and, on the
-dense route, its optimizer state.
+dense route, the optimizer state tensors that hold its rows (by the axis
+that indexes them); the reduced ones (adafactor's factor across the rows,
+sm3's other vectors, novograd's ``nu``) whole.
 
 Arrays come in as numpy (``jax.device_get`` of the JAX side); this module
 needs neither JAX nor the JAX package.
@@ -277,13 +279,33 @@ def optax_fields(opt_state) -> Dict[str, Any]:
 _TORCH_ADAM_KEYS = {"mu": "exp_avg", "nu": "exp_avg_sq"}
 
 
+def _state_leaves(field: str, path: str, value):
+    """``(port state key, value)`` of one optax state leaf: the leaf itself,
+    but a list of per-axis vectors (sm3's ``mu``) gives ``<field>_<axis>``
+    by the port parameter's axes (a flax ``kernel``'s axes reversed, a 4-D
+    one's as ``_as_torch`` moves them)."""
+    if not isinstance(value, (list, tuple)):
+        return [(field, value)]
+    nd = len(value)
+    order = list(range(nd))
+    if path.split(SEP)[-1] == "kernel":
+        order = [3, 2, 0, 1] if nd == 4 else order[::-1]
+    return [(f"{field}_{j}", value[i]) for j, i in enumerate(order)]
+
+
 def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, state,
                      step: Optional[int], layouts: Optional[Dict] = None) -> None:
     """Fill the port's optimizer state from the JAX package's: each optax
     field's tree into the per-parameter state key of the same name
-    (``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` for ``mu``/``nu``),
-    flax kernels transposed; ``count`` into each parameter's ``step``; the
-    row-wise slots of the sparse route as they are."""
+    (``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` for ``mu``/``nu``,
+    sm3's per-axis ``mu`` into ``mu_<axis>``), flax kernels transposed;
+    ``count`` into each parameter's ``step``; the row-wise slots of the
+    sparse route as they are.  Of a row-sharded table, each state tensor
+    that holds the table's rows takes this rank's
+    (``optimizers.state_row_axis``), a reduced one is taken whole."""
+    from torecsys_tpu_torch.parallel.sharding import axis_layout
+    from torecsys_tpu_torch.train.optimizers import state_row_axis
+
     hybrid = isinstance(opt_state_np, Mapping) and "sparse" in opt_state_np
     fields = optax_fields(opt_state_np["dense"] if hybrid else opt_state_np)
     count = fields.pop("count", None)
@@ -297,8 +319,15 @@ def _carry_opt_state(named: Dict[str, nn.Parameter], opt_state_np: Mapping, stat
         for path in paths:
             p = named[torch_name(path)]
             layout = (layouts or {}).get(torch_name(path))
-            values = {k: _as_torch(path, tree[path], p, layout) for k, tree in trees.items()}
             live = opt.state.get(p)
+            values = {}
+            for field, tree in trees.items():
+                for k, value in _state_leaves(field, path, tree[path]):
+                    # a lazily built state (torch's Adam) takes the parameter's shape
+                    like = live[k] if live and k in live else p
+                    lay = None if layout is None else axis_layout(
+                        layout, state_row_axis(opt, p, k, like))
+                    values[k] = _as_torch(path, value, like, lay)
             if not live:  # torch's lazily built state: Adam's before its first step
                 if count is None:
                     raise ValueError(f"the optax state has no count for {type(opt).__name__}")

@@ -19,9 +19,11 @@ class Regularizer:
     norm: int = 2
     key_filter: str = "kernel"
 
-    def __call__(self, params):
+    def __call__(self, params, group_sum=None, sharded=()):
+        """The penalty of ``params``; ``group_sum`` and ``sharded`` take a
+        row-sharded table's whole (``regularize``)."""
         return regularize(params, weight_decay=self.weight_decay, norm=self.norm,
-                          key_filter=self.key_filter)
+                          key_filter=self.key_filter, group_sum=group_sum, sharded=sharded)
 
 
 __all__ = ["Regularizer"]

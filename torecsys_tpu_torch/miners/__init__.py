@@ -19,7 +19,7 @@ negative int64 is arithmetic).  The same functions take Python ints.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -57,18 +57,23 @@ def seed_key(seed: int) -> int:
     return mix32(seed & _MASK32)
 
 
-def randint(key: Key, n: int, high: int, device=None) -> torch.Tensor:
+def randint(key: Key, n: int, high: int, device=None, start: int = 0) -> torch.Tensor:
     """``n`` int64 draws uniform in ``[0, high)``: ``fold_in(key, i) % high``
-    for positions ``i < n`` (a bias of under ``high / 2^32``), on ``key``'s
-    device, or ``device`` for an int key."""
+    for positions ``start <= i < start + n`` (a bias of under ``high /
+    2^32``), on ``key``'s device, or ``device`` for an int key."""
     if isinstance(key, torch.Tensor):
         device = key.device
-    positions = torch.arange(n, dtype=torch.int64, device=device)
+    positions = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return fold_in(key, positions) % high
 
 
 class BaseMiner:
-    """``miner(key, batch, target_field) → (pos_batch, neg_batch)``."""
+    """``miner(key, batch, target_field) → (pos_batch, neg_batch)``.  Under
+    a split data axis the train and ranking evaluation steps call it as
+    ``miner(key, batch, target_field, pool=..., part=(d, dp))``: ``batch`` is
+    the rank's slice ``d`` of ``dp`` equal slices of the global batch, and
+    ``pool`` the global batch's target field, which the JAX package's miner
+    draws from."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,23 +85,33 @@ class UniformBatchMiner(BaseMiner):
     times a row (``jnp.repeat``'s order: row i's copies are rows
     ``i·num_negs`` to ``i·num_negs + num_negs - 1``) and takes the target
     from the drawn rows.  The copies are views expanded and reshaped, and
-    the draws device ops: nothing reads a device value back to the host."""
+    the draws device ops: nothing reads a device value back to the host.
+
+    Of a slice of the batch (``part = (d, dp)``: the ``d``-th of ``dp`` equal
+    slices, ``pool`` the whole batch's targets) it takes the whole batch's
+    draws of the slice's anchors, from the whole batch's targets: the draws
+    of one call over the whole batch, cut to the slice."""
 
     num_negs: int = 1
 
-    def draw(self, key: Key, batch_size: int, device=None) -> torch.Tensor:
-        """The ``(B·num_negs,)`` rows the negatives' targets come from."""
-        return randint(key, batch_size * self.num_negs, batch_size, device)
+    def draw(self, key: Key, batch_size: int, device=None, part=(0, 1)) -> torch.Tensor:
+        """The ``(B·num_negs,)`` rows the negatives' targets come from; of
+        slice ``d`` of ``dp`` (``part``), its run of the whole batch's
+        ``dp·B·num_negs`` draws over its ``dp·B`` rows."""
+        d, dp = part
+        n = batch_size * self.num_negs
+        return randint(key, n, batch_size * dp, device, start=d * n)
 
-    def __call__(self, key: Key, batch: Dict[str, torch.Tensor],
-                 target_field: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    def __call__(self, key: Key, batch: Dict[str, torch.Tensor], target_field: str,
+                 pool: Optional[torch.Tensor] = None,
+                 part=(0, 1)) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         target = batch[target_field]
         b, k = target.shape[0], self.num_negs
-        neg_idx = self.draw(key, b, target.device)
+        neg_idx = self.draw(key, b, target.device, part)
         neg_batch = {}
         for name, x in batch.items():
             if name == target_field:
-                neg_batch[name] = x.index_select(0, neg_idx)
+                neg_batch[name] = (x if pool is None else pool).index_select(0, neg_idx)
             else:
                 tail = x.shape[1:]
                 neg_batch[name] = x.unsqueeze(1).expand(b, k, *tail).reshape(b * k, *tail)

@@ -9,7 +9,12 @@ embedding lookup.
 * embedding tables are **row-sharded** over ``table``: each rank holds its
   rows as a plain tensor; lookups exchange rows through the table group's
   collectives (``psum`` or ``alltoall``), and the sparse update runs on each
-  rank's own rows (``ops.sparse.sharded_row_update``).
+  rank's own rows (``ops.sparse.sharded_row_update``);
+* what the JAX package's step takes over a whole table or the whole batch
+  is taken over the groups: a dense optimizer's norms, means and maxima of
+  a sharded table (``train.optimizers``, ``Mesh.all_reduce`` sums and
+  maxima), a regularizer's penalty of it and the in-batch miner's draws
+  (``train.steps``).
 """
 
 from torecsys_tpu_torch.parallel.lookup import (

@@ -8,7 +8,8 @@ JAX package's devices), with the process group of each axis from
 (the ranks of its ``t``, in ``d`` order), its table group its row.
 
 The collectives of the sharded path go through the mesh
-(:meth:`Mesh.all_reduce`, :meth:`Mesh.all_gather`, :meth:`Mesh.all_to_all`).
+(:meth:`Mesh.all_reduce`, a sum or a maximum, :meth:`Mesh.all_gather`,
+:meth:`Mesh.all_to_all`).
 Over NCCL they take the card's tensors as they are.  Over gloo they take
 CPU tensors; a card tensor under gloo (several ranks sharing one card, where
 NCCL refuses to run) is copied to the host for the collective and back, so
@@ -70,9 +71,9 @@ class Mesh:
     mesh was made with ``device_type="cpu"``); ``coordinate`` is this rank's
     ``(d, t)``, None for a rank outside a mesh smaller than the world.
     ``sent`` counts the bytes this rank handed each kind of collective
-    (``all_reduce``, ``all_gather``, ``all_to_all``) over groups of more
-    than one rank, as it calls them (a captured graph's replays are not
-    counted).
+    (``all_reduce``, ``all_reduce_max``, ``all_gather``, ``all_to_all``)
+    over groups of more than one rank, as it calls them (a captured graph's
+    replays are not counted).
     """
 
     def __init__(self, data: int, table: int, device: torch.device,
@@ -115,17 +116,21 @@ class Mesh:
         under gloo)."""
         return self.backend == "gloo" and t.device.type != "cpu"
 
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum ``t`` over ``axis``, in place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` over ``axis`` in place by ``op``, ``"sum"`` or
+        ``"max"``; returns ``t``.  A maximum is counted in ``sent`` as
+        ``all_reduce_max``."""
         if self.shape[axis] == 1:
             return t
         group = self.group(axis)
-        self.sent["all_reduce"] += t.numel() * t.element_size()
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        self.sent["all_reduce" if op == "sum" else f"all_reduce_{op}"] += (t.numel()
+                                                                          * t.element_size())
         if self._staged(t):
             host = t.cpu()
-            dist.all_reduce(host, group=group)
+            dist.all_reduce(host, op=reduce_op, group=group)
             return t.copy_(host)
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=reduce_op, group=group)
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:

@@ -149,6 +149,20 @@ def table_layout(shape, spec, mesh: Mesh, table_axis: str = TABLE_AXIS):
     return RowLayout(rows=shape[0] * shape[1], shards=ts, index=t, blocks=shape[0])
 
 
+def axis_layout(layout: RowLayout, axis):
+    """The layout of a tensor beside a row-sharded table (an optimizer's
+    state) whose ``axis`` indexes the table's local rows: the table's own
+    where the tensor keeps the rows' leading axes (axis 0 of a 2-D table's,
+    axis 1 of a field-aware table's after its block axis), one block's rows
+    where a field-aware table's state dropped the block axis (axis 0); None
+    for ``axis`` None (a reduced tensor, replicated)."""
+    if axis is None:
+        return None
+    if layout.blocks == 1 or axis == 1:
+        return layout
+    return RowLayout(rows=layout.block_rows, shards=layout.shards, index=layout.index)
+
+
 def local_shard(value, layout: RowLayout):
     """The rows of the global ``value`` (``(R, ...)`` or ``(N, Vp, ...)``,
     numpy or torch) that ``layout``'s rank holds."""
@@ -258,6 +272,6 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh, stacked: bool = False,
     return out
 
 
-__all__ = ["DEFAULT_MIN_ROWS_TO_SHARD", "RowLayout", "batch_sharding", "infer_param_sharding",
-           "local_shard", "shard_batch", "shard_module", "shard_params", "table_layout",
-           "unshard_module"]
+__all__ = ["DEFAULT_MIN_ROWS_TO_SHARD", "RowLayout", "axis_layout", "batch_sharding",
+           "infer_param_sharding", "local_shard", "shard_batch", "shard_module", "shard_params",
+           "table_layout", "unshard_module"]

@@ -31,7 +31,8 @@ table and its slots, and a CUDA graph captured over the state
 Under a mesh (``parallel``) whose tables are row-sharded the checkpoint is
 format 2: each rank of the first data slice (``d = 0``; the other slices
 hold the same rows) writes its shards of every sharded tensor (the table,
-its row slots, a dense-route table's optimizer state) to
+its row slots, a dense-route table's optimizer state that holds its rows,
+each tensor placed by the axis that indexes them) to
 ``path + ".shard<t>"``, and then rank 0 writes ``path`` itself, the manifest:
 the format-1 content with each sharded tensor recorded by its global shape
 and layout instead.  Every rank waits for the whole checkpoint before it
@@ -57,7 +58,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from torecsys_tpu_torch.train.optimizers import OptaxOptimizer
+from torecsys_tpu_torch.train.optimizers import OptaxOptimizer, state_row_axis
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state
 from torecsys_tpu_torch.train.state import TrainState, batch_stats
 
@@ -123,8 +124,14 @@ def _is_writer() -> bool:
 def _sharded_tensors(seq: nn.Module, state: TrainState) -> Dict[str, tuple]:
     """``{key: (live tensor, RowLayout)}`` of every tensor of a row-sharded
     table: ``params/<name>``, ``row_slots/<name>/<slot>`` and the dense
-    optimizer's per-parameter state ``dense_opt/<index>/<key>``."""
-    from torecsys_tpu_torch.parallel.sharding import _table_owners
+    optimizer's per-parameter state ``dense_opt/<index>/<key>`` that holds
+    the table's rows on an axis (``optimizers.state_row_axis``: the
+    parameter's shape, adafactor's factor along the rows, sm3's row vector),
+    each with its own layout (``sharding.axis_layout``).  The dense
+    optimizer's reduced state (a count, adafactor's factor across the rows,
+    sm3's other vectors, novograd's ``nu``) is the same on every rank and is
+    written once, whole."""
+    from torecsys_tpu_torch.parallel.sharding import _table_owners, axis_layout
 
     out = {}
     opt = _dense_optimizer(state)
@@ -141,8 +148,9 @@ def _sharded_tensors(seq: nn.Module, state: TrainState) -> Dict[str, tuple]:
                 out[f"row_slots/{name}/{k}"] = (v, layout)
         if id(p) in index:
             for k, v in opt.state.get(p, {}).items():
-                if isinstance(v, torch.Tensor) and v.shape == p.shape:
-                    out[f"dense_opt/{index[id(p)]}/{k}"] = (v, layout)
+                axis = state_row_axis(opt, p, k, v) if isinstance(v, torch.Tensor) else None
+                if axis is not None:
+                    out[f"dense_opt/{index[id(p)]}/{k}"] = (v, axis_layout(layout, axis))
     return out
 
 
@@ -331,10 +339,12 @@ def restore_checkpoint(path: str, seq: nn.Module, state: TrainState) -> TrainSta
     # a sharded parameter's dense optimizer state may not be built yet
     # (torch's Adam builds it at the first step): its row tensors take the
     # parameter's layout
-    index, named = _dense_index(_dense_optimizer(state)), dict(seq.named_parameters())
+    opt = _dense_optimizer(state)
+    index, named = _dense_index(opt), dict(seq.named_parameters())
     for key, layout in list(layouts.items()):
-        if key.startswith("params/") and id(named[key[7:]]) in index:
-            layouts[f"dense_opt/{index[id(named[key[7:]])]}"] = layout
+        p = named.get(key[7:]) if key.startswith("params/") else None
+        if p is not None and id(p) in index and not opt.state.get(p):
+            layouts[f"dense_opt/{index[id(p)]}"] = layout
 
     def fetch(key, value, live):
         layout = layouts.get(key)

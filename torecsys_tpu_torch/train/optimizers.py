@@ -78,6 +78,25 @@ masked-out parameter skips the weight decay (or the trust ratio), as
 ``accumulator_dtype``, adafactor's ``dtype_momentum``) store the moment in
 that dtype after the update used it unrounded, as optax does.  A keyword
 optax does not take raises ``TypeError``.
+
+On a row-sharded table (``parallel``: a rank holds its rows of the table as
+the parameter), the Trainer hands the optimizer each such parameter's
+:class:`~torecsys_tpu_torch.parallel.sharding.RowLayout` and the mesh
+(:meth:`OptaxOptimizer.reduce_over`), and every quantity that optax takes
+over the whole parameter is taken over the logical table, as the JAX
+package's update, jitted over global arrays, takes it: the trust ratios'
+norms (lamb, lars, fromage) and novograd's gradient norm are sums of squares
+summed over the table group before the square root; sm3's accumulator
+vectors of the other axes are maxima over the group (the row axis' own stays
+local); adafactor decides to factor on the logical shape, and its means over
+the row axis and its two root mean squares are sums over the group divided
+by the logical counts; noisy_sgd draws each element's noise at its position
+in the logical table.  The collectives are device ops (no host read), so a
+step stays capturable in a CUDA graph over NCCL.  The optimizers that work
+element by element take no collective.  :func:`state_row_axis` says which
+state tensors hold rows of the table (the parameter's shape, adafactor's
+factor along the rows, sm3's row vector) and which are reduced (replicated
+on every rank), for checkpoints and ``convert``.
 """
 
 from __future__ import annotations
@@ -94,10 +113,64 @@ import torch
 Factory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
+class TableGroup:
+    """The reductions of a row-sharded parameter over its table group (the
+    ranks holding the table's other rows), so that a norm, a mean or a
+    maximum runs over the logical table.  ``axis`` is the parameter's row
+    axis (0 of a ``(R, W)`` table, 1 of a field-aware ``(N, Vp, W)`` one),
+    ``shape`` its logical shape and ``numel`` its logical element count."""
+
+    def __init__(self, mesh, layout, local_shape):
+        self.mesh, self.layout = mesh, layout
+        self.axis = len(local_shape) - 2
+        shape = list(local_shape)
+        shape[self.axis] = layout.block_rows
+        self.shape = tuple(shape)
+        self.numel = math.prod(shape)
+
+    def _reduce(self, ts, op: str):
+        from torecsys_tpu_torch.parallel.mesh import TABLE_AXIS
+
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        self.mesh.all_reduce(flat, TABLE_AXIS, op)
+        return tuple(part.reshape(t.shape) for part, t in zip(
+            flat.split([t.numel() for t in ts]), ts))
+
+    def sum(self, *ts: torch.Tensor):
+        """The group's sums of ``ts`` (of one dtype; one collective)."""
+        return self._reduce(ts, "sum")
+
+    def max(self, *ts: torch.Tensor):
+        """The group's elementwise maxima of ``ts`` (of one dtype)."""
+        return self._reduce(ts, "max")
+
+    def positions(self, device) -> torch.Tensor:
+        """The flat positions of the local elements in the logical tensor,
+        in their local order (int64)."""
+        width = self.shape[-1]
+        rows = self.layout.global_rows().to(device)
+        return (rows[:, None] * width + torch.arange(width, dtype=torch.int64,
+                                                     device=device)).reshape(-1)
+
+
+def _norm(x: torch.Tensor, table: Optional[TableGroup] = None) -> torch.Tensor:
     """optax's ``safe_norm(x, 0.0)``: ``sqrt(sum(x * x))`` over every
-    element (0 for a zero tensor)."""
-    return torch.sqrt(torch.sum(x * x))
+    element (0 for a zero tensor), of the logical table with ``table``."""
+    sq = torch.sum(x * x)
+    if table is not None:
+        (sq,) = table.sum(sq)
+    return torch.sqrt(sq)
+
+
+def _mean(x: torch.Tensor, dim: int, table: Optional[TableGroup], row_axis: Optional[int],
+          keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)``; where ``x``'s axis ``row_axis`` indexes a sharded
+    table's local rows and ``dim`` is that axis, the logical mean: the
+    group's sum over the table's logical row count."""
+    if table is None or dim != row_axis:
+        return x.mean(dim=dim, keepdim=keepdim)
+    (s,) = table.sum(x.sum(dim=dim, keepdim=keepdim))
+    return s / table.shape[table.axis]
 
 
 def _bias_correction(decay: float, count: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -153,19 +226,49 @@ class OptaxOptimizer(torch.optim.Optimizer):
         # "decay_on" and "trust_on": a mask's groups (_MaskedFactory)
         defaults = dict(lr=lr, capturable=True, decay_on=True, trust_on=True)
         defaults.update(hyper)
+        self._tables: Dict[torch.Tensor, TableGroup] = {}
         super().__init__(params, defaults)
         for group in self.param_groups:
-            dtypes = self._slot_dtypes(group)
             for p in group["params"]:
-                state = {name: torch.full_like(p, value, dtype=dtypes.get(name, p.dtype),
-                                               memory_format=torch.preserve_format)
-                         for name, value in self._slot_inits(group).items()}
-                state.update(self._extra_state(p, group))
-                if self._has_count(group):
-                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
-                if callable(group["lr"]):
-                    state["lr_count"] = torch.zeros((), dtype=torch.int32, device=p.device)
-                self.state[p] = state
+                self.state[p] = self._init_state(p, group)
+
+    def _init_state(self, p: torch.Tensor, group) -> Dict[str, torch.Tensor]:
+        dtypes = self._slot_dtypes(group)
+        state = {name: torch.full_like(p, value, dtype=dtypes.get(name, p.dtype),
+                                       memory_format=torch.preserve_format)
+                 for name, value in self._slot_inits(group).items()}
+        state.update(self._extra_state(p, group))
+        if self._has_count(group):
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+        if callable(group["lr"]):
+            state["lr_count"] = torch.zeros((), dtype=torch.int32, device=p.device)
+        return state
+
+    def reduce_over(self, mesh, layouts: Mapping[torch.Tensor, Any]) -> None:
+        """Take the whole-parameter reductions of each parameter of
+        ``layouts`` (``{parameter: RowLayout}``: a row-sharded table's local
+        rows) over its table group of ``mesh`` (:class:`TableGroup`), and
+        build its state again (it was made for the local shape, before the
+        optimizer knew the table's)."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                layout = layouts.get(p)
+                if layout is not None and layout.sharded and layout.shards > 1:
+                    self._tables[p] = TableGroup(mesh, layout, tuple(p.shape))
+                    self.state[p] = self._init_state(p, group)
+
+    def _table(self, p: torch.Tensor) -> Optional[TableGroup]:
+        return self._tables.get(p)
+
+    def _shape(self, p: torch.Tensor) -> tuple:
+        """``p``'s logical shape: a row-sharded table's whole one."""
+        table = self._table(p)
+        return tuple(p.shape) if table is None else table.shape
+
+    def _state_row_axis(self, p: torch.Tensor, key: str, value) -> Optional[int]:
+        """The axis of ``p``'s state tensor ``key`` that indexes ``p``'s
+        stored rows, None for a reduced one (:func:`state_row_axis`)."""
+        return _same_shape_axis(p, value)
 
     def _slot_inits(self, group) -> Dict[str, float]:
         return {}
@@ -214,6 +317,28 @@ class OptaxOptimizer(torch.optim.Optimizer):
                     u = u * -self._lr(group, state, u)
                 p.add_(self._after_lr(u, state, group))
         return loss
+
+
+def _same_shape_axis(p: torch.Tensor, value) -> Optional[int]:
+    """A state tensor of the parameter's shape holds the table's rows on its
+    row axis; any other is reduced."""
+    if (isinstance(value, torch.Tensor) and p.dim() >= 2
+            and tuple(value.shape) == tuple(p.shape)):
+        return p.dim() - 2
+    return None
+
+
+def state_row_axis(opt: torch.optim.Optimizer, p: torch.Tensor, key: str,
+                   value) -> Optional[int]:
+    """Which axis of ``opt``'s state tensor ``key`` (``value``) of a table
+    parameter ``p`` indexes the table's stored rows: that tensor is sharded
+    with the table (the parameter's shape, adafactor's factor along the
+    rows, sm3's row vector); None for a reduced tensor, the same on every
+    rank (a count, novograd's ``nu``, adafactor's factor across the rows,
+    sm3's other vectors).  A torch optimizer's state is read by its shape."""
+    if isinstance(opt, OptaxOptimizer):
+        return opt._state_row_axis(p, key, value)
+    return _same_shape_axis(p, value)
 
 
 def _dtype(dtype) -> Optional[torch.dtype]:
@@ -378,21 +503,26 @@ class Lamb(_AdamFamily):
                          decay_on=_mask_flag("mask", mask))
 
     def _direction(self, p, g, state, group):
-        return _trust_ratio(super()._direction(p, g, state, group), p, 1.0, 0.0)
+        return _trust_ratio(super()._direction(p, g, state, group), p, 1.0, 0.0,
+                            table=self._table(p))
 
 
 def _trust_ratio(u: torch.Tensor, p: torch.Tensor, coefficient: float,
-                 eps: float, min_norm: float = 0.0) -> torch.Tensor:
-    """optax's ``scale_by_trust_ratio``."""
-    param_norm, update_norm = _safe_norm(p, min_norm), _safe_norm(u, min_norm)
+                 eps: float, min_norm: float = 0.0,
+                 table: Optional[TableGroup] = None) -> torch.Tensor:
+    """optax's ``scale_by_trust_ratio``; with ``table`` the norms are the
+    logical table's (one collective)."""
+    sq = (torch.sum(p * p), torch.sum(u * u))
+    if table is not None:
+        sq = table.sum(*sq)
+    param_norm, update_norm = (_at_least(torch.sqrt(s), min_norm) for s in sq)
     ratio = coefficient * param_norm / (update_norm + eps)
     zero = torch.logical_or(param_norm == 0.0, update_norm == 0.0)
     return u * torch.where(zero, torch.ones((), dtype=p.dtype, device=p.device), ratio)
 
 
-def _safe_norm(x: torch.Tensor, min_norm: float) -> torch.Tensor:
-    """optax's ``safe_norm``: ``||x||``, ``min_norm`` where it is at most that."""
-    norm = _norm(x)
+def _at_least(norm: torch.Tensor, min_norm: float) -> torch.Tensor:
+    """optax's ``safe_norm`` of a norm: ``min_norm`` where it is at most that."""
     return norm if min_norm == 0.0 else torch.where(norm <= min_norm, min_norm, norm)
 
 
@@ -417,7 +547,8 @@ class Lars(OptaxOptimizer):
         u = _decay(g, p, group)
         if not group["trust_on"]:
             return u
-        return _trust_ratio(u, p, group["trust_coefficient"], group["eps"])
+        return _trust_ratio(u, p, group["trust_coefficient"], group["eps"],
+                            table=self._table(p))
 
     def _after_lr(self, u, state, group):
         return _trace(u, state, group["momentum"], group["nesterov"])
@@ -651,7 +782,7 @@ class Fromage(OptaxOptimizer):
         super().__init__(params, lr, min_norm=min_norm)
 
     def _direction(self, p, g, state, group):
-        u = _trust_ratio(g, p, 1.0, 0.0, group["min_norm"])
+        u = _trust_ratio(g, p, 1.0, 0.0, group["min_norm"], self._table(p))
         lr = group["lr"]
         if callable(lr):
             rate = self._lr(group, state, torch.empty((), dtype=torch.float32))
@@ -664,17 +795,25 @@ class Fromage(OptaxOptimizer):
         return u * float(-(np.float32(lr) * mult)) + float(mult - np.float32(1)) * p
 
 
-def gaussian_noise(key: int, count: torch.Tensor, index: int, shape, device) -> torch.Tensor:
+def gaussian_noise(key: int, count: torch.Tensor, index: int, shape, device,
+                   positions: Optional[torch.Tensor] = None,
+                   total: Optional[int] = None) -> torch.Tensor:
     """Standard normal float32 noise of ``shape`` for parameter ``index`` at
     update ``count`` (a 0-d device tensor): Box-Muller over two uniforms from
     the miners' counter-based hash (``miners.fold_in``) of ``key``, ``count``,
     ``index`` and the position; the same on the CPU, the card and in graph
-    replays, and a function of those alone."""
+    replays, and a function of those alone.  The first uniform of the
+    element at position ``i`` of a tensor of ``total`` elements hashes ``i``,
+    its second ``total + i``.  ``positions`` (int64, one an element) draws
+    the elements at those positions of a tensor of ``total`` elements (a
+    shard's of the logical table's draw); by default all of them."""
     from torecsys_tpu_torch.miners import fold_in, seed_key
 
     n = math.prod(shape)
+    if positions is None:
+        positions, total = torch.arange(n, dtype=torch.int64, device=device), n
     k = fold_in(fold_in(seed_key(key), count.to(torch.int64)), index)
-    bits = fold_in(k, torch.arange(2 * n, dtype=torch.int64, device=device))
+    bits = fold_in(k, torch.cat([positions, positions + total]))
     u1 = (bits[:n].double() + 0.5) / 2.0 ** 32
     u2 = bits[n:].double() / 2.0 ** 32
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
@@ -706,7 +845,9 @@ class NoisySGD(OptaxOptimizer):
     def _direction(self, p, g, state, group):
         count = state["step"]
         std = torch.sqrt(group["eta"] / count ** group["gamma"])
-        noise = gaussian_noise(group["key"], count, self._index[p], tuple(g.shape), g.device)
+        table = self._table(p)
+        noise = gaussian_noise(group["key"], count, self._index[p], tuple(g.shape), g.device,
+                               *((table.positions(g.device), table.numel) if table else ()))
         return g + std.to(g.dtype) * noise.to(g.dtype)
 
 
@@ -732,7 +873,7 @@ class NovoGrad(OptaxOptimizer):
 
     def _direction(self, p, g, state, group):
         first = state["step"] == 1
-        sq = torch.square(_norm(g))
+        sq = torch.square(_norm(g, self._table(p)))
         nu = torch.where(first, sq.to(state["nu"].dtype), _moment(sq, state["nu"], group["b2"], 1))
         u = g / (torch.sqrt(nu + group["eps_root"]) + group["eps"]) + group["weight_decay"] * p
         mu = torch.where(first, u, group["b1"] * state["mu"] + u)
@@ -868,6 +1009,11 @@ class SM3(OptaxOptimizer):
         state["nu"] = torch.zeros_like(p)
         return state
 
+    def _state_row_axis(self, p, key, value):
+        if key.startswith("mu_") and p.dim() >= 2:
+            return 0 if int(key[3:]) == p.dim() - 2 else None
+        return super()._state_row_axis(p, key, value)
+
     def _direction(self, p, g, state, group):
         nd = g.dim()
         vs = [state[f"mu_{i}"].reshape([1] * i + [-1] + [1] * (nd - i - 1)) for i in range(nd)]
@@ -878,9 +1024,15 @@ class SM3(OptaxOptimizer):
         up = g * torch.where(accum > 0, torch.rsqrt(accum + 1e-8), torch.zeros_like(accum))
         nu = _moment(up, state["nu"], group["momentum"], 1)
         state["nu"].copy_(nu)
-        for i in range(nd):
-            other = [d for d in range(nd) if d != i]
-            state[f"mu_{i}"].copy_(accum.amax(dim=other) if other else accum)
+        maxima = [accum.amax(dim=[d for d in range(nd) if d != i]) if nd > 1 else accum
+                  for i in range(nd)]
+        table = self._table(p)
+        if table is not None:  # each other axis' vector: its maximum over every row
+            across = [i for i in range(nd) if i != table.axis]
+            for i, m in zip(across, table.max(*(maxima[i] for i in across))):
+                maxima[i] = m
+        for i, m in enumerate(maxima):
+            state[f"mu_{i}"].copy_(m)
         return nu
 
 
@@ -944,7 +1096,8 @@ class Adafactor(OptaxOptimizer):
         return True
 
     def _extra_state(self, p, group):
-        dims = self._factored_dims(tuple(p.shape), group)
+        # factored as the logical shape is; the factors' sizes are the local ones
+        dims = self._factored_dims(self._shape(p), group)
         one = torch.zeros(1, dtype=p.dtype, device=p.device)
         if dims is None:
             state = {"v_row": one, "v_col": one.clone(), "v": torch.zeros_like(p)}
@@ -960,11 +1113,35 @@ class Adafactor(OptaxOptimizer):
             state["ema"] = torch.zeros_like(p, dtype=group["dtype_momentum"] or p.dtype)
         return state
 
+    def _factor_row_axes(self, p, group):
+        """``(v_row's, v_col's)`` axis along a sharded table's rows (None:
+        the factor is a mean over the rows), or None unfactored."""
+        dims = self._factored_dims(self._shape(p), group)
+        if dims is None:
+            return None
+        axis = p.dim() - 2
+
+        def kept(gone):  # the row axis once axis ``gone`` is reduced away
+            return None if gone == axis else axis - (gone < axis)
+
+        d1, d0 = dims
+        return kept(d0), kept(d1)
+
+    def _state_row_axis(self, p, key, value):
+        if key in ("v_row", "v_col") and p.dim() >= 2:
+            axes = self._factor_row_axes(p, self._group_of(p))
+            return None if axes is None else axes[key == "v_col"]
+        return super()._state_row_axis(p, key, value)
+
+    def _group_of(self, p):
+        return next(g for g in self.param_groups if any(q is p for q in g["params"]))
+
     def _direction(self, p, g, state, group):
         count = state["step"] - 1  # optax's count before this update
         t = count - group["decay_offset"] + 1
         rate = 1.0 - torch.pow(t, -group["decay_rate"])
-        dims = self._factored_dims(tuple(p.shape), group)
+        table = self._table(p)
+        dims = self._factored_dims(self._shape(p), group)
         sq = g * g + group["eps"]
         if dims is None:
             v = rate * state["v"] + (1.0 - rate) * sq
@@ -972,21 +1149,31 @@ class Adafactor(OptaxOptimizer):
             u = g * torch.pow(state["v"], -0.5)
         else:
             d1, d0 = dims
-            v_row = rate * state["v_row"] + (1.0 - rate) * sq.mean(dim=d0)
-            v_col = rate * state["v_col"] + (1.0 - rate) * sq.mean(dim=d1)
+            axis = None if table is None else table.axis
+            row_axis = None if table is None else self._factor_row_axes(p, group)[0]
+            v_row = rate * state["v_row"] + (1.0 - rate) * _mean(sq, d0, table, axis)
+            v_col = rate * state["v_col"] + (1.0 - rate) * _mean(sq, d1, table, axis)
             state["v_row"].copy_(v_row)
             state["v_col"].copy_(v_col)
             v_row, v_col = state["v_row"], state["v_col"]
             reduced = d1 - 1 if d1 > d0 else d1
-            row_factor = torch.pow(v_row / v_row.mean(dim=reduced, keepdim=True), -0.5)
+            row_factor = torch.pow(v_row / _mean(v_row, reduced, table, row_axis, keepdim=True),
+                                   -0.5)
             u = g * row_factor.unsqueeze(d0) * torch.pow(v_col, -0.5).unsqueeze(d1)
         threshold = group["clipping_threshold"]
+        scale = group["multiply_by_parameter_scale"]
+        if table is None:
+            mean_sq = (torch.mean(u * u) if threshold is not None else None,
+                       torch.mean(p * p) if scale else None)
+        else:  # the logical table's root mean squares (one collective)
+            sums = table.sum(torch.sum(u * u), torch.sum(p * p))
+            mean_sq = tuple(s / table.numel for s in sums)
         if threshold is not None:
-            u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)) / threshold, 1.0)
+            u = u / torch.clamp_min(torch.sqrt(mean_sq[0]) / threshold, 1.0)
         if group["lr"] is not None:
             u = u * self._lr(group, state, u)
-        if group["multiply_by_parameter_scale"]:
-            rms = torch.sqrt(torch.mean(p * p))
+        if scale:
+            rms = torch.sqrt(mean_sq[1])
             u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
         if group["momentum"] is not None:
             ema = _moment(u, state["ema"], group["momentum"], 1)
@@ -1168,5 +1355,5 @@ __all__ = ["AMSGrad", "AdaBelief", "Adadelta", "Adafactor", "Adagrad", "Adam", "
            "Adamax", "AdamaxW", "Adan", "Fromage", "LBFGS", "Lamb", "Lars", "Lion", "NAdam",
            "NoisySGD", "NovoGrad", "OPTAX_OTHERS", "OptaxOptimizer", "OptimisticAdam",
            "OptimisticAdamV2", "OptimisticGradientDescent", "RAdam", "RMSprop", "Rprop", "SGD",
-           "SM3", "SignSGD", "Yogi", "available_optimizers", "build_optimizer",
-           "gaussian_noise", "get_optimizer", "resolve_mask"]
+           "SM3", "SignSGD", "TableGroup", "Yogi", "available_optimizers", "build_optimizer",
+           "gaussian_noise", "get_optimizer", "resolve_mask", "state_row_axis"]

@@ -42,7 +42,10 @@ size, so that summed over the data group it is the global batch's mean; the
 gradients of the replicated parameters (every parameter's on the dense
 route, a sharded table's included, whose lookup backward fills only the
 rank's rows) are summed over the data group, and the step's loss is the
-data group's sum.  On the sparse route each table's ids and per-slot
+data group's sum.  The ``ltr``/``emb`` miner draws from the global batch
+(:func:`mine`), and a regularizer's penalty of a row-sharded table is the
+whole table's in value (the table group's sum of the shards') and the
+shard's in gradient.  On the sparse route each table's ids and per-slot
 gradients are gathered over the data group in global batch order, so every
 rank takes the global stream's unique rows and sums, as the JAX package's
 step does; a row-sharded table's rank then updates its own rows
@@ -75,7 +78,8 @@ from torecsys_tpu_torch.convert import flax_path
 from torecsys_tpu_torch.data.packed import BatchLayout
 from torecsys_tpu_torch.miners import fold_in, seed_key
 from torecsys_tpu_torch.ops.sparse import sort_slot_grads
-from torecsys_tpu_torch.parallel.mesh import DATA_AXIS
+from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS
+from torecsys_tpu_torch.parallel.sharding import _table_owners
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
@@ -140,6 +144,21 @@ def _account(state: TrainState, loss: torch.Tensor) -> Tuple[TrainState, Dict]:
     return state, {"loss": loss.detach()}
 
 
+def mine(pipeline: Pipeline, mesh, key, features: Batch) -> Tuple[Batch, Batch]:
+    """The miner's ``(pos, neg)`` views of ``features``.  Under a split data
+    axis the negatives' targets are drawn from the global batch, as the JAX
+    package's miner draws them: the target field is gathered over the data
+    group, and the rank takes its anchors' run of the global draws with the
+    same key; the other fields stay local."""
+    field = pipeline.miner_target_field
+    dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if dp == 1:
+        return pipeline.miner(key, features, field)
+    target = features[field]
+    pool = mesh.all_gather(target, DATA_AXIS).reshape(-1, *target.shape[1:])
+    return pipeline.miner(key, features, field, pool=pool, part=(mesh.index(DATA_AXIS), dp))
+
+
 def reduce_gradients(mesh, params) -> None:
     """Sum the gradients of ``params`` over the data group, in place, one
     collective per dtype."""
@@ -170,6 +189,16 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
     objective = pipeline.objective
     modules = sparse_modules(seq)
     table_paths = {flax_path(path) for path in modules}  # as the JAX package names them
+    # the row-sharded tables: the regularizer takes each one's whole penalty
+    sharded = ({name for name, m in _table_owners(seq).items()
+                if m.row_layout is not None and m.row_layout.sharded}
+               if mesh is not None and mesh.shape[TABLE_AXIS] > 1 else set())
+
+    def penalty() -> torch.Tensor:
+        if not sharded:
+            return regularizer(seq)
+        return regularizer(seq, group_sum=lambda t: mesh.all_reduce(t, TABLE_AXIS),
+                           sharded=sharded)
 
     def objective_loss(state: TrainState, batch: Batch) -> torch.Tensor:
         features, targets = _split_batch(batch, pipeline)
@@ -177,8 +206,7 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
             loss = criterion(seq(features), targets)
         else:
             k = pipeline.num_negs
-            pos_b, neg_b = pipeline.miner(miner_key(seed, state.step), features,
-                                          pipeline.miner_target_field)
+            pos_b, neg_b = mine(pipeline, mesh, miner_key(seed, state.step), features)
             if objective == "emb":
                 scores = seq(interleave_pos_neg(pos_b, neg_b, k)).reshape(-1, 1 + k)
                 loss = criterion(scores[:, :1], scores[:, 1:])
@@ -192,7 +220,7 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
                     b = pos_out.shape[0]
                     loss = criterion(pos_out.reshape(b, 1), neg_out.reshape(b, k))
         if regularizer is not None:
-            loss = loss + regularizer(seq)
+            loss = loss + penalty()
         return loss
 
     def rank_loss(state: TrainState, batch: Batch) -> torch.Tensor:
@@ -409,20 +437,19 @@ def make_eval_step(pipeline: Pipeline):
     return eval_step
 
 
-def make_eval_ranking_step(pipeline: Pipeline, ndcg):
+def make_eval_ranking_step(pipeline: Pipeline, ndcg, mesh=None):
     """The ranking eval step of the ``ltr`` and ``emb`` objectives:
     ``(state, batch, index, ndcg_state) → ndcg_state``.  It mines each
     anchor's ``[pos | negs]`` list with :func:`eval_miner_key` of the
-    batch's ``index``, scores the positive and the negative view (two
-    applications, in eval mode) and accumulates NDCG@k with one-hot
-    relevance on the device."""
+    batch's ``index`` (over the global batch under ``mesh``: :func:`mine`),
+    scores the positive and the negative view (two applications, in eval
+    mode) and accumulates NDCG@k with one-hot relevance on the device."""
     seq = pipeline.sequential
 
     def step(state: TrainState, batch: Batch, index: int, ndcg_state):
         del state  # the parameters live in the modules
         features, _ = _split_batch(batch, pipeline)
-        pos_b, neg_b = pipeline.miner(eval_miner_key(index), features,
-                                      pipeline.miner_target_field)
+        pos_b, neg_b = mine(pipeline, mesh, eval_miner_key(index), features)
         seq.eval()
         with torch.no_grad():
             scores, relevance = ranking_lists(seq(pos_b), seq(neg_b), pipeline.num_negs)
@@ -447,4 +474,4 @@ def make_eval_metrics_step(pipeline: Pipeline, auc, logloss):
 
 __all__ = ["TrainScan", "eval_miner_key", "interleave_pos_neg", "make_eval_metrics_step",
            "make_eval_ranking_step", "make_eval_step", "make_train_scan", "make_train_step",
-           "miner_key", "ranking_lists", "reduce_gradients"]
+           "mine", "miner_key", "ranking_lists", "reduce_gradients"]

@@ -38,7 +38,10 @@ Meshes (``parallel``): with ``mesh`` the trainer runs one rank of a
 from ``seed`` on every rank alike, then the large embedding tables are
 row-sharded over ``table`` (``parallel.sharding``; ``lookup_options``'
 ``min_rows_to_shard`` feeds placement and lookup routing alike), every other
-parameter replicated; each rank keeps its data slice of every batch; the
+parameter replicated; the dense optimizer takes its whole-parameter
+reductions of a sharded table over the table group
+(``train.optimizers``; an opaque factory's optimizer stays per shard, with a
+warning); each rank keeps its data slice of every batch; the
 steps, evaluation and prediction run inside ``use_sharded_lookup``, so the
 lookups take the table group's collectives (``lookup_options``'
 ``strategy``: ``psum``, ``alltoall`` or ``auto``).  Evaluation and
@@ -78,8 +81,9 @@ from torecsys_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from torecsys_tpu_torch.train.optimizers import OptaxOptimizer
 from torecsys_tpu_torch.train.pipeline import Pipeline
-from torecsys_tpu_torch.train.sparse import sparse_modules
+from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
 from torecsys_tpu_torch.train.steps import (
     TrainScan,
@@ -255,7 +259,8 @@ class Trainer:
         self._eval_metrics_fn = make_eval_metrics_step(self.pipeline, self._auc,
                                                        self._logloss)
         if self.pipeline.objective in ("ltr", "emb"):
-            self._eval_ranking_fn = make_eval_ranking_step(self.pipeline, self._ndcg)
+            self._eval_ranking_fn = make_eval_ranking_step(self.pipeline, self._ndcg,
+                                                           self.mesh)
 
     def _presort_applicable(self) -> bool:
         """Would the host presort run on the sparse route?  It also picks
@@ -294,18 +299,45 @@ class Trainer:
         self.sparse = self._choose_sparse(row_tx, modules)
         for module in modules.values():
             module.sparse_grads = self.sparse
+        layouts = {}
         if self.mesh is not None:
             min_rows = self.lookup_options.get("min_rows_to_shard")
-            shard_module(seq, self.mesh, **({} if min_rows is None
-                                           else {"min_rows_to_shard": min_rows}))
+            layouts = shard_module(seq, self.mesh, **({} if min_rows is None
+                                                      else {"min_rows_to_shard": min_rows}))
         self.state = TrainState.create(seq, self.pipeline.optimizer,
                                        row_tx if self.sparse else None,
                                        set(modules) if self.sparse else None, self.device)
+        if layouts:
+            self._reduce_over_tables(layouts)
         self._presorter = (Presorter(build_presort_specs(self.pipeline.inputs))
                            if self.sparse and self._presort_applicable() else None)
         self._build_steps()
         self._maybe_restore()
         return self.state
+
+    def _reduce_over_tables(self, layouts) -> None:
+        """Give the dense optimizer the row-sharded tables it holds (on the
+        dense route, or a sequence table), so that its whole-parameter norms,
+        means and maxima run over the logical table
+        (``OptaxOptimizer.reduce_over``).  An opaque factory's optimizer
+        cannot be reduced for: it stays per shard, with a warning naming
+        each such table."""
+        opt = self.state.opt_state
+        dense = opt["dense"] if is_hybrid_opt_state(opt) else opt
+        held = {id(p) for group in dense.param_groups for p in group["params"]}
+        named = dict(self.pipeline.sequential.named_parameters())
+        tables = {name: layout for name, layout in layouts.items()
+                  if layout.sharded and id(named[name]) in held}
+        if not tables:
+            return
+        if self.pipeline.optimizer_spec is None:
+            logger.warning("the opaque optimizer factory's %s updates each rank's shard of the "
+                           "row-sharded tables %s on its own: any norm, mean or maximum it "
+                           "takes over a parameter is the shard's, not the table's",
+                           type(dense).__name__, sorted(tables))
+        elif isinstance(dense, OptaxOptimizer):
+            dense.reduce_over(self.mesh, {named[name]: layout
+                                          for name, layout in tables.items()})
 
     def _maybe_restore(self) -> None:
         """Restore ``load_from`` (explicit) or the newest checkpoint in

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Mapping, Tuple, Union
+from typing import Callable, Collection, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,7 +47,9 @@ def inner_product_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> 
 
 
 def regularize(params: Union[nn.Module, Mapping[str, torch.Tensor]], weight_decay: float = 0.01,
-               norm: int = 2, key_filter: str = "kernel"):
+               norm: int = 2, key_filter: str = "kernel",
+               group_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+               sharded: Collection[str] = ()):
     """Differentiable penalty ``weight_decay * Σ |p|^norm`` (no root taken)
     over the parameters whose flax path contains ``key_filter``.
 
@@ -60,6 +62,11 @@ def regularize(params: Union[nn.Module, Mapping[str, torch.Tensor]], weight_deca
     leaves out the tables (``embedding``), the biases and the FiBiNET
     bilinear weights, as in the JAX package.  Each term is taken in
     float32.
+
+    ``sharded`` names row-sharded tables (a rank's rows of each): the term
+    of each is the whole table's in value, ``group_sum`` (a sum over the
+    table group, in place) of the shards' terms, and the shard's own in
+    gradient, which is the whole penalty's gradient on the rank's rows.
     """
     if isinstance(params, nn.Module):
         paths = flax_paths(params)
@@ -70,7 +77,11 @@ def regularize(params: Union[nn.Module, Mapping[str, torch.Tensor]], weight_deca
     total = 0.0
     for name, p in named:
         if key_filter in paths[name]:
-            total = total + torch.sum(torch.abs(p.to(torch.float32)) ** norm)
+            term = torch.sum(torch.abs(p.to(torch.float32)) ** norm)
+            if name in sharded:
+                local = term.detach()
+                term = term + (group_sum(local.clone()) - local)
+            total = total + term
     return weight_decay * total
 
 
