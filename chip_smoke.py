@@ -264,6 +264,28 @@ Phases (any failure raises and the exit code is not 0):
     busy share, NCCL ms by kind, MB a step against ``modeled_comm_mb``),
     and a graphed ``fit`` at 4 steps a dispatch with a replay held to its
     eager steps to the bit.
+24. (Run after phase 11.)  Quality at convergence: the bench DeepFM's
+    table and tower at full width (28 fields, 32.9M rows, E = 16, tower
+    400-400-400, batch 4096, 8 steps a dispatch, the automatic choice: the
+    on-device sparse route) trained for 5 epochs on planted-interaction
+    data (``make_synthetic_ctr``: 1,048,576 rows, 13 dense fields, pair
+    scale 2.0, from ``--seed``), 917,504 rows to train on and two held-out
+    halves of 65,536: the epoch is chosen on the first half's logloss, and
+    its model judged on the second.  Its first order is a 1-wide table of
+    the fields, as PARITY.md's protocol takes it (the bench pipeline's is
+    the unweighted sum of the 13 raw dense values: that arm is trained and
+    printed beside, not judged).  Pass: at bf16 and at float32 compute the
+    DeepFM beats the port's LR over the same 1-wide table by 0.005 AUC with
+    logloss under ln 2, and the bf16 AUC lies within 0.003 of float32's.
+25. The parity protocol's cut (``parity/run_parity_torch.py``): one seed of
+    each of PARITY.md's rows on the default (dense) and the sparse
+    (on-device) route at 8 steps a dispatch; each CTR row but xDeepFM with
+    BatchNorm must lie within the larger of two seed bands of the JAX
+    package's mean (``PARITY.json``), the JAX column's and the port's own
+    on the card (PARITY_TORCH.json's, from the whole protocol), and NCF +
+    BPR's NDCG@10 within the JAX column's range.  ``--phases parity`` runs the
+    whole protocol (5 seeds, 4 for NCF + BPR) and writes PARITY_TORCH.json
+    into ``--out``, the CPU columns of the repository's copy kept.
 
 The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
@@ -6023,9 +6045,245 @@ def phase_parallel(seed: int, out_dir):
     return out
 
 
-# the phases --phases runs alone: the graphed throughput paths
+# ---- phases 24-25: quality at convergence and the parity protocol ----------
+
+QUALITY_ROWS = 1_048_576
+QUALITY_TRAIN = 917_504
+QUALITY_HALF = 65_536     # the held-out rows: one half chooses the epoch, one judges
+QUALITY_EPOCHS = 5
+QUALITY_PAIR_SCALE = 2.0
+QUALITY_MARGIN = 0.005    # DeepFM over LR (tests/test_convergence.py's margin)
+QUALITY_BF16_AUC = 0.003  # bf16 compute against float32
+QUALITY_ARMS = (  # (arm, model, compute, judged)
+    ("lr", "LR", None, True), ("deepfm_bf16", "DeepFM", "bfloat16", True),
+    ("deepfm_f32", "DeepFM", None, True), ("bench_dense13", "DeepFM", "bfloat16", False))
+QUALITY_PER_STEP = dict(row_gather=2, widen_segment_sum=1, fused_rowwise_update=1)  # a table
+
+
+def quality_pipeline(arm: str, model: str, compute):
+    """The quality phase's pipelines: LR over a 1-wide table of the fields
+    (BCELoss on its probabilities), the bench DeepFM with that table as its
+    first order beside the E = 16 table, and (``bench_dense13``) the bench
+    pipeline itself, whose first order is the 13 raw dense values."""
+    from torecsys_tpu_torch import Inputs, Pipeline
+    from torecsys_tpu_torch.inputs import MultiIndicesEmbedding
+
+    if arm == "bench_dense13":
+        return bench_pipeline(sparse=None, compute=compute)
+    cats = tuple(f"cat_{i}" for i in range(len(FIELD_SIZES)))
+    schema = {"feat_inputs": MultiIndicesEmbedding(1, FIELD_SIZES, cats, device=DEVICE)}
+    kwargs, criterion = {}, "BCELoss"
+    if model == "DeepFM":
+        schema["emb_inputs"] = MultiIndicesEmbedding(EMBED, FIELD_SIZES, cats, device=DEVICE)
+        kwargs, criterion = {"deep_layer_sizes": TOWER}, "BCEWithLogitsLoss"
+    return (Pipeline(device=DEVICE).set_objective("ctr").set_inputs(Inputs(schema))
+            .set_model(model, **kwargs).set_criterion(criterion).set_optimizer("Adam", lr=1e-3)
+            .set_sparse_embeddings(None).set_compute_dtype(compute).set_target_fields("label"))
+
+
+def quality_arm(arm, model, compute, train, select, test, seed, fns, card, out_dir):
+    """``QUALITY_EPOCHS`` epochs of ``fit`` at ``GRAPH_K`` steps a dispatch,
+    each epoch's metrics on both held-out halves; then a traced replay for
+    the launches a replay runs."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+
+    reset_counts(fns)
+    trainer = Trainer(quality_pipeline(arm, model, compute), log_every=10**9, seed=seed,
+                      steps_per_execution=GRAPH_K)
+    epochs = []
+    t0 = time.perf_counter()
+    for epoch in range(QUALITY_EPOCHS):
+        m = trainer.fit(train, val_loader=select, max_epochs=1)
+        judged = trainer.evaluate(test)
+        rec = {"epoch": epoch, "train_loss": m["train_loss"],
+               "examples_per_sec": m["examples_per_sec"], "select_auc": m["val_auc"],
+               "select_logloss": m["val_logloss"], "auc": judged["val_auc"],
+               "logloss": judged["val_logloss"]}
+        epochs.append(rec)
+        log(f"[quality] {arm} epoch {epoch} ({card}): held-out AUC {rec['auc']:.4f} logloss "
+            f"{rec['logloss']:.4f} (choosing half {rec['select_auc']:.4f}, "
+            f"{rec['select_logloss']:.4f}); train_loss {rec['train_loss']:.4f}, "
+            f"{rec['examples_per_sec']:.0f} examples/sec")
+        for key in ("auc", "logloss", "select_logloss", "train_loss"):
+            if not np.isfinite(rec[key]):
+                raise AssertionError(f"quality {arm}: non-finite {key} {rec}")
+    seconds = time.perf_counter() - t0
+    counts = read_counts(fns)
+    if not trainer.sparse or trainer._presorter is not None:
+        raise AssertionError(f"quality {arm}: not the on-device sparse route")
+    stats = dict(trainer.graph_stats)
+    per_replay = replay_profile(trainer, train[:GRAPH_K], out_dir, f"quality_{arm}")[
+        "launches_per_replay"]
+    total = {n: counts[n] + (stats["replays"] - stats["captures"]) * per_replay.get(n, 0)
+             for n in counts}
+    steps = QUALITY_EPOCHS * len(train)
+    tables = 1 if model == "LR" or arm == "bench_dense13" else 2
+    want = expect(**{n: steps * c * tables for n, c in QUALITY_PER_STEP.items()})
+    # evaluate and fit's validation look each table up once a batch
+    want["row_gather"] += QUALITY_EPOCHS * (len(select) + len(test)) * tables
+    if DEVICE == "cuda" and total != want:
+        raise AssertionError(f"quality {arm}: launches {total}, expected {want}")
+    best = min(epochs, key=lambda r: r["select_logloss"])
+    log(f"[quality] {arm} ({model}, compute {compute or 'float32'}, table "
+        f"{'the 13 dense values as first order' if arm == 'bench_dense13' else 'a 1-wide table as first order'}): "
+        f"epoch {best['epoch']} chosen, held-out AUC {best['auc']:.4f} logloss "
+        f"{best['logloss']:.4f}; {seconds:.1f} s; launches {total}")
+    table = trainer.pipeline.inputs.schema[
+        "feat_inputs" if model == "LR" else "emb_inputs"].embedding
+    shape = tuple(table.shape)
+    del trainer, table
+    release()
+    return {"model": model, "compute": compute or "float32", "epochs": epochs, "chosen": best,
+            "launches": total, "launches_counted": counts, "graph_stats": stats,
+            "seconds": seconds, "table": shape}
+
+
+def phase_quality(seed: int, out_dir):
+    """Phase 24: the bench DeepFM trained to a held-out AUC at full width
+    (module docstring, phase 24)."""
+    from torecsys_tpu_torch.data.sample_data import make_synthetic_ctr
+
+    card = card_line()
+    t0 = time.perf_counter()
+    data = make_synthetic_ctr(num_rows=QUALITY_ROWS, field_sizes=FIELD_SIZES,
+                              num_dense=NUM_DENSE, pair_scale=QUALITY_PAIR_SCALE, seed=seed)
+    data_s = time.perf_counter() - t0
+
+    def batches(lo, hi):
+        return [{k: v[s:s + BATCH] for k, v in data.items()} for s in range(lo, hi, BATCH)]
+
+    train = batches(0, QUALITY_TRAIN)
+    select = batches(QUALITY_TRAIN, QUALITY_TRAIN + QUALITY_HALF)
+    test = batches(QUALITY_TRAIN + QUALITY_HALF, QUALITY_ROWS)
+    log(f"[quality] data: {QUALITY_ROWS} rows over {len(FIELD_SIZES)} fields "
+        f"({sum(FIELD_SIZES)} ids), {NUM_DENSE} dense, label mean {data['label'].mean():.4f}; "
+        f"{len(train)} batches to train on, {len(select)} + {len(test)} held out; made in "
+        f"{data_s:.1f} s")
+    fns = kernels()
+    arms = {arm: quality_arm(arm, model, compute, train, select, test, seed, fns, card, out_dir)
+            for arm, model, compute, _ in QUALITY_ARMS}
+    lr = arms["lr"]["chosen"]
+    for arm in ("deepfm_bf16", "deepfm_f32"):
+        got = arms[arm]["chosen"]
+        if not (got["auc"] >= lr["auc"] + QUALITY_MARGIN and got["logloss"] < np.log(2)):
+            raise AssertionError(f"quality: {arm} AUC {got['auc']:.4f} logloss "
+                                 f"{got['logloss']:.4f} against LR's AUC {lr['auc']:.4f}: "
+                                 f"not {QUALITY_MARGIN} over it under ln 2")
+    gap = arms["deepfm_bf16"]["chosen"]["auc"] - arms["deepfm_f32"]["chosen"]["auc"]
+    if abs(gap) > QUALITY_BF16_AUC:
+        raise AssertionError(f"quality: bf16 AUC {gap:+.4f} from float32's")
+    launches = {}
+    for arm, _, _, judged in QUALITY_ARMS:
+        if judged:
+            add_counts(launches, arms[arm]["launches"])
+    log(f"[quality] {card}: DeepFM over LR by "
+        f"{arms['deepfm_bf16']['chosen']['auc'] - lr['auc']:+.4f} AUC (bf16) and "
+        f"{arms['deepfm_f32']['chosen']['auc'] - lr['auc']:+.4f} (float32); bf16 against "
+        f"float32 {gap:+.4f}; the bench pipeline's dense first order: AUC "
+        f"{arms['bench_dense13']['chosen']['auc']:.4f} logloss "
+        f"{arms['bench_dense13']['chosen']['logloss']:.4f} (not judged)")
+    out = {"card": card, "arms": arms, "launches": launches, "data_s": data_s}
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_quality.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+PARITY_CUT_SEEDS = 1
+PARITY_KERNELS = ("row_gather", "fused_sorted_dedup_update", "widen_segment_sum",
+                  "fused_rowwise_update")
+
+
+def parity_run(seeds: int, ncf_seeds: int, log_path: str):
+    """The parity protocol on the card (``parity/run_parity_torch.py``)
+    with the launch counts set to 0 before it and read after: each of
+    :data:`PARITY_KERNELS` must have launched (the counts tick in eager
+    steps and captures, not in replays, which ``graph_stats`` counts)."""
+    from parity import run_parity_torch as runner
+
+    fns = kernels()
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    columns = runner.run_protocol(DEVICE, seeds, ncf_seeds, log=log)
+    seconds = time.perf_counter() - t0
+    counts = read_counts(fns)
+    missing = [n for n in PARITY_KERNELS if not counts[n] > 0]
+    if missing:
+        raise AssertionError(f"{log_path}: {missing} did not launch (counts {counts})")
+    runs = [r for models in columns.values() for by_route in models.values()
+            for cell in by_route.values() for r in cell["runs"]]
+    replays = sum(r["graph_stats"]["replays"] for r in runs)
+    for models in columns.values():
+        for name, by_route in models.items():
+            for route, cell in by_route.items():
+                want = "dense" if route == "default" else "ondevice"
+                if any(r["route"] != want for r in cell["runs"]):
+                    raise AssertionError(f"{log_path}: {name} on {route} took "
+                                         f"{[r['route'] for r in cell['runs']]}")
+    log(f"[{log_path}] {len(runs)} runs in {seconds:.1f} s; launches counted (eager steps, "
+        f"captures, evaluation) {counts}; graph replays {replays}")
+    return runner, columns, seconds, {"launches": counts, "replays": replays}
+
+
+def phase_parity_cut(seed: int, out_dir):
+    """Phase 25: one seed of every parity row on both routes, judged
+    against the JAX package's column by PARITY.md's rule, the port's seed
+    band the card's from the whole protocol (PARITY_TORCH.json) where one
+    seed has none (module docstring, phase 25)."""
+    runner, columns, seconds, launches = parity_run(PARITY_CUT_SEEDS, PARITY_CUT_SEEDS,
+                                                    "parity_cut")
+    with open(runner.OUT_JSON) as f:
+        full = json.load(f)["configs"]
+    banded = copy.deepcopy(columns)
+    for config, models in banded.items():
+        for name, by_route in models.items():
+            for route, cell in by_route.items():
+                if "auc_band" in cell:
+                    cell["auc_band"] = full[config][name]["port"]["cuda"][route]["auc_band"]
+    verdicts = runner.judged(banded)
+    missed = []
+    for config, models in verdicts.items():
+        for name, by_route in models.items():
+            for route, verdict in by_route.items():
+                v = verdict["jax"]
+                log(f"[parity_cut] {name} / {route}: {verdict}")
+                if not v.get("within_band", v.get("bands_overlap")) and \
+                        name not in runner.BOTH_COLUMNS:
+                    missed.append((name, route))
+    if missed:
+        raise AssertionError(f"parity_cut: outside the JAX package's band: {missed}")
+    out = {"card": card_line(), "columns": columns, "judged": verdicts, "seconds": seconds,
+           **launches}
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_parity_cut.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+def phase_parity(seed: int, out_dir):
+    """``--phases parity``: the whole protocol on the card, both routes and
+    every seed, written to ``out_dir``/PARITY_TORCH.json over the
+    repository's copy (its CPU columns kept)."""
+    from parity import run_parity_torch as runner
+
+    runner, columns, seconds, launches = parity_run(runner.N_SEEDS, runner.NCF_SEEDS, "parity")
+    card = card_line()
+    if out_dir:
+        path = os.path.join(out_dir, "PARITY_TORCH.json")
+        doc = runner.write(columns, DEVICE, card, seconds, path)
+        for config, models in columns.items():
+            for name in models:
+                log(f"[parity] {name}: {doc['configs'][config][name]['judged'][DEVICE]}")
+    return {"card": card, "seconds": seconds, **launches}
+
+
+# the phases --phases runs alone: the graphed throughput paths, the quality
+# phase and the whole parity protocol
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
-                "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel}
+                "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel,
+                "quality": phase_quality, "parity": phase_parity}
 
 
 def main(argv=None):
@@ -6129,6 +6387,8 @@ def main(argv=None):
     image = timed("image", phase_image, args.seed, args.out)
     parallel = timed("parallel", phase_parallel, args.seed, args.out)
     file_fed = timed("file", phase_file, args.seed, args.out)
+    quality = timed("quality", phase_quality, args.seed, args.out)
+    parity_cut = timed("parity_cut", phase_parity_cut, args.seed, args.out)
     paths = {"train": train, "eval": evaluation, **ondevice, "dense": dense, "pack1": pack1,
              **graph, "headline": headline, "xdeepfm": xdeepfm, "dcn": dcn, "ffm": ffm,
              "ncf_bpr": ncf_bpr, "fat_deepffm_adagrad": fat,
@@ -6136,7 +6396,8 @@ def main(argv=None):
              "fibinet_fused": fibinet["fused"], "optim_sweep": optim, "mmoe": mmoe,
              "mmoe_fused": mmoe["fused"], "dsin": dsin, "seq_deepfm": dsin["seq_deepfm"],
              "image_deepfm": image, "parallel": parallel,
-             "file_fed": file_fed["fed"], "cli": file_fed["cli"]}
+             "file_fed": file_fed["fed"], "cli": file_fed["cli"], "quality": quality,
+             "parity_cut": parity_cut}
     # launches_by_path: each path's own run (a fit: the wrappers' counts of
     # its warm-up and capture plus its replays x a traced replay's; the
     # _fused paths: the fused dedup's capture after it; optim_sweep: its

@@ -52,6 +52,50 @@ def test_make_synthetic_ctr_gives_the_same_arrays(kw):
     _assert_same(data.make_synthetic_ctr(**kw), jax_data.make_synthetic_ctr(**kw))
 
 
+def _zipf_numpy_2_0(rng, a, size):
+    """numpy 2.0's ``random_zipf`` (``distributions.c``), a draw at a time."""
+    import math
+
+    am1, out = a - 1.0, []
+    b = 2.0 ** am1
+    while len(out) < size:
+        u = 1.0 - rng.random()
+        v = rng.random()
+        x = math.floor(u ** (-1.0 / am1)) if u ** (-1.0 / am1) < math.inf else math.inf
+        if x > np.iinfo(np.int64).max or x < 1.0:
+            continue
+        t = (1.0 + 1.0 / x) ** am1
+        if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+            out.append(int(x))
+    return np.array(out, np.int64)
+
+
+@pytest.mark.parametrize("size,seed", [(1, 0), (20_000, 3), (20_001, 8)])
+def test_zipf_is_numpy_2_0s_sampler_and_leaves_the_generator_as_it_does(size, seed):
+    got_rng, want_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+    np.testing.assert_array_equal(sample_data.zipf(got_rng, 1.3, size),
+                                  _zipf_numpy_2_0(want_rng, 1.3, size))
+    assert got_rng.bit_generator.state == want_rng.bit_generator.state
+
+
+def test_make_synthetic_ctr_does_not_take_numpys_zipf(monkeypatch):
+    """numpy's own sampler changed after 2.0, and the data with it: on a
+    numpy 2.3 machine the parity protocol trained on other rows than the
+    JAX package's column was measured on."""
+    real = np.random.default_rng
+
+    class NoZipf(np.random.Generator):
+        def zipf(self, *args, **kwargs):
+            raise AssertionError("Generator.zipf depends on the numpy version")
+
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda seed=None: NoZipf(real(seed).bit_generator))
+    got = data.make_synthetic_ctr(num_rows=4000, field_sizes=(50, 7, 300), num_dense=1, seed=2)
+    monkeypatch.setattr(np.random, "default_rng", real)
+    _assert_same(got, jax_data.make_synthetic_ctr(num_rows=4000, field_sizes=(50, 7, 300),
+                                                  num_dense=1, seed=2))
+
+
 @pytest.mark.parametrize("rows,seed", [(300, 7), (257, 11)])
 def test_generate_writes_the_same_bytes(tmp_path, rows, seed):
     mine = make_criteo_sample.generate(rows, str(tmp_path / "a" / "port.tsv"), seed=seed)

@@ -18,8 +18,10 @@ evaluation, which also parse, collate and load data, and ``build
 --objective ltr``; DeepFM over a fused table stacked with an image tower
 under a schedule and optax's other names at 2 steps a dispatch, the two
 lookups, ``strip_aux``, ``not_jittable``, ``TqdmHandler``,
-``use_torch_linear_init`` and both examples), loads neither JAX (nor flax, optax) nor anything of the
-JAX package, nor click or pandas."""
+``use_torch_linear_init`` and both examples; the parity runner
+``parity/run_parity_torch.py`` with its inputs and one row trained a step),
+loads neither JAX (nor flax, optax) nor anything of the JAX package, nor
+click or pandas."""
 
 import os
 import subprocess
@@ -259,6 +261,14 @@ assert not_jittable(lambda: 3)() == 3
 from torecsys_tpu_torch.examples import ltr_with_miner, train_fm_sample
 assert 0.0 < train_fm_sample.cli(["--device", "cpu", "--epochs", "1"]) <= 1.0
 assert 0.0 < ltr_with_miner.cli(["--device", "cpu", "--epochs", "1"]) <= 1.0
+from parity import run_parity_torch
+for kind in ("feat_only", "feat_emb", "emb_only", "feat_fieldemb"):
+    assert run_parity_torch.build_schema(kind, "cpu")
+implicit, _, _ = run_parity_torch.make_implicit_data()
+pipe = (Pipeline(device="cpu").set_inputs(Inputs(run_parity_torch.build_schema("feat_emb", "cpu")))
+        .set_model("FM"))
+row = {k: v[:64] for k, v in run_parity_torch.ctr_data().items()}
+assert np.isfinite(float(Trainer(pipe).train_steps([row])[-1]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "torecsys_tpu", "click",
                                     "pandas"))

@@ -218,6 +218,43 @@ def load_bx_data(directory: str) -> Columns:
                       encoding="latin-1")
 
 
+_INT64_MAX = float(np.iinfo(np.int64).max)
+
+
+def zipf(rng: np.random.Generator, a: float, size: int) -> np.ndarray:
+    """``rng.zipf(a, size)`` as numpy 2.0 draws it, on any numpy version.
+
+    numpy's rejection sampler changed after 2.0 (2.3 accepts otherwise and
+    so consumes another number of draws), which made this module's data,
+    and every draw after it, depend on the installed numpy.  Here numpy
+    2.0's ``random_zipf`` runs vectorized over ``rng``'s doubles: an attempt
+    takes two, ``U = 1 - d0`` and ``V = d1``, and accepts ``X = floor(U **
+    (-1 / (a - 1)))`` when ``1 <= X <= INT64_MAX`` and ``V X (T - 1) / (b -
+    1) <= T / b``, with ``T = (1 + 1 / X) ** (a - 1)`` and ``b = 2 ** (a -
+    1)``.  ``rng`` ends where numpy 2.0's sampler leaves it."""
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    out = np.empty(size, np.int64)
+    filled = 0
+    while filled < size:
+        need = size - filled
+        start = rng.bit_generator.state
+        attempts = need + need // 4 + 64
+        d = rng.random(2 * attempts)
+        u, v = 1.0 - d[0::2], d[1::2]
+        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+            x = np.floor(u ** (-1.0 / am1))
+            t = (1.0 + 1.0 / x) ** am1
+            accept = (x >= 1.0) & (x <= _INT64_MAX) & (v * x * (t - 1.0) / (b - 1.0) <= t / b)
+        hits = np.flatnonzero(accept)[:need]
+        out[filled:filled + len(hits)] = x[hits]
+        filled += len(hits)
+        if filled == size:  # give back the doubles past the last attempt
+            rng.bit_generator.state = start
+            rng.random(2 * (int(hits[-1]) + 1)) if len(hits) else None
+    return out
+
+
 def make_synthetic_ctr(
     num_rows: int = 100_000,
     field_sizes: Tuple[int, ...] = (1000, 500, 200, 100, 50, 20),
@@ -245,7 +282,7 @@ def make_synthetic_ctr(
     weights = [rng.normal(0, 0.5, size=(v,)) for v in field_sizes]
     for v, f, w in zip(field_sizes, factors, weights):
         # Zipf-like id distribution, the usual CTR regime
-        raw = rng.zipf(1.3, size=num_rows)
+        raw = zipf(rng, 1.3, num_rows)
         ids = np.minimum(raw - 1, v - 1).astype(np.int32)
         cats.append(ids)
         contrib += w[ids]

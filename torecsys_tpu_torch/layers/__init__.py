@@ -14,6 +14,8 @@ from torecsys_tpu_torch.layers.rnn import (
     flip_sequences,
 )
 
-__all__ = [*_ctr_all, "BaseLayer", "Bidirectional", "GRUCell",
+GMFLayer = GeneralizedMatrixFactorizationLayer
+
+__all__ = [*_ctr_all, "BaseLayer", "Bidirectional", "GMFLayer", "GRUCell",
            "GeneralizedMatrixFactorizationLayer", "OptimizedLSTMCell", "RNN", "Regularizer",
            "SimpleCell", "StarSpaceLayer", "flip_sequences"]

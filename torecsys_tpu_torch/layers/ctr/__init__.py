@@ -31,18 +31,27 @@ from torecsys_tpu_torch.layers.ctr.product import (
 from torecsys_tpu_torch.layers.ctr.routing import DynamicRoutingLayer, resolve_num_capsules
 
 # the JAX package's aliases
+AFMLayer = AttentionalFactorizationMachineLayer
 CENLayer = ComposeExcitationNetworkLayer
+CINLayer = CompressInteractionNetworkLayer
+DenseLayer = MultilayerPerceptionLayer
+DNNLayer = MultilayerPerceptionLayer
+FFMLayer = FieldAwareFactorizationMachineLayer
+FMLayer = FactorizationMachineLayer
+FullyConnectLayer = MultilayerPerceptionLayer
+FeedForwardLayer = MultilayerPerceptionLayer
 MOELayer = MixtureOfExpertsLayer
 PALLayer = PositionBiasAwareLearningFrameworkLayer
 SENETLayer = ComposeExcitationNetworkLayer
 SqueezeAndExcitationNetworkLayer = ComposeExcitationNetworkLayer
 
-__all__ = ["AttentionalFactorizationMachineLayer", "BatchNorm", "BiasEncodingLayer",
-           "BilinearInteractionLayer", "BilinearNetworkLayer", "CENLayer",
+__all__ = ["AFMLayer", "AttentionalFactorizationMachineLayer", "BatchNorm", "BiasEncodingLayer",
+           "BilinearInteractionLayer", "BilinearNetworkLayer", "CENLayer", "CINLayer",
            "ComposeExcitationNetworkLayer", "CompressInteractionNetworkLayer",
-           "CrossNetworkLayer", "Dense", "DenseGeneral", "DynamicRoutingLayer",
-           "FactorizationMachineLayer", "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
-           "FieldEachTypeBilinear", "FieldInteractionTypeBilinear",
+           "CrossNetworkLayer", "DNNLayer", "Dense", "DenseGeneral", "DenseLayer",
+           "DynamicRoutingLayer", "FFMLayer", "FMLayer", "FactorizationMachineLayer",
+           "FeedForwardLayer", "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
+           "FieldEachTypeBilinear", "FieldInteractionTypeBilinear", "FullyConnectLayer",
            "InnerProductNetworkLayer", "MOELayer", "MixtureOfExpertsLayer",
            "MultiHeadDotProductAttention", "MultilayerPerceptionLayer",
            "OuterProductNetworkLayer", "PALLayer", "PositionBiasAwareLearningFrameworkLayer",

@@ -128,5 +128,14 @@ def torch_linear_init() -> bool:
     return getattr(_state, "torch_init", False)
 
 
-__all__ = ["apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype",
+def __getattr__(name: str):
+    # ``Dense`` lives in ``layers.ctr.dense``, which imports this module
+    if name == "Dense":
+        from torecsys_tpu_torch.layers.ctr.dense import Dense
+
+        return Dense
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["Dense", "apply_compute_dtype", "apply_table_dtype", "is_reduced", "resolve_dtype",
            "sigmoid", "softmax", "torch_linear_init", "use_torch_linear_init"]

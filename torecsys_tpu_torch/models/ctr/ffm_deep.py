@@ -96,5 +96,11 @@ class FieldAttentiveDeepFieldAwareFactorizationMachineModel(_DeepFieldAware):
         return first + second
 
 
-__all__ = ["DeepFieldAwareFactorizationMachineModel",
-           "FieldAttentiveDeepFieldAwareFactorizationMachineModel"]
+DeepFFM = DeepFieldAwareFactorizationMachineModel
+FNFM = DeepFieldAwareFactorizationMachineModel
+FieldAwareNeuralFactorizationMachine = DeepFieldAwareFactorizationMachineModel
+FATDeepFFM = FieldAttentiveDeepFieldAwareFactorizationMachineModel
+
+__all__ = ["DeepFFM", "DeepFieldAwareFactorizationMachineModel", "FATDeepFFM", "FNFM",
+           "FieldAttentiveDeepFieldAwareFactorizationMachineModel",
+           "FieldAwareNeuralFactorizationMachine"]

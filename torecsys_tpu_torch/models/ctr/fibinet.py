@@ -63,4 +63,6 @@ class FeatureImportanceAndBilinearFeatureInteractionNetwork(CtrBaseModel):
         return self.deep(torch.cat([emb_bi.reshape(b, -1), senet_bi.reshape(b, -1)], dim=1))
 
 
-__all__ = ["FeatureImportanceAndBilinearFeatureInteractionNetwork"]
+FiBiNET = FeatureImportanceAndBilinearFeatureInteractionNetwork
+
+__all__ = ["FeatureImportanceAndBilinearFeatureInteractionNetwork", "FiBiNET"]

@@ -6,6 +6,19 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from torecsys_tpu_torch.utils.decorator import deprecated, in_development, not_jittable
+from torecsys_tpu_torch.utils.logging import TqdmHandler
+from torecsys_tpu_torch.utils.operations import (
+    combination,
+    dummy_attention,
+    inner_product_similarity,
+    pair_indices,
+    regularize,
+    replicate_tensor,
+    show_attention,
+    squash,
+)
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -52,4 +65,7 @@ def get_reduction(method) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown reduction: {method!r}")
 
 
-__all__ = ["DeviceLike", "default_generator", "get_reduction", "resolve_device"]
+__all__ = ["DeviceLike", "TqdmHandler", "combination", "default_generator", "deprecated",
+           "dummy_attention", "get_reduction", "in_development", "inner_product_similarity",
+           "not_jittable", "pair_indices", "regularize", "replicate_tensor", "resolve_device",
+           "show_attention", "squash"]
