@@ -106,6 +106,7 @@ def test_profile_dir_writes_a_trace_of_a_few_steps(tmp_path):
     trainer.fit(lambda: iter(_fm_batches(12, seed=3)), max_epochs=1)
     assert (tmp_path / "trainer_trace.json").stat().st_size > 0
     assert trainer.profile_dir is None  # traced once
+    assert '"torecsys.step"' in (tmp_path / "trainer_trace.json").read_text()
 
 
 def test_carried_over_weights_train_the_same_through_the_scan():

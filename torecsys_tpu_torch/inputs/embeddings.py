@@ -33,7 +33,7 @@ from torch import nn
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
 from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
 from torecsys_tpu_torch.parallel.lookup import maybe_sharded_packed_lookup
-from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
+from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device, trace
 
 
 @dataclasses.dataclass
@@ -136,15 +136,20 @@ class TableInput(BaseInput):
         if not (self.sparse_grads and torch.is_grad_enabled()):
             # rows of a bf16 table are cast to float32 here, at the module
             # boundary: the model and the loss see float32
-            return maybe_sharded_packed_lookup(self.embedding, ids, self.embed_size,
+            trace.mark("lookup.begin")
+            rows = maybe_sharded_packed_lookup(self.embedding, ids, self.embed_size,
                                                self.row_layout).float()
+            trace.mark("lookup.end")
+            return rows
         if self._lookup is not None:
             raise RuntimeError(
                 f"{type(self).__name__} applied twice in one step: sparse embedding "
                 "gradients need exactly one lookup per module per step"
             )
+        trace.mark("lookup.begin")
         rows = maybe_sharded_packed_lookup(self.embedding.detach(), ids, self.embed_size,
                                            self.row_layout)
+        trace.mark("lookup.end")
         rows.requires_grad_(True)
         self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch))
         return rows

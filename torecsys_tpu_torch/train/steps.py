@@ -62,6 +62,13 @@ and in the captured graph alike.
 JAX package's ``lax.scan`` of the step): on the card, a CUDA graph that
 captures the K steps, replayed once per dispatch.
 
+With the trainer's tracer on (``utils.trace``), a train step stamps the
+card's clock at its stage edges: its start, the end of the forward pass (the
+model and the loss), of the backward pass (with the data group's gradient
+sum), of the dense optimizer and of the sparse update, and its end; a K-step
+dispatch stamps around its group's copy.  A captured graph holds the stamps
+it was captured with; with tracing off a mark does nothing.
+
 The eval steps run the model in ``eval`` mode under ``torch.no_grad()``: a
 BatchNorm normalizes with its running statistics.  The ranking eval step
 (``ltr``/``emb``) mines with the key :func:`eval_miner_key` of the batch's
@@ -83,6 +90,7 @@ from torecsys_tpu_torch.parallel.sharding import _table_owners
 from torecsys_tpu_torch.train.pipeline import Pipeline
 from torecsys_tpu_torch.train.sparse import is_hybrid_opt_state, sparse_modules
 from torecsys_tpu_torch.train.state import TrainState
+from torecsys_tpu_torch.utils import trace
 
 Batch = Dict[str, torch.Tensor]
 
@@ -236,15 +244,21 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
         return loss
 
     def dense_train_step(state: TrainState, batch: Batch):
+        trace.mark("step.begin")
         seq.train()
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         loss = rank_loss(state, batch)
+        trace.mark("forward.end")
         loss.backward()
         if dp > 1:
             reduce_gradients(mesh, seq.parameters())
+        trace.mark("backward.end")
         opt.step()
-        return _account(state, step_loss(loss))
+        trace.mark("dense_optimizer.end")
+        out = _account(state, step_loss(loss))
+        trace.mark("step.end")
+        return out
 
     def check_sparse() -> None:
         if objective != "ctr":
@@ -265,14 +279,18 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
         row_tx = pipeline.row_optimizer()
         for module in modules.values():
             module.take_lookup()  # drop what a failed earlier step left
+        trace.mark("step.begin")
         seq.train()
         dense_opt = state.opt_state["dense"]
         dense_opt.zero_grad(set_to_none=True)
         loss = rank_loss(state, batch)
+        trace.mark("forward.end")
         loss.backward()
         if dp > 1:
             reduce_gradients(mesh, seq.parameters())
+        trace.mark("backward.end")
         dense_opt.step()
+        trace.mark("dense_optimizer.end")
         with torch.no_grad():
             for path, module in modules.items():
                 lookup = module.take_lookup()
@@ -300,7 +318,10 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
                 sorted_ids, g_sorted = sort_slot_grads(ids.reshape(b, -1), g.reshape(b, -1, e))
                 row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
                                      layout=layout)
-        return _account(state, step_loss(loss))
+        trace.mark("sparse_update.end")
+        out = _account(state, step_loss(loss))
+        trace.mark("step.end")
+        return out
 
     def train_step(state: TrainState, batch: Batch):
         if is_hybrid_opt_state(state.opt_state):
@@ -368,6 +389,7 @@ class TrainScan:
 
     def _steps(self, state: TrainState) -> TrainState:
         for i, batch in enumerate(self._batches):
+            trace.start_row(i)
             state, logs = self.train_step(state, batch)
             self.losses[i].copy_(logs["loss"])
         return state
@@ -391,7 +413,9 @@ class TrainScan:
         if tuple(packed.shape) != (self.k, self.layout.nbytes):
             raise ValueError(f"packed group {tuple(packed.shape)} does not fit the scan's "
                              f"{(self.k, self.layout.nbytes)}")
+        trace.mark("copy_in.begin")
         self.static.copy_(packed, non_blocking=True)
+        trace.mark("copy_in.end")
         if self._stream is None:
             return self._steps(state), self.losses.clone()
         if self.graph is None:

@@ -60,7 +60,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-import threading
 import time
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -93,6 +92,7 @@ from torecsys_tpu_torch.train.steps import (
     make_train_scan,
     make_train_step,
 )
+from torecsys_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -137,6 +137,24 @@ class _Group:
 
 class Trainer:
     """Fits a :class:`Pipeline` on host-side batches (dicts of numpy arrays).
+
+    Tracing, an operator's tool (``utils.trace``; off by default, no cost on
+    the card when off): :meth:`set_tracing` ``(True)`` records the training
+    loop's host stages (``wait``, ``presort``, ``pack``, ``place``,
+    ``step``) and the train step's stages on the device (``step``,
+    ``forward`` with ``lookup`` in it, ``backward``, ``dense_optimizer``,
+    ``sparse_update``, and each dispatch's ``copy_in``), the device's from
+    clock stamps that the K-step CUDA graph captures, mapped onto the host's
+    ``perf_counter_ns``.  Switching drops the captured graph: the next
+    dispatch captures it again.  :meth:`spans` returns the records kept since
+    the last read; :meth:`trace_report` reduces them to ms a step: each
+    device stage's self time (``span_ms``), the card's idle between
+    dispatches (``gap_ms``) split by the host stage that overlapped it
+    (``gap_by_host``), the clock mapping's uncertainty and the rings' drops.
+    Reading synchronises with the card; recording does not.  ``host_ms``
+    sums the host stages, on or off; and whenever a ``torch.profiler``
+    records, each host stage is a ``torecsys.<stage>`` range in its trace
+    (``profile_dir``'s too).
 
     Args:
         pipeline: a configured pipeline (``finalize`` is called here); the
@@ -239,16 +257,8 @@ class Trainer:
         self.ndcg_k = ndcg_k
         self._ndcg = StreamingNDCG(k=ndcg_k)
         self._eval_ranking_fn = None
-        # Host wall ms of the training input path, summed over steps: presort
-        # and pack (pinning included), in the workers or on the loop's
-        # thread; on the loop's thread the wait for a prepared group (which
-        # takes in the presort and pack where they run there), the copy of
-        # each eager step's batch to the card (place) and the steps' enqueue
-        # or the graph's copy and replay (step); the steps run on after their
-        # enqueue returns.
-        self.host_ms = {"presort": 0.0, "pack": 0.0, "wait": 0.0, "place": 0.0, "step": 0.0}
+        self.tracer = trace.Tracer(self.device)
         self.recoveries: List[str] = []  # the lookup recovery's actions, in order
-        self._host_lock = threading.Lock()
 
     # ---- setup ----------------------------------------------------------
 
@@ -390,43 +400,55 @@ class Trainer:
 
     # ---- the training input path ----------------------------------------
 
-    def _add_host_ms(self, **ms: float) -> None:
-        with self._host_lock:
-            for k, v in ms.items():
-                self.host_ms[k] += v
+    @property
+    def host_ms(self) -> Dict[str, float]:
+        """Host wall ms of the training input path by stage, summed over
+        steps (the tracer's host spans, on or off): ``presort`` and ``pack``
+        (pinning included), in the workers or on the loop's thread; on the
+        loop's thread ``wait`` for a prepared group (which takes in the
+        presort and pack where they run there), ``place``, the copy of each
+        eager step's batch to the card, and ``step``, the steps' enqueue or
+        the graph's copy and replay; the steps run on after their enqueue
+        returns."""
+        return self.tracer.host_ms
 
-    def _prepare(self, group: List[Dict[str, np.ndarray]]) -> _Group:
+    @host_ms.setter
+    def host_ms(self, value: Dict[str, float]) -> None:
+        self.tracer.host_ms = value
+
+    def _prepare(self, group: List[Dict[str, np.ndarray]],
+                 at: Optional[Tuple[int, int]] = None) -> _Group:
         """The input path's transform, in a worker or on the loop's thread:
         presort each batch (where the presort runs), then pack the group into
-        one buffer, pinned where the card reads it."""
-        clock = time.perf_counter
+        one buffer, pinned where the card reads it.  ``at`` is the group's
+        ``(dispatch, first step)`` for its spans."""
         n_examples = sum(next(np.shape(v)[0] for k, v in b.items()
                               if not k.startswith(AUX_PREFIX)) for b in group)
         group = [self._local_batch(b) for b in group]
         if self._presorter is not None:
-            t0 = clock()
-            group = [self._presorter(b) for b in group]
-            self._add_host_ms(presort=(clock() - t0) * 1e3)
-        t1 = clock()
-        layout = BatchLayout.of(group[0])
-        packed = layout.pack(group, pin=self.device.type == "cuda")
-        self._add_host_ms(pack=(clock() - t1) * 1e3)
+            with self.tracer.span("presort", at):
+                group = [self._presorter(b) for b in group]
+        with self.tracer.span("pack", at):
+            layout = BatchLayout.of(group[0])
+            packed = layout.pack(group, pin=self.device.type == "cuda")
         return _Group(packed, layout, n_examples)
 
     def _prepared(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[_Group]:
-        groups = group_batches(batches, self.steps_per_execution)
+        groups = self.tracer.numbered(group_batches(batches, self.steps_per_execution))
         workers = min(4, self.prefetch) if self._presorter is not None else 0
-        return prefetch_map(groups, self._prepare, num_workers=workers, depth=self.prefetch)
+        return prefetch_map(groups, lambda item: self._prepare(*item), num_workers=workers,
+                            depth=self.prefetch)
 
     def _dispatch(self, group: _Group) -> List[torch.Tensor]:
         """Take the steps of one packed group; returns their losses as 0-d
         device tensors."""
-        with self._lookup_scope():
+        with self._lookup_scope(), self.tracer.active():
             return self._dispatch_steps(group)
 
     def _dispatch_steps(self, group: _Group) -> List[torch.Tensor]:
-        clock = time.perf_counter
+        tracer = self.tracer
         k = self.steps_per_execution
+        tracer.begin_dispatch()
         if k > 1 and len(group) == k:
             if self._train_scan is None:
                 capture = self.mesh is None or self.mesh.backend != "gloo"
@@ -434,22 +456,23 @@ class Trainer:
                                                    self.pipeline.sequential, k, group.layout,
                                                    self.device, capture)
             if self._train_scan.layout == group.layout:
-                t0 = clock()
-                self.state, losses = self._train_scan(self.state, group.packed)
-                self._add_host_ms(step=(clock() - t0) * 1e3)
+                with tracer.span("step"):
+                    self.state, losses = self._train_scan(self.state, group.packed)
+                tracer.end_dispatch(k)
                 self.state.loss_count += k
                 return list(losses.unbind(0))
         losses = []
-        for row in group.packed:
-            t0 = clock()
-            if self.device.type == "cuda":
-                row = row.to(self.device, non_blocking=True)
-            placed = group.layout.unpack(row)
-            t1 = clock()
-            self.state, logs = self._train_step_fn(self.state, placed)
-            self._add_host_ms(place=(t1 - t0) * 1e3, step=(clock() - t1) * 1e3)
+        for i, row in enumerate(group.packed):
+            with tracer.span("place"):
+                if self.device.type == "cuda":
+                    row = row.to(self.device, non_blocking=True)
+                placed = group.layout.unpack(row)
+            trace.start_row(i)
+            with tracer.span("step"):
+                self.state, logs = self._train_step_fn(self.state, placed)
             self.state.loss_count += 1
             losses.append(logs["loss"])
+        tracer.end_dispatch(len(losses))
         return losses
 
     def _dispatches(self, batches: Iterable[Dict[str, np.ndarray]]
@@ -458,17 +481,42 @@ class Trainer:
         if self.state is None:
             self.init_state()
         prepared = self._prepared(batches)
-        clock = time.perf_counter
         try:
             while True:
-                t0 = clock()
-                group = next(prepared, None)
-                self._add_host_ms(wait=(clock() - t0) * 1e3)
+                with self.tracer.span("wait"):
+                    group = next(prepared, None)
                 if group is None:
                     return
                 yield group.n_examples, self._dispatch(group)
         finally:
             prepared.close()
+
+    # ---- tracing --------------------------------------------------------
+
+    def set_tracing(self, enabled: bool) -> None:
+        """Switch the tracer's span records on or off (off at first; see
+        the class docstring).  Either switch drops the captured K-step graph,
+        so the next dispatch captures it again, with the stamps or without
+        them."""
+        if bool(enabled) == self.tracer.enabled:
+            return
+        if enabled:
+            self.tracer.enable(self.steps_per_execution)
+        else:
+            self.tracer.disable()
+        if self._train_scan is not None:
+            self._train_scan.graph = None
+
+    def spans(self) -> List[trace.Span]:
+        """The spans recorded since the last read, sorted by start
+        (``utils.trace.Span``), forgotten once read."""
+        return self.tracer.drain()
+
+    def trace_report(self) -> Dict:
+        """The spans recorded since the last read, reduced to ms a step
+        (``utils.trace.reduce``), with the clock's uncertainty and the
+        rings' drops; forgotten once read."""
+        return self.tracer.report()
 
     # ---- training -------------------------------------------------------
 
