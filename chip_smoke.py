@@ -286,6 +286,20 @@ Phases (any failure raises and the exit code is not 0):
     BPR's NDCG@10 within the JAX column's range.  ``--phases parity`` runs the
     whole protocol (5 seeds, 4 for NCF + BPR) and writes PARITY_TORCH.json
     into ``--out``, the CPU columns of the repository's copy kept.
+26. The dense optimizer's multi-tensor Adam (``csrc/adam.cu``, after phase
+    8): on the dense parameter lists of the benchmark's DeepFM and xDeepFM
+    (26 fields, E = 10), 100 steps of a quadratic loss under torch's
+    capturable single-tensor Adam, the port's Adam eager and the port's
+    Adam replayed in a CUDA graph, and AdamW with a parameter that never
+    has a gradient: losses, p, m, v and counts held (``ADAM_ULPS``), the
+    eager and replayed kernels to the bit; sizes off the 4-element unit,
+    tensors off the 16-byte boundary, 130 tensors (three launches) and a
+    tensor past 2^31 elements against torch's step to the bit (the
+    ``ADAM_EDGE_*``, ``ADAM_HUGE`` constants); two launches a step; the kernel
+    timed warm, cold and in a graph beside its bound (28 bytes an element),
+    the per-op path and torch's ``fused=True`` Adam (a yardstick the port
+    never calls); ``adam_update.launches`` counted through a DeepFM fit.
+    ``--phases adam`` runs it alone.
 
 The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
@@ -368,7 +382,7 @@ DEVICE = "cuda"
 # (source, macros): the port's two libraries, and the row gather's sweep
 # build (other chunks and reads in flight, for phase 2's [gather-config])
 SWEEP_BUILD = ("embedding.cu", ("TRS_ROW_GATHER_SWEEP",))
-BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD)
+BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD, ("adam.cu", ()))
 
 
 def make_batches(seed: int, n_batches: int, field_sizes=None):
@@ -3299,7 +3313,7 @@ def adam_rule(trainer, table: str, start):
         mv = mv.reshape(-1, 2, w)
         return (row.learning_rate, row.b1, row.b2, row.eps, int(start["step"].item()) + 1,
                 mv[:, 0], mv[:, 1])
-    if type(dense_opt) not in (torch.optim.Adam, torch.optim.AdamW):
+    if not isinstance(dense_opt, (torch.optim.Adam, torch.optim.AdamW)):
         return None
     group = dense_opt.param_groups[0]
     zero = torch.zeros_like(start[table])
@@ -6279,11 +6293,318 @@ def phase_parity(seed: int, out_dir):
     return {"card": card, "seconds": seconds, **launches}
 
 
+# ---- phase 26: the dense optimizer's multi-tensor Adam ---------------------
+
+# The benchmark's cells (h100_bench/configs): 26 Criteo fields at E = 10;
+# the tables are capped (their rows go to the row optimizer, not this one).
+ADAM_FIELDS = (100,) * 26
+ADAM_EMBED = 10
+ADAM_MODELS = {"deepfm": ("DeepFM", {"deep_layer_sizes": TOWER}), "xdeepfm": ("xDeepFM", XDEEPFM)}
+ADAM_STEPS = 100
+ADAM_LR = 1e-3
+ADAM_ITERS = 50
+# The kernel against torch's per-op capturable Adam.  The two round the same
+# operations, in the same order, once each, but torch's kernels may contract
+# a multiply-add where the kernel's fmaf does not, or the reverse: about 10
+# roundings a step that can fall one ulp apart, each at most 2^-24 of its
+# value.  The quadratic loss draws each side back to its target (its
+# gradient moves the update by under lr * (1 - b1) / sqrt(v_hat), far under
+# 1 a step), so over 100 steps the parameters part by a few ulps at most:
+# each of p, m and v within ADAM_ULPS ulps of the element's magnitude, plus
+# ADAM_FLOOR of the tensor's largest value (an element that crosses zero has
+# no ulp to speak of); the loss within ADAM_LOSS_RTOL; the counts equal.
+ADAM_ULPS = 64
+ADAM_FLOOR = 1e-6
+ADAM_LOSS_RTOL = 1e-5
+ADAM_BYTES_PER_ELEMENT = 28  # p, g, m, v read; p, m, v written; float32
+# The edges: sizes off the 4-element unit, tensors off the 16-byte boundary
+# (a view one element into its storage: the scalar path), more tensors than
+# one launch's table takes (three launches a step), and one tensor of more
+# than 2^31 elements (8.6 GB; its offsets need 64 bits), its first and last
+# elements held against torch's step on copies of them.
+ADAM_EDGE_SIZES = (1, 3, 4, 5, 7, 8, 1023, 4099, 65537)
+ADAM_EDGE_TENSORS = 130
+ADAM_EDGE_STEPS = 5
+ADAM_HUGE = (1 << 31) + 5
+ADAM_HUGE_HELD = 4101
+
+
+def adam_shapes(model: str, kwargs):
+    """The shapes of ``model``'s dense optimizer's parameters, in order, as
+    the Trainer hands them to it (the sparse route: tables left out)."""
+    from torecsys_tpu_torch import Trainer
+
+    trainer = Trainer(ctr_pipeline(model, kwargs, ADAM_FIELDS, sparse=True, embed=ADAM_EMBED),
+                      log_every=10**9, seed=0)
+    trainer.init_state()
+    dense, _ = _optimizers(trainer)
+    shapes = [tuple(p.shape) for group in dense.param_groups for p in group["params"]]
+    del trainer
+    release()
+    return shapes
+
+
+def adam_gap(ref, got) -> float:
+    """The worst element of ``got`` against ``ref`` over its tolerance
+    (ADAM_ULPS ulps of its magnitude plus ADAM_FLOOR of ``ref``'s largest)."""
+    import torch
+
+    mag = torch.maximum(ref.abs(), got.abs())
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    tol = ADAM_ULPS * ulp + ADAM_FLOOR * ref.abs().max()
+    err = (got - ref).abs()
+    return torch.where(err == 0, torch.zeros_like(err), err / tol).max().item()
+
+
+class AdamSide:
+    """One optimizer over its own copy of the parameters, stepped on the
+    quadratic ``0.5 * sum(curv * (p - target)^2)``; ``missing``: the index
+    of a parameter that never has a gradient (the reference, torch's Adam,
+    which would skip it, takes zeros there, as the port does)."""
+
+    def __init__(self, p0, make_opt, missing=None, zeros_for_missing=False):
+        import torch
+
+        self.params = [torch.nn.Parameter(p.clone()) for p in p0]
+        for i, p in enumerate(self.params):
+            p.grad = None if i == missing and not zeros_for_missing else torch.zeros_like(p)
+        self.missing = missing
+        self.opt = make_opt(self.params)
+        self.losses = []
+        self.graph = None
+
+    def grads(self, target, curv):
+        import torch
+
+        with torch.no_grad():
+            loss = torch.zeros((), dtype=torch.float64, device=self.params[0].device)
+            for i, (p, t, c) in enumerate(zip(self.params, target, curv)):
+                d = p - t
+                loss += (0.5 * c * d * d).sum(dtype=torch.float64)
+                if i != self.missing:
+                    p.grad.copy_(c * d)
+        self.losses.append(loss)
+
+    def step(self):
+        if self.graph is None:
+            self.opt.step()
+        else:
+            self.graph.replay()
+
+    def capture(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.opt.step()
+
+    def kept(self):
+        """Parameters, moments and counts in parameter order."""
+        state = self.opt.state
+        return {"p": list(self.params), "m": [state[p]["exp_avg"] for p in self.params],
+                "v": [state[p]["exp_avg_sq"] for p in self.params],
+                "step": [state[p]["step"] for p in self.params]}
+
+
+def adam_launches_a_step(opt) -> list:
+    """The names of the kernels one ``opt.step()`` runs on the card."""
+    import torch
+
+    with card_profile() as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    return [e.name for e in device_events(prof)]
+
+
+def adam_run(label: str, shapes, name: str, seed: int, missing=None):
+    """100 quadratic steps of torch's capturable Adam (or AdamW), the port's
+    eager and the port's in a CUDA graph (its first step eager, then one
+    captured step replayed), from the same parameters; held as the
+    constants above say, the port's two runs to the bit."""
+    import torch
+
+    from torecsys_tpu_torch.train.optimizers import get_optimizer
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = [0.05 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+    target = [0.05 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+    curv = [torch.rand(s, generator=gen, device=dev) for s in shapes]
+    wd = {"weight_decay": 1e-4} if name == "adamw" else {}
+    torch_cls = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+    ref = AdamSide(p0, lambda ps: torch_cls(ps, lr=ADAM_LR, foreach=False, capturable=True,
+                                            **wd), missing, zeros_for_missing=True)
+    port = get_optimizer(name, lr=ADAM_LR, **wd)
+    eager = AdamSide(p0, port, missing)
+    graphed = AdamSide(p0, port, missing)
+    sides = (ref, eager, graphed)
+    for i in range(ADAM_STEPS):
+        for side in sides:
+            side.grads(target, curv)
+            side.step()
+        if i == 0:
+            graphed.capture()
+    torch.cuda.synchronize()
+    kept = [side.kept() for side in sides]
+    same = all(torch.equal(a, b) for k in kept[1] for a, b in zip(kept[1][k], kept[2][k]))
+    same = same and torch.equal(torch.stack(eager.losses), torch.stack(graphed.losses))
+    if not same:
+        raise AssertionError(f"[adam] {label}: the replayed kernel differs from the eager one")
+    gaps = {k: max(adam_gap(a, b) for a, b in zip(kept[0][k], kept[1][k])) for k in ("p", "m", "v")}
+    bits = {k: sum(int(torch.equal(a, b)) for a, b in zip(kept[0][k], kept[1][k]))
+            for k in ("p", "m", "v")}
+    losses = torch.stack(ref.losses), torch.stack(eager.losses)
+    loss_gap = ((losses[1] - losses[0]).abs() / losses[0].abs()).max().item()
+    counts = {float(t) for t in kept[1]["step"]} | {float(t) for t in kept[0]["step"]}
+    n = sum(p.numel() for p in p0)
+    log(f"[adam] {label}: {len(shapes)} tensors, {n} elements, {ADAM_STEPS} steps; port against "
+        f"torch's capturable {torch_cls.__name__}: worst p/m/v over tolerance "
+        + " ".join(f"{k}={v:.3g}" for k, v in gaps.items())
+        + f" (tensors bit-identical {bits} of {len(shapes)}), loss gap {loss_gap:.3g} (rtol "
+        f"{ADAM_LOSS_RTOL}), counts {sorted(counts)}; eager and replayed port bit-identical")
+    if max(gaps.values()) > 1 or not loss_gap <= ADAM_LOSS_RTOL or counts != {float(ADAM_STEPS)}:
+        raise AssertionError(f"[adam] {label}: the port's Adam is off torch's: gaps {gaps}, "
+                             f"loss {loss_gap}, counts {counts}")
+    return {"tensors": len(shapes), "elements": n, "gaps": gaps, "bit_identical": bits,
+            "loss_gap": loss_gap}, sides
+
+
+def adam_edges(seed: int):
+    """The edges above, each step against torch's capturable Adam to the bit."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import adam as KA
+    from torecsys_tpu_torch.train.optimizers import get_optimizer
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def off(size, i):  # odd tensors start one element into their storage
+        return torch.randn(size + i % 2, generator=gen, device=dev)[i % 2:]
+
+    sizes = [ADAM_EDGE_SIZES[i % len(ADAM_EDGE_SIZES)] for i in range(ADAM_EDGE_TENSORS)]
+    ours = [torch.nn.Parameter(off(n, i)) for i, n in enumerate(sizes)]
+    theirs = [torch.nn.Parameter(p.detach().clone()) for p in ours]
+    port = get_optimizer("adam", lr=ADAM_LR)(ours)
+    ref = torch.optim.Adam(theirs, lr=ADAM_LR, foreach=False, capturable=True)
+    before = KA.adam_update.launches
+    for _ in range(ADAM_EDGE_STEPS):
+        for i, (p, q) in enumerate(zip(ours, theirs)):
+            p.grad = off(p.numel(), i)
+            q.grad = p.grad.clone()
+        port.step()
+        ref.step()
+    launches = (KA.adam_update.launches - before) / ADAM_EDGE_STEPS
+    same = all(torch.equal(p, q) and torch.equal(port.state[p]["exp_avg_sq"],
+                                                 ref.state[q]["exp_avg_sq"])
+               for p, q in zip(ours, theirs))
+    aligned = sum(p.data_ptr() % 16 == 0 for p in ours)
+    del ours, theirs, port, ref
+    release()
+    huge = torch.nn.Parameter(torch.rand(ADAM_HUGE, generator=gen, device=dev))
+    huge.grad = torch.randn(ADAM_HUGE, generator=gen, device=dev)
+    held = (slice(0, ADAM_HUGE_HELD), slice(ADAM_HUGE - ADAM_HUGE_HELD, ADAM_HUGE))
+    copies = [torch.nn.Parameter(huge.detach()[h].clone()) for h in held]
+    for c, h in zip(copies, held):
+        c.grad = huge.grad[h].clone()
+    port = get_optimizer("adam", lr=ADAM_LR)([huge])
+    ref = torch.optim.Adam(copies, lr=ADAM_LR, foreach=False, capturable=True)
+    for _ in range(2):
+        port.step()
+        ref.step()
+    huge_same = all(torch.equal(huge.detach()[h], c) for h, c in zip(held, copies))
+    del huge, copies, port, ref
+    release()
+    log(f"[adam] edges: {ADAM_EDGE_TENSORS} tensors of {sorted(set(sizes))} elements, "
+        f"{ADAM_EDGE_TENSORS - aligned} off the 16-byte boundary, {ADAM_EDGE_STEPS} steps, "
+        f"{launches:g} launches a step: bit-identical to torch's {same}; a tensor of "
+        f"{ADAM_HUGE} elements, its first and last {ADAM_HUGE_HELD} after 2 steps: "
+        f"bit-identical {huge_same}")
+    want = -(-ADAM_EDGE_TENSORS // KA.MAX_TENSORS)
+    if not (same and huge_same and launches == want):
+        raise AssertionError(f"[adam] edges: bit-identical {same}, huge {huge_same}, "
+                             f"launches a step {launches} (expected {want})")
+    return {"edge_launches_a_step": launches, "edge_unaligned": ADAM_EDGE_TENSORS - aligned,
+            "huge_elements": ADAM_HUGE}
+
+
+def adam_times(label: str, sides, n_elements: int, fused_opt):
+    """The kernel warm, cold and in the graph; torch's per-op capturable Adam
+    eager and in a graph; torch's fused Adam (a yardstick only); the bound."""
+    import torch
+
+    ref, eager, graphed = sides
+    ref.capture()
+    launches = adam_launches_a_step(eager.opt)
+    if len(launches) > 2 or not all("multi_tensor_adam" in x for x in launches):
+        raise AssertionError(f"[adam] {label}: one step launched {launches}")
+    rec = {"launches_a_step": len(launches), "kernels": sorted(set(launches)),
+           "bound_ms": ADAM_BYTES_PER_ELEMENT * n_elements / HBM_BYTES_PER_S * 1e3}
+    timings = (("kernel_ms", eager.opt.step), ("graph_ms", graphed.graph.replay),
+               ("plain_ms", ref.opt.step), ("plain_graph_ms", ref.graph.replay),
+               ("library_ms", fused_opt.step))
+    for key, fn in timings:
+        rec.update(time_keys(key, time_ms(fn, ADAM_ITERS)))
+    rec["cold_ms"] = cold_time_ms(eager.opt.step, ADAM_ITERS)
+    log(f"[adam] {label}: launches a step {launches}; "
+        + " ".join(times_text(key, (rec[key], rec[f"{key}_events"])) for key, _ in timings)
+        + f" (library: torch's fused=True Adam, a yardstick); cold_ms={rec['cold_ms']:.4f}; "
+        f"bound {rec['bound_ms']:.5f} ms (bytes); in the graph "
+        f"{rec['graph_ms'] / rec['bound_ms']:.2f}x the bound")
+    return rec
+
+
+def phase_adam(seed: int, out_dir):
+    """Phase 26: the multi-tensor Adam on the benchmark's parameter lists,
+    then its counter through a DeepFM fit (module docstring)."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.ops.kernels import adam as KA
+
+    record = {}
+    for label, (model, kwargs) in ADAM_MODELS.items():
+        shapes = adam_shapes(model, kwargs)
+        run, sides = adam_run(label, shapes, "adam", seed + 26)
+        fused_params = [torch.nn.Parameter(p.detach().clone()) for p in sides[1].params]
+        for p, q in zip(fused_params, sides[1].params):
+            p.grad = q.grad.clone()
+        fused = torch.optim.Adam(fused_params, lr=ADAM_LR, fused=True)
+        run.update(adam_times(label, sides, run["elements"], fused))
+        record[label] = run
+        del sides, fused, fused_params
+        release()
+    record["edges"] = adam_edges(seed + 28)
+    shapes = adam_shapes(*ADAM_MODELS["deepfm"])
+    record["deepfm_adamw_missing"], _ = adam_run("deepfm adamw, a parameter without a gradient",
+                                                 shapes, "adamw", seed + 27, missing=1)
+    release()
+    k = GRAPH_K
+    trainer = Trainer(ctr_pipeline("DeepFM", {"deep_layer_sizes": TOWER}, ADAM_FIELDS,
+                                   sparse=True, compute="bfloat16", embed=ADAM_EMBED),
+                      log_every=10**9, seed=seed, steps_per_execution=k)
+    KA.adam_update.launches = 0
+    trainer.fit(make_batches(seed + 26, 4 * k, ADAM_FIELDS), max_epochs=1)
+    launches = KA.adam_update.launches
+    log(f"[adam] DeepFM fit, {4 * k} steps at K = {k}: adam_update.launches {launches} "
+        f"(the warm-up's and the capture's steps, one a step; replays are not counted)")
+    if launches != 2 * k:
+        raise AssertionError(f"[adam] the fit counted {launches} launches, expected {2 * k}")
+    record["fit_launches"] = launches
+    del trainer
+    release()
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_adam.json"), "w") as f:
+            json.dump(record, f, indent=1)
+    return record
+
+
 # the phases --phases runs alone: the graphed throughput paths, the quality
 # phase and the whole parity protocol
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
                 "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel,
-                "quality": phase_quality, "parity": phase_parity}
+                "quality": phase_quality, "parity": phase_parity, "adam": phase_adam}
 
 
 def main(argv=None):
@@ -6361,6 +6682,7 @@ def main(argv=None):
     batch = make_batches(args.seed, 1)[0]
     records = timed("kernels", phase_kernels, batch, args.seed)
     presort = timed("presort", phase_presort, args.seed)
+    adam = timed("adam", phase_adam, args.seed, args.out)
     trainer, train = timed("train", phase_train, args.seed, args.steps, args.out, args.profile)
     evaluation = timed("eval", phase_eval, trainer, args.seed)
     del trainer
@@ -6465,7 +6787,8 @@ def main(argv=None):
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "kernels": kernel_lines, "phase_s": phase_s,
-                       "presort": presort, **paths, "ffm_held": ffm_held, "fat_held": fat_held,
+                       "presort": presort, "adam": adam, **paths, "ffm_held": ffm_held,
+                       "fat_held": fat_held,
                        "multitask": multitask, "file": file_fed}, f, indent=1)
     print(json.dumps({"kernels": kernel_lines}))
     print(card)

@@ -212,7 +212,7 @@ def test_sparse_route_row_rules_match_the_jax_trainer(case, monkeypatch):
     config, route, rule = SPARSE_CASES[case]
     port, _ = run_both(config, route, monkeypatch, row_rule=rule)
     dense = port.state.opt_state["dense"]
-    assert type(dense).__name__ == {"AdamW": "AdamW", "Adagrad": "Adagrad",
+    assert type(dense).__name__ == {"AdamW": "MultiTensorAdamW", "Adagrad": "Adagrad",
                                     "SGD": "SGD"}[config.optimizer]
 
 
@@ -385,7 +385,7 @@ def test_cli_trains_and_evaluates_under_adamw(tmp_path):
                    "--batch_size", "256", "--max_num_epochs", "1", "--checkpoint_dir",
                    str(tmp_path), *common])
     dense = trainer.state.opt_state["dense"] if trainer.sparse else trainer.state.opt_state
-    assert type(dense).__name__ == "AdamW" and dense.defaults["weight_decay"] == 0.001
+    assert type(dense).__name__ == "MultiTensorAdamW" and dense.defaults["weight_decay"] == 0.001
     ckpt = sorted(os.listdir(tmp_path))[-1]
     metrics = run(["evaluate", "--model_config", '{"method": "FM"}', "--load_from",
                    str(tmp_path / ckpt), "--eval_file", SAMPLE, *common])

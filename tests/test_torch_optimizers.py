@@ -16,6 +16,8 @@ takes ``b2**count`` by another route, one ulp off, and RAdam's threshold
 branch moves with it.  And the registry: names, aliases, refusals."""
 
 import contextlib
+import copy
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,11 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.convert import flatten, from_flax_params, optax_fields, torch_name
+from torecsys_tpu_torch.ops import kernels
+from torecsys_tpu_torch.ops.kernels import adam as adam_kernel
 from torecsys_tpu_torch.train.optimizers import (
+    MultiTensorAdam,
+    MultiTensorAdamW,
     OptaxOptimizer,
     available_optimizers,
     get_optimizer,
@@ -172,7 +178,9 @@ def test_five_free_steps(name, kwargs):
 def test_registry_names_aliases_and_refusals():
     assert sorted(available_optimizers()) == sorted(NAMES)
     p = nn.Parameter(torch.ones(2))
-    assert type(get_optimizer("AdamW")([p])) is torch.optim.AdamW
+    assert type(get_optimizer("AdamW")([p])) is MultiTensorAdamW
+    assert type(get_optimizer("Adam")([p])) is MultiTensorAdam
+    assert isinstance(get_optimizer("AdamW")([p]), torch.optim.AdamW)
     assert isinstance(get_optimizer("AdamW", nesterov=True)([p]), OptaxOptimizer)
     assert get_optimizer("LaMb", learning_rate=0.5)([p]).defaults["lr"] == 0.5
     assert get_optimizer("Adam", learning_rate=0.25)([p]).defaults["lr"] == 0.25
@@ -395,3 +403,229 @@ def test_names_the_jax_trainer_cannot_train_with_raise_as_there():
         get_optimizer("yogi", nesterov=True)
     with pytest.raises(ValueError, match="schedules"):
         get_optimizer("optimistic_adam", lr=lambda c: c)([nn.Parameter(torch.ones(2))])
+
+
+# ---- the multi-tensor Adam (ops/kernels/adam.py) ---------------------------
+# On the CPU MultiTensorAdam and MultiTensorAdamW are torch's own step; on the
+# card each group goes through adam_update, whose kernel follows its plain
+# version, torch's capturable single-tensor step.  torch refuses CPU
+# parameters under capturable=True, so these tests let the CPU through its
+# device check (as tests/test_torch_model.py does) to run that arithmetic.
+ADAM_FORMS = [("adam", {}, torch.optim.Adam), ("adamw", {"weight_decay": 0.1}, torch.optim.AdamW)]
+
+
+@pytest.fixture
+def capturable_on_cpu(monkeypatch):
+    import torch.optim.adam as torch_adam
+
+    supported = torch_adam._get_capturable_supported_devices
+    monkeypatch.setattr(torch_adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: supported(*a, **k) + ["cpu"])
+
+
+def adam_params(seed, shapes=((5, 3), (7,), (2, 2, 3))):
+    gen = torch.Generator().manual_seed(seed)
+    return [nn.Parameter(torch.randn(s, generator=gen)) for s in shapes]
+
+
+def twin(params):
+    return [nn.Parameter(p.detach().clone()) for p in params]
+
+
+def step_both(ours, theirs, a, b, gen, skip=()):
+    for i, (p, q) in enumerate(zip(a, b)):
+        g = torch.randn(p.shape, generator=gen)
+        p.grad = None if i in skip else g
+        q.grad = torch.zeros_like(q) if i in skip else g.clone()
+    ours.step()
+    theirs.step()
+
+
+def assert_same_state(ours, theirs, a, b):
+    for p, q in zip(a, b):
+        assert torch.equal(p, q)
+        mine, torchs = ours.state[p], theirs.state[q]
+        assert list(mine) == list(torchs) == ["step", "exp_avg", "exp_avg_sq"]
+        for k in mine:
+            assert mine[k].dtype == torchs[k].dtype and torch.equal(mine[k], torchs[k]), k
+
+
+@pytest.mark.parametrize("name,kwargs,torch_cls", ADAM_FORMS, ids=[f[0] for f in ADAM_FORMS])
+def test_multi_tensor_adam_on_the_cpu_is_torchs_step(name, kwargs, torch_cls):
+    """20 steps of the registry's plain adam/adamw against torch's class from
+    the same parameters and gradients: the same bits, state and keys."""
+    a = adam_params(3)
+    b = twin(a)
+    ours = get_optimizer(name, lr=LR, **kwargs)(a)
+    theirs = torch_cls(b, lr=LR, foreach=False, **kwargs)
+    assert isinstance(ours, torch_cls) and ours.defaults["capturable"] is False
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(20):
+        step_both(ours, theirs, a, b, gen)
+    assert_same_state(ours, theirs, a, b)
+
+
+@pytest.mark.parametrize("name,kwargs,torch_cls", ADAM_FORMS, ids=[f[0] for f in ADAM_FORMS])
+def test_multi_tensor_adam_state_dict_round_trips_through_torchs_class(name, kwargs, torch_cls):
+    """The state_dict of the port's class loads into torch's and back: both
+    then take the same steps to the bit."""
+    a = adam_params(5)
+    ours = get_optimizer(name, lr=LR, **kwargs)(a)
+    gen = torch.Generator().manual_seed(6)
+    for _ in range(3):
+        for p in a:
+            p.grad = torch.randn(p.shape, generator=gen)
+        ours.step()
+    b = twin(a)
+    theirs = torch_cls(b, lr=LR, foreach=False, **kwargs)
+    theirs.load_state_dict(copy.deepcopy(ours.state_dict()))
+    c = twin(b)
+    back = get_optimizer(name, lr=LR, **kwargs)(c)
+    back.load_state_dict(copy.deepcopy(theirs.state_dict()))
+    assert_same_state(back, theirs, c, b)
+    for _ in range(3):
+        step_both(back, theirs, c, b, gen)
+    assert_same_state(back, theirs, c, b)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_multi_tensor_adam_parameter_without_a_gradient_as_optax(name):
+    """A parameter without a gradient at the second step is updated as optax
+    updates a leaf with a zero gradient (its moments decay, it moves)."""
+    tx = getattr(optax, name)(LR)
+    params = {"embedding": jnp.ones((6, 8))}
+    state = tx.init(params)
+    for g in (jnp.full((6, 8), 0.5), jnp.zeros((6, 8))):
+        u, state = tx.update({"embedding": g}, state, params)
+        params = optax.apply_updates(params, u)
+    p = nn.Parameter(torch.ones(6, 8))
+    opt = get_optimizer(name, lr=LR)([p])
+    p.grad = torch.full((6, 8), 0.5)
+    opt.step()
+    p.grad = None
+    opt.step()
+    np.testing.assert_allclose(p.detach().numpy(), np.asarray(params["embedding"]),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(opt.state[p]["exp_avg"].numpy(),
+                               np.asarray(state[0].mu["embedding"]), rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("weight_decay,decoupled", [(0.0, False), (0.1, False), (0.1, True)],
+                         ids=["adam", "adam-l2", "adamw"])
+def test_plain_adam_update_is_torchs_capturable_step(capturable_on_cpu, weight_decay, decoupled):
+    """The kernel's specification, adam_update (the plain version on the
+    CPU), against torch's capturable single-tensor Adam over 20 steps: the
+    same bits for parameters, moments and float32 counts; a missing gradient
+    as zeros."""
+    torch_cls = torch.optim.AdamW if decoupled else torch.optim.Adam
+    a = adam_params(7)
+    b = twin(a)
+    theirs = torch_cls(b, lr=LR, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+                       foreach=False, capturable=True)
+    ms = [torch.zeros_like(p) for p in a]
+    vs = [torch.zeros_like(p) for p in a]
+    steps = [torch.zeros((), dtype=torch.float32) for _ in a]
+    gen = torch.Generator().manual_seed(8)
+    for i in range(20):
+        gs = [None if (i % 5 == 4 and k == 1) else torch.randn(p.shape, generator=gen)
+              for k, p in enumerate(a)]
+        for q, g in zip(b, gs):
+            q.grad = torch.zeros_like(q) if g is None else g.clone()
+        with torch.no_grad():
+            adam_kernel.adam_update(a, gs, ms, vs, steps, lr=LR, b1=0.9, b2=0.999, eps=1e-8,
+                                    weight_decay=weight_decay, decoupled=decoupled)
+        theirs.step()
+    for p, q, m, v, t in zip(a, b, ms, vs, steps):
+        state = theirs.state[q]
+        assert torch.equal(p, q) and torch.equal(m, state["exp_avg"])
+        assert torch.equal(v, state["exp_avg_sq"]) and torch.equal(t, state["step"])
+        assert t.dtype == torch.float32 and float(t) == 20
+
+
+@pytest.mark.parametrize("name,kwargs,torch_cls", ADAM_FORMS, ids=[f[0] for f in ADAM_FORMS])
+def test_multi_tensor_adam_card_branch_steps_as_torchs_capturable_adam(
+        monkeypatch, capturable_on_cpu, name, kwargs, torch_cls):
+    """The step's card branch, with adam_update's plain version standing in
+    for the kernel: one call a group with the group's tensors, a missing
+    gradient passed as None (none allocated), torch's state keys and float32
+    counts on the parameters' device; 20 steps equal torch's capturable Adam
+    to the bit."""
+    calls = []
+
+    def recording(params, grads, *rest, **hyper):
+        calls.append((len(params), [g is None for g in grads], hyper))
+        adam_kernel.adam_update_plain(params, grads, *rest, **hyper)
+
+    monkeypatch.setattr(kernels, "device_kind", lambda *tensors: "cuda")
+    monkeypatch.setattr(adam_kernel, "adam_update", recording)
+    a = adam_params(9)
+    b = twin(a)
+    ours = get_optimizer(name, lr=LR, **kwargs)(a)
+    theirs = torch_cls(b, lr=LR, foreach=False, capturable=True, **kwargs)
+    gen = torch.Generator().manual_seed(10)
+    for i in range(20):
+        step_both(ours, theirs, a, b, gen, skip=(2,) if i % 4 == 3 else ())
+        assert a[2].grad is not None or i % 4 == 3
+    assert_same_state(ours, theirs, a, b)
+    assert len(calls) == 20 and all(n == 3 for n, _, _ in calls)
+    assert calls[3][1] == [False, False, True]
+    assert calls[0][2] == dict(lr=LR, b1=0.9, b2=0.999, eps=1e-8,
+                               weight_decay=kwargs.get("weight_decay", 0.0),
+                               decoupled=name == "adamw")
+
+
+def test_adam_update_refuses_what_the_kernel_does_not_take():
+    """A dtype other than float32, a non-contiguous tensor, a mix of devices,
+    a count that is not one float32 element: ValueError."""
+    p = torch.zeros(4, 4)
+
+    def call(p=p, g=None, m=None, v=None, step=None):
+        adam_kernel.adam_update([p], [g], [torch.zeros_like(p) if m is None else m],
+                                [torch.zeros_like(p) if v is None else v],
+                                [torch.zeros(()) if step is None else step],
+                                lr=LR, b1=0.9, b2=0.999, eps=1e-8)
+
+    call()
+    for bad in (dict(p=p.bfloat16()), dict(g=torch.zeros(4, 4).t()),
+                dict(m=torch.zeros(4, 4, device="meta")), dict(step=torch.zeros(2)),
+                dict(step=torch.zeros((), dtype=torch.float64)), dict(v=torch.zeros(16))):
+        with pytest.raises(ValueError):
+            call(**bad)
+    q = nn.Parameter(torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError):
+        MultiTensorAdam([nn.Parameter(torch.zeros(3)), q]).step()
+
+
+def test_adam_launch_plan_vector_path_and_split():
+    """The argument packing, in pure Python: a tensor takes the 16-byte path
+    where p, g, m and v all start on a 16-byte boundary (a missing gradient
+    aside), ceil(numel / 4) units, its first unit in ``start``; the grid
+    covers the units up to 8 blocks an SM; past MAX_TENSORS tensors the
+    group splits into launches of at most MAX_TENSORS, in order."""
+    base = 1 << 20
+    entries = [
+        (base, base + 512, base + 1024, base + 2048, base + 4096, 10),       # aligned, tail of 2
+        (base + 4, base + 512, base + 1024, base + 2048, base + 4100, 8),    # p off by 4
+        (base, 0, base + 1024, base + 2048, base + 4104, 4),                 # no gradient
+        (base, base + 520, base + 1024, base + 2048, base + 4108, 0),        # empty, g off by 8
+    ]
+    hyper = adam_kernel.hyper_fields(1e-3, 0.9, 0.999, 1e-8, 1e-4, True)
+    [(table, blocks)] = adam_kernel.plan_launches(entries, hyper, sms=132)
+    assert table.n == 4 and blocks == 1
+    assert list(table.vec[:4]) == [1, 0, 1, 0]
+    assert list(table.start[:5]) == [0, 3, 5, 6, 6]
+    assert list(table.numel[:4]) == [10, 8, 4, 0]
+    assert table.g[2] is None and table.g[0] == base + 512 and table.step[3] == base + 4108
+    assert table.decay == np.float32(1 - 1e-3 * 1e-4) and table.wd == 0.0
+    assert table.w1 == np.float32(1 - 0.9) and table.c2 == np.float32(1 - 0.999)
+    assert adam_kernel.hyper_fields(1e-3, 0.9, 0.999, 1e-8, 0.1, False)["wd"] == 0.1
+
+    n = 2 * adam_kernel.MAX_TENSORS + 3
+    big = [(base, base, base, base, base + 8 * i, 1 << 20 if i < n - 3 else 1001)
+           for i in range(n)]
+    plans = adam_kernel.plan_launches(big, hyper, sms=132)
+    assert [t.n for t, _ in plans] == [adam_kernel.MAX_TENSORS, adam_kernel.MAX_TENSORS, 3]
+    assert [b for _, b in plans] == [132 * adam_kernel.BLOCKS_PER_SM] * 2 + [3]  # 753 units
+    assert plans[1][0].step[0] == base + 8 * adam_kernel.MAX_TENSORS
+    assert list(plans[2][0].start[:4]) == [0, 251, 502, 753]
+    assert ctypes.sizeof(adam_kernel.AdamTable) <= 4096

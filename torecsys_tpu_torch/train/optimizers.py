@@ -14,23 +14,28 @@ rmsprop's ``decay`` 0.9 with ``eps`` inside the square root, lion's ``b2``
 ``trust_coefficient`` 1e-3 and ``momentum`` 0.9, radam's ``threshold`` 5),
 and ``lr`` may come as ``learning_rate``.  The update is optax's:
 
-* **adam** with ``b1``/``b2``/``eps`` only is ``torch.optim.Adam`` with
-  ``foreach=False``: its update ``lr * (m / (1 - b1^t)) / (sqrt(v) /
-  sqrt(1 - b2^t) + eps)`` is optax's ``lr * m_hat / (sqrt(v_hat) + eps)``
-  with eps after the bias-corrected square root, so the two agree step for
-  step up to float32 rounding.  **adamw** with ``b1``/``b2``/``eps``/
-  ``weight_decay`` only is ``torch.optim.AdamW`` the same way: torch takes
-  ``p * (1 - lr * wd) - lr * adam``, optax ``p - lr * (adam + wd * p)``,
-  the same update in another rounding order.  Both are given a step
-  pre-hook that hands a parameter without a gradient a zero one, as optax
-  updates every leaf (its moments decay, its weight decays) where torch
-  would skip it.  On the card each is built with
-  ``capturable=True``, for the eager steps as for the steps captured in a
-  CUDA graph (``train.steps.make_train_scan``), so both give the same bits:
-  its step count is then a float32 tensor on the card and its bias
-  correction ``1 - b**t`` is taken in float32, as optax takes it.  On the
-  CPU it is ``capturable=False`` (torch takes no CPU parameters there), and
-  the bias correction is taken in float64.
+* **adam** with ``b1``/``b2``/``eps`` only is :class:`MultiTensorAdam`, a
+  ``torch.optim.Adam`` with ``foreach=False``: its update ``lr * (m / (1 -
+  b1^t)) / (sqrt(v) / sqrt(1 - b2^t) + eps)`` is optax's ``lr * m_hat /
+  (sqrt(v_hat) + eps)`` with eps after the bias-corrected square root, so
+  the two agree step for step up to float32 rounding.  **adamw** with
+  ``b1``/``b2``/``eps``/``weight_decay`` only is :class:`MultiTensorAdamW`,
+  a ``torch.optim.AdamW`` the same way: torch takes ``p * (1 - lr * wd) -
+  lr * adam``, optax ``p - lr * (adam + wd * p)``, the same update in
+  another rounding order.  A parameter without a gradient is updated with a
+  zero one, as optax updates every leaf (its moments decay, its weight
+  decays) where torch would skip it.  On the card each is built with
+  ``capturable=True`` and steps a whole parameter group through one
+  hand-written kernel (``ops.kernels.adam``: a count launch and one pass
+  over every element, in the order of torch's capturable single-tensor
+  step), for the eager steps as for the steps captured in a CUDA graph
+  (``train.steps.make_train_scan``), so both give the same bits: its step
+  count is a float32 tensor on the card and its bias correction ``1 -
+  b**t`` is taken in float32, as optax takes it.  On the CPU it is torch's
+  own single-tensor step with ``capturable=False`` (torch takes no CPU
+  parameters there), and the bias correction is taken in float64.  Their
+  state and ``state_dict`` are torch's (``step``, ``exp_avg``,
+  ``exp_avg_sq``).
 * **The other ten** (and adam or adamw with ``nesterov``, ``eps_root`` or
   a mask) have no ``torch.optim`` class with optax's update: torch has no
   LAMB, LARS or Lion, and no Nesterov or ``eps_root`` form of Adam; its
@@ -109,6 +114,9 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+
+from torecsys_tpu_torch.ops import kernels as _kernels
+from torecsys_tpu_torch.ops.kernels import adam as _adam_kernel
 
 Factory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
 
@@ -410,7 +418,7 @@ def _decay(u: torch.Tensor, p: torch.Tensor, group, rate=None) -> torch.Tensor:
 
 class Adam(_AdamFamily):
     """optax ``adam`` (the written-out form: for ``nesterov``, ``eps_root``,
-    ``mu_dtype`` or a schedule; plain Adam is ``torch.optim.Adam``)."""
+    ``mu_dtype`` or a schedule; plain Adam is :class:`MultiTensorAdam`)."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
                  mu_dtype=None, *, nesterov=False):
@@ -421,7 +429,7 @@ class Adam(_AdamFamily):
 class AdamW(_AdamFamily):
     """optax ``adamw``: ``scale_by_adam``, ``+ weight_decay * p``, ``* -lr``
     (the written-out form: for ``nesterov``, ``eps_root``, ``mu_dtype``, a
-    mask or a schedule; plain AdamW is ``torch.optim.AdamW``)."""
+    mask or a schedule; plain AdamW is :class:`MultiTensorAdamW`)."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
                  mu_dtype=None, weight_decay=1e-4, mask=None, *, nesterov=False):
@@ -1200,6 +1208,76 @@ class LBFGS(OptaxOptimizer):
                         "keyword-only arguments: 'value', 'grad', and 'value_fn'")
 
 
+class _MultiTensorStep:
+    """The step of :class:`MultiTensorAdam` and :class:`MultiTensorAdamW`.
+
+    On the card each parameter group takes one
+    :func:`~torecsys_tpu_torch.ops.kernels.adam.adam_update`: the kernel
+    advances every parameter's float32 step count, then updates every
+    element of the group in one pass, a parameter without a gradient as on
+    zeros.  On the CPU a parameter without a gradient is given a zero one
+    and torch's own single-tensor step runs.  A mix of devices, a dtype
+    other than float32, ``amsgrad``, ``maximize`` or a tensor ``lr`` on the
+    card raise ``ValueError``."""
+
+    decoupled = False
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
+        params = list(params)
+        on_card = any(p.device.type == "cuda" for p in params)
+        super().__init__(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                         foreach=False, capturable=on_card)
+
+    def _state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``p``'s state, built as torch's capturable Adam builds it."""
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        return state
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for group in self.param_groups for p in group["params"]]
+        if _kernels.device_kind(*params) == "cpu":
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            return super().step(closure)
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            if group["amsgrad"] or group["maximize"]:
+                raise ValueError("the multi-tensor Adam takes neither amsgrad nor maximize")
+            states = [self._state(p) for p in group["params"]]
+            b1, b2 = group["betas"]
+            _adam_kernel.adam_update(
+                group["params"], [p.grad for p in group["params"]],
+                [s["exp_avg"] for s in states], [s["exp_avg_sq"] for s in states],
+                [s["step"] for s in states], lr=group["lr"], b1=b1, b2=b2, eps=group["eps"],
+                weight_decay=group["weight_decay"], decoupled=self.decoupled)
+        return loss
+
+
+class MultiTensorAdam(_MultiTensorStep, torch.optim.Adam):
+    """``torch.optim.Adam`` (``foreach=False``; ``capturable=True`` on the
+    card), stepped on the card by one multi-tensor kernel a parameter group
+    (:class:`_MultiTensorStep`): the plain ``adam`` of :func:`get_optimizer`."""
+
+
+class MultiTensorAdamW(_MultiTensorStep, torch.optim.AdamW):
+    """``torch.optim.AdamW`` the same way (decoupled weight decay, optax's
+    default 1e-4): the plain ``adamw`` of :func:`get_optimizer`."""
+
+    decoupled = True
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4):
+        super().__init__(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+
+
 def _bool_at(flat: Dict[str, Any], path: str) -> bool:
     """The mask's value at ``path``: its own leaf or the nearest prefix's."""
     parts = path.split("/")
@@ -1319,41 +1397,26 @@ def get_optimizer(name: str = "Adam", lr=1e-3, **kwargs: Any) -> Factory:
         return _MaskedFactory(cls, lr, rest, masks)
     if (key in _TORCH_KEYS and lr is not None and not callable(lr)
             and set(kwargs) <= _TORCH_KEYS[key]):
-        torch_cls, extra = ((torch.optim.Adam, {}) if key == "adam" else
-                            (torch.optim.AdamW, {"weight_decay": kwargs.get("weight_decay", 1e-4)}))
-        return functools.partial(_torch_adam, torch_cls, lr=lr,
+        adam_cls, extra = ((MultiTensorAdam, {}) if key == "adam" else
+                           (MultiTensorAdamW, {"weight_decay": kwargs.get("weight_decay", 1e-4)}))
+        return functools.partial(adam_cls, lr=lr,
                                  betas=(kwargs.get("b1", 0.9), kwargs.get("b2", 0.999)),
                                  eps=kwargs.get("eps", 1e-8), **extra)
     return functools.partial(cls, lr=lr, **kwargs)
 
 
-def _zero_missing_grads(opt: torch.optim.Optimizer, args, kwargs) -> None:
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-
-
-def _torch_adam(torch_cls, params: Iterable[torch.nn.Parameter],
-                **kwargs: Any) -> torch.optim.Adam:
-    params = list(params)
-    on_card = any(p.device.type == "cuda" for p in params)
-    opt = torch_cls(params, foreach=False, capturable=on_card, **kwargs)
-    opt.register_step_pre_hook(_zero_missing_grads)
-    return opt
-
-
 def available_optimizers() -> Dict[str, Any]:
     """``{name: optimizer class}`` of the twelve names of the JAX package's
     registry (``adam``'s and ``adamw``'s are the written-out forms;
-    ``get_optimizer`` builds ``torch.optim.Adam`` and ``torch.optim.AdamW``
-    for the plain ones); optax's others are :data:`OPTAX_OTHERS`."""
+    ``get_optimizer`` builds :class:`MultiTensorAdam` and
+    :class:`MultiTensorAdamW` for the plain ones); optax's others are
+    :data:`OPTAX_OTHERS`."""
     return dict(_OPTIMIZERS)
 
 
-__all__ = ["AMSGrad", "AdaBelief", "Adadelta", "Adafactor", "Adagrad", "Adam", "AdamW",
-           "Adamax", "AdamaxW", "Adan", "Fromage", "LBFGS", "Lamb", "Lars", "Lion", "NAdam",
-           "NoisySGD", "NovoGrad", "OPTAX_OTHERS", "OptaxOptimizer", "OptimisticAdam",
-           "OptimisticAdamV2", "OptimisticGradientDescent", "RAdam", "RMSprop", "Rprop", "SGD",
-           "SM3", "SignSGD", "TableGroup", "Yogi", "available_optimizers", "build_optimizer",
-           "gaussian_noise", "get_optimizer", "resolve_mask", "state_row_axis"]
+__all__ = ["AMSGrad", "AdaBelief", "Adadelta", "Adafactor", "Adagrad", "Adam", "AdamW", "Adamax",
+           "AdamaxW", "Adan", "Fromage", "LBFGS", "Lamb", "Lars", "Lion", "MultiTensorAdam",
+           "MultiTensorAdamW", "NAdam", "NoisySGD", "NovoGrad", "OPTAX_OTHERS", "OptaxOptimizer",
+           "OptimisticAdam", "OptimisticAdamV2", "OptimisticGradientDescent", "RAdam", "RMSprop",
+           "Rprop", "SGD", "SM3", "SignSGD", "TableGroup", "Yogi", "available_optimizers",
+           "build_optimizer", "gaussian_noise", "get_optimizer", "resolve_mask", "state_row_axis"]
