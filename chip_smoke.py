@@ -300,6 +300,22 @@ Phases (any failure raises and the exit code is not 0):
     the per-op path and torch's ``fused=True`` Adam (a yardstick the port
     never calls); ``adam_update.launches`` counted through a DeepFM fit.
     ``--phases adam`` runs it alone.
+27. DLRM-DCNv2's multi-hot input (``--phases dlrm`` only; the four-card
+    part needs four cards, and ``--phases dlrm_mesh`` runs it alone): the
+    pooled gather
+    (``pooled_row_gather_kernel``, ``csrc/embedding.cu``) against its twin
+    to the bit on a shard of 17M rows of 128 floats (element offsets past
+    2^31) serving its own rows with ids spilling past both ends, int32 and
+    int64 ids, a width of 10 and a table off the 16-byte boundary; two
+    planted faults (the served range off by one, a bag's last slot
+    dropped) that the comparison must refuse; the kernel timed warm, cold
+    and in a graph at rank 0's shape of the bench cell beside its bound, its
+    twin and ``F.embedding_bag`` (a yardstick).  On four cards over NCCL:
+    the bench model over fields capped at 1M rows, a graphed fit at K = 2
+    against eager steps from the same seed, every rank's state to the bit
+    (``--dlrm-rank``); then the bench cell's compared steps at published
+    widths (``h100_bench``'s mesh run) held to the plain reference by the
+    cell's limits.
 
 The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
@@ -6600,11 +6616,346 @@ def phase_adam(seed: int, out_dir):
     return record
 
 
+# ---- phase 27: DLRM-DCNv2's multi-hot input and its four-card mesh -----------
+
+# MLPerf Training's DLRM-DCNv2 (h100_bench/configs/dlrm_dcnv2_criteo1tb.json)
+DLRM_FIELDS = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000, 3067956,
+               405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000, 40000000, 40000000, 590152,
+               12973, 108, 36)
+DLRM_HOTS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
+DLRM_EMBED = 128
+DLRM_BATCH = 16384
+DLRM_WORLD = 4
+DLRM_BIG_ROWS = 17_000_000      # 17M x 128 = 2.18e9 elements: offsets past 2^31
+DLRM_SPILL = 1_000_000          # ids drawn this far past each end of the served rows
+DLRM_ITERS = 20
+DLRM_CAP = 1_000_000            # the graphed-against-eager world's fields capped here
+DLRM_K = 2
+DLRM_STEPS = 4
+DLRM_CELL = "dlrm_dcnv2_criteo1tb.train_multihot"
+DLRM_TIMEOUT_S = 900
+
+
+def dlrm_ids(rng, batch: int, field_sizes, hots):
+    """``(B, S)`` int64 logical ids of the fused table: each field's first
+    id Zipf(1.2) clipped to the field, the rest of its bag uniform over it."""
+    offsets = np.concatenate([[0], np.cumsum(field_sizes)[:-1]]).astype(np.int64)
+    cols = []
+    for v, h, off in zip(field_sizes, hots, offsets):
+        first = np.minimum(rng.zipf(1.2, size=batch) - 1, v - 1)
+        rest = rng.integers(0, v, size=(batch, h - 1))
+        cols.append(np.concatenate([first[:, None], rest], axis=1).astype(np.int64) + off)
+    return np.concatenate(cols, axis=1)
+
+
+def dlrm_batches(seed: int, n: int, field_sizes):
+    """Host batches of the multi-hot fields (``cat_{i}`` ``(B, h_i)`` int32),
+    13 dense values and labels."""
+    rng = np.random.default_rng(seed)
+    offsets = np.concatenate([[0], np.cumsum(field_sizes)[:-1]]).astype(np.int64)
+    bounds = np.concatenate([[0], np.cumsum(DLRM_HOTS)])
+    out = []
+    for _ in range(n):
+        ids = dlrm_ids(rng, DLRM_BATCH, field_sizes, DLRM_HOTS)
+        b = {f"cat_{i}": (ids[:, bounds[i]:bounds[i + 1]] - offsets[i]).astype(np.int32)
+             for i in range(len(field_sizes))}
+        for j in range(NUM_DENSE):
+            b[f"dense_{j}"] = rng.normal(size=DLRM_BATCH).astype(np.float32)
+        b["label"] = (rng.uniform(size=DLRM_BATCH) < 0.5).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def dlrm_starts():
+    import torch
+
+    from torecsys_tpu_torch.ops.embedding import bag_starts
+
+    return torch.as_tensor(bag_starts(DLRM_HOTS), device=DEVICE)
+
+
+def dlrm_gather_checks(seed: int):
+    """The pooled gather against its plain twin, to the bit: a shard of
+    ``DLRM_BIG_ROWS`` rows of 128 (offsets past 2^31 elements) serving its
+    own logical range, ids spilling past both ends; int64 and int32 ids; a
+    width of 10 (4-byte vectors) and a table off the 16-byte boundary.
+    Then two planted faults (the served range off by one row, a bag's last
+    slot dropped) that the same comparison must refuse."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    rng = np.random.default_rng(seed + 27)
+    starts = dlrm_starts()
+    base = 90_000_000
+    lo, hi = base, base + DLRM_BIG_ROWS
+    table = torch.empty((DLRM_BIG_ROWS, DLRM_EMBED), device=DEVICE).normal_()
+    ids = rng.integers(lo - DLRM_SPILL, hi + DLRM_SPILL, size=(DLRM_BATCH, sum(DLRM_HOTS)))
+    ids[:, 0] = hi - 1 - rng.integers(0, 1000, size=DLRM_BATCH)  # rows past element 2^31
+    ids[:64, 1], ids[64:128, 1], ids[128:192, 1] = lo, lo - 1, hi  # each edge of the range
+    ids_t = torch.as_tensor(ids, device=DEVICE)
+    cases = {}
+    for label, t, idx in (("int64", table, ids_t), ("int32", table, ids_t.to(torch.int32))):
+        got = KE.pooled_row_gather(t, idx, starts, lo, hi, base)
+        want = KE.pooled_row_gather_plain(t, idx, starts, lo, hi, base)
+        cases[label] = bool(torch.equal(got, want))
+    served = float(((ids >= lo) & (ids < hi)).mean())
+    faults = {"range_off_by_one": not torch.equal(
+        KE.pooled_row_gather(table, ids_t, starts, lo + 1, hi, base),
+        KE.pooled_row_gather_plain(table, ids_t, starts, lo, hi, base))}
+    dropped = starts.clone()
+    dropped[21:] -= 1  # bag 20 (100 slots) loses its last; the bags after shift by one
+    dropped[-1] = starts[-1]
+    faults["slot_dropped"] = not torch.equal(
+        KE.pooled_row_gather(table, ids_t, dropped, lo, hi, base),
+        KE.pooled_row_gather_plain(table, ids_t, starts, lo, hi, base))
+    del table
+    release()
+    small = torch.empty(1_000_000 * 10 + 1, device=DEVICE).normal_()
+    for label, t in (("width10", small[:-1].view(-1, 10)),
+                     ("offset_pointer", small[1:].view(-1, 10))):
+        idx = torch.as_tensor(rng.integers(-5, t.shape[0] + 5, size=(4096, sum(DLRM_HOTS))),
+                              device=DEVICE)
+        cases[label] = bool(torch.equal(KE.pooled_row_gather(t, idx, starts),
+                                        KE.pooled_row_gather_plain(t, idx, starts, 0,
+                                                                   t.shape[0], 0)))
+    del small
+    release()
+    log(f"[dlrm-gather] kernel against its twin, to the bit: {cases}; served share "
+        f"{served:.3f}; planted faults refused: {faults}")
+    if not all(cases.values()):
+        raise AssertionError(f"[dlrm-gather] the pooled gather differs from its twin: {cases}")
+    if not all(faults.values()):
+        raise AssertionError(f"[dlrm-gather] a planted fault passed the comparison: {faults}")
+    return {"bit_equal": cases, "faults_refused": faults, "served_share": served}
+
+
+def dlrm_gather_times(seed: int):
+    """The pooled gather at rank 0's shape of the bench cell (a quarter of
+    the table, the batch's ids over the whole): warm, cold, in a CUDA graph
+    and its bound; its twin; ``F.embedding_bag`` (sum, the unserved slots
+    weighted 0), a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+
+    rows = sum(DLRM_FIELDS) // DLRM_WORLD
+    rng = np.random.default_rng(seed + 28)
+    ids = torch.as_tensor(dlrm_ids(rng, DLRM_BATCH, DLRM_FIELDS, DLRM_HOTS), device=DEVICE)
+    starts = dlrm_starts()
+    table = torch.empty((rows, DLRM_EMBED), device=DEVICE).normal_()
+    call = lambda: KE.pooled_row_gather(table, ids, starts, 0, rows, 0)  # noqa: E731
+    rec = time_keys("kernel_ms", time_ms(call, DLRM_ITERS))
+    rec["cold_ms"] = cold_time_ms(call, DLRM_ITERS)
+    graph = torch.cuda.CUDAGraph()
+    call()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        call()
+    rec.update(time_keys("graph_ms", time_ms(graph.replay, DLRM_ITERS)))
+    owned = ids[ids < rows]
+    n_rows = int(torch.unique(owned).numel())
+    n_bytes = (ids.numel() * 8 + n_rows * DLRM_EMBED * 4
+               + DLRM_BATCH * len(DLRM_FIELDS) * DLRM_EMBED * 4)
+    rec["bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+    rec["served_share"] = owned.numel() / ids.numel()
+    rec.update(time_keys("plain_ms", time_ms(
+        lambda: KE.pooled_row_gather_plain(table, ids, starts, 0, rows, 0), 2)))
+    ok = (ids < rows).reshape(-1)
+    flat = torch.where(ok, ids.reshape(-1), torch.zeros_like(ok, dtype=ids.dtype))
+    offsets = (torch.arange(DLRM_BATCH, device=DEVICE)[:, None] * ids.shape[1]
+               + starts[:-1][None, :].long()).reshape(-1)
+    weights = ok.float()
+    lib = lambda: F.embedding_bag(flat, table, offsets, mode="sum",  # noqa: E731
+                                  per_sample_weights=weights)
+    rec.update(time_keys("library_ms", time_ms(lib, DLRM_ITERS)))
+    gap = (lib().reshape(DLRM_BATCH, -1, DLRM_EMBED) - call()).abs().max().item()
+    log(f"[dlrm-gather] rank 0's shape ({rows} rows, {ids.numel()} ids, served share "
+        f"{rec['served_share']:.3f}, {n_rows} distinct rows): "
+        + " ".join(times_text(k, (rec[k], rec[f"{k}_events"]))
+                   for k in ("kernel_ms", "graph_ms", "plain_ms", "library_ms"))
+        + f" cold_ms={rec['cold_ms']:.4f} bound {rec['bound_ms']:.4f} ms (bytes); the "
+        f"library's sums within {gap:.2e} of the kernel's")
+    del table
+    release()
+    return rec
+
+
+def dlrm_pipeline(field_sizes, device):
+    """The bench configuration's pipeline over ``field_sizes``."""
+    from torecsys_tpu_torch import Inputs, Pipeline, ValueInput
+    from torecsys_tpu_torch.inputs import MultiHotIndicesEmbedding
+
+    fields = tuple(f"cat_{i}" for i in range(len(field_sizes)))
+    schema = {"feat_inputs": ValueInput(tuple(f"dense_{j}" for j in range(NUM_DENSE))),
+              "emb_inputs": MultiHotIndicesEmbedding(DLRM_EMBED, field_sizes, DLRM_HOTS, fields,
+                                                     device=device)}
+    return (Pipeline(device=device).set_objective("ctr").set_inputs(Inputs(schema))
+            .set_model("DLRM_DCNv2").set_criterion("BCEWithLogitsLoss")
+            .set_optimizer("Adagrad", lr=0.004, initial_accumulator_value=0.0, eps=1e-8)
+            .set_sparse_embeddings(True).set_compute_dtype("bfloat16")
+            .set_target_fields("label"))
+
+
+def dlrm_rank(job_path: str, rank: int) -> None:
+    """One rank of phase 27's graphed-against-eager world (``--dlrm-rank``):
+    the bench DLRM-DCNv2 over fields capped at ``DLRM_CAP`` rows, a
+    graphed fit at K = 2 and eager steps from the same seed; every tensor
+    of the rank's state to the bit."""
+    import torch
+
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.ops.kernels import embedding as KE
+    from torecsys_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    with open(job_path) as f:
+        job = json.load(f)
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    initialize_distributed(init_method=job["init"], world_size=job["world"], rank=rank,
+                           backend="nccl", timeout=DLRM_TIMEOUT_S)
+    fields = tuple(min(v, DLRM_CAP) for v in DLRM_FIELDS)
+    batches = dlrm_batches(job["seed"], DLRM_STEPS, fields)
+    sides = {}
+    for label, k in (("graphed", DLRM_K), ("eager", 1)):
+        KE.pooled_row_gather.launches = 0
+        trainer = Trainer(dlrm_pipeline(fields, device), log_every=10**9, seed=job["seed"],
+                          steps_per_execution=k, presort=False, mesh=make_mesh(1, job["world"]),
+                          lookup_options={"strategy": "psum"})
+        losses = [float(x) for x in trainer.train_steps(batches)]
+        seq = trainer.pipeline.sequential
+        opt = trainer.state.opt_state
+        state = {n: p.detach().clone() for n, p in seq.named_parameters()}
+        state.update({f"{n}/sum_of_squares": opt["dense"].state[p]["sum_of_squares"].clone()
+                      for n, p in seq.named_parameters() if p in opt["dense"].state})
+        state.update({f"{n}/v": s["v"].clone() for n, s in opt["sparse"].items()})
+        sides[label] = {"losses": losses, "state": state, "graphs": dict(trainer.graph_stats),
+                        "launches": KE.pooled_row_gather.launches,
+                        "layout": str(seq.inputs.schema["emb_inputs"].row_layout)}
+        del trainer, seq, opt
+        release()
+    a, b = sides["graphed"], sides["eager"]
+    differ = sorted(n for n in a["state"] if not torch.equal(a["state"][n], b["state"][n]))
+    rec = {"rank": rank, "losses": a["losses"], "eager_losses": b["losses"],
+           "differ": differ, "graphs": a["graphs"], "launches": a["launches"],
+           "eager_launches": b["launches"], "layout": a["layout"],
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def dlrm_graph_world(seed: int):
+    """Phase 27's four NCCL ranks (:func:`dlrm_rank`), one a card."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dlrm_")
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"world": DLRM_WORLD, "init": f"file://{os.path.join(work, 'init')}",
+                   "seed": seed, "out": work}, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "RANK", "WORLD_SIZE",
+                        "LOCAL_WORLD_SIZE", "TORCHELASTIC_RUN_ID")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dlrm-rank", job,
+                               str(r)], env=env) for r in range(DLRM_WORLD)]
+    deadline = time.monotonic() + DLRM_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the DLRM ranks ran past {DLRM_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"the DLRM ranks exited with {codes}")
+    recs = []
+    for r in range(DLRM_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    for rec in recs:
+        log(f"[dlrm-graph] rank {rec['rank']} ({rec['layout']}): graphed losses {rec['losses']}, "
+            f"eager {rec['eager_losses']}; tensors that differ {rec['differ']}; graphs "
+            f"{rec['graphs']}; pooled_row_gather launches {rec['launches']} graphed (warm-up "
+            f"and capture), {rec['eager_launches']} eager; peak {rec['peak_gb']:.2f} GB")
+        if rec["differ"] or rec["losses"] != rec["eager_losses"]:
+            raise AssertionError(f"[dlrm-graph] rank {rec['rank']}: the graphed fit differs "
+                                 f"from its eager steps")
+        if rec["graphs"] != {"captures": 1, "replays": DLRM_STEPS // DLRM_K - 1}:
+            raise AssertionError(f"[dlrm-graph] rank {rec['rank']} ran {rec['graphs']}")
+    return recs
+
+
+def dlrm_held(seed: int):
+    """The bench cell's compared steps at published widths on four cards
+    (``h100_bench``'s mesh run: the K-step graph's capture and a replay),
+    held to the plain reference on the touched rows by the cell's limits."""
+    import torch
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100_bench")
+    sys.path[:0] = [bench, os.path.dirname(bench)]
+    from harness import cell as cells, check
+
+    cell = cells.load(DLRM_CELL)
+    run = cell.model.make_run(cell, torch.device("cuda", 0), seed)
+    t0 = time.perf_counter()
+    run.setup(warm=False)
+    setup_s = time.perf_counter() - t0
+    run.free()
+    reference = run.reference()
+    numbers = check.compare(run.readings, reference)
+    ok = check.judge(numbers, cell.limits)
+    log(f"[dlrm-held] {DLRM_CELL}: set-up {setup_s:.1f} s, ranks' peak GB {run.peaks_gb}; "
+        f"losses {run.readings['losses']} against {reference['losses']}; numbers {numbers} "
+        f"(limits {cell.limits}); worst {check.worst_leaves(run.readings, reference)}")
+    if not ok:
+        raise AssertionError(f"[dlrm-held] the program is outside the cell's limits: {numbers}")
+    return {"numbers": numbers, "peaks_gb": run.peaks_gb, "setup_s": setup_s,
+            "losses": run.readings["losses"], "reference_losses": reference["losses"]}
+
+
+def phase_dlrm(seed: int, out_dir, mesh_only: bool = False):
+    """Phase 27: DLRM-DCNv2's multi-hot input (module docstring)."""
+    import torch
+
+    record = {}
+    if not mesh_only:
+        record = {"gather": dlrm_gather_checks(seed), "times": dlrm_gather_times(seed)}
+    if torch.cuda.device_count() >= DLRM_WORLD:
+        record["graph"] = dlrm_graph_world(seed)
+        record["held"] = dlrm_held(seed)
+    else:
+        log(f"[dlrm] {torch.cuda.device_count()} card(s): the four-card checks need "
+            f"{DLRM_WORLD}")
+    if out_dir:
+        name = "chip_smoke_dlrm_mesh.json" if mesh_only else "chip_smoke_dlrm.json"
+        with open(os.path.join(out_dir, name), "w") as f:
+            json.dump(record, f, indent=1)
+    return record
+
+
+def phase_dlrm_mesh(seed: int, out_dir):
+    """Phase 27's four-card part alone (``--phases dlrm_mesh``)."""
+    return phase_dlrm(seed, out_dir, mesh_only=True)
+
+
 # the phases --phases runs alone: the graphed throughput paths, the quality
 # phase and the whole parity protocol
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
                 "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel,
-                "quality": phase_quality, "parity": phase_parity, "adam": phase_adam}
+                "quality": phase_quality, "parity": phase_parity, "adam": phase_adam,
+                "dlrm": phase_dlrm, "dlrm_mesh": phase_dlrm_mesh}
 
 
 def main(argv=None):
@@ -6623,12 +6974,17 @@ def main(argv=None):
                          "prints their throughput records, not the kernels line")
     ap.add_argument("--parallel-rank", nargs=2, metavar=("JOB", "RANK"), default=None,
                     help="internal: run one rank of phase 23 (the parallel phase)")
+    ap.add_argument("--dlrm-rank", nargs=2, metavar=("JOB", "RANK"), default=None,
+                    help="internal: run one rank of phase 27 (DLRM-DCNv2's graphed world)")
     args = ap.parse_args(argv)
 
     import torch
 
     if args.parallel_rank:
         parallel_rank(args.parallel_rank[0], int(args.parallel_rank[1]))
+        return 0
+    if args.dlrm_rank:
+        dlrm_rank(args.dlrm_rank[0], int(args.dlrm_rank[1]))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",

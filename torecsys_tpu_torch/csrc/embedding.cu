@@ -84,6 +84,37 @@
 // repeats.  A width that is not a multiple of 4, or a pointer not 16-byte
 // aligned, takes the same kernel with 4-byte vectors.
 // ---------------------------------------------------------------------------
+// trs_pooled_row_gather replaces no Pallas kernel: the multi-hot lookup's
+// bag sums (inputs/embeddings.py MultiHotIndicesEmbedding), on one card and
+// on a rank of a row-sharded table.
+//
+//   out[b, n, :] = sum over slots s in [starts[n], starts[n+1]) of
+//                  table[ids[b, s] - base, :]   where lo <= ids[b, s] < hi,
+//                  nothing                      otherwise,
+//
+// for a float32 (rows, E) table (the rank's rows, whose first row is the
+// logical row base), (B, S) int32 or int64 ids and the static slot offsets
+// starts (N + 1,) of the N bags of an example; out is (B, N, E) float32.
+// Each bag is summed in slot order, from +0, so one launch gives the bits of
+// any other, and of the plain version's slot-by-slot sum.
+//
+// Bound on this card: bytes.  It reads each id, each owned row of a bag
+// once and writes one E-wide sum a bag: at the bench batch 3.5M ids, a
+// quarter of their rows on each of four ranks (E = 128: 512 bytes a row),
+// and 426k sums.  No (B*S, E) rows are ever written: the gather and the sum
+// are one pass.
+//
+// Design: a warp owns a bag (a bag is at most a few hundred slots and a
+// 512-byte row is one 16-byte vector a lane), and the grid, as many blocks
+// as the card holds at once, strides over the B*N bags.  The warp loads up
+// to 32 of the bag's ids at a time, one a lane, turns each into its local
+// row (or -1 outside [lo, hi)), and shares them by shuffles; a lane issues
+// kInFlight row reads before it adds any, so a long bag keeps several rows
+// in flight a lane.  Offsets into the table and the output are 64-bit: a
+// rank's shard of the bench table is 51M rows of 128 floats, 6.5e9 elements.
+// A row whose bytes are not a multiple of 16, or a pointer not 16-byte
+// aligned, takes the same kernel with 4-byte vectors.
+// ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -276,9 +307,112 @@ void launch_gather_elem(const void* src, const void* idx, int idx_bytes, void* o
   }
 }
 
+__device__ __forceinline__ void add_to(float4& acc, const float4& x) {
+  acc.x = acc.x + x.x;
+  acc.y = acc.y + x.y;
+  acc.z = acc.z + x.z;
+  acc.w = acc.w + x.w;
+}
+__device__ __forceinline__ void add_to(float& acc, const float& x) { acc = acc + x; }
+__device__ __forceinline__ void zero(float4& v) { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void zero(float& v) { v = 0.0f; }
+
+template <typename Vec, typename Index>
+__global__ void __launch_bounds__(kThreads)
+pooled_row_gather_kernel(const Vec* __restrict__ table, const Index* __restrict__ ids,
+                         const int* __restrict__ starts, Vec* __restrict__ out, int64_t bags,
+                         int n_bags, int slots, int vecs_per_row, int64_t lo, int64_t hi,
+                         int64_t base) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kWarps;
+  for (int64_t bag = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); bag < bags;
+       bag += stride) {
+    const int64_t b = bag / n_bags;
+    const int n = (int)(bag - b * n_bags);
+    const int s0 = __ldg(starts + n);
+    const int s1 = __ldg(starts + n + 1);
+    const Index* bag_ids = ids + b * slots;
+    Vec* dst = out + bag * vecs_per_row;
+    for (int j0 = 0; j0 < vecs_per_row; j0 += 32) {
+      const int j = j0 + lane;
+      Vec acc;
+      zero(acc);
+      for (int c0 = s0; c0 < s1; c0 += 32) {
+        const int cnt = s1 - c0 < 32 ? s1 - c0 : 32;
+        int64_t row = -1;
+        if (lane < cnt) {
+          const int64_t id = load_id(bag_ids + c0 + lane);
+          row = id >= lo && id < hi ? id - base : -1;
+        }
+        for (int k0 = 0; k0 < cnt; k0 += kInFlight) {
+          Vec v[kInFlight];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            const int64_t r = __shfl_sync(0xffffffffu, row, (k0 + q) & 31);
+            zero(v[q]);
+            if (k0 + q < cnt && r >= 0 && j < vecs_per_row) {
+              v[q] = __ldg(table + r * vecs_per_row + j);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (k0 + q < cnt) add_to(acc, v[q]);
+          }
+        }
+      }
+      if (j < vecs_per_row) dst[j] = acc;
+    }
+  }
+}
+
+template <typename Vec, typename Index>
+void launch_pooled(const void* table, const void* ids, const int* starts, void* out,
+                   int64_t bags, int n_bags, int slots, int vecs_per_row, int64_t lo,
+                   int64_t hi, int64_t base, cudaStream_t st) {
+  auto kernel = pooled_row_gather_kernel<Vec, Index>;
+  constexpr int kMaxCards = 64;
+  static int64_t resident[kMaxCards] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int64_t fits = dev < kMaxCards ? resident[dev] : 0;
+  if (fits == 0) {
+    fits = resident_blocks(kernel);
+    if (dev < kMaxCards) resident[dev] = fits;
+  }
+  int64_t blocks = (bags + kWarps - 1) / kWarps;
+  if (blocks > fits) blocks = fits;
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      reinterpret_cast<const Vec*>(table), static_cast<const Index*>(ids), starts,
+      reinterpret_cast<Vec*>(out), bags, n_bags, slots, vecs_per_row, lo, hi, base);
+}
+
 }  // namespace
 
 extern "C" {
+
+// table (rows, E) float32, ids (B, S) of idx_bytes = 4 or 8, starts (N + 1,)
+// int32 ascending from 0 to S, out (B, N, E) float32; the rows [lo, hi) of
+// the logical table are served, logical row base being table's row 0.
+int trs_pooled_row_gather(const float* table, const void* ids, int idx_bytes, const int* starts,
+                          float* out, int64_t batch, int n_bags, int slots, int e, int64_t lo,
+                          int64_t hi, int64_t base, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((idx_bytes != 8 && idx_bytes != 4) || n_bags < 1 || e < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t bags = batch * n_bags;
+  const bool i64 = idx_bytes == 8;
+  const bool vec4 = e % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec4) {
+    (i64 ? launch_pooled<float4, int64_t> : launch_pooled<float4, int32_t>)(
+        table, ids, starts, out, bags, n_bags, slots, e / 4, lo, hi, base, st);
+  } else {
+    (i64 ? launch_pooled<float, int64_t> : launch_pooled<float, int32_t>)(
+        table, ids, starts, out, bags, n_bags, slots, e, lo, hi, base, st);
+  }
+  return (int)cudaGetLastError();
+}
 
 
 // src (rows, width) of elem_bytes = 4 (float32) or 2 (bfloat16), idx (num,)

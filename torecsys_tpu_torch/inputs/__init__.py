@@ -15,6 +15,7 @@ from torch import nn
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
 from torecsys_tpu_torch.inputs.embeddings import (
     ConcatInput,
+    MultiHotIndicesEmbedding,
     MultiIndicesEmbedding,
     MultiIndicesFieldAwareEmbedding,
     SingleIndexEmbedding,
@@ -42,6 +43,6 @@ class Inputs(nn.Module):
 
 
 __all__ = ["BaseInput", "ConcatInput", "ImageInput", "Inputs", "ListIndicesEmbedding",
-           "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding", "PretrainedImageInput",
-           "SequenceIndicesEmbedding", "SingleIndexEmbedding", "StackedInput", "TableInput",
-           "ValueInput", "save_tower_weights"]
+           "MultiHotIndicesEmbedding", "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding",
+           "PretrainedImageInput", "SequenceIndicesEmbedding", "SingleIndexEmbedding",
+           "StackedInput", "TableInput", "ValueInput", "save_tower_weights"]

@@ -5,9 +5,11 @@ three table modules, :class:`SingleIndexEmbedding` (one unpacked table),
 :class:`MultiIndicesEmbedding` (the fused table of several categorical
 fields with per-field offsets, stored packed, ``ops.embedding``) and
 :class:`MultiIndicesFieldAwareEmbedding` (N such tables in one parameter);
-and the containers :class:`ConcatInput` and :class:`StackedInput`.
+the port's own :class:`MultiHotIndicesEmbedding` (the fused table of
+multi-hot fields, each bag of ids summed); and the containers
+:class:`ConcatInput` and :class:`StackedInput`.
 
-The sparse route, shared by the three table modules (:class:`TableInput`).
+The sparse route, shared by the table modules (:class:`TableInput`).
 In flax, ``perturb`` and ``sow`` let the train step take per-slot gradients
 and read back the ids.  Here a module with
 ``sparse_grads`` set, running with autograd on, gathers its rows from the
@@ -17,7 +19,9 @@ aux as one :class:`SparseLookup`, which the train step takes back with
 :meth:`TableInput.take_lookup` after ``loss.backward()``.  A second
 application before the lookup is taken raises: its gradient would be summed
 against one call site's ids.  The row-wise optimizer sees each table as the
-2-D ``(rows, W)`` view :meth:`TableInput.table_view`.
+2-D ``(rows, W)`` view :meth:`TableInput.table_view`.  A multi-hot
+module's leaf is its ``(B, N, E)`` bag sums: each slot's gradient is its
+bag's (:attr:`SparseLookup.bags`).
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import torch
 from torch import nn
 
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
-from torecsys_tpu_torch.ops.embedding import field_offsets, packed_shape
-from torecsys_tpu_torch.parallel.lookup import maybe_sharded_packed_lookup
+from torecsys_tpu_torch.ops.embedding import bag_starts, field_offsets, packed_shape, slot_bags
+from torecsys_tpu_torch.parallel.lookup import (maybe_sharded_packed_lookup,
+                                                maybe_sharded_pooled_lookup)
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device, trace
 
 
@@ -40,11 +45,14 @@ from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_devi
 class SparseLookup:
     """One sparse-route lookup: the leaf ``rows`` whose ``.grad`` is the
     per-slot table gradient, the shifted ``ids`` and the presort ``aux``
-    (None when the batch carries none)."""
+    (None when the batch carries none).  A multi-hot lookup's leaf is its
+    ``(B, N, E)`` bag sums, ``ids`` its ``(B, S)`` slots and ``bags`` the
+    ``(S,)`` bag of each slot, whose cotangent is the slot's gradient."""
 
     rows: torch.Tensor
     ids: torch.Tensor
     aux: Optional[Dict]
+    bags: Optional[torch.Tensor] = None
 
 
 class ValueInput(BaseInput):
@@ -82,6 +90,9 @@ class TableInput(BaseInput):
 
     embed_size: int
     embedding: nn.Parameter
+    # whether reset_parameters allocates the table and draws, under a mesh,
+    # only this rank's rows of it (MultiHotIndicesEmbedding)
+    draws_own_rows = False
 
     def _init_table(self, shape, device) -> None:
         self.embedding = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
@@ -130,6 +141,11 @@ class TableInput(BaseInput):
                   else self.embedding.numel() // self.embedding.shape[-1])
         return stored * self.pack
 
+    def _gather(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The lookup of ``ids`` from ``table`` (the parameter, or it
+        detached on the sparse route)."""
+        return maybe_sharded_packed_lookup(table, ids, self.embed_size, self.row_layout)
+
     def _lookup_rows(self, ids: torch.Tensor, batch: Optional[Batch]) -> torch.Tensor:
         """``logical_table[ids]``, float32: through autograd into the table,
         or on the sparse route as a recorded leaf."""
@@ -137,8 +153,7 @@ class TableInput(BaseInput):
             # rows of a bf16 table are cast to float32 here, at the module
             # boundary: the model and the loss see float32
             trace.mark("lookup.begin")
-            rows = maybe_sharded_packed_lookup(self.embedding, ids, self.embed_size,
-                                               self.row_layout).float()
+            rows = self._gather(self.embedding, ids).float()
             trace.mark("lookup.end")
             return rows
         if self._lookup is not None:
@@ -147,11 +162,11 @@ class TableInput(BaseInput):
                 "gradients need exactly one lookup per module per step"
             )
         trace.mark("lookup.begin")
-        rows = maybe_sharded_packed_lookup(self.embedding.detach(), ids, self.embed_size,
-                                           self.row_layout)
+        rows = self._gather(self.embedding.detach(), ids)
         trace.mark("lookup.end")
         rows.requires_grad_(True)
-        self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch))
+        self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch),
+                                    bags=getattr(self, "bags", None))
         return rows
 
     def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
@@ -310,6 +325,139 @@ class MultiIndicesFieldAwareEmbedding(TableInput):
         return out
 
 
+TABLE_BLOCK_ROWS = 1 << 21  # logical rows a block of a multi-hot table's draw
+_BLOCK_SEED_MIX = 0x9E3779B97F4A7C15
+
+
+class MultiHotIndicesEmbedding(TableInput):
+    """Fused embedding over multi-hot categorical fields → ``(B, N, E)`` bag
+    sums: field ``i`` reads ``(B, hots[i])`` ids (a ``(B,)`` field at one
+    hot), shifted into one packed table of ``sum(field_sizes)`` logical rows
+    as :class:`MultiIndicesEmbedding` shifts them, and each field's bag of
+    rows is summed (``ops.embedding.pooled_lookup``: one
+    ``pooled_row_gather`` kernel, no ``(B, S, E)`` rows in between).  An id
+    outside the table adds nothing, and its slot takes no update.  Float32
+    table and sums; it has no presort (the sparse route sorts on the
+    device).  Under a mesh the lookup takes the psum strategy alone
+    (``parallel.lookup.maybe_sharded_pooled_lookup``).
+
+    **Shard-local table.**  The table is drawn in blocks of
+    :data:`TABLE_BLOCK_ROWS` logical rows, N(0, ``init_std``²), block ``k``
+    from its own generator seeded by ``k`` and one number drawn from the
+    generator :meth:`reset_parameters` is given, so the logical table is the
+    same whoever draws it.  :meth:`reset_parameters` allocates the table
+    (this rank's rows of it where ``parallel.sharding`` laid it out, a
+    ``row_layout``) and draws those rows alone, a block at a time; the
+    Trainer lays the table out before it draws (``Trainer.init_state``), so
+    no rank of a mesh holds more than its rows and one block.  Until then
+    the table is unallocated (on the ``meta`` device): a module used without
+    a Trainer is drawn by calling :meth:`reset_parameters`.
+    """
+
+    draws_own_rows = True
+
+    def __init__(self, embed_size: int, field_sizes: Sequence[int], hots: Sequence[int],
+                 fields: Sequence[str], init_std: float = 0.01, device: DeviceLike = None):
+        super().__init__()
+        if not len(fields) == len(field_sizes) == len(hots):
+            raise ValueError(f"fields ({len(fields)}), field_sizes ({len(field_sizes)}) and "
+                             f"hots ({len(hots)}) must align")
+        if any(int(h) < 1 for h in hots):
+            raise ValueError(f"every field takes at least one id, got hots {tuple(hots)}")
+        dev = resolve_device(device)
+        self.embed_size = int(embed_size)
+        self.field_sizes = tuple(int(v) for v in field_sizes)
+        self.hots = tuple(int(h) for h in hots)
+        self.fields = tuple(fields)
+        self.init_std = init_std
+        self._init_table(self.global_shape, "meta")
+        offsets = np.repeat(field_offsets(self.field_sizes).astype(np.int64), self.hots)
+        self.register_buffer("offsets", torch.as_tensor(offsets, device=dev), persistent=False)
+        self.register_buffer("starts", torch.as_tensor(bag_starts(self.hots), device=dev),
+                             persistent=False)
+        self.register_buffer("bags", torch.as_tensor(slot_bags(self.hots), device=dev),
+                             persistent=False)
+
+    @property
+    def global_shape(self) -> Tuple[int, int]:
+        return packed_shape(sum(self.field_sizes), self.embed_size)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the table is (or will be) allocated: the buffers' device."""
+        return self.offsets.device
+
+    def _apply(self, fn, recurse=True):
+        # an unallocated table stays so when the module moves (``.to``)
+        if not self.embedding.is_meta:
+            return super()._apply(fn, recurse)
+        table = self._parameters.pop("embedding")
+        try:
+            return super()._apply(fn, recurse)
+        finally:
+            self._parameters["embedding"] = table
+
+    def release_table(self) -> None:
+        """Hand the table back (an unallocated parameter of the whole table's
+        shape), to be laid out and drawn again."""
+        self.embedding = nn.Parameter(torch.empty(self.global_shape, device="meta"),
+                                      requires_grad=self.embedding.requires_grad)
+        self.row_layout = None
+
+    def set_table_dtype(self, dtype: torch.dtype) -> None:
+        if dtype != torch.float32:
+            raise ValueError(f"MultiHotIndicesEmbedding keeps a float32 table, got {dtype}")
+
+    def reset_parameters(self, generator=None) -> None:
+        """Allocate this rank's rows of the table (all of them without a
+        layout) and draw them, block by block (see the class docstring)."""
+        if generator is None:
+            generator = default_generator(self.device)
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device).item())
+        vp, w = self.global_shape
+        lay = self.row_layout
+        first, count = 0, vp
+        if lay is not None and lay.sharded:
+            first, count = lay.index * lay.shard_rows, lay.shard_rows
+        table = torch.empty((count, w), dtype=torch.float32, device=self.device)
+        pack, e = w // self.embed_size, self.embed_size
+        logical = table.view(-1, e)
+        lo, hi = first * pack, (first + count) * pack
+        total = sum(self.field_sizes)
+        logical[max(0, total - lo):].zero_()  # the last stored row's padding
+        for block in range(lo // TABLE_BLOCK_ROWS, -(-min(hi, total) // TABLE_BLOCK_ROWS)):
+            b0 = block * TABLE_BLOCK_ROWS
+            n = min(TABLE_BLOCK_ROWS, total - b0)
+            gen = torch.Generator(device=self.device).manual_seed(
+                (seed + (block + 1) * _BLOCK_SEED_MIX) & ((1 << 63) - 1))
+            drawn = torch.empty((n, e), dtype=torch.float32, device=self.device)
+            drawn.normal_(0.0, self.init_std, generator=gen)
+            a, b = max(b0, lo), min(b0 + n, hi)
+            logical[a - lo:b - lo].copy_(drawn[a - b0:b - b0])
+            del drawn
+        self.embedding = nn.Parameter(table, requires_grad=self.embedding.requires_grad)
+
+    def output_shape(self) -> Tuple[int, int]:
+        return len(self.fields), self.embed_size
+
+    def _gather(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        trace.count("ids", ids.numel())
+        trace.count("bags", ids.shape[0] * len(self.fields))
+        return maybe_sharded_pooled_lookup(table, ids, self.starts, self.bags, self.embed_size,
+                                           self.row_layout)
+
+    def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
+        return None
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        ids = self._stack_fields(batch, self.fields)  # (B, S)
+        if ids.shape[1] != self.offsets.shape[0]:
+            raise ValueError(f"the fields give {ids.shape[1]} ids an example, the hots "
+                             f"{self.hots} say {self.offsets.shape[0]}")
+        return self._lookup_rows(ids.to(torch.int64) + self.offsets[None, :], batch)
+
+
 class _Container(BaseInput):
     """An input whose children are other inputs, in order."""
 
@@ -366,5 +514,6 @@ class StackedInput(_Container):
         return torch.cat([m(batch) for m in self.inputs], dim=1)
 
 
-__all__ = ["ConcatInput", "MultiIndicesEmbedding", "MultiIndicesFieldAwareEmbedding",
-           "SingleIndexEmbedding", "SparseLookup", "StackedInput", "TableInput", "ValueInput"]
+__all__ = ["ConcatInput", "MultiHotIndicesEmbedding", "MultiIndicesEmbedding",
+           "MultiIndicesFieldAwareEmbedding", "SingleIndexEmbedding", "SparseLookup",
+           "StackedInput", "TableInput", "ValueInput"]

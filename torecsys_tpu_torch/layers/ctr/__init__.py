@@ -16,6 +16,7 @@ from torecsys_tpu_torch.layers.ctr.cross import (
     FieldAllTypeBilinear,
     FieldEachTypeBilinear,
     FieldInteractionTypeBilinear,
+    LowRankCrossNetworkLayer,
 )
 from torecsys_tpu_torch.layers.ctr.dense import Dense, MultilayerPerceptionLayer, WideLayer
 from torecsys_tpu_torch.layers.ctr.factorization import (
@@ -52,7 +53,8 @@ __all__ = ["AFMLayer", "AttentionalFactorizationMachineLayer", "BatchNorm", "Bia
            "DynamicRoutingLayer", "FFMLayer", "FMLayer", "FactorizationMachineLayer",
            "FeedForwardLayer", "FieldAllTypeBilinear", "FieldAwareFactorizationMachineLayer",
            "FieldEachTypeBilinear", "FieldInteractionTypeBilinear", "FullyConnectLayer",
-           "InnerProductNetworkLayer", "MOELayer", "MixtureOfExpertsLayer",
+           "InnerProductNetworkLayer", "LowRankCrossNetworkLayer", "MOELayer",
+           "MixtureOfExpertsLayer",
            "MultiHeadDotProductAttention", "MultilayerPerceptionLayer",
            "OuterProductNetworkLayer", "PALLayer", "PositionBiasAwareLearningFrameworkLayer",
            "PositionEmbeddingLayer", "SENETLayer", "SqueezeAndExcitationNetworkLayer",

@@ -1,7 +1,7 @@
 """Cross and bilinear interaction layers (counterpart of
-``torecsys_tpu/layers/ctr/cross.py``): the DCN cross network, the residual
-bilinear stack and FiBiNET's three bilinear interactions with their
-dispatcher.
+``torecsys_tpu/layers/ctr/cross.py``): the DCN cross network, the port's
+DCN-v2 low-rank cross network, the residual bilinear stack and FiBiNET's
+three bilinear interactions with their dispatcher.
 
 The FiBiNET layers' parameter is called ``weight`` in flax too, and stored
 as flax stores it (not transposed); ``keeps_flax_weight`` tells
@@ -20,8 +20,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from torecsys_tpu_torch.layers.ctr.dense import xavier_uniform_
-from torecsys_tpu_torch.ops.interactions import _pairs, cross_layer
+from torecsys_tpu_torch.layers.ctr.dense import Dense, xavier_uniform_
+from torecsys_tpu_torch.ops.interactions import _pairs, cross_layer, low_rank_cross
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
 
@@ -57,6 +57,42 @@ class CrossNetworkLayer(nn.Module):
         for i in range(self.num_layers):
             x = cross_layer(x0, x, getattr(self, f"weight_{i}")[:, 0], getattr(self, f"bias_{i}"))
         return x.reshape(emb_inputs.shape)
+
+
+class LowRankCrossNetworkLayer(nn.Module):
+    """DCN-v2's low-rank cross network (Wang et al., WWW 2021, arXiv:2008.13535,
+    eq. 1 with ``W = U V``): ``num_layers`` steps of ``x' = x0 * (U (V x) +
+    b) + x`` on the flattened ``(B, D)`` features; ``(B, D)`` or ``(B, N, E)``
+    in, the same shape out.
+
+    Layer ``i`` holds ``v_{i}``, a :class:`Dense` ``D → rank`` without bias,
+    and ``u_{i}``, a :class:`Dense` ``rank → D`` whose bias is ``b``: their
+    products follow the pipeline's compute dtype (under bf16 each rounds to
+    bf16, and ``b`` is added in bf16), and the combine
+    (``ops.interactions.low_rank_cross``) runs in the input's dtype.
+    """
+
+    def __init__(self, num_layers: int, in_features: int, rank: int,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"v_{i}", Dense(in_features, rank, use_bias=False, device=dev,
+                                            generator=generator))
+            self.add_module(f"u_{i}", Dense(rank, in_features, device=dev, generator=generator))
+
+    def reset_parameters(self, generator=None) -> None:
+        for i in range(self.num_layers):
+            getattr(self, f"v_{i}").reset_parameters(generator)
+            getattr(self, f"u_{i}").reset_parameters(generator)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        x0 = inputs.reshape(inputs.shape[0], -1)
+        x = x0
+        for i in range(self.num_layers):
+            x = low_rank_cross(x0, x, getattr(self, f"u_{i}")(getattr(self, f"v_{i}")(x)))
+        return x.reshape(inputs.shape)
 
 
 class BilinearNetworkLayer(nn.Module):
@@ -183,4 +219,4 @@ class BilinearInteractionLayer(nn.Module):
 
 __all__ = ["BILINEAR_TYPES", "BilinearInteractionLayer", "BilinearNetworkLayer",
            "CrossNetworkLayer", "FieldAllTypeBilinear", "FieldEachTypeBilinear",
-           "FieldInteractionTypeBilinear"]
+           "FieldInteractionTypeBilinear", "LowRankCrossNetworkLayer"]

@@ -2,6 +2,8 @@
 
 from torecsys_tpu_torch.models.ctr.deep import *  # noqa: F401,F403
 from torecsys_tpu_torch.models.ctr.deep import __all__ as _deep_all
+from torecsys_tpu_torch.models.ctr.dlrm import *  # noqa: F401,F403
+from torecsys_tpu_torch.models.ctr.dlrm import __all__ as _dlrm_all
 from torecsys_tpu_torch.models.ctr.ffm_deep import *  # noqa: F401,F403
 from torecsys_tpu_torch.models.ctr.ffm_deep import __all__ as _ffm_deep_all
 from torecsys_tpu_torch.models.ctr.fibinet import *  # noqa: F401,F403
@@ -13,4 +15,5 @@ from torecsys_tpu_torch.models.ctr.multitask import __all__ as _multitask_all
 from torecsys_tpu_torch.models.ctr.session import *  # noqa: F401,F403
 from torecsys_tpu_torch.models.ctr.session import __all__ as _session_all
 
-__all__ = [*_fm_all, *_deep_all, *_ffm_deep_all, *_fibinet_all, *_multitask_all, *_session_all]
+__all__ = [*_fm_all, *_deep_all, *_dlrm_all, *_ffm_deep_all, *_fibinet_all, *_multitask_all,
+           *_session_all]

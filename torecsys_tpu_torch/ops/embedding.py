@@ -141,6 +141,65 @@ def packed_lookup(packed_table: torch.Tensor, ids: torch.Tensor,
     return out.reshape(*ids.shape, embed_size)
 
 
+def bag_starts(hots: Sequence[int]) -> np.ndarray:
+    """The ``(N + 1,)`` int32 slot offsets of ``N`` bags of ``hots`` slots
+    each: bag ``n`` holds slots ``[starts[n], starts[n + 1])``."""
+    return np.concatenate([[0], np.cumsum(hots)]).astype(np.int32)
+
+
+def slot_bags(hots: Sequence[int]) -> np.ndarray:
+    """The ``(S,)`` int64 bag of each slot of bags of ``hots`` slots."""
+    return np.repeat(np.arange(len(hots)), hots).astype(np.int64)
+
+
+def pooled_grad(ids: torch.Tensor, grad: torch.Tensor, bags: torch.Tensor, table_shape,
+                dtype: torch.dtype, lo: int, hi: int, base: int) -> torch.Tensor:
+    """The packed table's gradient of a pooled lookup: each slot's row takes
+    its bag's cotangent ``grad[:, bags[s]]``, summed per row by
+    :func:`table_grad`; a slot whose id lies outside ``[lo, hi)`` adds
+    nothing."""
+    e = grad.shape[-1]
+    rows = math.prod(table_shape[:-1]) * (table_shape[-1] // e)
+    idx = ids.to(torch.int64)
+    keys = torch.where((idx >= lo) & (idx < hi), idx - base, torch.full_like(idx, rows))
+    slots = grad.index_select(1, bags).reshape(-1, e)
+    return table_grad(keys.reshape(-1), slots, table_shape, dtype)
+
+
+class _PooledGather(torch.autograd.Function):
+    """:func:`pooled_lookup` through the ``pooled_row_gather`` kernel; the
+    backward is :func:`pooled_grad`."""
+
+    @staticmethod
+    def forward(ctx, packed_table, ids, starts, bags, embed_size, lo, hi, base):
+        ctx.save_for_backward(ids, bags)
+        ctx.meta = (packed_table.shape, packed_table.dtype, lo, hi, base)
+        return _kernels.pooled_row_gather(packed_table.reshape(-1, embed_size), ids, starts,
+                                          lo, hi, base)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ids, bags = ctx.saved_tensors
+        shape, dtype, lo, hi, base = ctx.meta
+        return (pooled_grad(ids, grad, bags, shape, dtype, lo, hi, base),
+                None, None, None, None, None, None, None)
+
+
+def pooled_lookup(packed_table: torch.Tensor, ids: torch.Tensor, starts: torch.Tensor,
+                  bags: torch.Tensor, embed_size: int, lo: int = 0, hi: Optional[int] = None,
+                  base: int = 0) -> torch.Tensor:
+    """Bag sums of a multi-hot lookup from a packed float32 table: ``(B, S)``
+    logical ids, bag ``n`` the slots ``[starts[n], starts[n + 1])`` (``bags``:
+    each slot's bag) → ``(B, N, E)``, each bag the sum of its ids' rows.
+    Only the logical rows ``[lo, hi)`` are read (default: all of the
+    table's), the table's first row being logical row ``base``; an id
+    outside them adds nothing.  One ``pooled_row_gather`` kernel;
+    differentiable in the table (:func:`pooled_grad`)."""
+    if hi is None:
+        hi = base + packed_table.numel() // embed_size
+    return _PooledGather.apply(packed_table, ids, starts, bags, embed_size, lo, hi, base)
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain table gather ``table[ids]``, as ``jnp.take(table, ids, axis=0)``:
     ``table`` ``(V, E)`` float32 or bfloat16, ``ids`` any integer shape, the
@@ -171,5 +230,6 @@ def fused_offset_lookup(table: torch.Tensor, ids: torch.Tensor,
     return embedding_lookup(table, ids)
 
 
-__all__ = ["embedding_lookup", "field_offsets", "fused_offset_lookup", "pack_factor",
-           "pack_table", "packed_lookup", "packed_shape", "table_grad", "unpack_table"]
+__all__ = ["bag_starts", "embedding_lookup", "field_offsets", "fused_offset_lookup",
+           "pack_factor", "pack_table", "packed_lookup", "packed_shape", "pooled_grad",
+           "pooled_lookup", "slot_bags", "table_grad", "unpack_table"]

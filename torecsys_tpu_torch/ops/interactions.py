@@ -89,6 +89,14 @@ def cross_layer(x0: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     return x0 * xw[:, None] + bias[None, :] + x
 
 
+def low_rank_cross(x0: torch.Tensor, x: torch.Tensor, projected: torch.Tensor) -> torch.Tensor:
+    """One DCN-v2 low-rank cross layer's combine on ``(B, D)``: ``x' = x0 *
+    projected + x``, ``projected = U (V x) + b`` (its products are the
+    layer's, ``layers.ctr.cross.LowRankCrossNetworkLayer``), in ``x0``'s
+    dtype."""
+    return x0 * projected.to(x0.dtype) + x
+
+
 def cin_interaction(x0: torch.Tensor, xk: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """One CIN (xDeepFM) step: ``(B, N, E)`` base, ``(B, H, E)`` previous map
     and ``(O, H, N)`` weights → ``(B, O, E)``.
@@ -109,4 +117,4 @@ def cin_interaction(x0: torch.Tensor, xk: torch.Tensor, weight: torch.Tensor) ->
 
 __all__ = ["afm_pairwise_products", "cin_interaction", "cross_layer",
            "ffm_pairwise_interaction", "fm_pairwise_interaction", "inner_product_pairs",
-           "outer_product_pairs"]
+           "low_rank_cross", "outer_product_pairs"]

@@ -1,6 +1,7 @@
-"""Embedding lookup kernels: the row gather and the unique stored-row gather.
+"""Embedding lookup kernels: the row gather, the pooled row gather and the
+unique stored-row gather.
 
-Counterpart of ``torecsys_tpu/ops/pallas/embedding.py``.  Two kernels,
+Counterpart of ``torecsys_tpu/ops/pallas/embedding.py``.  Three kernels,
 written in CUDA C++ for Hopper in ``csrc/embedding.cu`` (its header says
 what bounds each on the card and how the design answers it):
 
@@ -8,6 +9,10 @@ what bounds each on the card and how the design answers it):
   also permutes the sparse routes' grads into id order (``ops/sparse.py``)
   and the lookup's cotangent in its backward (``ops/embedding.py``), which
   sums it per row with ``fused_sorted_dedup_update``;
+* :func:`pooled_row_gather`, which replaces no Pallas kernel, sums each
+  bag of a multi-hot lookup (``inputs.embeddings.MultiHotIndicesEmbedding``)
+  in the same pass as it gathers the rows, on one card or over a rank's
+  rows of a row-sharded table;
 * :func:`unique_stored_gather` replaces ``unique_stored_gather``
   (``_unique_gather_kernel``), an op that no path of either package calls.
 
@@ -20,6 +25,7 @@ wrapper counts its kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,6 +44,8 @@ def _lib():
         lib.trs_row_gather.restype = i
         lib.trs_unique_stored_gather.argtypes = [p, p, p, i64, i64, i, i, p]
         lib.trs_unique_stored_gather.restype = i
+        lib.trs_pooled_row_gather.argtypes = [p, p, i, p, p, i64, i, i, i, i64, i64, i64, p]
+        lib.trs_pooled_row_gather.restype = i
         lib._trs_typed = True
     return lib
 
@@ -105,6 +113,82 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 row_gather.launches = 0
 
 
+def pooled_row_gather_plain(table: torch.Tensor, ids: torch.Tensor, starts: torch.Tensor,
+                            lo: int, hi: int, base: int) -> torch.Tensor:
+    """Plain version: the rows of the served ids (zeros elsewhere), each bag
+    summed slot by slot from +0, as the kernel sums it."""
+    b, s = ids.shape
+    e = table.shape[1]
+    idx = ids.to(torch.int64)
+    ok = (idx >= lo) & (idx < hi)
+    local = torch.where(ok, idx - base, torch.zeros_like(idx))
+    rows = table.index_select(0, local.reshape(-1)).reshape(b, s, e)
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    bounds = starts.tolist()
+    out = rows.new_zeros(b, len(bounds) - 1, e)
+    for n, (s0, s1) in enumerate(zip(bounds, bounds[1:])):
+        acc = out[:, n]
+        for k in range(s0, s1):
+            acc = acc + rows[:, k]
+        out[:, n] = acc
+    return out
+
+
+def pooled_row_gather(table: torch.Tensor, ids: torch.Tensor, starts: torch.Tensor,
+                      lo: int = 0, hi: Optional[int] = None, base: int = 0) -> torch.Tensor:
+    """Bag sums of a multi-hot lookup: ``out[b, n] = sum of table[ids[b, s] -
+    base]`` over the slots ``s`` of bag ``n`` whose id lies in ``[lo, hi)``.
+
+    On the card one warp sums a bag, in slot order, with several row reads in
+    flight a lane; the grid is as many blocks as the card holds at once.
+    Nothing is allocated but the output, and no ``(B*S, E)`` rows are
+    written.
+
+    Args:
+        table: ``(rows, E)`` float32: the logical table, or a rank's rows of
+            it whose first row is logical row ``base``.
+        ids: ``(B, S)`` int32 or int64 logical ids.
+        starts: ``(N + 1,)`` int32 slot offsets of the ``N`` bags of an
+            example, ascending from 0 to ``S``, on the table's device.
+        lo, hi: the logical rows served (default: all of ``table``'s,
+            ``[base, base + rows)``); an id outside them adds nothing.
+        base: the logical row of ``table``'s first row.
+
+    Returns:
+        ``(B, N, E)`` float32.
+    """
+    _k.require(table.dim() == 2 and table.dtype == torch.float32,
+               f"table must be (rows, E) float32, got {tuple(table.shape)} {table.dtype}")
+    _k.require(ids.dim() == 2 and ids.dtype in INDEX_DTYPES,
+               f"ids must be (B, S) int32 or int64, got {tuple(ids.shape)} {ids.dtype}")
+    _k.require(starts.dim() == 1 and starts.dtype == torch.int32 and starts.shape[0] >= 2,
+               f"starts must be (N + 1,) int32, got {tuple(starts.shape)} {starts.dtype}")
+    if hi is None:
+        hi = base + table.shape[0]
+    _k.require(base <= lo and hi <= base + table.shape[0],
+               f"served rows [{lo}, {hi}) lie outside the table's [{base}, "
+               f"{base + table.shape[0]})")
+    if _k.device_kind(table, ids, starts) == "cpu":
+        return pooled_row_gather_plain(table, ids, starts, lo, hi, base)
+    _k.require(table.is_contiguous() and ids.is_contiguous() and starts.is_contiguous(),
+               "inputs must be contiguous")
+    b, s = ids.shape
+    n = starts.shape[0] - 1
+    e = table.shape[1]
+    out = torch.empty(b, n, e, dtype=torch.float32, device=table.device)
+    if b == 0:
+        return out
+    status = _lib().trs_pooled_row_gather(
+        _k.ptr(table), _k.ptr(ids), ids.element_size(), _k.ptr(starts), _k.ptr(out), b, n, s, e,
+        lo, hi, base, _k.current_stream(table.device))
+    _k.check_status(status, "pooled_row_gather")
+    pooled_row_gather.launches += 1
+    return out
+
+
+pooled_row_gather.launches = 0
+
+
 def unique_stored_gather_plain(table: torch.Tensor, uids: torch.Tensor,
                                embed_size: int) -> torch.Tensor:
     """Plain version: ``index_select`` of the stored rows of the clamped
@@ -164,5 +248,5 @@ def unique_stored_gather(table: torch.Tensor, uids: torch.Tensor,
 
 unique_stored_gather.launches = 0
 
-__all__ = ["ROW_DTYPES", "row_gather", "row_gather_plain", "unique_stored_gather",
-           "unique_stored_gather_plain", "wrap_ids"]
+__all__ = ["ROW_DTYPES", "pooled_row_gather", "pooled_row_gather_plain", "row_gather",
+           "row_gather_plain", "unique_stored_gather", "unique_stored_gather_plain", "wrap_ids"]

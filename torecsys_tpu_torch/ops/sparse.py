@@ -28,8 +28,9 @@ the reference contracts of the dedup, as in the JAX package.
 
 A row-sharded table (``parallel.sharding``) takes both routes up to the
 unique rows, on the global id stream, then :func:`sharded_row_update`: each
-table rank keeps the rows it owns and updates them in its shard with the
-same ``fused_rowwise_update``.  Under a mesh whose table axis is split the
+table rank maps the rows it owns to its shard's ids, the others to a
+sentinel, and updates them with the same ``fused_rowwise_update``.  Under
+a mesh whose table axis is split the
 on-device route does not take the one-pass ``fused_sorted_dedup_update``
 even when ``TORECSYS_TPU_FUSED_DEDUP=1`` asks for it: it combines and
 updates as by default, as the JAX package's kernel gate yields there.
@@ -50,6 +51,7 @@ import torch
 
 from torecsys_tpu_torch.ops.kernels import embedding as KE
 from torecsys_tpu_torch.ops.kernels import sparse_update as K
+from torecsys_tpu_torch.utils import trace
 
 FUSED_DEDUP_ENV = "TORECSYS_TPU_FUSED_DEDUP"
 
@@ -128,6 +130,20 @@ def sort_slot_grads(ids: torch.Tensor, grads: torch.Tensor):
     return sorted_ids, KE.row_gather(grads.reshape(-1, e).contiguous(), order)
 
 
+def sort_bag_grads(ids: torch.Tensor, bag_grads: torch.Tensor, bags: torch.Tensor):
+    """Sort a multi-hot lookup's slots by id, each slot taking its bag's
+    gradient: ``(B, S) ids, (B, N, E) bag grads, (S,) bag of each slot →
+    (M,) sorted int32 ids, (M, E) grads``, ``M = B*S``.  The same as
+    :func:`sort_slot_grads` of the ``(B, S, E)`` slot grads
+    ``bag_grads[:, bags]``, which are never formed: one ``row_gather``
+    reads each sorted slot's bag row."""
+    b, s = ids.shape
+    n, e = bag_grads.shape[1], bag_grads.shape[2]
+    sorted_ids, order = torch.sort(ids.reshape(-1).to(torch.int32), stable=True)
+    src = torch.div(order, s, rounding_mode="floor") * n + bags[order % s]
+    return sorted_ids, KE.row_gather(bag_grads.reshape(-1, e).contiguous(), src)
+
+
 def _combine_sorted_stored(sorted_ids: torch.Tensor, g_sorted: torch.Tensor, pack: int,
                            num_stored_rows: int):
     """An id-ascending ``(M,)`` stream and its ``(M, E)`` grads → compact
@@ -176,30 +192,26 @@ def _table_axis_split() -> bool:
 
 
 def sharded_row_update(row_tx, table: torch.Tensor, slots: Dict[str, torch.Tensor],
-                       uids: torch.Tensor, gsum: torch.Tensor, step: torch.Tensor, layout):
+                       uids: torch.Tensor, gsum: torch.Tensor, step: torch.Tensor, layout,
+                       n_valid=None):
     """Apply a row-wise optimizer to this table rank's shard of a
     row-sharded table, in place.
 
     ``uids``/``gsum`` are the global ascending unique stored rows (the
     sentinel ``layout.rows`` past the last) and their summed gradients, the
-    same on every rank.  The rank keeps the rows it owns, moved to the
-    valid prefix in their order with their shard-local ids (the sentinel
-    ``local_rows`` after them), and runs ``row_tx.update`` (the
-    ``fused_rowwise_update`` kernel) on its local table and slots with that
-    count: the same state as the update of the whole table, row by row.
+    same on every rank; ``n_valid`` their count (a host int, a 0-d int32
+    device tensor, or None: every row).  Each uid the rank owns becomes its
+    shard-local id, every other the sentinel ``local_rows``, in place in the
+    stream, and ``row_tx.update`` (the ``fused_rowwise_update`` kernel)
+    updates the rank's table and slots with them, skipping the sentinels:
+    the same state as the update of the whole table, row by row.  Nothing
+    is moved: the summed gradients stay where they are.
     """
     r = uids.to(torch.int64)
     mine = layout.served(r)
-    m = uids.shape[0]
-    pos = torch.cumsum(mine.to(torch.int64), 0) - 1
-    dest = torch.where(mine, pos, torch.full_like(pos, m))
-    local_u = torch.full((m + 1,), layout.local_rows, dtype=torch.int32, device=uids.device)
-    local_u.scatter_(0, dest, layout.local(r).to(torch.int32))
-    local_g = gsum.new_zeros(m + 1, gsum.shape[1])
-    local_g.index_copy_(0, dest, gsum)  # the slot m collects what is not mine; dropped
-    n_mine = mine.sum(dtype=torch.int32)
-    return row_tx.update(table, slots, local_u[:m], local_g[:m].contiguous(), step,
-                         n_valid=n_mine)
+    local_u = torch.where(mine, layout.local(r), layout.local_rows).to(torch.int32)
+    trace.count_device("touched_rows", mine.sum(dtype=torch.int32))
+    return row_tx.update(table, slots, local_u, gsum, step, n_valid=n_valid)
 
 
 def _hyper(step: torch.Tensor, *values) -> torch.Tensor:
@@ -267,7 +279,8 @@ class _RowOptimizerBase:
         rows = tbl.shape[0] if layout is None else layout.rows
         uids, gsum, n_unique = _combine_sorted_stored(sorted_ids, g_sorted, pack, rows)
         if layout is not None:
-            return sharded_row_update(self, table, slots, uids, gsum, step, layout)
+            return sharded_row_update(self, table, slots, uids, gsum, step, layout, n_unique)
+        trace.count_device("touched_rows", n_unique)
         return self.update(table, slots, uids, gsum, step, n_valid=n_unique)
 
     def update_from_host_aux(self, table: torch.Tensor, slots: Dict[str, torch.Tensor],
@@ -296,11 +309,12 @@ class _RowOptimizerBase:
         pack = table.shape[-1] // e
         g_sorted = KE.row_gather(flat_g.contiguous(), aux["order"])
         gsum = _sorted_gsum(g_sorted, aux["lo"], aux["seg"], pack)
-        if layout is not None:
-            return sharded_row_update(self, table, slots, aux["uids"], gsum, step, layout)
         n_unique = aux["n_unique"]
         if isinstance(n_unique, torch.Tensor):
             n_unique = n_unique.reshape(())
+        if layout is not None:
+            return sharded_row_update(self, table, slots, aux["uids"], gsum, step, layout,
+                                      n_unique)
         return self.update(table, slots, aux["uids"], gsum, step, n_valid=n_unique)
 
 
@@ -392,4 +406,4 @@ def get_row_optimizer(method: str = "Adam", lr: float = 1e-3, **kwargs) -> Optio
 
 __all__ = ["RowAdagrad", "RowAdam", "RowSGD", "dedup_sum", "dedup_sum_fields",
            "dedup_sum_stored", "fused_dedup_enabled", "get_row_optimizer", "prefix_sum",
-           "sharded_row_update", "sort_slot_grads"]
+           "sharded_row_update", "sort_bag_grads", "sort_slot_grads"]

@@ -36,8 +36,18 @@ owner, where the JAX package's sparse route splits the flat view
 contiguously (and its dense route exchanges table by table), so the two can
 overflow at different points; without an overflow the values agree.
 
-Activation: input modules call :func:`maybe_sharded_lookup` or
-:func:`maybe_sharded_packed_lookup`; inside ``with use_sharded_lookup(mesh):``
+The multi-hot input's pooled lookup (:func:`maybe_sharded_pooled_lookup`)
+takes the psum alone: each table rank sums, in one ``pooled_row_gather``,
+the rows it owns of each bag, and ``all_reduce`` sums the ``(B/dp, N, E)``
+bag sums over the table group, a payload ``S / N`` times smaller than the
+``(B/dp, S, E)`` rows of reducing before pooling.  ``alltoall`` and
+``auto`` refuse it.  With the tracer on (``utils.trace``) the gather is the
+device span ``pool`` and the reduce the span ``exchange``, both inside
+``lookup``.
+
+Activation: input modules call :func:`maybe_sharded_lookup`,
+:func:`maybe_sharded_packed_lookup` or :func:`maybe_sharded_pooled_lookup`;
+inside ``with use_sharded_lookup(mesh):``
 (which the Trainer enters around every step, evaluation and prediction)
 they route through the collectives, otherwise they are one plain gather.
 """
@@ -52,9 +62,11 @@ from typing import Optional
 
 import torch
 
-from torecsys_tpu_torch.ops.embedding import packed_lookup, table_grad
+from torecsys_tpu_torch.ops.embedding import packed_lookup, pooled_grad, pooled_lookup, table_grad
+from torecsys_tpu_torch.ops.kernels.embedding import pooled_row_gather
 from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS, Mesh
 from torecsys_tpu_torch.parallel.sharding import DEFAULT_MIN_ROWS_TO_SHARD, RowLayout
+from torecsys_tpu_torch.utils import trace
 
 INT32_MAX = 2**31 - 1
 
@@ -410,6 +422,87 @@ def sharded_lookup_alltoall(table: torch.Tensor, ids: torch.Tensor, ctx: LookupC
     return sharded_packed_lookup_alltoall(table, ids, table.shape[-1], ctx, layout)
 
 
+def _pooled(table, ids, starts, embed_size, lo, hi, base):
+    """The ``pooled_row_gather`` of the served rows, as the span ``pool``."""
+    trace.mark("pool.begin")
+    out = pooled_row_gather(table.reshape(-1, embed_size), ids, starts, lo, hi, base)
+    trace.mark("pool.end")
+    return out
+
+
+def _served_range(layout: RowLayout, pack: int):
+    """``(lo, hi, base)``: the logical rows this table rank serves and the
+    logical row of its table's first row (a 2-D table's layout)."""
+    s = layout.shard_rows
+    lo = layout.index * s
+    hi = min(lo + s, layout.rows)
+    base = lo if layout.sharded else 0
+    return lo * pack, hi * pack, base * pack
+
+
+class _PsumPooled(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, table, ids, starts, bags, embed_size, layout, ctx):
+        lo, hi, base = _served_range(layout, table.shape[-1] // embed_size)
+        out = _pooled(table, ids, starts, embed_size, lo, hi, base)
+        trace.mark("exchange.begin")
+        ctx.mesh.all_reduce(out, ctx.table_axis)
+        trace.mark("exchange.end")
+        fctx.save_for_backward(ids, bags)
+        fctx.meta = (table.shape, table.dtype, lo, hi, base, layout.sharded)
+        return out
+
+    @staticmethod
+    def backward(fctx, grad):
+        ids, bags = fctx.saved_tensors
+        shape, dtype, lo, hi, base, sharded = fctx.meta
+        if not sharded:  # a replicated copy takes every id's share
+            lo, hi = 0, math.prod(shape[:-1]) * (shape[-1] // grad.shape[-1])
+        d = pooled_grad(ids, grad, bags, shape, dtype, lo, hi, base)
+        return d, None, None, None, None, None, None
+
+
+def maybe_sharded_pooled_lookup(packed_table: torch.Tensor, ids: torch.Tensor,
+                                starts: torch.Tensor, bags: torch.Tensor, embed_size: int,
+                                layout: Optional[RowLayout] = None) -> torch.Tensor:
+    """Bag sums of a multi-hot lookup (``ops.embedding.pooled_lookup``):
+    inside :func:`use_sharded_lookup` and for a table large enough, each
+    table rank's sums of the rows it serves, reduced over the table group
+    (the psum strategy; ``alltoall`` and ``auto`` raise ``ValueError``);
+    one plain pooled gather otherwise.
+
+    Args:
+        packed_table: the 2-D ``(Vp, P*E)`` float32 table, or with
+            ``layout`` this rank's rows of it.
+        ids: ``(B/dp, S)`` logical ids of this rank's data slice.
+        starts: ``(N + 1,)`` int32 slot offsets of the bags, on the table's
+            device; ``bags``: ``(S,)`` int64, each slot's bag.
+        embed_size: E.
+        layout: the table's :class:`RowLayout` when it is sharded.
+
+    Returns:
+        ``(B/dp, N, E)`` float32, the same on every table rank of the slice.
+    """
+    ctx = _context()
+    rows = layout.rows if layout is not None else math.prod(packed_table.shape[:-1])
+    if not _collective(ctx, rows):
+        if layout is not None:
+            raise RuntimeError("a row-sharded table looked up outside use_sharded_lookup")
+        trace.mark("pool.begin")
+        out = pooled_lookup(packed_table, ids, starts, bags, embed_size)
+        trace.mark("pool.end")
+        return out
+    if ctx.strategy != "psum":
+        raise ValueError(f"the multi-hot (pooled) lookup takes the 'psum' strategy only, not "
+                         f"{ctx.strategy!r}: a multi-hot all-to-all exchange is not built; "
+                         "pass lookup_options={'strategy': 'psum'}")
+    lay = _layout(packed_table, ctx, layout)
+    if lay.blocks != 1:
+        raise ValueError("the pooled lookup takes a 2-D table")
+    return _PsumPooled.apply(packed_table, ids, starts, bags, embed_size, lay, ctx)
+
+
 __all__ = ["LookupContext", "data_mean", "maybe_sharded_lookup", "maybe_sharded_packed_lookup",
-           "modeled_comm_mb", "resolve_strategy", "sharded_lookup", "sharded_lookup_alltoall",
-           "sharded_packed_lookup", "sharded_packed_lookup_alltoall", "use_sharded_lookup"]
+           "maybe_sharded_pooled_lookup", "modeled_comm_mb", "resolve_strategy",
+           "sharded_lookup", "sharded_lookup_alltoall", "sharded_packed_lookup",
+           "sharded_packed_lookup_alltoall", "use_sharded_lookup"]

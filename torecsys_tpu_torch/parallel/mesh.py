@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torecsys_tpu_torch.utils import trace
+
 DATA_AXIS = "data"
 TABLE_AXIS = "table"
 
@@ -73,7 +75,9 @@ class Mesh:
     ``sent`` counts the bytes this rank handed each kind of collective
     (``all_reduce``, ``all_reduce_max``, ``all_gather``, ``all_to_all``)
     over groups of more than one rank, as it calls them (a captured graph's
-    replays are not counted).
+    replays are not counted); with the trainer's tracer on, the same bytes
+    go to its ``collective_bytes`` counter, which adds a captured graph's at
+    each replay (``utils.trace``).
     """
 
     def __init__(self, data: int, table: int, device: torch.device,
@@ -111,6 +115,10 @@ class Mesh:
 
     # ---- collectives -------------------------------------------------------
 
+    def _count(self, kind: str, n_bytes: int) -> None:
+        self.sent[kind] += n_bytes
+        trace.count("collective_bytes", n_bytes)
+
     def _staged(self, t: torch.Tensor) -> bool:
         """Whether a collective on ``t`` goes through the host (a card tensor
         under gloo)."""
@@ -124,8 +132,8 @@ class Mesh:
             return t
         group = self.group(axis)
         reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        self.sent["all_reduce" if op == "sum" else f"all_reduce_{op}"] += (t.numel()
-                                                                          * t.element_size())
+        self._count("all_reduce" if op == "sum" else f"all_reduce_{op}",
+                    t.numel() * t.element_size())
         if self._staged(t):
             host = t.cpu()
             dist.all_reduce(host, op=reduce_op, group=group)
@@ -140,7 +148,7 @@ class Mesh:
         if n == 1:
             return t[None]
         group = self.group(axis)
-        self.sent["all_gather"] += t.numel() * t.element_size()
+        self._count("all_gather", t.numel() * t.element_size())
         src = t.contiguous().reshape(1, -1)
         staged = self._staged(src)
         if staged:
@@ -157,7 +165,7 @@ class Mesh:
         if n == 1:
             return t.clone()
         group = self.group(axis)
-        self.sent["all_to_all"] += t.numel() * t.element_size()
+        self._count("all_to_all", t.numel() * t.element_size())
         src = t.contiguous()
         if self._staged(src):
             host = src.cpu()

@@ -205,10 +205,15 @@ def _table_owners(module: nn.Module) -> Dict[str, nn.Module]:
 
 
 def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
-                 min_rows_to_shard: int = DEFAULT_MIN_ROWS_TO_SHARD) -> Dict[str, RowLayout]:
+                 min_rows_to_shard: int = DEFAULT_MIN_ROWS_TO_SHARD,
+                 undrawn_only: bool = False) -> Dict[str, RowLayout]:
     """Shard ``seq``'s tables in place: each sharded table's parameter
     becomes this rank's rows (a new contiguous parameter) and its module's
     ``row_layout`` records them.  Returns ``{parameter name: layout}``.
+    A table not yet allocated (on the ``meta`` device: a module that draws
+    its own rows) stays so, at its rows' shape, and is drawn afterwards;
+    ``undrawn_only`` shards those alone.  A table already laid out keeps its
+    layout.
 
     Raises ``NotImplementedError`` for a parameter that the rules shard but
     whose module does not look up through ``parallel.lookup``."""
@@ -216,13 +221,18 @@ def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
     owners = _table_owners(seq)
     layouts = {}
     for name, spec in specs.items():
+        module = owners.get(name)
+        if module is not None and module.row_layout is not None:
+            layouts[name] = module.row_layout  # laid out before it was drawn
+            continue
         if not spec:
             continue
-        module = owners.get(name)
         if module is None:
             raise NotImplementedError(f"parameter {name!r} is placed row-sharded by the rules, "
                                       "but its module does not look up through "
                                       "parallel.lookup")
+        if undrawn_only and not module.embedding.is_meta:
+            continue
         param = module.embedding
         layout = table_layout(tuple(param.shape), spec, mesh, table_axis)
         module.embedding = nn.Parameter(local_shard(param.detach(), layout).contiguous(),
@@ -234,8 +244,12 @@ def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
 
 def unshard_module(seq: nn.Module) -> None:
     """Give every sharded table of ``seq`` back an (undrawn) parameter of
-    its global shape, as :meth:`reset_parameters` draws it."""
+    its global shape, as :meth:`reset_parameters` draws it; a table that
+    draws its own rows is released unallocated (``release_table``)."""
     for module in _table_owners(seq).values():
+        if getattr(module, "draws_own_rows", False):
+            module.release_table()  # drawn again, this rank's rows alone
+            continue
         layout = module.row_layout
         if layout is None:
             continue

@@ -49,7 +49,9 @@ shard's in gradient.  On the sparse route each table's ids and per-slot
 gradients are gathered over the data group in global batch order, so every
 rank takes the global stream's unique rows and sums, as the JAX package's
 step does; a row-sharded table's rank then updates its own rows
-(``ops.sparse.sharded_row_update``).  Each table rank of a data slice runs
+(``ops.sparse.sharded_row_update``).  A multi-hot table's leaf is its bag
+sums: each slot takes its bag's gradient (``ops.sparse.sort_bag_grads``),
+on the on-device route.  Each table rank of a data slice runs
 the same tower on the same slice, so the ranks stay equal without a
 reduction over the table group.
 
@@ -77,6 +79,7 @@ index and accumulates NDCG@k over the ``[pos | negs]`` lists.
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -84,7 +87,7 @@ import torch
 from torecsys_tpu_torch.convert import flax_path
 from torecsys_tpu_torch.data.packed import BatchLayout
 from torecsys_tpu_torch.miners import fold_in, seed_key
-from torecsys_tpu_torch.ops.sparse import sort_slot_grads
+from torecsys_tpu_torch.ops.sparse import sort_bag_grads, sort_slot_grads
 from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS
 from torecsys_tpu_torch.parallel.sharding import _table_owners
 from torecsys_tpu_torch.train.pipeline import Pipeline
@@ -310,10 +313,18 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
                     row_tx.update_from_host_aux(table, slots, g.reshape(-1, e), lookup.aux,
                                                 state.step, layout=layout)
                     continue
-                # A negative id in [-rows, 0) was read from row rows + id of
-                # the logical view (jnp.take's rule): its update goes there too.
                 rows = module.logical_rows()
                 b = ids.shape[0]
+                if lookup.bags is not None:
+                    # a multi-hot slot takes its bag's gradient; an id outside
+                    # the table added nothing, and updates no row (the sentinel)
+                    ids = torch.where((ids >= 0) & (ids < rows), ids, rows)
+                    sorted_ids, g_sorted = sort_bag_grads(ids, g, lookup.bags)
+                    row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
+                                         layout=layout)
+                    continue
+                # A negative id in [-rows, 0) was read from row rows + id of
+                # the logical view (jnp.take's rule): its update goes there too.
                 ids = torch.where(ids < 0, ids + rows, ids)
                 sorted_ids, g_sorted = sort_slot_grads(ids.reshape(b, -1), g.reshape(b, -1, e))
                 row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
@@ -384,6 +395,7 @@ class TrainScan:
         self._stream = torch.cuda.Stream(device) if capture else None
         self.graph = None
         self._held: Optional[List[int]] = None
+        self.counted = collections.Counter()  # the tracer's host counts of the captured steps
         self.captures = 0
         self.replays = 0
 
@@ -401,8 +413,10 @@ class TrainScan:
         self.graph = None  # its memory pool goes before the new capture
         graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+        with trace.recording() as counted, \
+                torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
             self._steps(state)
+        self.counted = counted
         self.graph = graph
         self._held = self._held_ptrs(state)
         self.captures += 1
@@ -430,6 +444,7 @@ class TrainScan:
         if self._held_ptrs(state) != self._held:
             self._capture(state)
         self.graph.replay()
+        trace.replayed(self.counted)
         self.replays += 1
         return state, self.losses.clone()
 

@@ -37,7 +37,9 @@ Meshes (``parallel``): with ``mesh`` the trainer runs one rank of a
 ``(data, table)`` mesh of ranks, one device each.  The parameters are drawn
 from ``seed`` on every rank alike, then the large embedding tables are
 row-sharded over ``table`` (``parallel.sharding``; ``lookup_options``'
-``min_rows_to_shard`` feeds placement and lookup routing alike), every other
+``min_rows_to_shard`` feeds placement and lookup routing alike; a table
+that draws its own rows, ``inputs.MultiHotIndicesEmbedding``, is laid out
+first and draws only the rank's rows of the same logical table), every other
 parameter replicated; the dense optimizer takes its whole-parameter
 reductions of a sharded table over the table group
 (``train.optimizers``; an opaque factory's optimizer stays per shard, with a
@@ -289,7 +291,7 @@ class Trainer:
             return False
         if self.pipeline.sparse_embeddings is not None:
             return True
-        elements = sum(m.embedding.numel() for m in modules.values())
+        elements = sum(m.logical_rows() * m.embed_size for m in modules.values())
         threshold = (SPARSE_AUTO_MIN_ELEMENTS_PRESORTED if self._presort_applicable()
                      else SPARSE_AUTO_MIN_ELEMENTS)
         return elements >= threshold
@@ -303,6 +305,10 @@ class Trainer:
         del example_batch
         seq = self.pipeline.sequential
         unshard_module(seq)
+        min_rows = self.lookup_options.get("min_rows_to_shard")
+        rule = {} if min_rows is None else {"min_rows_to_shard": min_rows}
+        if self.mesh is not None:  # the tables that draw only this rank's rows
+            shard_module(seq, self.mesh, undrawn_only=True, **rule)
         seq.reset_parameters(torch.Generator(device=self.device).manual_seed(self.seed))
         row_tx = self.pipeline.row_optimizer()
         modules = sparse_modules(seq)
@@ -311,9 +317,7 @@ class Trainer:
             module.sparse_grads = self.sparse
         layouts = {}
         if self.mesh is not None:
-            min_rows = self.lookup_options.get("min_rows_to_shard")
-            layouts = shard_module(seq, self.mesh, **({} if min_rows is None
-                                                      else {"min_rows_to_shard": min_rows}))
+            layouts = shard_module(seq, self.mesh, **rule)
         self.state = TrainState.create(seq, self.pipeline.optimizer,
                                        row_tx if self.sparse else None,
                                        set(modules) if self.sparse else None, self.device)

@@ -25,10 +25,22 @@ buffer's rows are copied, on the card and in stream order, into a ring of
 read.  With tracing off a mark does nothing, and a graph captured then has
 no stamp in it.  The spans (:data:`DEVICE_SPANS`): ``step``, and inside it
 ``forward`` (the model and the loss, with ``lookup`` inside it: from the
-step's first table lookup to its last), ``backward``, ``dense_optimizer`` and
+step's first table lookup to its last; inside it ``pool``, a multi-hot
+input's pooled gather, and ``exchange``, the psum's collective over the
+table group), ``backward``, ``dense_optimizer`` and
 ``sparse_update`` (the sparse route's sort, dedup, segment sums, row update
 and every small op between them); and ``copy_in``, once a dispatch, the
 group's copy to the card ahead of the graph's replay.
+
+**Counters** (:func:`count`, :func:`count_device`), with tracing on: of a
+step, a multi-hot input's ``ids`` and ``bags``, the bytes this rank hands
+the mesh's collectives (``collective_bytes``) and the stored rows of a
+table that this rank's sparse update touches (``touched_rows``, a device
+count that the captured graph adds up on the card).  A host count taken
+while the K-step graph is captured is kept by the graph
+(:func:`recording`) and added again at each replay (:func:`replayed`), so
+the counts are per dispatch, replays included.  :meth:`Tracer.report`
+gives each a step.
 
 **One clock.**  Host spans are read off ``time.perf_counter_ns``.  When
 tracing is switched on and when the spans are read, the tracer stamps the
@@ -66,7 +78,8 @@ HOST_STAGES = ("presort", "pack", "wait", "place", "step")
 # the device marks, a row of them a step; the copy-in's pair is written in a
 # dispatch's first row only
 MARKS = ("copy_in.begin", "copy_in.end", "step.begin", "lookup.begin", "lookup.end",
-         "forward.end", "backward.end", "dense_optimizer.end", "sparse_update.end", "step.end")
+         "forward.end", "backward.end", "dense_optimizer.end", "sparse_update.end", "step.end",
+         "pool.begin", "pool.end", "exchange.begin", "exchange.end")
 _COLUMN = {name: i for i, name in enumerate(MARKS)}
 # each device span: (the mark it starts at, the mark it ends at, its parent)
 DEVICE_SPANS = {
@@ -74,10 +87,14 @@ DEVICE_SPANS = {
     "step": ("step.begin", "step.end", None),
     "forward": ("step.begin", "forward.end", "step"),
     "lookup": ("lookup.begin", "lookup.end", "forward"),
+    "pool": ("pool.begin", "pool.end", "lookup"),
+    "exchange": ("exchange.begin", "exchange.end", "lookup"),
     "backward": ("forward.end", "backward.end", "step"),
     "dense_optimizer": ("backward.end", "dense_optimizer.end", "step"),
     "sparse_update": ("dense_optimizer.end", "sparse_update.end", "step"),
 }
+HOST_COUNTERS = ("ids", "bags", "collective_bytes")
+DEVICE_COUNTERS = ("touched_rows",)
 RING_DISPATCHES = 4096           # dispatches the device ring keeps unread
 HOST_SPANS_PER_DISPATCH = 16     # the host ring keeps this many a dispatch
 CALIBRATION_ROUNDS = 20
@@ -115,6 +132,50 @@ def mark(name: str) -> None:
     tracer = getattr(_state, "tracer", None)
     if tracer is not None:
         tracer._stamp(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name`` (of :data:`HOST_COUNTERS`) of
+    the current dispatch, where a tracing tracer is active on this thread;
+    else nothing."""
+    tracer = getattr(_state, "tracer", None)
+    if tracer is not None:
+        target = tracer._recording if tracer._recording is not None else tracer._pending
+        target[name] += n
+
+
+def count_device(name: str, t: torch.Tensor) -> None:
+    """Add the 0-d integer device tensor ``t`` to the device counter
+    ``name`` (of :data:`DEVICE_COUNTERS`) on the card, in stream order (a
+    captured graph adds it at each replay), where a tracing tracer is active
+    on this thread; else nothing."""
+    tracer = getattr(_state, "tracer", None)
+    if tracer is not None:
+        tracer._device_counts[DEVICE_COUNTERS.index(name)].add_(t.reshape(()))
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[collections.Counter]:
+    """Inside the block (a graph's capture) the host counts go to the
+    yielded counter, which the graph keeps, not to the dispatch."""
+    tracer = getattr(_state, "tracer", None)
+    counted: collections.Counter = collections.Counter()
+    if tracer is None:
+        yield counted
+        return
+    tracer._recording = counted
+    try:
+        yield counted
+    finally:
+        tracer._recording = None
+
+
+def replayed(counted: collections.Counter) -> None:
+    """Add a captured graph's host counts (:func:`recording`) to the current
+    dispatch, at its replay."""
+    tracer = getattr(_state, "tracer", None)
+    if tracer is not None:
+        tracer._pending.update(counted)
 
 
 def start_row(row: int) -> None:
@@ -195,6 +256,13 @@ class Tracer:
         self._row = 0
         self._begun: set = set()
         self._copied = False
+        # the counters: the current dispatch's host counts, a capture's, and
+        # the sums since the last report, with the steps they cover
+        self._pending: collections.Counter = collections.Counter()
+        self._recording: Optional[collections.Counter] = None
+        self._counts: collections.Counter = collections.Counter()
+        self._counted_steps = 0
+        self._device_counts: Optional[torch.Tensor] = None
 
     # ---- switching -----------------------------------------------------
 
@@ -208,6 +276,11 @@ class Tracer:
                                 device=self.device)
         self._meta.clear()
         self._flushed = 0
+        self._pending.clear()
+        self._counts.clear()
+        self._counted_steps = 0
+        self._device_counts = torch.zeros(len(DEVICE_COUNTERS), dtype=torch.int64,
+                                          device=self.device)
         self._calibration = self._calibrate()
         self.enabled = True
 
@@ -264,6 +337,9 @@ class Tracer:
             self._meta.append((self.dispatches, self.steps, steps, slot, self._copied,
                                threading.get_ident()))
             self._flushed += 1
+            self._counts.update(self._pending)
+            self._counted_steps += steps
+        self._pending.clear()
         self.dispatches += 1
         self.steps += steps
 
@@ -347,13 +423,30 @@ class Tracer:
                                       thread))
         return spans
 
+    def counts(self) -> Dict[str, float]:
+        """Each counter a step (:data:`HOST_COUNTERS`, :data:`DEVICE_COUNTERS`)
+        since tracing was switched on or the counts last read, and forget
+        them; reading the device counters synchronises with the card."""
+        steps = self._counted_steps
+        out = {name: self._counts[name] / steps if steps else 0.0 for name in HOST_COUNTERS}
+        if self._device_counts is not None:
+            values = self._device_counts.tolist()
+            self._device_counts.zero_()
+            out.update({name: v / steps if steps else 0.0
+                        for name, v in zip(DEVICE_COUNTERS, values)})
+        self._counts.clear()
+        self._counted_steps = 0
+        return out
+
     def report(self) -> Dict:
         """:func:`reduce` of :meth:`drain`, with the read's clock
-        uncertainty and the rings' drops since the last report."""
+        uncertainty, the rings' drops and the counters a step
+        (:meth:`counts`) since the last report."""
         out = reduce(self.drain())
         out["uncertainty_us"] = self.uncertainty_us
         out["dropped"] = dict(self.dropped)
         self.dropped = dict.fromkeys(self.dropped, 0)
+        out["counts"] = self.counts()
         return out
 
 
@@ -423,5 +516,6 @@ def reduce(spans: Sequence[Span]) -> Dict:
     return out
 
 
-__all__ = ["CALIBRATION_ROUNDS", "DEVICE_SPANS", "HOST_STAGES", "MARKS", "RING_DISPATCHES",
-           "Span", "Tracer", "mark", "reduce", "start_row"]
+__all__ = ["CALIBRATION_ROUNDS", "DEVICE_COUNTERS", "DEVICE_SPANS", "HOST_COUNTERS",
+           "HOST_STAGES", "MARKS", "RING_DISPATCHES", "Span", "Tracer", "count", "count_device",
+           "mark", "recording", "reduce", "replayed", "start_row"]
