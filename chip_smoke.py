@@ -313,9 +313,26 @@ Phases (any failure raises and the exit code is not 0):
     twin and ``F.embedding_bag`` (a yardstick).  On four cards over NCCL:
     the bench model over fields capped at 1M rows, a graphed fit at K = 2
     against eager steps from the same seed, every rank's state to the bit
-    (``--dlrm-rank``); then the bench cell's compared steps at published
-    widths (``h100_bench``'s mesh run) held to the plain reference by the
-    cell's limits.
+    (``--dlrm-rank``), and on each side the launches of the pooled gather
+    (one a forward step outside a replay) and of the cross's combine
+    kernels (3 forward and 3 backward a step); then the bench cell's
+    compared steps at published widths (``h100_bench``'s mesh run) held to
+    the plain reference by the cell's limits.
+28. The low-rank cross's combine kernels (``csrc/cross.cu``, after phase
+    26): each of the layer's routes (float32 ``x0`` with a bf16 product and
+    bias, float32 throughout, bf16 throughout), as a first, a middle and a
+    last layer, at the bench DLRM cell's shape (16,384 x 3,456) and four odd
+    shapes (``CROSS_ODD``), the kernels against their twins: the forward,
+    dx0, dx and dy to the bit, the bias gradient within its reordered sum's
+    bound; three planted faults (the bias add dropped, the copy's gradient
+    ignored, the later layers' gradient of x0 ignored) that the comparison
+    must refuse; the cell's cross (3 layers at rank 512, bf16 products)
+    against the composition of ATen's ops it replaced: the forward to the
+    bit, the gradients within ``CROSS_X0_TOL`` and ``CROSS_PARAM_TOL``, a
+    CUDA-graph replay against eager steps to the bit, 3 + 3 launches; the
+    cross's forward and backward in a graph, both ways, split into GEMMs and
+    the rest; the two kernels warm, cold and in a graph beside their bounds.
+    ``--phases cross`` runs it alone.
 
 The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
@@ -398,7 +415,8 @@ DEVICE = "cuda"
 # (source, macros): the port's two libraries, and the row gather's sweep
 # build (other chunks and reads in flight, for phase 2's [gather-config])
 SWEEP_BUILD = ("embedding.cu", ("TRS_ROW_GATHER_SWEEP",))
-BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD, ("adam.cu", ()))
+BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD, ("adam.cu", ()),
+          ("cross.cu", ()))
 
 
 def make_batches(seed: int, n_batches: int, field_sizes=None):
@@ -6806,6 +6824,7 @@ def dlrm_rank(job_path: str, rank: int) -> None:
     import torch
 
     from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.ops.kernels import cross as KC
     from torecsys_tpu_torch.ops.kernels import embedding as KE
     from torecsys_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
@@ -6820,6 +6839,7 @@ def dlrm_rank(job_path: str, rank: int) -> None:
     sides = {}
     for label, k in (("graphed", DLRM_K), ("eager", 1)):
         KE.pooled_row_gather.launches = 0
+        KC.low_rank_cross_forward.launches = KC.low_rank_cross_backward.launches = 0
         trainer = Trainer(dlrm_pipeline(fields, device), log_every=10**9, seed=job["seed"],
                           steps_per_execution=k, presort=False, mesh=make_mesh(1, job["world"]),
                           lookup_options={"strategy": "psum"})
@@ -6832,6 +6852,8 @@ def dlrm_rank(job_path: str, rank: int) -> None:
         state.update({f"{n}/v": s["v"].clone() for n, s in opt["sparse"].items()})
         sides[label] = {"losses": losses, "state": state, "graphs": dict(trainer.graph_stats),
                         "launches": KE.pooled_row_gather.launches,
+                        "cross": [KC.low_rank_cross_forward.launches,
+                                  KC.low_rank_cross_backward.launches],
                         "layout": str(seq.inputs.schema["emb_inputs"].row_layout)}
         del trainer, seq, opt
         release()
@@ -6839,7 +6861,8 @@ def dlrm_rank(job_path: str, rank: int) -> None:
     differ = sorted(n for n in a["state"] if not torch.equal(a["state"][n], b["state"][n]))
     rec = {"rank": rank, "losses": a["losses"], "eager_losses": b["losses"],
            "differ": differ, "graphs": a["graphs"], "launches": a["launches"],
-           "eager_launches": b["launches"], "layout": a["layout"],
+           "eager_launches": b["launches"], "cross": a["cross"], "eager_cross": b["cross"],
+           "layout": a["layout"],
            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -6884,11 +6907,24 @@ def dlrm_graph_world(seed: int):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     shutil.rmtree(work, ignore_errors=True)
+    # forward steps that launch kernels: the graphed fit's K warm-up and K
+    # captured steps (its replays launch none), and every eager step; each
+    # gathers the multi-hot bags once and runs the cross's CROSS_LAYERS
+    # combines forward and backward
+    forwards = {"graphed": 2 * DLRM_K, "eager": DLRM_STEPS}
     for rec in recs:
         log(f"[dlrm-graph] rank {rec['rank']} ({rec['layout']}): graphed losses {rec['losses']}, "
             f"eager {rec['eager_losses']}; tensors that differ {rec['differ']}; graphs "
             f"{rec['graphs']}; pooled_row_gather launches {rec['launches']} graphed (warm-up "
-            f"and capture), {rec['eager_launches']} eager; peak {rec['peak_gb']:.2f} GB")
+            f"and capture), {rec['eager_launches']} eager; low_rank_cross launches forward/"
+            f"backward {rec['cross']} graphed, {rec['eager_cross']} eager; peak "
+            f"{rec['peak_gb']:.2f} GB")
+        got = {"graphed": (rec["launches"], rec["cross"]),
+               "eager": (rec["eager_launches"], rec["eager_cross"])}
+        want = {k: (n, [CROSS_LAYERS * n] * 2) for k, n in forwards.items()}
+        if got != want:
+            raise AssertionError(f"[dlrm-graph] rank {rec['rank']}: launches (pooled gather, "
+                                 f"[cross forward, backward]) {got}, expected {want}")
         if rec["differ"] or rec["losses"] != rec["eager_losses"]:
             raise AssertionError(f"[dlrm-graph] rank {rec['rank']}: the graphed fit differs "
                                  f"from its eager steps")
@@ -6950,12 +6986,390 @@ def phase_dlrm_mesh(seed: int, out_dir):
     return phase_dlrm(seed, out_dir, mesh_only=True)
 
 
+# ---- phase 28: the low-rank cross's combine kernels --------------------------
+
+# DLRM-DCNv2's cross at the bench cell's shape: the bottom MLP's row and 26
+# bags of 128, three layers at rank 512, batch 16,384
+CROSS_BATCH = DLRM_BATCH
+CROSS_WIDTH = (len(DLRM_FIELDS) + 1) * DLRM_EMBED
+CROSS_RANK = 512
+CROSS_LAYERS = 3
+# (B, D) off the cell's shape: one row; a width off the 8-column vector; a
+# ragged last column block; a ragged last row block
+CROSS_ODD = ((1, 24), (5, 12), (1000, 3461), (333, 3456))
+CROSS_ITERS = 20
+# x0's float32 gradient sums its terms in another order than autograd's:
+# within this share of its largest element (tests/test_torch_cross_kernel.py's
+# tolerance)
+CROSS_X0_TOL = 1e-6
+# The weights' and biases' gradients of the whole cross against autograd over
+# the composition: the weights' should be the same bits (dy is); a bias' is
+# the same bf16 values summed in another order, at most a bf16 step of the
+# largest apart for columns that do not cancel
+CROSS_PARAM_TOL = 1e-2
+# the routes the layer takes: (x0 dtype, y dtype, bias given)
+CROSS_ROUTES = (("float32", "bfloat16", True), ("float32", "float32", False),
+                ("bfloat16", "bfloat16", True))
+UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
+
+
+def cross_bytes(rows: int, cols: int, t_size: int, y_size: int, what: str, **on) -> float:
+    """Bytes one combine kernel must move, each read and write once:
+    ``what`` "forward" (x0, x unless it is x0, y, the bias, x' and its copy)
+    or "backward" (G, its copy's gradient, x0's later gradient, x0, y, the
+    bias, dx0, dx where written, dy, and the bias' float32 partials written
+    and read)."""
+    n = rows * cols
+    if what == "forward":
+        per = t_size * (2 + on["x"]) + y_size * (1 + on["copy"])
+        return n * per + on["bias"] * cols * y_size
+    per = t_size * (3 + on["dx"] + on["grad_x0"]) + y_size * (2 + on["grad_copy"])
+    blocks = -(-rows // 64)
+    return n * per + on["bias"] * (2 * cols * y_size + 2 * blocks * cols * 4)
+
+
+def cross_args(rows: int, cols: int, route, gen, with_x=True, copy=True, grad_copy=True,
+               grad_x0=True):
+    """Inputs of one layer's combine and its backward on the card."""
+    import torch
+
+    t, yt, has_bias = (getattr(torch, n) if isinstance(n, str) else n for n in route)
+    dev = torch.device(DEVICE)
+
+    def draw(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    x0 = draw(rows, cols, dtype=t)
+    return {"x0": x0, "x": draw(rows, cols, dtype=t) if with_x else None,
+            "y": draw(rows, cols, dtype=yt), "bias": draw(cols, dtype=yt) if has_bias else None,
+            "copy": copy and yt != t, "grad": draw(rows, cols, dtype=t),
+            "grad_copy": draw(rows, cols, dtype=yt) if grad_copy and yt != t else None,
+            "grad_x0": draw(rows, cols, dtype=t) if grad_x0 else None}
+
+
+def cross_pair(a, kernel=True, **change):
+    """The combine and its backward on ``a`` (``change``: arguments the call
+    gets instead, for a planted fault): the kernels' or the plain versions'."""
+    from torecsys_tpu_torch.ops.kernels import cross as KC
+
+    a = {**a, **change}
+    fwd = KC.low_rank_cross_forward if kernel else KC.low_rank_cross_forward_plain
+    bwd = KC.low_rank_cross_backward if kernel else KC.low_rank_cross_backward_plain
+    out = fwd(a["x0"], a["x"], a["y"], a["bias"], a["copy"])
+    grads = bwd(a["grad"], a["grad_copy"], a["grad_x0"], a["x0"], a["y"], a["bias"],
+                a["x"] is None)
+    return out, grads
+
+
+def cross_gaps(kernel_side, plain_side, y_dtype: str):
+    """Whether the forward's outputs and the backward's dx0, dx and dy are
+    the same bits, and the bias gradient's worst gap over its bound (the
+    float32 sum of B terms reordered, B u sum|dy|, plus a rounding of the
+    result): ``(bits, bias_gap)``."""
+    import torch
+
+    (out_k, grads_k), (out_p, grads_p) = kernel_side, plain_side
+    bits = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip((*out_k, *grads_k[:3]), (*out_p, *grads_p[:3])))
+    if grads_p[3] is None or grads_k[3] is None:
+        return bits, 0.0 if grads_p[3] is grads_k[3] else float("inf")
+    dy = grads_p[2].float()
+    want = grads_p[3].float()
+    bound = (dy.shape[0] * 2.0 ** -24 * dy.abs().sum(0) + UNIT_ROUNDOFF[y_dtype] * want.abs()
+             + 1e-30)
+    return bits, ((grads_k[3].float() - want).abs() / bound).max().item()
+
+
+def cross_checks(seed: int):
+    """Each route's kernels against their twins at the cell's shape and the
+    odd shapes, as a first, a middle and a last layer: the forward, dx0, dx
+    and dy to the bit, the bias gradient within its bound; then three
+    planted faults (the bias add dropped, the copy's gradient ignored, the
+    later layers' gradient of x0 ignored) that the comparison must refuse."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 28)
+    cases = {}
+    for rows, cols in ((CROSS_BATCH, CROSS_WIDTH),) + CROSS_ODD:
+        for route in CROSS_ROUTES:
+            # the first layer (x is x0), a middle one, the last (no later
+            # layer reads x0 or the copy)
+            for where in ("first", "middle", "last"):
+                a = cross_args(rows, cols, route, gen, with_x=where != "first",
+                               copy=where != "last", grad_copy=where != "last",
+                               grad_x0=where != "last")
+                bits, gap = cross_gaps(cross_pair(a), cross_pair(a, kernel=False), route[1])
+                cases[f"{rows}x{cols} {route[0]}/{route[1]}{'+b' if route[2] else ''} "
+                      f"{where}"] = (bits, gap)
+                del a
+        release()
+    a = cross_args(CROSS_BATCH, CROSS_WIDTH, CROSS_ROUTES[0], gen)
+    plain = cross_pair(a, kernel=False)
+    no_bias = cross_pair(a, bias=None, grad_copy=a["grad_copy"])
+    no_copy_grad = cross_pair(a, grad_copy=None)
+    no_x0_grad = cross_pair(a, grad_x0=None)
+    faults = {"bias_dropped": not cross_gaps(no_bias, plain, "bfloat16")[0],
+              "grad_copy_ignored": not cross_gaps(no_copy_grad, plain, "bfloat16")[0],
+              "grad_x0_ignored": not cross_gaps(no_x0_grad, plain, "bfloat16")[0]}
+    del a, plain, no_bias, no_copy_grad, no_x0_grad
+    release()
+    worst = max(gap for _, gap in cases.values())
+    log(f"[cross] kernels against their twins: forward, dx0, dx, dy bit-identical in "
+        f"{sum(b for b, _ in cases.values())} of {len(cases)} cases; bias gradient's worst "
+        f"gap {worst:.3g} of its bound; planted faults refused: {faults}")
+    bad = {k: v for k, v in cases.items() if not v[0] or v[1] > 1}
+    if bad:
+        raise AssertionError(f"[cross] the kernels differ from their twins: {bad}")
+    if not all(faults.values()):
+        raise AssertionError(f"[cross] a planted fault passed the comparison: {faults}")
+    return {"cases": {k: {"bits": b, "bias_gap": g} for k, (b, g) in cases.items()},
+            "faults_refused": faults}
+
+
+def cross_layer(seed: int, compute="bfloat16"):
+    """The bench cell's cross, 3 layers at rank 512, as the DLRM model builds
+    it, with biases drawn away from 0; its input and the output's gradient."""
+    import torch
+
+    from torecsys_tpu_torch.layers.ctr import LowRankCrossNetworkLayer
+    from torecsys_tpu_torch.layers.precision import apply_compute_dtype
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    layer = LowRankCrossNetworkLayer(CROSS_LAYERS, CROSS_WIDTH, CROSS_RANK, device=DEVICE,
+                                     generator=gen)
+    with torch.no_grad():
+        for i in range(CROSS_LAYERS):
+            getattr(layer, f"u_{i}").bias.normal_(0.0, 0.1, generator=gen)
+    apply_compute_dtype(layer, compute)
+    x0 = torch.randn(CROSS_BATCH, CROSS_WIDTH, generator=gen, device=DEVICE)
+    upstream = torch.randn(CROSS_BATCH, CROSS_WIDTH, generator=gen, device=DEVICE)
+    return layer, x0, upstream
+
+
+def cross_composed(layer, x0):
+    """The cross as ATen's ops composed it before the kernels: a layer's
+    ``x0 * u(v(x)).to(x0.dtype) + x``, autograd's backward."""
+    x = x0
+    for i in range(layer.num_layers):
+        x = x0 * getattr(layer, f"u_{i}")(getattr(layer, f"v_{i}")(x)).to(x0.dtype) + x
+    return x
+
+
+class CrossStep:
+    """One forward and backward of the cross (``fn``: the layer's own, or
+    :func:`cross_composed`), eager from zeroed gradients, or replayed from a
+    CUDA graph whose gradients it writes; :meth:`result` is the output and
+    every gradient."""
+
+    def __init__(self, layer, x0, upstream, fn):
+        self.layer, self.upstream, self.fn = layer, upstream, fn
+        self.x = x0.clone().requires_grad_()
+        self.graph = None
+        self.out = None
+
+    def _leaves(self):
+        return (self.x, *self.layer.parameters())
+
+    def _run(self):
+        out = self.fn(self.layer, self.x)
+        (out * self.upstream).sum().backward()
+        self.out = out.detach()  # keeps no autograd graph alive
+
+    def eager(self):
+        for t in self._leaves():
+            if t.grad is not None:
+                t.grad.zero_()
+        self._run()
+
+    def capture(self):
+        """Warm up on a side stream, then capture from no gradients, so the
+        graph's backward makes them (torch's whole-network capture)."""
+        import torch
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.eager()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        for t in self._leaves():
+            t.grad = None
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._run()
+
+    def replay(self):
+        self.graph.replay()
+
+    def result(self):
+        return {"out": self.out.clone(), "x0": self.x.grad.clone(),
+                **{n: p.grad.clone() for n, p in self.layer.named_parameters()}}
+
+
+def cross_module_checks(seed: int):
+    """The cross at the cell's shape, kernels against the composition they
+    replaced: the forward to the bit, x0's gradient within CROSS_X0_TOL, the
+    parameters' within CROSS_PARAM_TOL of their largest; a graph replay
+    against eager steps of the kernels' cross to the bit; 3 + 3 launches."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import cross as KC
+
+    layer, x0, upstream = cross_layer(seed)
+    kernel = CrossStep(layer, x0, upstream, lambda m, x: m(x))
+    KC.low_rank_cross_forward.launches = KC.low_rank_cross_backward.launches = 0
+    kernel.eager()
+    launches = (KC.low_rank_cross_forward.launches, KC.low_rank_cross_backward.launches)
+    got = kernel.result()
+    composed = CrossStep(layer, x0, upstream, cross_composed)
+    composed.eager()
+    want = composed.result()
+    forward_bits = torch.equal(got["out"], want["out"])
+    x0_gap = ((got["x0"] - want["x0"]).abs().max() / want["x0"].abs().max()).item()
+    params = [n for n in got if n not in ("out", "x0")]
+    param_gaps = {n: ((got[n] - want[n]).abs().max() / want[n].abs().max()).item()
+                  for n in params}
+    param_bits = [n for n in params if torch.equal(got[n], want[n])]
+    kernel.capture()
+    kernel.replay()
+    replayed = kernel.result()
+    kernel.eager()
+    eager = kernel.result()
+    replay_bits = all(torch.equal(replayed[k], eager[k]) for k in eager)
+    replay_vs_first = all(torch.equal(replayed[k], got[k]) for k in got)
+    log(f"[cross] the cell's cross ({CROSS_BATCH}x{CROSS_WIDTH}, rank {CROSS_RANK}, "
+        f"{CROSS_LAYERS} layers, bf16 products) against the composition: forward bit-identical "
+        f"{forward_bits}; x0's gradient gap {x0_gap:.3g} of its largest (tolerance "
+        f"{CROSS_X0_TOL}); parameters' worst gap {max(param_gaps.values()):.3g} "
+        f"(tolerance {CROSS_PARAM_TOL}), bit-identical {len(param_bits)} of {len(params)}; "
+        f"launches forward/backward {launches}; a graph replay against eager steps "
+        f"bit-identical {replay_bits} (and against the first eager step {replay_vs_first})")
+    if not (forward_bits and x0_gap <= CROSS_X0_TOL
+            and max(param_gaps.values()) <= CROSS_PARAM_TOL):
+        raise AssertionError(f"[cross] the kernels' cross is off the composition's: forward "
+                             f"{forward_bits}, x0 {x0_gap}, parameters {param_gaps}")
+    if not (replay_bits and replay_vs_first) or launches != (CROSS_LAYERS, CROSS_LAYERS):
+        raise AssertionError(f"[cross] replay bit-identical {replay_bits}/{replay_vs_first}, "
+                             f"launches {launches}")
+    rec = {"forward_bits": forward_bits, "x0_gap": x0_gap, "param_gaps": param_gaps,
+           "param_bits": param_bits, "replay_bits": replay_bits, "launches": launches}
+    return rec, (layer, x0, upstream, kernel, composed)
+
+
+def graph_of(fn):
+    """A CUDA graph of one call of ``fn`` (after an eager one)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def cross_kernel_times(seed: int):
+    """The middle layer's two kernels at the cell's shape (x distinct from
+    x0, the bf16 copy, its gradient and x0's from the last layer, the bias):
+    warm, cold and in a CUDA graph, beside their bounds."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import cross as KC
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    a = cross_args(CROSS_BATCH, CROSS_WIDTH, CROSS_ROUTES[0], gen)
+    calls = {
+        "forward": (lambda: KC.low_rank_cross_forward(a["x0"], a["x"], a["y"], a["bias"], True),
+                    cross_bytes(CROSS_BATCH, CROSS_WIDTH, 4, 2, "forward", x=True, copy=True,
+                                bias=True)),
+        "backward": (lambda: KC.low_rank_cross_backward(a["grad"], a["grad_copy"],
+                                                        a["grad_x0"], a["x0"], a["y"],
+                                                        a["bias"]),
+                     cross_bytes(CROSS_BATCH, CROSS_WIDTH, 4, 2, "backward", dx=True,
+                                 grad_copy=True, grad_x0=True, bias=True)),
+    }
+    rec = {}
+    for name, (call, n_bytes) in calls.items():
+        r = time_keys("kernel_ms", time_ms(call, CROSS_ITERS))
+        r["cold_ms"] = cold_time_ms(call, CROSS_ITERS)
+        r.update(time_keys("graph_ms", time_ms(graph_of(call).replay, CROSS_ITERS)))
+        r["bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        r["graph_over_bound"] = r["graph_ms"] / r["bound_ms"]
+        log(f"[cross] {name} at {CROSS_BATCH}x{CROSS_WIDTH} (float32 x0, bf16 y and copy, "
+            f"bias): " + " ".join(times_text(k, (r[k], r[f"{k}_events"]))
+                                  for k in ("kernel_ms", "graph_ms"))
+            + f" cold_ms={r['cold_ms']:.4f}; bound {r['bound_ms']:.4f} ms ({n_bytes / 1e9:.3f} "
+            f"GB); in the graph {r['graph_over_bound']:.2f}x the bound")
+        rec[name] = r
+    del a, calls
+    release()
+    return rec
+
+
+GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+
+
+def cross_step_split(graph) -> dict:
+    """Device ms of one replay of ``graph``, by kernel: the GEMMs' and the
+    rest's, and the largest names."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    by_name = Counter()
+    for _ in range(3):  # a window now and then comes back without its kernels
+        with card_profile() as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            break
+    for e in events:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    gemm = sum(ms for n, ms in by_name.items() if any(m in n.lower() for m in GEMM_MARKS))
+    total = sum(by_name.values())
+    return {"total_ms": total, "gemm_ms": gemm, "other_ms": total - gemm, "kernels": len(events),
+            "top": [(n[:60], round(ms, 4)) for n, ms in by_name.most_common(8)]}
+
+
+def cross_step_times(steps):
+    """The cross's forward and backward at the cell's shape, each side in a
+    CUDA graph: the kernels' and the composition's device ms, split into
+    GEMMs and the rest."""
+    _, _, _, kernel, composed = steps
+    composed.capture()
+    rec = {}
+    for name, side in (("kernel", kernel), ("composed", composed)):
+        r = time_keys("graph_ms", time_ms(side.graph.replay, CROSS_ITERS))
+        r.update(cross_step_split(side.graph))
+        rec[name] = r
+        log(f"[cross] the cell's cross, forward and backward, {name}: "
+            + times_text("graph_ms", (r["graph_ms"], r["graph_ms_events"]))
+            + f"; one replay {r['total_ms']:.4f} ms on the card in {r['kernels']} kernels: GEMMs "
+            f"{r['gemm_ms']:.4f}, the rest {r['other_ms']:.4f}; largest {r['top']}")
+    return rec
+
+
+def phase_cross(seed: int, out_dir):
+    """Phase 28: the low-rank cross's combine kernels (module docstring)."""
+    record = {"checks": cross_checks(seed)}
+    record["module"], steps = cross_module_checks(seed)
+    record["step"] = cross_step_times(steps)
+    del steps
+    release()
+    record["kernels"] = cross_kernel_times(seed)
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_cross.json"), "w") as f:
+            json.dump(record, f, indent=1)
+    return record
+
+
 # the phases --phases runs alone: the graphed throughput paths, the quality
 # phase and the whole parity protocol
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
                 "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel,
                 "quality": phase_quality, "parity": phase_parity, "adam": phase_adam,
-                "dlrm": phase_dlrm, "dlrm_mesh": phase_dlrm_mesh}
+                "dlrm": phase_dlrm, "dlrm_mesh": phase_dlrm_mesh, "cross": phase_cross}
 
 
 def main(argv=None):
@@ -7039,6 +7453,7 @@ def main(argv=None):
     records = timed("kernels", phase_kernels, batch, args.seed)
     presort = timed("presort", phase_presort, args.seed)
     adam = timed("adam", phase_adam, args.seed, args.out)
+    timed("cross", phase_cross, args.seed, args.out)
     trainer, train = timed("train", phase_train, args.seed, args.steps, args.out, args.profile)
     evaluation = timed("eval", phase_eval, trainer, args.seed)
     del trainer

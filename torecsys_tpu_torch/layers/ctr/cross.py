@@ -68,8 +68,10 @@ class LowRankCrossNetworkLayer(nn.Module):
     Layer ``i`` holds ``v_{i}``, a :class:`Dense` ``D → rank`` without bias,
     and ``u_{i}``, a :class:`Dense` ``rank → D`` whose bias is ``b``: their
     products follow the pipeline's compute dtype (under bf16 each rounds to
-    bf16, and ``b`` is added in bf16), and the combine
-    (``ops.interactions.low_rank_cross``) runs in the input's dtype.
+    bf16, and ``b`` is added in bf16), and the combine runs in the input's
+    dtype.  ``ops.interactions.low_rank_cross`` takes ``b``'s add, the
+    combine and, under bf16, ``x'``'s bf16 copy that the next ``v`` reads,
+    in one kernel forward and one backward on the card.
     """
 
     def __init__(self, num_layers: int, in_features: int, rank: int,
@@ -88,10 +90,11 @@ class LowRankCrossNetworkLayer(nn.Module):
             getattr(self, f"u_{i}").reset_parameters(generator)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        x0 = inputs.reshape(inputs.shape[0], -1)
-        x = x0
+        x0 = inputs.reshape(inputs.shape[0], -1).contiguous()
+        x = v_input = x0
         for i in range(self.num_layers):
-            x = low_rank_cross(x0, x, getattr(self, f"u_{i}")(getattr(self, f"v_{i}")(x)))
+            y, bias = getattr(self, f"u_{i}").product_and_bias(getattr(self, f"v_{i}")(v_input))
+            x, v_input, x0 = low_rank_cross(x0, x, y, bias, last=i + 1 == self.num_layers)
         return x.reshape(inputs.shape)
 
 

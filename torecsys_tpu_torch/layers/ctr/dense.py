@@ -6,7 +6,7 @@ flax initializers the port's layers draw from."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,13 +75,21 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, bias = self.product_and_bias(x)
+        return y if bias is None else y + bias
+
+    def product_and_bias(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``forward(x)`` as ``(y, b)``, ``b`` still to be added in ``y``'s
+        dtype: under a compute dtype the product rounded to it and the bias
+        in it; in float32 the whole output (the product adds the bias) and
+        None."""
         dtype = self.compute_dtype
         if dtype is None:
-            return F.linear(x, self.weight, self.bias)
+            return F.linear(x, self.weight, self.bias), None
         # the product rounded to dtype, then the bias added in dtype: two
         # roundings, as flax's Dense(dtype=bf16) takes them
         y = F.linear(x.to(dtype), self.weight.to(dtype))
-        return y if self.bias is None else y + self.bias.to(dtype)
+        return y, None if self.bias is None else self.bias.to(dtype)
 
 
 class MultilayerPerceptionLayer(nn.Module):

@@ -4,14 +4,22 @@ Each is a plain function of tensors, as in the JAX package: one pair-index
 gather and one fused product instead of Python pair loops.  The JAX package
 computes all of them outside any Pallas kernel (XLA's einsums and
 gathers), so here they are PyTorch operations; their products are
-``torch.matmul`` (cuBLAS on the card).  The pairs ``i < j`` come in the
-JAX package's row-major order from ``torch.triu_indices`` on the inputs'
-device: no copy from the host, so a CUDA graph can capture them.
+``torch.matmul`` (cuBLAS on the card).  The port's own DCN-v2 combine,
+:func:`low_rank_cross`, which the JAX package lacks, is one hand-written
+kernel forward and one backward (``ops.kernels.cross``).  The pairs
+``i < j`` come in the JAX package's row-major order from
+``torch.triu_indices`` on the inputs' device: no copy from the host, so a
+CUDA graph can capture them.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+
+from torecsys_tpu_torch.ops.kernels import cross as _cross
+from torecsys_tpu_torch.utils import trace
 
 
 def _pairs(n: int, device: torch.device):
@@ -89,12 +97,55 @@ def cross_layer(x0: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     return x0 * xw[:, None] + bias[None, :] + x
 
 
-def low_rank_cross(x0: torch.Tensor, x: torch.Tensor, projected: torch.Tensor) -> torch.Tensor:
+class _LowRankCross(torch.autograd.Function):
+    """One low-rank cross layer's combine, forward and backward each one
+    pass (``ops.kernels.cross``; the plain versions on the CPU).  Keeps
+    ``x0``, ``y`` and ``b`` for the backward, which recomputes ``p`` from
+    them: no float32 ``p`` is kept.  Its third output is ``x0`` for the next
+    layer: that layer's gradient of ``x0`` comes back through it, and the
+    backward adds it into its own, in the same pass; so does the gradient of
+    ``x`` where ``x`` is ``x0`` itself (the first layer)."""
+
+    @staticmethod
+    def forward(ctx, x0, x, y, bias, copy):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x0, y, bias)
+        ctx.x_is_x0 = x is x0
+        ctx.tracer = trace.current()
+        out, out_copy = _cross.low_rank_cross_forward(x0, x, y, bias, copy)
+        return out, out_copy, x0.view_as(x0)
+
+    @staticmethod
+    def backward(ctx, grad, grad_copy, grad_x0):
+        x0, y, bias = ctx.saved_tensors
+        # autograd may hand in a strided or expanded gradient (``sum()``'s):
+        # the kernel reads rows of D packed elements
+        grad, grad_copy, grad_x0 = (None if g is None else g.contiguous()
+                                    for g in (grad, grad_copy, grad_x0))
+        dx0, dx, dy, dbias = _cross.low_rank_cross_backward(grad, grad_copy, grad_x0, x0, y,
+                                                            bias, ctx.x_is_x0, ctx.tracer)
+        return dx0, dx, dy, dbias, None
+
+
+def low_rank_cross(x0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, last: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One DCN-v2 low-rank cross layer's combine on ``(B, D)``: ``x' = x0 *
-    projected + x``, ``projected = U (V x) + b`` (its products are the
-    layer's, ``layers.ctr.cross.LowRankCrossNetworkLayer``), in ``x0``'s
-    dtype."""
-    return x0 * projected.to(x0.dtype) + x
+    (y + b) + x`` in ``x0``'s dtype, with ``y + b`` in ``y``'s dtype; ``y =
+    U (V x)`` and ``b`` are the layer's
+    (``layers.ctr.cross.LowRankCrossNetworkLayer``; ``bias`` None where
+    ``y`` already holds it); ``x`` is ``x0`` itself in the first layer.
+
+    Returns ``(x', v_input, x0)``: ``v_input`` is what the next layer's V
+    product reads, ``x'`` in ``y``'s dtype, written by the same pass, where
+    the dtypes differ and the layer is not the ``last``, else ``x'``; ``x0``
+    is for the next layer's combine (the same values; through it that
+    layer's gradient of ``x0`` reaches this layer's backward, which adds it
+    in the same pass).  Differentiable in ``x0``, ``x``, ``y`` and
+    ``bias``; one kernel forward and one backward on the card
+    (``ops.kernels.cross``)."""
+    out, out_copy, x0 = _LowRankCross.apply(x0, x, y, bias, not last and y.dtype != x0.dtype)
+    return out, out if out_copy is None else out_copy, x0
 
 
 def cin_interaction(x0: torch.Tensor, xk: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
