@@ -14,7 +14,6 @@ is held to ``X0_GRAD_TOL`` of its largest element: a few roundings of float32
 """
 
 import copy
-import threading
 import types
 
 import pytest
@@ -24,7 +23,6 @@ from torecsys_tpu_torch.layers.ctr import LowRankCrossNetworkLayer
 from torecsys_tpu_torch.layers.precision import apply_compute_dtype
 from torecsys_tpu_torch.ops import kernels
 from torecsys_tpu_torch.ops.kernels import cross as cross_kernel
-from torecsys_tpu_torch.utils import trace
 
 LAYERS = 3
 RANK = 16
@@ -131,29 +129,19 @@ def test_card_branch_with_the_plain_versions_standing_in(monkeypatch, compute, b
     kernel needs: the first layer's x passed as x0, the bf16 copy made for
     the layers whose successor reads it, x0's gradient from every layer but
     the last, the bias partials of 64-row blocks, ``dx`` written only where
-    the copy had a gradient; the results equal the CPU's; ``launches`` and
-    the tracer's ``cross_fused`` count 3 + 3, the backward's counted from
-    autograd's other thread."""
+    the copy had a gradient; the results equal the CPU's; ``launches``
+    count 3 + 3."""
     layer = make_layer(compute, torch.float32, d)
     x0, upstream = inputs(b, d, torch.float32)
     want, want_dx0, want_dparams = grads(lambda m, x: m(x), copy.deepcopy(layer), x0, upstream)
     calls = card_branch(monkeypatch)
-    tracer = trace.Tracer(torch.device("cpu"))
-    tracer.enable(1)
     before = (cross_kernel.low_rank_cross_forward.launches,
               cross_kernel.low_rank_cross_backward.launches)
     x = x0.clone().requires_grad_()
-    with tracer.active():
-        tracer.begin_dispatch()
-        out = layer(x)
-    worker = threading.Thread(target=lambda: (out * upstream).sum().backward())
-    worker.start()
-    worker.join(timeout=60)
-    assert not worker.is_alive()
-    tracer.end_dispatch(1)
+    out = layer(x)
+    (out * upstream).sum().backward()
     assert (cross_kernel.low_rank_cross_forward.launches - before[0],
             cross_kernel.low_rank_cross_backward.launches - before[1]) == (LAYERS, LAYERS)
-    assert tracer.counts()["cross_fused"] == 2 * LAYERS
     assert torch.equal(out, want) and torch.equal(x.grad, want_dx0)
     for name, p in layer.named_parameters():
         assert torch.equal(p.grad, want_dparams[name]), name
@@ -219,19 +207,24 @@ def test_vector_path_needs_whole_vectors_on_16_byte_boundaries():
 
 def test_trainer_counts_cross_fused_only_where_the_kernel_ran(monkeypatch):
     """Through the Trainer on the CPU (the small DLRM-DCNv2 of the gloo
-    tests, 2 cross layers): the plain twin counts nothing; the card branch
-    counts 2 + 2 a step."""
+    tests, 2 cross layers), the wrappers' ``launches``, set to 0 before each
+    run: the plain twin launches nothing; the card branch 2 forward and 2
+    backward a step."""
     from dlrm_ranks import batches, pipeline
 
     from torecsys_tpu_torch import Trainer
 
-    def counted():
+    feed = batches(19, 2)
+
+    def launched():
+        cross_kernel.low_rank_cross_forward.launches = 0
+        cross_kernel.low_rank_cross_backward.launches = 0
         trainer = Trainer(pipeline(True), seed=0, log_every=10**9, presort=False)
         trainer.init_state()
-        trainer.set_tracing(True)
-        trainer.train_steps(batches(19, 2))
-        return trainer.trace_report()["counts"]["cross_fused"]
+        trainer.train_steps(feed)
+        return (cross_kernel.low_rank_cross_forward.launches,
+                cross_kernel.low_rank_cross_backward.launches)
 
-    assert counted() == 0
+    assert launched() == (0, 0)
     card_branch(monkeypatch)
-    assert counted() == 4
+    assert launched() == (2 * len(feed), 2 * len(feed))

@@ -29,8 +29,11 @@ from torecsys_tpu_torch.parallel import lookup as PL
 from torecsys_tpu_torch.parallel.mesh import Mesh, make_mesh
 from torecsys_tpu_torch.parallel.sharding import (
     infer_param_sharding,
+    local_shard,
     shard_batch,
+    shard_module,
     shard_params,
+    unshard_module,
 )
 
 MESHES = ((1, 4), (2, 2), (4, 1))
@@ -279,6 +282,49 @@ def test_the_bench_table_shards_at_two_and_replicates_at_four_and_eight(ts, want
     assert tuple(jspec.spec) == want
     ctx = PL.LookupContext(mesh=mesh)
     assert PL._collective(ctx, 4_110_550)
+
+
+def test_a_table_drawn_under_a_layout_holds_its_rows_of_the_one_device_draw():
+    """At (1, 4), each table rank's ``shard_module`` then ``reset_parameters``
+    (``Trainer.init_state``'s order) of a fused table, a bf16 one, a
+    field-aware one and a sequence input's holds, bit for bit, its rows of
+    the one-device draw from the same seed, and leaves the generator where
+    the one-device draw does; drawn again after ``unshard_module``, the
+    same."""
+    from torecsys_tpu_torch.inputs import (ListIndicesEmbedding, MultiIndicesEmbedding,
+                                           MultiIndicesFieldAwareEmbedding)
+
+    def tables():
+        bf16 = MultiIndicesEmbedding(4, (400, 240), ("a", "b"), device="cpu")
+        bf16.set_table_dtype(torch.bfloat16)
+        return torch.nn.ModuleDict({
+            "fused": MultiIndicesEmbedding(4, (400, 240), ("a", "b"), device="cpu"),
+            "bf16": bf16,
+            "field_aware": MultiIndicesFieldAwareEmbedding(4, (400, 240), ("a", "b"),
+                                                           device="cpu"),
+            "sequence": ListIndicesEmbedding(64, 4, ("s",), device="cpu")})
+
+    def drawn(module, seed):
+        gen = torch.Generator().manual_seed(seed)
+        module.reset_parameters(gen)
+        return module.embedding.detach().clone(), torch.rand(4, generator=gen)
+
+    whole = {name: drawn(m, 11) for name, m in tables().items()}
+    for t in range(4):
+        mesh = Mesh(1, 4, torch.device("cpu"))
+        mesh.coordinate = (0, t)
+        seq = tables()
+        layouts = shard_module(seq, mesh, min_rows_to_shard=0)
+        assert sorted(layouts) == [f"{name}.embedding" for name in sorted(seq)]
+        for _ in range(2):
+            for name, m in seq.items():
+                table, after = drawn(m, 11)
+                assert m.row_layout is not None and table.dtype == whole[name][0].dtype, name
+                assert torch.equal(table, local_shard(whole[name][0], m.row_layout)), (name, t)
+                assert torch.equal(after, whole[name][1]), name
+            unshard_module(seq)
+            assert all(m.embedding.is_meta and m.row_layout is None for m in seq.values())
+            shard_module(seq, mesh, min_rows_to_shard=0)
 
 
 def test_shard_batch_keeps_each_data_slice():

@@ -19,9 +19,9 @@ aux as one :class:`SparseLookup`, which the train step takes back with
 :meth:`TableInput.take_lookup` after ``loss.backward()``.  A second
 application before the lookup is taken raises: its gradient would be summed
 against one call site's ids.  The row-wise optimizer sees each table as the
-2-D ``(rows, W)`` view :meth:`TableInput.table_view`.  A multi-hot
-module's leaf is its ``(B, N, E)`` bag sums: each slot's gradient is its
-bag's (:attr:`SparseLookup.bags`).
+2-D ``(rows, W)`` view :meth:`TableInput.table_view`, and the module turns
+its lookup into the update's id-sorted stream
+(:meth:`TableInput.sorted_slot_grads`), by its own rule for the ids.
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ from torch import nn
 
 from torecsys_tpu_torch.inputs.base import BaseInput, Batch
 from torecsys_tpu_torch.ops.embedding import bag_starts, field_offsets, packed_shape, slot_bags
+from torecsys_tpu_torch.ops.sparse import sort_bag_grads, sort_slot_grads
 from torecsys_tpu_torch.parallel.lookup import (maybe_sharded_packed_lookup,
                                                 maybe_sharded_pooled_lookup)
+from torecsys_tpu_torch.parallel.sharding import allocated_table, draw_table
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device, trace
 
 
@@ -46,13 +48,11 @@ class SparseLookup:
     """One sparse-route lookup: the leaf ``rows`` whose ``.grad`` is the
     per-slot table gradient, the shifted ``ids`` and the presort ``aux``
     (None when the batch carries none).  A multi-hot lookup's leaf is its
-    ``(B, N, E)`` bag sums, ``ids`` its ``(B, S)`` slots and ``bags`` the
-    ``(S,)`` bag of each slot, whose cotangent is the slot's gradient."""
+    ``(B, N, E)`` bag sums and ``ids`` its ``(B, S)`` slots."""
 
     rows: torch.Tensor
     ids: torch.Tensor
     aux: Optional[Dict]
-    bags: Optional[torch.Tensor] = None
 
 
 class ValueInput(BaseInput):
@@ -90,9 +90,6 @@ class TableInput(BaseInput):
 
     embed_size: int
     embedding: nn.Parameter
-    # whether reset_parameters allocates the table and draws, under a mesh,
-    # only this rank's rows of it (MultiHotIndicesEmbedding)
-    draws_own_rows = False
 
     def _init_table(self, shape, device) -> None:
         self.embedding = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
@@ -107,15 +104,9 @@ class TableInput(BaseInput):
 
     def reset_parameters(self, generator=None) -> None:
         """Draw the table in float32 and store it in its dtype (a bf16 table
-        holds the float32 draw rounded)."""
-        with torch.no_grad():
-            if self.embedding.dtype == torch.float32:
-                self._draw(self.embedding, generator)
-            else:
-                drawn = torch.empty(self.embedding.shape, dtype=torch.float32,
-                                    device=self.embedding.device)
-                self._draw(drawn, generator)
-                self.embedding.copy_(drawn)
+        holds the float32 draw rounded); under a ``row_layout``, this rank's
+        rows of the whole table's draw (``parallel.sharding.draw_table``)."""
+        draw_table(self, self._draw, generator)
 
     def set_table_dtype(self, dtype: torch.dtype) -> None:
         """Store the table in ``dtype`` (float32 or bfloat16; the pipeline's
@@ -165,9 +156,19 @@ class TableInput(BaseInput):
         rows = self._gather(self.embedding.detach(), ids)
         trace.mark("lookup.end")
         rows.requires_grad_(True)
-        self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch),
-                                    bags=getattr(self, "bags", None))
+        self._lookup = SparseLookup(rows=rows, ids=ids, aux=self._find_presort_aux(batch))
         return rows
+
+    def sorted_slot_grads(self, ids: torch.Tensor, grads: torch.Tensor):
+        """The sparse update's stream of a lookup (its ``ids`` and its leaf's
+        gradient ``grads``, of the global batch under a split data axis):
+        ``(M,)`` id-sorted int32 ids and their ``(M, E)`` gradients.  A
+        negative id in ``[-rows, 0)`` was read from row ``rows + id`` of the
+        logical view (``jnp.take``'s rule): its update goes there too."""
+        rows = self.logical_rows()
+        b, e = ids.shape[0], grads.shape[-1]
+        ids = torch.where(ids < 0, ids + rows, ids)
+        return sort_slot_grads(ids.reshape(b, -1), grads.reshape(b, -1, e))
 
     def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
         """This module's presort aux in the batch, if the pipeline attached it."""
@@ -354,8 +355,6 @@ class MultiHotIndicesEmbedding(TableInput):
     a Trainer is drawn by calling :meth:`reset_parameters`.
     """
 
-    draws_own_rows = True
-
     def __init__(self, embed_size: int, field_sizes: Sequence[int], hots: Sequence[int],
                  fields: Sequence[str], init_std: float = 0.01, device: DeviceLike = None):
         super().__init__()
@@ -397,32 +396,23 @@ class MultiHotIndicesEmbedding(TableInput):
         finally:
             self._parameters["embedding"] = table
 
-    def release_table(self) -> None:
-        """Hand the table back (an unallocated parameter of the whole table's
-        shape), to be laid out and drawn again."""
-        self.embedding = nn.Parameter(torch.empty(self.global_shape, device="meta"),
-                                      requires_grad=self.embedding.requires_grad)
-        self.row_layout = None
-
     def set_table_dtype(self, dtype: torch.dtype) -> None:
         if dtype != torch.float32:
             raise ValueError(f"MultiHotIndicesEmbedding keeps a float32 table, got {dtype}")
 
     def reset_parameters(self, generator=None) -> None:
-        """Allocate this rank's rows of the table (all of them without a
-        layout) and draw them, block by block (see the class docstring)."""
+        """Draw this rank's rows of the table (all of them without a layout),
+        block by block (see the class docstring), allocating them first where
+        they are not (``parallel.sharding.allocated_table``)."""
         if generator is None:
             generator = default_generator(self.device)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=generator.device).item())
         vp, w = self.global_shape
         lay = self.row_layout
-        first, count = 0, vp
-        if lay is not None and lay.sharded:
-            first, count = lay.index * lay.shard_rows, lay.shard_rows
-        table = torch.empty((count, w), dtype=torch.float32, device=self.device)
+        first, count = (0, vp) if lay is None else (lay.index * lay.shard_rows, lay.shard_rows)
         pack, e = w // self.embed_size, self.embed_size
-        logical = table.view(-1, e)
+        logical = allocated_table(self, self.device).detach().view(-1, e)
         lo, hi = first * pack, (first + count) * pack
         total = sum(self.field_sizes)
         logical[max(0, total - lo):].zero_()  # the last stored row's padding
@@ -436,7 +426,6 @@ class MultiHotIndicesEmbedding(TableInput):
             a, b = max(b0, lo), min(b0 + n, hi)
             logical[a - lo:b - lo].copy_(drawn[a - b0:b - b0])
             del drawn
-        self.embedding = nn.Parameter(table, requires_grad=self.embedding.requires_grad)
 
     def output_shape(self) -> Tuple[int, int]:
         return len(self.fields), self.embed_size
@@ -449,6 +438,15 @@ class MultiHotIndicesEmbedding(TableInput):
 
     def _find_presort_aux(self, batch: Optional[Batch]) -> Optional[Dict]:
         return None
+
+    def sorted_slot_grads(self, ids: torch.Tensor, grads: torch.Tensor):
+        """Each ``(B, S)`` slot takes its bag's gradient of the ``(B, N, E)``
+        ``grads`` (``ops.sparse.sort_bag_grads``); an id outside the table
+        added nothing, and updates no row: it becomes the sentinel
+        ``rows``."""
+        rows = self.logical_rows()
+        ids = torch.where((ids >= 0) & (ids < rows), ids, rows)
+        return sort_bag_grads(ids, grads, self.bags)
 
     def forward(self, batch: Batch) -> torch.Tensor:
         ids = self._stack_fields(batch, self.fields)  # (B, S)

@@ -32,6 +32,7 @@ from torecsys_tpu_torch.layers.ctr.attention import MultiHeadDotProductAttention
 from torecsys_tpu_torch.layers.ctr.dense import Dense
 from torecsys_tpu_torch.layers.rnn import CELLS, RNN, Bidirectional
 from torecsys_tpu_torch.parallel.lookup import maybe_sharded_packed_lookup
+from torecsys_tpu_torch.parallel.sharding import draw_table
 from torecsys_tpu_torch.utils import DeviceLike, default_generator, resolve_device
 
 OUTPUT_METHODS = ("avg_pooling", "mean", "max_pooling", "sum", "none")
@@ -84,8 +85,8 @@ class _SequenceTable(BaseInput):
         self.row_layout = None  # this rank's rows when the table is row-sharded
 
     def reset_parameters(self, generator=None) -> None:
-        with torch.no_grad():
-            self.embedding.normal_(0.0, 0.01, generator=generator)
+        # under a row_layout, this rank's rows of the whole table's draw
+        draw_table(self, lambda t, g: t.normal_(0.0, 0.01, generator=g), generator)
 
     def output_shape(self) -> Tuple[int, int]:
         if self.output_method == "none":

@@ -19,7 +19,6 @@ from typing import Optional, Tuple
 import torch
 
 from torecsys_tpu_torch.ops.kernels import cross as _cross
-from torecsys_tpu_torch.utils import trace
 
 
 def _pairs(n: int, device: torch.device):
@@ -111,7 +110,6 @@ class _LowRankCross(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x0, y, bias)
         ctx.x_is_x0 = x is x0
-        ctx.tracer = trace.current()
         out, out_copy = _cross.low_rank_cross_forward(x0, x, y, bias, copy)
         return out, out_copy, x0.view_as(x0)
 
@@ -123,7 +121,7 @@ class _LowRankCross(torch.autograd.Function):
         grad, grad_copy, grad_x0 = (None if g is None else g.contiguous()
                                     for g in (grad, grad_copy, grad_x0))
         dx0, dx, dy, dbias = _cross.low_rank_cross_backward(grad, grad_copy, grad_x0, x0, y,
-                                                            bias, ctx.x_is_x0, ctx.tracer)
+                                                            bias, ctx.x_is_x0)
         return dx0, dx, dy, dbias, None
 
 

@@ -15,8 +15,7 @@ PyTorch op at a time, which is the kernel's specification) for tensors on the
 CPU, launches its kernel for tensors on the card, and raises on anything
 else: a mix of devices, a dtype other than float32 or bf16, a shape or
 layout the kernel does not take.  ``launches`` on each wrapper counts its
-calls that launched the kernel; the tracer's ``cross_fused`` counter
-(``utils.trace``) counts the same, forward and backward together.
+calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from typing import Optional, Tuple
 import torch
 
 from torecsys_tpu_torch.ops import kernels as _k
-from torecsys_tpu_torch.utils import trace as _trace
 
 SOURCE = "cross.cu"
 KINDS = {torch.float32: 0, torch.bfloat16: 1}  # csrc Kind
@@ -128,7 +126,6 @@ def low_rank_cross_forward(x0: torch.Tensor, x: Optional[torch.Tensor], y: torch
         _require_width(x0.shape[1])
         _forward_launch(x0, x0 if x is None else x, y, bias, out, out_copy)
         low_rank_cross_forward.launches += 1
-        _trace.count("cross_fused", 1)
     return out, out_copy
 
 
@@ -172,7 +169,7 @@ def low_rank_cross_backward_plain(
 def low_rank_cross_backward(
         grad: torch.Tensor, grad_copy: Optional[torch.Tensor], grad_x0: Optional[torch.Tensor],
         x0: torch.Tensor, y: torch.Tensor, bias: Optional[torch.Tensor] = None,
-        x_is_x0: bool = False, tracer: Optional[_trace.Tracer] = None,
+        x_is_x0: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor]]:
     """One layer's backward: ``(dx0, dx, dy, dbias)`` as
     :func:`low_rank_cross_backward_plain`, in one pass and the bias' second
@@ -181,8 +178,7 @@ def low_rank_cross_backward(
     forward's two outputs, ``grad_x0`` (in ``x0``'s, or None) that of ``x0``
     as the later layers read it; ``x0``, ``y`` and ``bias`` the forward's
     inputs.  Without ``grad_copy`` ``dx`` is ``grad`` itself, nothing
-    written.  ``tracer``: the tracer to count in, where autograd runs this
-    on another thread than the forward's (``utils.trace.count``)."""
+    written."""
     _check(x0, y, bias, grad=grad, grad_copy=grad_copy, grad_x0=grad_x0)
     given = [t for t in (grad, grad_copy, grad_x0, x0, y, bias) if t is not None]
     if _k.device_kind(*given) == "cpu":
@@ -202,7 +198,6 @@ def low_rank_cross_backward(
         _backward_launch(grad, grad_copy, grad_x0, x0, y, bias, x_is_x0, dx0,
                          None if dx is grad else dx, dy, partials, dbias)
         low_rank_cross_backward.launches += 1
-        _trace.count("cross_fused", 1, tracer)
     elif dbias is not None:
         dbias.zero_()
     return dx0, dx, dy, dbias

@@ -26,7 +26,7 @@ contiguous, padded share of the rows from its full copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +129,10 @@ class RowLayout:
         row past the table is served as zeros by nobody)."""
         return (r >= 0) & (r < self.rows) & (self.owner(r) == self.index)
 
+    def table_shape(self, width: int) -> Tuple[int, ...]:
+        """The whole table's shape, of stored rows ``width`` wide."""
+        return ((self.rows,) if self.blocks == 1 else (self.blocks, self.block_rows)) + (width,)
+
     def global_rows(self) -> torch.Tensor:
         """The global stored rows this rank holds, in its local order (a
         sharded table's only)."""
@@ -205,15 +209,13 @@ def _table_owners(module: nn.Module) -> Dict[str, nn.Module]:
 
 
 def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
-                 min_rows_to_shard: int = DEFAULT_MIN_ROWS_TO_SHARD,
-                 undrawn_only: bool = False) -> Dict[str, RowLayout]:
+                 min_rows_to_shard: int = DEFAULT_MIN_ROWS_TO_SHARD) -> Dict[str, RowLayout]:
     """Shard ``seq``'s tables in place: each sharded table's parameter
     becomes this rank's rows (a new contiguous parameter) and its module's
     ``row_layout`` records them.  Returns ``{parameter name: layout}``.
-    A table not yet allocated (on the ``meta`` device: a module that draws
-    its own rows) stays so, at its rows' shape, and is drawn afterwards;
-    ``undrawn_only`` shards those alone.  A table already laid out keeps its
-    layout.
+    A table not yet allocated (on the ``meta`` device) stays so, at its
+    rows' shape, for ``reset_parameters`` to allocate and draw
+    (:func:`draw_table`).
 
     Raises ``NotImplementedError`` for a parameter that the rules shard but
     whose module does not look up through ``parallel.lookup``."""
@@ -221,18 +223,13 @@ def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
     owners = _table_owners(seq)
     layouts = {}
     for name, spec in specs.items():
-        module = owners.get(name)
-        if module is not None and module.row_layout is not None:
-            layouts[name] = module.row_layout  # laid out before it was drawn
-            continue
         if not spec:
             continue
+        module = owners.get(name)
         if module is None:
             raise NotImplementedError(f"parameter {name!r} is placed row-sharded by the rules, "
                                       "but its module does not look up through "
                                       "parallel.lookup")
-        if undrawn_only and not module.embedding.is_meta:
-            continue
         param = module.embedding
         layout = table_layout(tuple(param.shape), spec, mesh, table_axis)
         module.embedding = nn.Parameter(local_shard(param.detach(), layout).contiguous(),
@@ -243,21 +240,54 @@ def shard_module(seq: nn.Module, mesh: Mesh, table_axis: str = TABLE_AXIS,
 
 
 def unshard_module(seq: nn.Module) -> None:
-    """Give every sharded table of ``seq`` back an (undrawn) parameter of
-    its global shape, as :meth:`reset_parameters` draws it; a table that
-    draws its own rows is released unallocated (``release_table``)."""
+    """Give every sharded table of ``seq`` back an unallocated parameter (on
+    the ``meta`` device) of its global shape and dtype, which
+    ``reset_parameters`` allocates and draws (:func:`draw_table`): the
+    rank's old rows go before anything new is allocated."""
     for module in _table_owners(seq).values():
-        if getattr(module, "draws_own_rows", False):
-            module.release_table()  # drawn again, this rank's rows alone
-            continue
         layout = module.row_layout
         if layout is None:
             continue
         p = module.embedding
-        shape = ((layout.rows,) if layout.blocks == 1
-                 else (layout.blocks, layout.block_rows)) + tuple(p.shape[-1:])
-        module.embedding = nn.Parameter(p.new_empty(shape), requires_grad=p.requires_grad)
+        module.embedding = nn.Parameter(
+            torch.empty(layout.table_shape(p.shape[-1]), dtype=p.dtype, device="meta"),
+            requires_grad=p.requires_grad)
         module.row_layout = None
+
+
+def allocated_table(module: nn.Module, device) -> nn.Parameter:
+    """The table parameter of ``module`` (a table owner, ``_table_owners``),
+    allocated on ``device`` at its shape and dtype where it was not (on the
+    ``meta`` device); its values are then the caller's to draw."""
+    table = module.embedding
+    if table.is_meta:
+        table = nn.Parameter(torch.empty_like(table, device=device),
+                             requires_grad=table.requires_grad)
+        module.embedding = table
+    return table
+
+
+def draw_table(module: nn.Module, draw: Callable[[torch.Tensor, Any], None],
+               generator: Optional[torch.Generator]) -> None:
+    """Draw the table of ``module`` (a table owner, ``_table_owners``):
+    ``draw(t, generator)`` fills a float32 tensor ``t`` of the whole table
+    in place, and the table keeps the rows its ``row_layout`` names (all of
+    them without one), rounded to its dtype.  So each rank of a mesh holds
+    its rows of the one-device draw, and the generator advances as for the
+    whole table; the whole draw is transient (a whole float32 table is drawn
+    in place).  An unallocated table is allocated first, on the generator's
+    device (:func:`allocated_table`)."""
+    table = allocated_table(module, module.embedding.device if generator is None
+                            else generator.device)
+    layout = module.row_layout
+    with torch.no_grad():
+        if layout is None and table.dtype == torch.float32:
+            draw(table, generator)
+            return
+        shape = table.shape if layout is None else layout.table_shape(table.shape[-1])
+        whole = torch.empty(shape, dtype=torch.float32, device=table.device)
+        draw(whole, generator)
+        table.copy_(whole if layout is None else local_shard(whole, layout))
 
 
 def batch_sharding(mesh: Mesh, data_axis: str = DATA_AXIS, stacked: bool = False):
@@ -286,6 +316,6 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh, stacked: bool = False,
     return out
 
 
-__all__ = ["DEFAULT_MIN_ROWS_TO_SHARD", "RowLayout", "axis_layout", "batch_sharding",
-           "infer_param_sharding", "local_shard", "shard_batch", "shard_module", "shard_params",
-           "table_layout", "unshard_module"]
+__all__ = ["DEFAULT_MIN_ROWS_TO_SHARD", "RowLayout", "allocated_table", "axis_layout",
+           "batch_sharding", "draw_table", "infer_param_sharding", "local_shard", "shard_batch",
+           "shard_module", "shard_params", "table_layout", "unshard_module"]

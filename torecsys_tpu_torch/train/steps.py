@@ -8,8 +8,9 @@ The train step dispatches on the state's optimizer layout, chosen at
   and the per-slot table gradients on each embedding's lookup leaf), the
   dense optimizer's step, then the row-wise update of each table's touched rows,
   in place through the kernels: ``update_from_host_aux`` when the batch
-  carries presort aux (the trusted presorted route), else
-  ``sort_slot_grads`` and ``update_sorted`` (the on-device route);
+  carries presort aux (the trusted presorted route), else the table
+  module's id-sorted stream (``TableInput.sorted_slot_grads``, its own rule
+  for the ids) and ``update_sorted`` (the on-device route);
 * the dense step: forward, ``loss.backward()`` (the table gradient is the
   scatter-add of the lookup's backward), and one optimizer step over every
   parameter, the tables included.
@@ -49,9 +50,7 @@ shard's in gradient.  On the sparse route each table's ids and per-slot
 gradients are gathered over the data group in global batch order, so every
 rank takes the global stream's unique rows and sums, as the JAX package's
 step does; a row-sharded table's rank then updates its own rows
-(``ops.sparse.sharded_row_update``).  A multi-hot table's leaf is its bag
-sums: each slot takes its bag's gradient (``ops.sparse.sort_bag_grads``),
-on the on-device route.  Each table rank of a data slice runs
+(``ops.sparse.sharded_row_update``).  Each table rank of a data slice runs
 the same tower on the same slice, so the ranks stay equal without a
 reduction over the table group.
 
@@ -87,7 +86,6 @@ import torch
 from torecsys_tpu_torch.convert import flax_path
 from torecsys_tpu_torch.data.packed import BatchLayout
 from torecsys_tpu_torch.miners import fold_in, seed_key
-from torecsys_tpu_torch.ops.sparse import sort_bag_grads, sort_slot_grads
 from torecsys_tpu_torch.parallel.mesh import DATA_AXIS, TABLE_AXIS
 from torecsys_tpu_torch.parallel.sharding import _table_owners
 from torecsys_tpu_torch.train.pipeline import Pipeline
@@ -299,7 +297,6 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
                 lookup = module.take_lookup()
                 if lookup is None:
                     raise RuntimeError(f"embedding {path!r} was not applied in the step")
-                e = lookup.rows.shape[-1]
                 g = lookup.rows.grad
                 if g is None:
                     g = torch.zeros_like(lookup.rows)
@@ -310,23 +307,10 @@ def make_train_step(pipeline: Pipeline, seed: int = 0,
                 table, slots = module.table_view(), state.opt_state["sparse"][path]
                 layout = module.row_layout
                 if lookup.aux is not None:
-                    row_tx.update_from_host_aux(table, slots, g.reshape(-1, e), lookup.aux,
+                    row_tx.update_from_host_aux(table, slots, g.reshape(-1, g.shape[-1]), lookup.aux,
                                                 state.step, layout=layout)
                     continue
-                rows = module.logical_rows()
-                b = ids.shape[0]
-                if lookup.bags is not None:
-                    # a multi-hot slot takes its bag's gradient; an id outside
-                    # the table added nothing, and updates no row (the sentinel)
-                    ids = torch.where((ids >= 0) & (ids < rows), ids, rows)
-                    sorted_ids, g_sorted = sort_bag_grads(ids, g, lookup.bags)
-                    row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
-                                         layout=layout)
-                    continue
-                # A negative id in [-rows, 0) was read from row rows + id of
-                # the logical view (jnp.take's rule): its update goes there too.
-                ids = torch.where(ids < 0, ids + rows, ids)
-                sorted_ids, g_sorted = sort_slot_grads(ids.reshape(b, -1), g.reshape(b, -1, e))
+                sorted_ids, g_sorted = module.sorted_slot_grads(ids, g)
                 row_tx.update_sorted(table, slots, sorted_ids, g_sorted, state.step,
                                      layout=layout)
         trace.mark("sparse_update.end")

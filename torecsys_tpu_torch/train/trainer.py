@@ -34,13 +34,12 @@ restores ``load_from``, or else (``resume``) the newest checkpoint in
 ``checkpoint_dir``, in place into the fresh state.
 
 Meshes (``parallel``): with ``mesh`` the trainer runs one rank of a
-``(data, table)`` mesh of ranks, one device each.  The parameters are drawn
-from ``seed`` on every rank alike, then the large embedding tables are
-row-sharded over ``table`` (``parallel.sharding``; ``lookup_options``'
-``min_rows_to_shard`` feeds placement and lookup routing alike; a table
-that draws its own rows, ``inputs.MultiHotIndicesEmbedding``, is laid out
-first and draws only the rank's rows of the same logical table), every other
-parameter replicated; the dense optimizer takes its whole-parameter
+``(data, table)`` mesh of ranks, one device each.  The large embedding
+tables are laid out row-sharded over ``table`` (``parallel.sharding``;
+``lookup_options``' ``min_rows_to_shard`` feeds placement and lookup
+routing alike), every other parameter replicated, and then the parameters
+are drawn from ``seed`` on every rank alike: each table keeps the rank's
+rows of the one-device draw; the dense optimizer takes its whole-parameter
 reductions of a sharded table over the table group
 (``train.optimizers``; an opaque factory's optimizer stays per shard, with a
 warning); each rank keeps its data slice of every batch; the
@@ -305,19 +304,17 @@ class Trainer:
         del example_batch
         seq = self.pipeline.sequential
         unshard_module(seq)
-        min_rows = self.lookup_options.get("min_rows_to_shard")
-        rule = {} if min_rows is None else {"min_rows_to_shard": min_rows}
-        if self.mesh is not None:  # the tables that draw only this rank's rows
-            shard_module(seq, self.mesh, undrawn_only=True, **rule)
+        layouts = {}
+        if self.mesh is not None:  # laid out first: each rank draws its rows
+            min_rows = self.lookup_options.get("min_rows_to_shard")
+            rule = {} if min_rows is None else {"min_rows_to_shard": min_rows}
+            layouts = shard_module(seq, self.mesh, **rule)
         seq.reset_parameters(torch.Generator(device=self.device).manual_seed(self.seed))
         row_tx = self.pipeline.row_optimizer()
         modules = sparse_modules(seq)
         self.sparse = self._choose_sparse(row_tx, modules)
         for module in modules.values():
             module.sparse_grads = self.sparse
-        layouts = {}
-        if self.mesh is not None:
-            layouts = shard_module(seq, self.mesh, **rule)
         self.state = TrainState.create(seq, self.pipeline.optimizer,
                                        row_tx if self.sparse else None,
                                        set(modules) if self.sparse else None, self.device)

@@ -34,9 +34,7 @@ group's copy to the card ahead of the graph's replay.
 
 **Counters** (:func:`count`, :func:`count_device`), with tracing on: of a
 step, a multi-hot input's ``ids`` and ``bags``, the bytes this rank hands
-the mesh's collectives (``collective_bytes``), the low-rank cross layers
-that the combine kernel ran, forward and backward (``cross_fused``,
-``ops.kernels.cross``) and the stored rows of a
+the mesh's collectives (``collective_bytes``) and the stored rows of a
 table that this rank's sparse update touches (``touched_rows``, a device
 count that the captured graph adds up on the card).  A host count taken
 while the K-step graph is captured is kept by the graph
@@ -95,7 +93,7 @@ DEVICE_SPANS = {
     "dense_optimizer": ("backward.end", "dense_optimizer.end", "step"),
     "sparse_update": ("dense_optimizer.end", "sparse_update.end", "step"),
 }
-HOST_COUNTERS = ("ids", "bags", "collective_bytes", "cross_fused")
+HOST_COUNTERS = ("ids", "bags", "collective_bytes")
 DEVICE_COUNTERS = ("touched_rows",)
 RING_DISPATCHES = 4096           # dispatches the device ring keeps unread
 HOST_SPANS_PER_DISPATCH = 16     # the host ring keeps this many a dispatch
@@ -136,19 +134,11 @@ def mark(name: str) -> None:
         tracer._stamp(name)
 
 
-def current() -> Optional["Tracer"]:
-    """The tracing tracer active on this thread (:meth:`Tracer.active`), or
-    None."""
-    return getattr(_state, "tracer", None)
-
-
-def count(name: str, n: int, tracer: Optional["Tracer"] = None) -> None:
+def count(name: str, n: int) -> None:
     """Add ``n`` to the host counter ``name`` (of :data:`HOST_COUNTERS`) of
-    the current dispatch, where a tracing tracer is active on this thread,
-    or of ``tracer``'s where one is given (a backward that autograd runs on
-    its own thread counts in the tracer its forward found, :func:`current`);
+    the current dispatch, where a tracing tracer is active on this thread;
     else nothing."""
-    tracer = tracer if tracer is not None else current()
+    tracer = getattr(_state, "tracer", None)
     if tracer is not None:
         target = tracer._recording if tracer._recording is not None else tracer._pending
         target[name] += n
@@ -528,4 +518,4 @@ def reduce(spans: Sequence[Span]) -> Dict:
 
 __all__ = ["CALIBRATION_ROUNDS", "DEVICE_COUNTERS", "DEVICE_SPANS", "HOST_COUNTERS",
            "HOST_STAGES", "MARKS", "RING_DISPATCHES", "Span", "Tracer", "count", "count_device",
-           "current", "mark", "recording", "reduce", "replayed", "start_row"]
+           "mark", "recording", "reduce", "replayed", "start_row"]
