@@ -333,6 +333,19 @@ Phases (any failure raises and the exit code is not 0):
     cross's forward and backward in a graph, both ways, split into GEMMs and
     the rest; the two kernels warm, cold and in a graph beside their bounds.
     ``--phases cross`` runs it alone.
+29. The CIN's kernels (``csrc/cin.cu``, after phase 28): the forward and
+    both backward kernels against their plain versions (the composition the
+    port ran before, and autograd's backward through it) at the benchmark
+    xDeepFM cell's layer shapes (B 4096, N 26, E 10, O 200; H 26 with xk =
+    x0, H 100 strided) and the odd shapes (``CIN_ODD``), each output within
+    the bound of its float32 sum reordered (``CIN_UNIT``), which a 1% error
+    exceeds, each kernel run twice to the same bits; a graphed xDeepFM fit's
+    launches (3 forward and 3 backward a step it ran eagerly or captured)
+    and one replay's kernels by name (3 of each CIN kernel a step, no
+    float32 library GEMM), a replay against eager steps to the bit; the
+    middle layer's calls warm, cold and in a graph, each kernel beside its
+    FFMA bound and the composition it replaced.  ``--phases cin`` runs it
+    alone.
 
 The held steps (phases 15-23) hold each kept tensor's change over the step:
 2 ulps of the value and 1e-3 of the tensor's largest change, where a table
@@ -416,7 +429,7 @@ DEVICE = "cuda"
 # build (other chunks and reads in flight, for phase 2's [gather-config])
 SWEEP_BUILD = ("embedding.cu", ("TRS_ROW_GATHER_SWEEP",))
 BUILDS = (("sparse_update.cu", ()), ("embedding.cu", ()), SWEEP_BUILD, ("adam.cu", ()),
-          ("cross.cu", ()))
+          ("cross.cu", ()), ("cin.cu", ()))
 
 
 def make_batches(seed: int, n_batches: int, field_sizes=None):
@@ -7364,12 +7377,286 @@ def phase_cross(seed: int, out_dir):
     return record
 
 
+# ---- phase 29: the CIN's kernels ----------------------------------------------
+
+# The benchmark cell xdeepfm_criteo.train's CIN: Criteo's 26 fields at E = 10,
+# batch 4096, 200 maps a layer split in half: the first layer compresses x0
+# with itself (H = 26), the other two the second half of the map before (H =
+# 100, a strided view).  (B, N, E, H, O, what xk is)
+CIN_FIELDS = 26
+CIN_EMBED = 10
+CIN_LAYER_SHAPES = ((BATCH, CIN_FIELDS, CIN_EMBED, CIN_FIELDS, 200, "x0"),
+                    (BATCH, CIN_FIELDS, CIN_EMBED, 100, 200, "half"))
+# E 1 and 16, B 1 and 4097, the direct variant, O and H off every tile, N
+# below a stage's 16 steps
+CIN_ODD = ((4097, 26, 10, 100, 200, "half"), (1, 26, 10, 100, 200, "half"),
+           (64, 26, 1, 100, 200, "half"), (64, 26, 16, 100, 200, "half"),
+           (50, 26, 10, 200, 200, "direct"), (37, 7, 3, 13, 11, "half"),
+           (33, 5, 16, 9, 21, "direct"), (3, 2, 1, 1, 1, "direct"))
+CIN_KERNEL_ITERS = 10
+CIN_ROWS_CAP = 100_000  # the graphed step's fields capped: its table is not the point
+CIN_DISPATCHES = 3
+# Each float32 sum of K products is held to CIN_SPREAD sqrt(K) u sum|terms|
+# (u = 2^-24) against the plain version's, sum|terms| computed by the plain
+# version on |inputs|: rounding errors of a sum taken in two orders add up
+# like a random walk, about sqrt(K) u of the terms' magnitude, where the
+# worst case K u would let a wrong kernel through (at dW's K = 40,961 that
+# bound is half a typical dW).  K: H N + 1 for the forward (2,601 at the
+# middle layer; the outer product's rounding is the same on both sides), O +
+# N + 2 for dxk and O + H + 2 for dx0 (dz's sum over O, then over N or H), B
+# E + 1 for dW (40,961).  Readings it was set from (H100, seed 2147525301):
+# the worst gap over this bound 0.23 (the forward at B 33, E 16, K = 46, and
+# dW at B 64, E 1, K = 65), 0.05 or less at the cell's shapes; a 1% error
+# reads 11.8 times the bound or more at every shape (dW at the first layer's
+# shape the least), which each case checks (``power``).
+CIN_UNIT = 2.0 ** -24
+CIN_SPREAD = 3.0
+CIN_POWER = 1e-2  # a relative error each case's bound must catch
+
+
+def cin_inputs(shape, gen):
+    """One call's float32 inputs on the card: x0, xk (x0 itself, the second
+    half of a (B, 2H, E) map, or a whole map), the weight, the output's
+    gradient."""
+    import torch
+
+    b, n, e, h, o, kind = shape
+    dev = torch.device(DEVICE)
+    x0 = torch.randn(b, n, e, generator=gen, device=dev)
+    if kind == "x0":
+        xk = x0
+    elif kind == "half":
+        xk = torch.randn(b, 2 * h, e, generator=gen, device=dev)[:, h:]
+    else:
+        xk = torch.randn(b, h, e, generator=gen, device=dev)
+    w = torch.randn(o, h, n, generator=gen, device=dev) * (1.0 / (h * n)) ** 0.5
+    return x0, xk, w, torch.randn(b, o, e, generator=gen, device=dev)
+
+
+def cin_gaps(shape, x0, xk, w, g):
+    """The kernels against the plain versions: each output's worst gap over
+    its bound (``CIN_UNIT``'s comment), that gap for the plain output off by
+    ``CIN_POWER`` (above 1: the bound catches such an error), and whether
+    two runs of the kernels gave the same bits."""
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import cin as KN
+
+    b, n, e, h, o, _ = shape
+    got = [KN.cin_forward(x0, xk, w), *KN.cin_backward(g, x0, xk, w)]
+    again = [KN.cin_forward(x0, xk, w), *KN.cin_backward(g, x0, xk, w)]
+    want = [KN.cin_forward_plain(x0, xk, w), *KN.cin_backward_plain(g, x0, xk, w)]
+    mags = [KN.cin_forward_plain(x0.abs(), xk.abs(), w.abs()),
+            *KN.cin_backward_plain(g.abs(), x0.abs(), xk.abs(), w.abs())]
+    terms = (h * n + 1, o + h + 2, o + n + 2, b * e + 1)
+    gaps, power = {}, {}
+    for name, a, ref, mag, k in zip(("out", "dx0", "dxk", "dw"), got, want, mags, terms):
+        bound = CIN_SPREAD * k ** 0.5 * CIN_UNIT * mag + 1e-30
+        gaps[name] = ((a - ref).abs() / bound).max().item()
+        power[name] = (CIN_POWER * ref.abs() / bound).max().item()
+    bits = all(torch.equal(a, c) for a, c in zip(got, again))
+    return gaps, power, bits
+
+
+def cin_checks(seed: int):
+    """Each kernel against the plain versions at the cell's layer shapes and
+    the odd shapes, within the reordered sums' bounds, two runs to the bit."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    cases = {}
+    for shape in CIN_LAYER_SHAPES + CIN_ODD:
+        x0, xk, w, g = cin_inputs(shape, gen)
+        gaps, power, bits = cin_gaps(shape, x0, xk, w, g)
+        cases["x".join(str(v) for v in shape[:5]) + f" {shape[5]}"] = {
+            "gaps": gaps, "power": power, "bits": bits}
+        del x0, xk, w, g
+        release()
+    outputs = ("out", "dx0", "dxk", "dw")
+    worst = {k: max(c["gaps"][k] for c in cases.values()) for k in outputs}
+    weakest = {k: min(c["power"][k] for c in cases.values()) for k in outputs}
+    log(f"[cin] kernels against their plain versions at {len(cases)} shapes: worst gap over "
+        f"the reordered sums' bound {worst}; a {CIN_POWER:g} error's least gap over it "
+        f"{weakest}; two runs bit-identical in {sum(c['bits'] for c in cases.values())} of "
+        f"{len(cases)}")
+    bad = {k: c for k, c in cases.items() if not c["bits"] or max(c["gaps"].values()) > 1}
+    if bad:
+        raise AssertionError(f"[cin] the kernels differ from their plain versions: {bad}")
+    blind = {k: c["power"] for k, c in cases.items() if min(c["power"].values()) <= 1}
+    if blind:
+        raise AssertionError(f"[cin] a bound lets a {CIN_POWER:g} error through: {blind}")
+    return {"cases": cases, "worst": worst, "weakest_power": weakest}
+
+
+def cin_graphed_step(seed: int):
+    """A graphed xDeepFM train step (the benchmark cell's CIN and DNN, bf16
+    tower, K steps a replay, fields capped at ``CIN_ROWS_CAP``): the
+    wrappers' launches, 3 forward and 3 backward a step the fit ran eagerly
+    or captured (its K warm-up and K captured steps; replays launch
+    nothing), and one replay's kernels by name on the card, 3 of each CIN
+    kernel a step; one replay against K eager steps from one state, to the
+    bit."""
+    from torecsys_tpu_torch import Trainer
+    from torecsys_tpu_torch.ops.kernels import cin as KN
+
+    k = GRAPH_K
+    fields = tuple(min(v, CIN_ROWS_CAP) for v in FIELD_SIZES)
+    batches = make_batches(seed + 32, CIN_DISPATCHES * k, fields)
+    trainer = Trainer(ctr_pipeline("xDeepFM", XDEEPFM, fields, compute="bfloat16"),
+                      log_every=10**9, seed=seed, steps_per_execution=k)
+    trainer.init_state()
+    KN.cin_forward.launches = KN.cin_backward.launches = 0
+    trainer.train_steps(batches)
+    launches = (KN.cin_forward.launches, KN.cin_backward.launches)
+    graphs = dict(trainer.graph_stats)
+    layers = len(XDEEPFM["cin_layer_sizes"])
+    want = (layers * 2 * k, layers * 2 * k)
+    profile = cin_replay_kernels(trainer, batches[:k])
+    per_step = {name: n / k for name, n in profile.items()}
+    start = snapshot(trainer)
+    replay_vs_eager(trainer, batches[:k], start, "cin")
+    restore(trainer, start)
+    del start
+    log(f"[cin] graphed xDeepFM fit ({CIN_DISPATCHES} dispatches of {k}): cin_forward/"
+        f"cin_backward launches {launches} (expected {want}: {layers} layers x the {k} "
+        f"warm-up and {k} captured steps), graphs {graphs}; one replay's kernels a step "
+        f"{per_step}")
+    if launches != want or graphs != {"captures": 1, "replays": CIN_DISPATCHES - 1}:
+        raise AssertionError(f"[cin] launches {launches}, graphs {graphs}")
+    for name in ("cin_forward_kernel", "cin_backward_input_kernel", "cin_backward_weight_kernel"):
+        if per_step.get(name) != layers:
+            raise AssertionError(f"[cin] a replay ran {per_step} kernels a step")
+    gemms = sorted(n for n in profile if any(m in n.lower() for m in ("xmma_gemm_f32",
+                                                                      "simt_sgemm")))
+    if gemms:
+        raise AssertionError(f"[cin] a replay still runs float32 library GEMMs: {gemms}")
+    del trainer
+    release()
+    return {"launches": launches, "graphs": graphs, "kernels_a_step": per_step}
+
+
+def cin_replay_kernels(trainer, group) -> Counter:
+    """The kernels one replay of the trainer's graph over ``group`` runs on
+    the card, counted by name (a CIN kernel by its short name)."""
+    import torch
+
+    trainer.train_steps(group)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window now and then comes back without its kernels
+        with card_profile() as prof:
+            trainer.train_steps(group)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            break
+    counts = Counter()
+    for e in events:
+        short = next((m for m in ("cin_forward_kernel", "cin_backward_input_kernel",
+                                  "cin_backward_weight_kernel", "cin_transpose_kernel",
+                                  "cin_weight_grad_sum_kernel") if m in e.name), e.name[:60])
+        counts[short] += 1
+    return counts
+
+
+def cin_split(graph) -> dict:
+    """Device ms of one replay of ``graph``, by kernel (CIN kernels by their
+    short names)."""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with card_profile() as prof:
+            for _ in range(CIN_KERNEL_ITERS):
+                graph.replay()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            break
+    by_name = Counter()
+    for e in events:
+        short = next((m for m in ("cin_forward_kernel", "cin_backward_input_kernel",
+                                  "cin_backward_weight_kernel", "cin_transpose_kernel",
+                                  "cin_weight_grad_sum_kernel") if m in e.name), e.name[:60])
+        by_name[short] += (e.time_range.end - e.time_range.start) / 1e3 / CIN_KERNEL_ITERS
+    return dict(by_name)
+
+
+def cin_times(seed: int):
+    """The middle layer's kernels (B 4096, N 26, E 10, H 100 strided, O 200):
+    the forward and backward calls warm, cold and in a CUDA graph, each
+    kernel's in-graph ms beside the float32 FFMA bound of its product (2 O H
+    N B E operations at 67 TFLOP/s), and the composition the port ran before
+    (``*_plain``: ATen's product and cuBLAS's float32 GEMMs, TF32 off; a
+    yardstick the port no longer calls), in a graph too; the tilings
+    ``csrc/cin.cu`` chose."""
+    import ctypes
+
+    import torch
+
+    from torecsys_tpu_torch.ops.kernels import cin as KN
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 33)
+    shape = CIN_LAYER_SHAPES[1]
+    b, n, e, h, o, _ = shape
+    x0, xk, w, g = cin_inputs(shape, gen)
+    bound_ms = 2.0 * o * h * n * b * e / FP32_OPS_PER_S * 1e3
+    text = ctypes.create_string_buffer(512)
+    KN._lib().trs_cin_plans(b, n, e, h, o, text, len(text))
+    plans = text.value.decode()
+    calls = {"forward": (lambda: KN.cin_forward(x0, xk, w),
+                         lambda: KN.cin_forward_plain(x0, xk, w)),
+             "backward": (lambda: KN.cin_backward(g, x0, xk, w),
+                          lambda: KN.cin_backward_plain(g, x0, xk, w))}
+    rec = {"bound_ms_a_product": bound_ms, "plans": plans}
+    for name, (call, plain) in calls.items():
+        r = time_keys("kernel_ms", time_ms(call, CIN_KERNEL_ITERS))
+        r["cold_ms"] = cold_time_ms(call, CIN_KERNEL_ITERS)
+        graph = graph_of(call)
+        r.update(time_keys("graph_ms", time_ms(graph.replay, CIN_KERNEL_ITERS)))
+        r["in_graph"] = cin_split(graph)
+        del graph
+        library = graph_of(plain)
+        r.update(time_keys("library_graph_ms", time_ms(library.replay, CIN_KERNEL_ITERS)))
+        r["library_in_graph"] = cin_split(library)
+        del library
+        release()
+        log(f"[cin] {name} at {shape[:5]}: " + " ".join(
+            times_text(k, (r[k], r[f"{k}_events"])) for k in ("kernel_ms", "graph_ms"))
+            + f" cold_ms={r['cold_ms']:.4f}; in the graph {r['in_graph']}; the composition "
+            f"it replaced {times_text('library_graph_ms', (r['library_graph_ms'], r['library_graph_ms_events']))}"
+            f" ({r['library_in_graph']}); each product's FFMA bound {bound_ms:.4f} ms")
+        rec[name] = r
+    for kernel in ("cin_forward_kernel", "cin_backward_input_kernel",
+                   "cin_backward_weight_kernel"):
+        side = rec["forward" if kernel == "cin_forward_kernel" else "backward"]["in_graph"]
+        rec[f"{kernel}_over_bound"] = side.get(kernel, float("nan")) / bound_ms
+    log(f"[cin] in-graph ms over the FFMA bound: "
+        + ", ".join(f"{k} {rec[f'{k}_over_bound']:.2f}x" for k in (
+            "cin_forward_kernel", "cin_backward_input_kernel", "cin_backward_weight_kernel"))
+        + f"; plans {plans}")
+    del x0, xk, w, g
+    release()
+    return rec
+
+
+def phase_cin(seed: int, out_dir):
+    """Phase 29: the CIN's kernels (module docstring)."""
+    record = {"checks": cin_checks(seed), "graphed": cin_graphed_step(seed),
+              "times": cin_times(seed)}
+    if out_dir:
+        with open(os.path.join(out_dir, "chip_smoke_cin.json"), "w") as f:
+            json.dump(record, f, indent=1)
+    return record
+
+
 # the phases --phases runs alone: the graphed throughput paths, the quality
 # phase and the whole parity protocol
 ALONE_PHASES = {"headline": phase_headline, "mmoe": phase_mmoe, "dsin": phase_dsin,
                 "image": phase_image, "optim": phase_optim_sweep, "parallel": phase_parallel,
                 "quality": phase_quality, "parity": phase_parity, "adam": phase_adam,
-                "dlrm": phase_dlrm, "dlrm_mesh": phase_dlrm_mesh, "cross": phase_cross}
+                "dlrm": phase_dlrm, "dlrm_mesh": phase_dlrm_mesh, "cross": phase_cross,
+                "cin": phase_cin}
 
 
 def main(argv=None):
@@ -7454,6 +7741,7 @@ def main(argv=None):
     presort = timed("presort", phase_presort, args.seed)
     adam = timed("adam", phase_adam, args.seed, args.out)
     timed("cross", phase_cross, args.seed, args.out)
+    timed("cin", phase_cin, args.seed, args.out)
     trainer, train = timed("train", phase_train, args.seed, args.steps, args.out, args.profile)
     evaluation = timed("eval", phase_eval, trainer, args.seed)
     del trainer

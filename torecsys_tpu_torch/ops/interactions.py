@@ -4,12 +4,14 @@ Each is a plain function of tensors, as in the JAX package: one pair-index
 gather and one fused product instead of Python pair loops.  The JAX package
 computes all of them outside any Pallas kernel (XLA's einsums and
 gathers), so here they are PyTorch operations; their products are
-``torch.matmul`` (cuBLAS on the card).  The port's own DCN-v2 combine,
-:func:`low_rank_cross`, which the JAX package lacks, is one hand-written
-kernel forward and one backward (``ops.kernels.cross``).  The pairs
-``i < j`` come in the JAX package's row-major order from
-``torch.triu_indices`` on the inputs' device: no copy from the host, so a
-CUDA graph can capture them.
+``torch.matmul`` (cuBLAS on the card).  Two run hand-written kernels on the
+card, through one wrapper forward and one backward each: the port's own DCN-v2
+combine, :func:`low_rank_cross`, which the JAX package lacks
+(``ops.kernels.cross``), and the CIN's compression, :func:`cin_interaction`,
+whose outer product the kernels form as they load it (``ops.kernels.cin``).
+The pairs ``i < j`` come in the JAX package's row-major order from
+``torch.triu_indices`` on the inputs' device: no copy from the host, so a CUDA
+graph can capture them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from torecsys_tpu_torch.ops.kernels import cin as _cin
 from torecsys_tpu_torch.ops.kernels import cross as _cross
 
 
@@ -146,22 +149,40 @@ def low_rank_cross(x0: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out, out if out_copy is None else out_copy, x0
 
 
+class _Cin(torch.autograd.Function):
+    """One CIN compression, forward and backward (``ops.kernels.cin``: the
+    forward kernel, and the input and weight kernels backward, on the card;
+    the plain composition and autograd's backward through it on the CPU).
+    Keeps ``x0``, ``xk`` and the weight for the backward: no outer product
+    is kept, nor ever written on the card."""
+
+    @staticmethod
+    def forward(ctx, x0, xk, weight):
+        ctx.save_for_backward(x0, xk, weight)
+        return _cin.cin_forward(x0, xk, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x0, xk, weight = ctx.saved_tensors
+        # autograd may hand in a strided or expanded gradient: the kernels read
+        # a packed (B, O, E)
+        return _cin.cin_backward(grad.contiguous(), x0, xk, weight)
+
+
 def cin_interaction(x0: torch.Tensor, xk: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """One CIN (xDeepFM) step: ``(B, N, E)`` base, ``(B, H, E)`` previous map
-    and ``(O, H, N)`` weights → ``(B, O, E)``.
+    and ``(O, H, N)`` weights → ``(B, O, E)``, ``out[b, o, e] = sum_{h, n}
+    W[o, h, n] xk[b, h, e] x0[b, n, e]``.
 
-    The outer product ``z[h*N + n, b, e] = xk[b, h, e] * x0[b, n, e]`` is
-    formed explicitly, and compressed by one product ``W.reshape(O, H*N) @
-    z.reshape(H*N, B*E)``: the JAX package's three-operand einsum in a
-    contraction order that is fixed, as one GEMM of ``B*E`` columns.  The
-    result is a ``(B, O, E)`` view of the ``(O, B, E)`` product.
+    On the CPU the outer product is formed explicitly and compressed by one
+    product (``ops.kernels.cin.cin_forward_plain``: the JAX package's
+    three-operand einsum in a contraction order that is fixed), a ``(B, O,
+    E)`` view of the ``(O, B, E)`` product; on the card hand-written kernels
+    form it as they load their operands and write a packed ``(B, O, E)``
+    (``ops.kernels.cin``).  Differentiable in all three; ``xk`` may be
+    strided along B and H.
     """
-    b, h, e = xk.shape
-    n = x0.shape[1]
-    o = weight.shape[0]
-    z = xk.permute(1, 0, 2)[:, None] * x0.permute(1, 0, 2)[None]  # (H, N, B, E)
-    out = torch.matmul(weight.reshape(o, h * n), z.reshape(h * n, b * e))
-    return out.reshape(o, b, e).permute(1, 0, 2)
+    return _Cin.apply(x0, xk, weight)
 
 
 __all__ = ["afm_pairwise_products", "cin_interaction", "cross_layer",
